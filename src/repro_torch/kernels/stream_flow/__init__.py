@@ -1,0 +1,8 @@
+"""Sparse flow step of the simulator's tick: CUDA kernel and plain versions."""
+from .ops import index_dtype, stream_flow_ell
+from .ref import ell_rows, stream_flow_ell_reference, stream_flow_reference
+
+__all__ = [
+    "ell_rows", "index_dtype", "stream_flow_ell", "stream_flow_ell_reference",
+    "stream_flow_reference",
+]
