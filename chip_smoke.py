@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Builds the CUDA flow-step kernel from ``src/repro_torch/kernels/stream_flow``
-into ``build/kernels/``, then:
+Builds the three CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
+``build/kernels/`` (one ``nvcc`` per source, all at once), then:
 
-1. holds the kernel against its plain PyTorch version on the card, on
-   seeded random problems and on the padded arrays of a 20,000-ktps
-   ``deep_pipeline`` allocation;
+1. holds the flow-step kernel against its plain PyTorch version on the
+   card, on seeded random problems and on the padded arrays of a
+   20,000-ktps ``deep_pipeline`` allocation;
 2. drives the paper's workflow on ``deep_pipeline`` through the port's
    entry points: profile a test deployment (``training_sweep``), fit node
    models, predict three unseen packings and measure them, allocate for
@@ -14,13 +14,23 @@ into ``build/kernels/``, then:
    tick (which must agree);
 3. scores a batch of 32 candidate configurations around the allocation
    with the sparse tick in summary mode;
+4. holds the RMSNorm and flash-attention kernels against their plain
+   versions at llama3-8b's shapes (fp32 and bf16 RMSNorm; causal, windowed
+   and non-causal attention, head_dim 128 and 120);
+5. runs a 2-layer llama3-8b at full width with the same seeded weights on
+   the card and on the host, one prefill and 4 decode steps, and compares
+   the logits;
+6. serves 8 seeded requests (32-192-token prompts, 16 new tokens each)
+   with the full 32-layer llama3-8b behind ``BatchedServer`` on the card,
+   and holds the kernels' launch counts to one flash launch per layer per
+   prefill and 2 x 32 + 1 RMSNorm launches per forward;
 
-and times the kernel, its plain version and the index_add_ segment-sum
-formulation at the main path's shapes.  Any failed phase raises and the
-script exits non-zero.  The last line is a JSON object with ``"ok": true``
-and the device; the line before it lists each kernel with its launches on
-the main path, its error against the plain version, its times and its
-bound.
+and times each kernel, its plain version and the one PyTorch call that
+computes the same function at the main paths' shapes.  Any failed phase
+raises and the script exits non-zero.  The last line is a JSON object with
+``"ok": true`` and the device; the line before it lists each kernel with
+its launches on the main paths, its error against the plain version, its
+times and its bound.
 
 Run from the root of the repository:  python3 chip_smoke.py
 """
@@ -193,6 +203,41 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int, replays: int = 5) -> float:
+    """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
+    graph and replayed back to back, so the host's per-call launch cost
+    (Python, ctypes, argument checks) is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+def time_both(fn, iters: int) -> tuple[float, float]:
+    """(device ms per call from graph replay, eager ms per call from CUDA
+    events around back-to-back calls, host launch cost included)."""
+    return graph_ms(fn, iters), cuda_ms(fn, iters)
+
+
 def flow_bound(p) -> tuple[float, str, int, int]:
     """Least time the card could take for one flow step on these inputs:
     each needed input byte read once, each output byte written once (real
@@ -233,6 +278,29 @@ def time_flow(label, p, C):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def log_device_time(prof, wall_ms: float, header: str, top: int) -> None:
+    """Device busy share and device time by name over a profiler window:
+    the device's own events (kernels, copies, memsets), each counted once.
+    The host-side operator rows that launched them carry the same device
+    time and are left out, so nothing is counted twice."""
+    from torch.autograd import DeviceType
+
+    by_name: dict[str, list] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            row = by_name.setdefault(e.name, [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    if not by_name:
+        log("  profiler: no device time recorded (device busy share not measured)")
+        return
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    log(f"  {header}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
+    for name, (ms, count) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        log(f"    {ms:9.3f} ms  {count:6d} calls  {name[:70]}")
+
+
 def profile_ticks(device, params, configs, duration_s):
     """Device busy share and kernel time by name over a short sparse
     summary run of ``configs``, from ``torch.profiler``."""
@@ -247,20 +315,8 @@ def profile_ticks(device, params, configs, duration_s):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     n_ticks = int(duration_s / params.dt)
-    rows = [
-        (getattr(e, "self_device_time_total", 0.0) / 1e3, e.count, e.key)
-        for e in prof.key_averages()
-    ]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    if not rows:
-        log("  profiler: no device time recorded (device busy share not measured)")
-        return
-    log(f"  profiler over {n_ticks} ticks x {len(configs)} rows: wall {wall_ms:.1f} ms "
-        f"({wall_ms / n_ticks:.3f} ms/tick), device busy {busy_ms:.1f} ms "
-        f"({busy_ms / wall_ms:.1%}), idle {1 - busy_ms / wall_ms:.1%}")
-    for dev_ms, count, key in rows[:6]:
-        log(f"    {dev_ms:9.3f} ms  {count:6d} calls  {key[:70]}")
+    log_device_time(prof, wall_ms, f"profiler over {n_ticks} ticks x {len(configs)} rows "
+                    f"({wall_ms / n_ticks:.3f} ms/tick)", top=6)
 
 
 # ------------------------------------------------------------------ phases
@@ -357,6 +413,311 @@ def phase_batch(device, params, configs, duration_s):
     return caps
 
 
+# ------------------------------------------------------------ LM kernels
+
+LLAMA = dict(d=4096, H=32, KV=8, hd=128)
+RMS_FP32_TOL = 1e-6                 # rtol and atol, kernel vs plain
+FLASH_TOL = 2e-5                    # rtol and atol, kernel vs plain
+LOGIT_RTOL, LOGIT_ATOL_REL = 1e-4, 1e-4   # card vs host logits
+
+
+def bf16_ulp(ref):
+    import torch
+    a = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_rmsnorm(device, rows_shapes) -> float:
+    """The RMSNorm kernel against its plain version on seeded inputs, fp32
+    within 1e-6 and bf16 within one bf16 ulp; returns the largest fp32
+    absolute difference."""
+    import torch
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
+
+    g = torch.Generator(device=device).manual_seed(12)
+    worst = 0.0
+    for shape in rows_shapes:
+        x32 = torch.randn(shape, generator=g, device=device)
+        gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=device)
+        for x in (x32, x32.bfloat16()):
+            got = rmsnorm(x, gain, 1e-5)
+            want = rmsnorm_reference(x, gain, 1e-5)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs()
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"rmsnorm {shape} {x.dtype}: non-finite output")
+            if x.dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=RMS_FP32_TOL, atol=RMS_FP32_TOL)
+                worst = max(worst, float(err.max()))
+            elif not bool((err <= bf16_ulp(want)).all()):
+                raise AssertionError(f"rmsnorm {shape} bf16: off by more than one bf16 ulp")
+            log(f"  rmsnorm {tuple(shape)} {str(x.dtype)[6:]}: max|kernel-plain|={float(err.max()):.3e}")
+    return worst
+
+
+def flash_inputs(device, S, H, KV, hd, seed):
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(1, S, H, hd, generator=g, device=device),
+            torch.randn(1, S, KV, hd, generator=g, device=device),
+            torch.randn(1, S, KV, hd, generator=g, device=device))
+
+
+def check_flash(device, cases) -> float:
+    """The flash kernel against its plain version (``attention_reference``'s
+    semantics: keys masked by the real length) within 2e-5; returns the
+    largest absolute difference."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    worst = 0.0
+    for S, H, KV, hd, causal, window in cases:
+        q, k, v = flash_inputs(device, S, H, KV, hd, seed=S * 7 + hd)
+        scale = 1.0 / hd ** 0.5
+        got = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        want = flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash S={S} hd={hd}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        log(f"  flash S={S} H={H} KV={KV} hd={hd} causal={causal} window={window}: "
+            f"max|kernel-plain|={err:.3e}")
+    return worst
+
+
+def rmsnorm_bound(rows, d) -> tuple[float, str]:
+    nbytes = 2 * rows * d * 4 + d * 4               # x read, out written, gain read
+    flops = rows * d * 4
+    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3, (
+        "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations")
+
+
+def flash_bound(S, H, KV, hd) -> tuple[float, str]:
+    """Causal attention over S positions: S(S+1)/2 scored pairs per head,
+    each 2·hd flops for q·k, 2·hd for p·v and about 4 for the softmax; q, k,
+    v read once and the output written once."""
+    pairs = S * (S + 1) // 2
+    flops = H * pairs * (4 * hd + 4)
+    nbytes = 4 * S * hd * (2 * H + 2 * KV)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_rmsnorm(device, shape) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
+
+    g = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=device)
+    gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=device)
+    ms, eager_ms = time_both(lambda: rmsnorm(x, gain, 1e-5), iters=200)
+    plain_ms, plain_eager = time_both(lambda: rmsnorm_reference(x, gain, 1e-5), iters=200)
+    library_ms, library_eager = time_both(lambda: F.rms_norm(x, (shape[-1],), gain, 1e-5), iters=200)
+    rows = x.numel() // shape[-1]
+    bound_ms, bound_by = rmsnorm_bound(rows, shape[-1])
+    log(f"  rmsnorm {tuple(shape)} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+        f"F.rms_norm {library_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}); "
+        f"eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f}  "
+        f"F.rms_norm {library_eager:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def time_flash(device, S) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    H, KV, hd = LLAMA["H"], LLAMA["KV"], LLAMA["hd"]
+    q, k, v = flash_inputs(device, S, H, KV, hd, seed=S)
+    scale = 1.0 / hd ** 0.5
+    ms, eager_ms = time_both(lambda: flash_attention(q, k, v, causal=True, scale=scale), iters=50)
+    out = flash_attention(q, k, v, causal=True, scale=scale)
+    plain_ms, plain_eager = time_both(
+        lambda: flash_attention_reference(q, k, v, causal=True, scale=scale), iters=50)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+                                                  enable_gqa=True)
+    library_ms, library_eager = time_both(sdpa, iters=50)
+    lib_err = float((sdpa().transpose(1, 2) - out).abs().max())
+    bound_ms, bound_by = flash_bound(S, H, KV, hd)
+    log(f"  flash S={S} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+        f"sdpa {library_ms:.5f} ms (max|sdpa-kernel|={lib_err:.2e})  bound {bound_ms:.6f} ms "
+        f"({bound_by}); eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f}  "
+        f"sdpa {library_eager:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
+    """The model ``cfg`` with the same seeded weights on the card and the
+    host: one prefill and ``decode_steps`` decode steps on each (the host's
+    greedy tokens fed to both), logits compared within rtol 1e-4,
+    atol 1e-4·max|logits|."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models import build_model
+
+    n_layers = cfg.n_layers
+    t0 = time.perf_counter()
+    host = build_model(cfg, device="cpu", seed=seed)
+    card = build_model(cfg, device=device, seed=seed)
+    card.load_state_dict(host.state_dict())
+    log(f"  built {n_layers}-layer {cfg.name} on host and card ({host.n_params():,} params) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompt = torch.as_tensor(rng.integers(4, cfg.vocab, size=(1, prompt_len)))
+    rmsnorm.launches = flash_attention.launches = 0
+    worst = 0.0
+
+    def compare(label, got, want):
+        nonlocal worst
+        got = got.cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite logits on the card")
+        atol = LOGIT_ATOL_REL * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=LOGIT_RTOL, atol=atol)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        log(f"  {label}: max|card-host| {err:.3e} (atol {atol:.3e}), "
+            f"argmax card {int(got[0, -1].argmax())} host {int(want[0, -1].argmax())}")
+        return int(want[0, -1].argmax())
+
+    caches = {}
+    for name, model in (("host", host), ("card", card)):
+        logits, c1 = model.forward_prefill(prompt.to(model.embed.device))
+        big = model.cache_struct(1, prompt_len + decode_steps + 1)
+        for n, t in c1["b0_attn"].items():
+            big["b0_attn"][n][:, :, :prompt_len] = t
+        caches[name] = (logits, big)
+    token = compare("prefill", caches["card"][0], caches["host"][0])
+    for step in range(decode_steps):
+        pos = prompt_len + step
+        tok = torch.tensor([[token]])
+        hl, _ = host.forward_decode(tok, caches["host"][1], pos)
+        cl, _ = card.forward_decode(tok.to(device), caches["card"][1], pos)
+        token = compare(f"decode {step}", cl, hl)
+    torch.cuda.synchronize()
+    want = (5 * (2 * n_layers + 1), n_layers)    # card forwards only
+    got = (rmsnorm.launches, flash_attention.launches)
+    if got != want:
+        raise AssertionError(f"card launches (rmsnorm, flash) {got}, expected {want}")
+    del host, card, caches
+    return worst
+
+
+def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
+    """``arch`` behind ``BatchedServer`` on the card: seeded prompts of
+    32-192 tokens, greedy decoding, with the kernels' launch counts held to
+    one flash launch per layer per prefill and 2·layers + 1 RMSNorm
+    launches per forward."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.launch.serve import BatchedServer, Request
+
+    t0 = time.perf_counter()
+    server = BatchedServer(arch, batch_slots=slots, max_ctx=max_ctx, seed=seed,
+                           device=device)
+    torch.cuda.synchronize()
+    log(f"  built {arch} ({server.model.n_params():,} params, "
+        f"{server.cfg.n_layers} layers) in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(32, 193, size=n_requests)
+    requests = [Request(rid, rng.integers(4, server.cfg.vocab, size=int(n)).astype(np.int32), max_new)
+                for rid, n in enumerate(lengths)]
+    torch.cuda.reset_peak_memory_stats()
+    rmsnorm.launches = flash_attention.launches = 0
+    t0 = time.perf_counter()
+    for r in requests:
+        server.submit(r)
+    decode_ms = []
+    while server.queue or any(s is not None for s in server.slots):
+        prefills = flash_attention.launches
+        t = time.perf_counter()
+        server.step()
+        torch.cuda.synchronize()
+        if flash_attention.launches == prefills:      # a tick with no admission
+            decode_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(rmsnorm=rmsnorm.launches, flash_attention=flash_attention.launches)
+    peak = torch.cuda.max_memory_allocated()
+
+    L = server.cfg.n_layers
+    n_prefills = len(requests)
+    want = dict(rmsnorm=(2 * L + 1) * (n_prefills + server.decode_steps),
+                flash_attention=L * n_prefills)
+    if launches != want:
+        raise AssertionError(f"serving launches {launches}, expected {want}")
+    if len(server.completed) != n_requests:
+        raise AssertionError(f"{len(server.completed)} of {n_requests} requests completed")
+    for r in server.completed:
+        toks = np.asarray(r.tokens_out)
+        if len(toks) != max_new or toks.min() < 0 or toks.max() >= server.cfg.vocab:
+            raise AssertionError(f"request {r.rid}: tokens {r.tokens_out}")
+    n_tokens = sum(len(r.tokens_out) for r in server.completed)
+    ttft = sorted(r.first_token_s * 1e3 for r in server.completed)
+    log(f"  prompt lengths {lengths.tolist()}, {max_new} new tokens each, {slots} slots, "
+        f"max_ctx {max_ctx}")
+    log(f"  served {n_requests} requests, {n_tokens} tokens in {wall:.3f} s "
+        f"({n_tokens / wall:.1f} tok/s), {server.decode_steps} decode steps")
+    log(f"  time to first token ms: min {ttft[0]:.1f} median {float(np.median(ttft)):.1f} "
+        f"max {ttft[-1]:.1f} (from submission; all {n_requests} submitted at once)")
+    log(f"  decode-only ticks: {len(decode_ms)}, median {float(np.median(decode_ms)):.3f} ms, "
+        f"min {min(decode_ms):.3f} ms")
+    log(f"  peak memory {peak / 2**30:.2f} GiB")
+    log(f"  launches: {json.dumps(launches)} (expected {json.dumps(want)})")
+    log(f"  first request's tokens: {server.completed[0].tokens_out}")
+    return server, launches, [int(n) for n in lengths]
+
+
+def profile_serving(server, rng, n_requests, prompt_len, max_new):
+    """Device busy share and kernel time by name over a short serving run
+    (prefills and decode steps), from ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import Request
+
+    for rid in range(n_requests):
+        prompt = rng.integers(4, server.cfg.vocab, size=prompt_len).astype(np.int32)
+        server.submit(Request(1000 + rid, prompt, max_new))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        server.drain()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    log_device_time(prof, wall_ms, f"profiler over {n_requests} requests x {max_new} tokens "
+                    f"({prompt_len}-token prompts)", top=8)
+
+
+def build_all(libraries) -> float:
+    """Build every kernel library at once (one nvcc per source, all started
+    together); print each one's register and shared-memory use."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libraries)) as pool:
+        futures = [pool.submit(lib.load) for lib in libraries]
+        for f in futures:
+            f.result()
+    elapsed = time.perf_counter() - t0
+    for lib in libraries:
+        log(f"build: {lib.library_path().relative_to(ROOT)}")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
+    return elapsed
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -367,9 +728,14 @@ def main() -> int:
         print(f"chip_smoke: {SRC}/repro_torch not found", file=sys.stderr)
         return 1
     sys.path.insert(0, SRC)
+    import dataclasses
+
     import numpy as np
     from repro_torch import resolve_device
+    from repro_torch.configs import get_config
     from repro_torch.core import ContainerDim, allocate, oracle_models
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
     from repro_torch.kernels.stream_flow import build, stream_flow_ell
     from repro_torch.streams import SimParams, deep_pipeline
 
@@ -383,13 +749,8 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timings = {}
 
-    t0 = time.perf_counter()
-    build.load()
-    timings["build"] = time.perf_counter() - t0
-    log(f"build: {timings['build']:.1f} s -> {build.library_path().relative_to(ROOT)}")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    timings["build"] = build_all([build.LIBRARY, rmsnorm_ops.LIBRARY, flash_ops.LIBRARY])
+    log(f"build: {timings['build']:.1f} s for 3 libraries")
 
     t0 = time.perf_counter()
     log("phase 1: kernel vs plain")
@@ -434,18 +795,70 @@ def main() -> int:
     log("profile: where a tick's time goes (32 candidates, sparse, summary)")
     profile_ticks(device, params, candidates, duration_s=1.0)
     timings["timing"] = time.perf_counter() - t0
-    log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
     log(f"batch 1: {json.dumps(t_b1)}")
 
-    kernels = [dict(
-        name="stream_flow_ell",
-        route="cuda",
-        source="src/repro_torch/kernels/stream_flow/csrc/stream_flow.cu",
-        replaces="src/repro/kernels/stream_flow/stream_flow.py:94",
-        launches=launches,
-        max_abs_err=max_err,
-        **t_b32,
-    )]
+    seed = 0
+    serve_rng = np.random.default_rng(seed)
+    prompt_lengths = sorted({int(n) for n in serve_rng.integers(32, 193, size=8)})
+    t0 = time.perf_counter()
+    log("phase 4: rmsnorm and flash_attention kernels vs plain at llama3-8b's shapes")
+    d = LLAMA["d"]
+    rms_err = check_rmsnorm(device, [(1, S, d) for S in prompt_lengths] + [(4, 1, d), (300, d)])
+    flash_err = check_flash(
+        device,
+        [(S, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], True, None) for S in (1, 7, 128, 130, 192)]
+        + [(S, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], True, None) for S in prompt_lengths]
+        + [(130, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], True, 32),
+           (130, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], False, None),
+           (7, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], False, None),
+           (130, 32, 8, 120, True, None)],
+    )
+    timings["phase4"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 5: card vs host, llama3-8b at full width, 2 layers")
+    two_layers = dataclasses.replace(get_config("llama3-8b"), n_layers=2)
+    logit_err = phase_card_vs_host(device, two_layers, prompt_len=48, decode_steps=4, seed=seed)
+    torch.cuda.empty_cache()
+    timings["phase5"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 6: serve llama3-8b at full depth (BatchedServer, 4 slots, max_ctx 256)")
+    server, lm_launches, lengths = phase_serve(device, "llama3-8b", seed, n_requests=8, slots=4,
+                                               max_ctx=256, max_new=16)
+    timings["phase6"] = time.perf_counter() - t0
+    log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
+    profile_serving(server, serve_rng, n_requests=4, prompt_len=128, max_new=16)
+    del server
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("timing rmsnorm and flash_attention at the serving path's shapes "
+        "(device time from CUDA-graph replay; eager time from CUDA events)")
+    t_rms_prefill = time_rmsnorm(device, (1, max(lengths), d))
+    t_rms = time_rmsnorm(device, (4, 1, d))
+    for S in sorted(set(lengths))[:-1]:
+        time_flash(device, S)
+    t_flash = time_flash(device, max(lengths))
+    timings["lm_timing"] = time.perf_counter() - t0
+    log(f"rmsnorm at the longest prefill (1, {max(lengths)}, {d}): {json.dumps(t_rms_prefill)}")
+    log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
+    log(f"card vs host: max|logit difference| {logit_err:.3e}")
+
+    kernels = [
+        dict(name="stream_flow_ell", route="cuda",
+             source="src/repro_torch/kernels/stream_flow/csrc/stream_flow.cu",
+             replaces="src/repro/kernels/stream_flow/stream_flow.py:94",
+             launches=launches, max_abs_err=max_err, **t_b32),
+        dict(name="rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23",
+             launches=lm_launches["rmsnorm"], max_abs_err=rms_err, **t_rms),
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
+             launches=lm_launches["flash_attention"], max_abs_err=flash_err, **t_flash),
+    ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,8 +1,8 @@
 """Carrying learned state and data into the port from plain Python and numpy.
 
 Nothing here reads the reference package's objects: its node models arrive
-as the dicts ``dataclasses.asdict`` makes of them, and padded structures as
-dicts of numpy arrays.
+as the dicts ``dataclasses.asdict`` makes of them, padded structures as
+dicts of numpy arrays, and model parameters as nested dicts of numpy arrays.
 """
 from __future__ import annotations
 
@@ -11,6 +11,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from .configs.base import ModelConfig
 from .core.node_model import LinearFit, NodeModel, ResourceClass
 from .kernels.stream_flow.ops import index_dtype
 
@@ -58,4 +59,40 @@ def stage_padded(arrays: Mapping[str, np.ndarray], device) -> dict[str, torch.Te
         else:
             dtype = torch.float32
         out[k] = torch.as_tensor(v, device=device).to(dtype).contiguous()
+    return out
+
+
+def model_params_from_numpy(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor]:
+    """The port's model state dict from a reference parameter tree.
+
+    ``tree`` is the reference ``Model.init`` pytree as nested dicts of numpy
+    arrays, its block leaves stacked along the period axis
+    (``tree["blocks"]["b0_attn"]["attn"]["wq"]`` is (L, d, H·hd)).  The
+    result unstacks them into per-layer names (``blocks.<i>.attn.wq``), as
+    :class:`repro_torch.models.Model` names its parameters; load it with
+    ``model.load_state_dict``.
+    """
+    if cfg.pattern() != ("attn",):
+        raise NotImplementedError(f"{cfg.name}: only the ('attn',) block pattern is ported")
+    n_layers = cfg.n_periods()
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, prefix: str, layer: int | None) -> None:
+        for key, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, f"{prefix}{key}.", layer)
+                continue
+            arr = np.asarray(value)
+            if layer is not None:
+                if arr.shape[0] != n_layers:
+                    raise ValueError(f"{prefix}{key}: {arr.shape[0]} layers, config has {n_layers}")
+                arr = arr[layer]
+            out[f"{prefix}{key}"] = torch.from_numpy(np.array(arr, copy=True))
+
+    for key, value in tree.items():
+        if key != "blocks":
+            walk({key: value}, "", None)
+    (stacked,) = tree["blocks"].values()
+    for i in range(n_layers):
+        walk(stacked, f"blocks.{i}.", i)
     return out

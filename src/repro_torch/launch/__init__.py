@@ -1,0 +1,1 @@
+"""Entry points that drive the port's models: the batched LM server."""

@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, and the simulator's sparse tick running through the kernel.
+version, the simulator's sparse tick running through the flow kernel, and
+the model's prefill and decode running through the RMSNorm and flash
+kernels.
 
 This file imports no JAX, so it runs on a machine that has only the port's
 dependencies.  Every test carries the ``cuda`` marker and skips where
@@ -11,13 +13,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
 from repro_torch.core import ContainerDim, round_robin_configuration
 from repro_torch.interop import stage_padded
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
 from repro_torch.kernels.stream_flow import (
     ell_rows,
     stream_flow_ell,
     stream_flow_ell_reference,
 )
+from repro_torch.models import build_model
 from repro_torch.streams import (
     SimParams,
     deep_pipeline,
@@ -35,7 +42,7 @@ ELL_ARGS = ("qout", "edge_src", "edge_share", "edge_remote", "edge_src_cont",
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
-    return torch.device("cuda")
+    return resolve_device("cuda")
 
 
 def _problem(rng, batch, n_inst, n_cont, n_edges, device):
@@ -120,3 +127,134 @@ def test_sparse_tick_runs_the_kernel_and_matches_dense(cuda):
     host = measure_capacity(cfg, params, duration_s=4.0, tick_kernel="sparse", device="cpu")
     # the two devices draw different noise streams: same distribution only
     assert sparse == pytest.approx(host, rel=0.05)
+
+
+# ------------------------------------------------------------------ rmsnorm
+# fp32: within 1e-6 (rtol and atol; the sum of squares runs in another
+# order); bf16: within one bf16 ulp of the plain version.
+
+
+def _bf16_ulp(ref: torch.Tensor) -> torch.Tensor:
+    a = ref.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("shape", [(1, 150, 4096), (4, 1, 4096), (300, 96), (7, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_kernel_matches_plain_version(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(shape[-1])
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    before = rmsnorm.launches
+    got = rmsnorm(x, gain, 1e-5)
+    want = rmsnorm_reference(x, gain, 1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm.launches == before + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert bool(((got.float() - want.float()).abs() <= _bf16_ulp(want)).all())
+    assert torch.equal(got, rmsnorm(x, gain, 1e-5))   # fixed summation order
+
+
+def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.randn(4, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rmsnorm(x.half(), torch.ones(64, device=cuda))
+    with pytest.raises(ValueError, match="gain"):
+        rmsnorm(x, torch.ones(32, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(x.t(), torch.ones(4, device=cuda))
+
+
+# ---------------------------------------------------------- flash attention
+# fp32: within 2e-5 (rtol and atol; online softmax over tiles against one
+# softmax over the row).
+
+
+def _qkv(cuda, S, H, KV, hd, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(1, S, H, hd, generator=g, device=cuda).to(dtype)
+    k = torch.randn(1, S, KV, hd, generator=g, device=cuda).to(dtype)
+    v = torch.randn(1, S, KV, hd, generator=g, device=cuda).to(dtype)
+    return q, k, v
+
+
+@pytest.mark.parametrize("S", [1, 7, 128, 130, 192])
+def test_flash_kernel_matches_plain_version_at_llama_shapes(cuda, S):
+    q, k, v = _qkv(cuda, S, 32, 8, 128, seed=S)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=True, scale=1.0 / 128 ** 0.5)
+    want = flash_attention_reference(q, k, v, causal=True, scale=1.0 / 128 ** 0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got, flash_attention(q, k, v, causal=True, scale=1.0 / 128 ** 0.5))
+
+
+@pytest.mark.parametrize("S,H,KV,hd,causal,window", [
+    (130, 32, 8, 128, True, 32),      # sliding window
+    (130, 32, 8, 128, False, None),   # non-causal, S not a tile multiple
+    (100, 32, 8, 120, True, None),    # h2o-danube's head_dim
+    (70, 4, 4, 16, False, 9),         # smoke head_dim, window without causal
+    (50, 4, 2, 18, True, None),       # head_dim not a multiple of 4: scalar loads
+])
+def test_flash_kernel_matches_plain_version_masks_and_head_dims(cuda, S, H, KV, hd, causal, window):
+    q, k, v = _qkv(cuda, S, H, KV, hd, seed=hd)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_reference(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_takes_unaligned_tensors(cuda):
+    """A tensor that starts one element into its storage is contiguous but
+    not 16-byte aligned: the kernel reads it element by element."""
+    q, k, v = _qkv(cuda, 40, 8, 2, 64, seed=4)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    shifted.copy_(q)
+    got = flash_attention(shifted, k, v)
+    want = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_bf16_within_bf16_rounding(cuda):
+    q, k, v = _qkv(cuda, 96, 8, 2, 64, dtype=torch.bfloat16, seed=3)
+    got = flash_attention(q, k, v)
+    want = flash_attention_reference(q, k, v)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs() <= _bf16_ulp(want)).all())
+
+
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v = _qkv(cuda, 16, 4, 2, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(*_qkv(cuda, 16, 4, 2, 160))
+    with pytest.raises(ValueError, match="k is"):
+        flash_attention(q, k.double(), v)
+    with pytest.raises(ValueError, match="group"):
+        flash_attention(*_qkv(cuda, 16, 4, 3, 16))
+
+
+# -------------------------------------------------------------------- model
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b@smoke", "h2o-danube-3-4b@smoke"])
+def test_model_on_card_runs_the_kernels_and_matches_the_host(cuda, arch):
+    cfg = get_config(arch)
+    host = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=cuda, seed=0)
+    card.load_state_dict(host.state_dict())
+    tokens = torch.arange(4, 44).reshape(1, 40) % cfg.vocab
+    before = (rmsnorm.launches, flash_attention.launches)
+    got, _ = card.forward_prefill(tokens.to(cuda))
+    want, _ = host.forward_prefill(tokens)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (rmsnorm.launches, flash_attention.launches) == (before[0] + 2 * L + 1, before[1] + L)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))

@@ -35,16 +35,46 @@ assert not loaded, loaded
 print("capacity", cap)
 """
 
+_BLOCKED_SERVE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import repro_torch.models
+import repro_torch.kernels.flash_attention
+import repro_torch.kernels.rmsnorm
+from repro_torch.launch.serve import BatchedServer, Request
+server = BatchedServer("llama3-8b@smoke", batch_slots=2, max_ctx=64, device="cpu")
+server.submit(Request(0, np.arange(4, 13, dtype=np.int32), 4))
+server.submit(Request(1, np.arange(4, 21, dtype=np.int32), 3))
+server.drain()
+assert sorted(len(r.tokens_out) for r in server.completed) == [3, 4], server.completed
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("served", server.decode_steps)
+"""
 
-def test_port_runs_with_jax_and_reference_blocked():
+
+def _run_blocked(code: str) -> subprocess.CompletedProcess:
     env = dict(os.environ)
     env["PYTHONPATH"] = str(ROOT / "src")
-    proc = subprocess.run(
-        [sys.executable, "-c", _BLOCKED_RUN], capture_output=True, text=True,
+    return subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
         env=env, cwd=ROOT, timeout=300,
     )
+
+
+def test_port_runs_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_RUN)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "capacity" in proc.stdout
+
+
+def test_port_serves_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_SERVE)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "served" in proc.stdout
 
 
 def test_port_sources_import_neither_jax_nor_reference():
@@ -78,6 +108,21 @@ def test_default_device_is_cuda_and_never_falls_back():
     assert torch.backends.cudnn.allow_tf32 is False
 
 
+def test_model_kernels_count_only_kernel_launches():
+    """The model's RMSNorm and prefill core take the plain versions on CPU
+    tensors, which are not launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.models import build_model
+
+    model = build_model(get_config("llama3-8b@smoke"), device="cpu")
+    before = (rmsnorm.launches, flash_attention.launches)
+    logits, _ = model.forward_prefill(torch.arange(4, 12).reshape(1, 8))
+    assert torch.isfinite(logits).all()
+    assert (rmsnorm.launches, flash_attention.launches) == before
+
+
 def test_flow_wrapper_counts_only_kernel_launches():
     """CPU tensors take the plain version, which is not a launch."""
     before = stream_flow_ell.launches
@@ -91,3 +136,19 @@ def test_flow_wrapper_counts_only_kernel_launches():
     assert [tuple(o.shape) for o in out] == [(B, I), (B, I), (B, K)]
     assert all(float(o.abs().sum()) == 0.0 for o in out)   # empty ELL rows
     assert stream_flow_ell.launches == before
+
+
+def test_kernel_libraries_build_into_one_directory_named_by_source():
+    """Every kernel builds through the shared helper into ``build/kernels``
+    under a name that carries its source's hash; ``stream_flow.build``
+    keeps its module-level names."""
+    from repro_torch.kernels.flash_attention.ops import LIBRARY as flash
+    from repro_torch.kernels.rmsnorm.ops import LIBRARY as rms
+    from repro_torch.kernels.stream_flow import build
+
+    paths = [lib.library_path() for lib in (flash, rms, build.LIBRARY)]
+    assert {p.parent for p in paths} == {ROOT / "build" / "kernels"}
+    assert [p.name.rsplit("-", 1)[0] for p in paths] == ["flash_attention", "rmsnorm", "stream_flow"]
+    assert len({p.name.rsplit("-", 1)[1] for p in paths}) == 3
+    assert build.library_path() == paths[2]
+    assert build.build_log == build.LIBRARY.build_log
