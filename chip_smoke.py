@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Builds the three CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
+Builds the four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once), then:
 
 1. holds the flow-step kernel against its plain PyTorch version on the
@@ -24,18 +24,31 @@ Builds the three CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
    with the full 32-layer llama3-8b behind ``BatchedServer`` on the card,
    and holds the kernels' launch counts to one flash launch per layer per
    prefill and 2 x 32 + 1 RMSNorm launches per forward;
+7. holds the selective-scan kernel against its plain version at
+   jamba-1.5-large's shapes (16,384 channels, state 16: each serving prompt
+   length, S = 1, 7, 130 and batch-4 decode; non-zero h0, B and C strided
+   as the Mamba block passes them, one bf16 case);
+8. runs one Mamba and one attention block of jamba-1.5-large at full width
+   (dense MLPs) on the card and on the host, one prefill and 4 decode
+   steps, and compares logits, Mamba states and greedy tokens;
+9. serves the same 8 seeded prompt lengths with one full-width period of
+   jamba-1.5-large with dense MLPs (8 layers: 7 Mamba, 1 attention;
+   9,116,360,704 parameters) behind ``BatchedServer``, and holds the launch
+   counts to 7 selective scans and 17 RMSNorms per forward and one flash
+   launch per prefill;
 
-and times each kernel, its plain version and the one PyTorch call that
-computes the same function at the main paths' shapes.  Any failed phase
-raises and the script exits non-zero.  The last line is a JSON object with
-``"ok": true`` and the device; the line before it lists each kernel with
-its launches on the main paths, its error against the plain version, its
-times and its bound.
+and times each kernel, its plain version and, where there is one, the
+PyTorch call that computes the same function at the main paths' shapes.
+Any failed phase raises and the script exits non-zero.  The last line is a
+JSON object with ``"ok": true`` and the device; the line before it lists
+each kernel with its launches on the main paths, its error against the
+plain version, its times and its bound.
 
 Run from the root of the repository:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -49,6 +62,9 @@ SRC = os.path.join(ROOT, "src")
 #: NVIDIA's data sheet, for the kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+#: expf throughput of the special-function units (16 per clock per SM,
+#: 132 SMs, 1.98 GHz boost), logged beside the selective scan's bound.
+SFU_PER_S = 16 * 132 * 1.98e9
 
 TARGET_KTPS = 20000.0
 RTOL, ATOL_REL = 1e-5, 1e-6          # kernel vs plain: rtol, atol = ATOL_REL * max|plain|
@@ -203,12 +219,21 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+@functools.lru_cache(maxsize=1)
+def side_stream():
+    """The one stream graph captures warm up on: cuBLAS keeps a workspace
+    for every stream it has run on, so a new stream per timing would hold
+    32 MiB more each time."""
+    import torch
+    return torch.cuda.Stream()
+
+
 def graph_ms(fn, iters: int, replays: int = 5) -> float:
     """Device time per call of ``fn``: ``iters`` calls captured in one CUDA
     graph and replayed back to back, so the host's per-call launch cost
     (Python, ctypes, argument checks) is left out."""
     import torch
-    side = torch.cuda.Stream()
+    side = side_stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -505,6 +530,12 @@ def flash_bound(S, H, KV, hd) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def excess_ms(runs) -> float:
+    """Sum of launches x (device time - bound) over (launches, timing)
+    pairs: the time a kernel spends above its bound on a path."""
+    return sum(n * (t["ms"] - t["bound_ms"]) for n, t in runs)
+
+
 def time_rmsnorm(device, shape) -> dict:
     import torch
     import torch.nn.functional as F
@@ -552,15 +583,129 @@ def time_flash(device, S) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def block_counts(cfg) -> dict:
+    """Blocks of each kind over the whole depth."""
+    return {kind: cfg.n_periods() * cfg.pattern().count(kind) for kind in ("attn", "mamba")}
+
+
+def expected_launches(cfg, forwards, prefills) -> dict:
+    """Kernel launches of ``forwards`` forward passes, ``prefills`` of them
+    prefills: two RMSNorms per block (every block has an MLP) and the final
+    one each forward, one selective scan per Mamba block each forward (the
+    decode step runs the kernel with S = 1), one flash launch per attention
+    block each prefill (decode attention is plain torch)."""
+    n = block_counts(cfg)
+    return dict(rmsnorm=(2 * cfg.n_layers + 1) * forwards,
+                flash_attention=n["attn"] * prefills,
+                ssm_scan=n["mamba"] * forwards)
+
+
+def kernel_launches() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    return dict(rmsnorm=rmsnorm.launches, flash_attention=flash_attention.launches,
+                ssm_scan=ssm_scan.launches)
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    rmsnorm.launches = flash_attention.launches = ssm_scan.launches = 0
+
+
+# ------------------------------------------------------------ selective scan
+
+JAMBA = dict(D=16384, N=16)         # jamba-1.5-large: d_inner 2 x 8192, d_state 16
+SCAN_RTOL, SCAN_ATOL_REL = 1e-5, 1e-5     # fp32: rtol, atol = ATOL_REL * max|y|
+SCAN_BF16_TOL = 3e-2                       # bf16 inputs: rtol and atol
+
+
+def scan_inputs(device, B, S, D, N, dtype, seed):
+    """Seeded inputs in the Mamba block's ranges: softplus'd step sizes, a
+    negative decay, a non-zero h0, and B and C as strided slices of one
+    projection, as the block passes them."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=device)
+    dt = torch.nn.functional.softplus(r(B, S, D) - 1.0)
+    x = r(B, S, D)
+    proj = r(B, S, 64 + 2 * N) * 0.5
+    _, bm, cm = proj.split([64, N, N], dim=-1)
+    a = -torch.exp(r(D, N) * 0.5)
+    h0 = r(B, D, N) * 0.1
+    return dt.to(dtype), x.to(dtype), bm.to(dtype), cm.to(dtype), a, h0
+
+
+def check_ssm_scan(device, cases) -> float:
+    """The selective-scan kernel against its plain version: fp32 within
+    rtol 1e-5, atol 1e-5·max|y| (and the same for hT), bf16 inputs within
+    3e-2; returns the largest fp32 absolute difference."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_reference
+
+    worst = 0.0
+    for B, S, D, N, dtype in cases:
+        args = scan_inputs(device, B, S, D, N, dtype, seed=S * 17 + B)
+        got = ssm_scan(*args)
+        want = ssm_scan_reference(*args)
+        torch.cuda.synchronize()
+        errs = []
+        for label, g, w in zip(("y", "hT"), got, want):
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"ssm_scan {(B, S, D, N)}: non-finite {label}")
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, rtol=SCAN_RTOL,
+                                           atol=SCAN_ATOL_REL * float(w.abs().max()))
+            else:
+                torch.testing.assert_close(g, w, rtol=SCAN_BF16_TOL, atol=SCAN_BF16_TOL)
+            errs.append(float((g - w).abs().max()))
+        if dtype == torch.float32:
+            worst = max(worst, *errs)
+        log(f"  ssm_scan B={B} S={S} D={D} N={N} {str(dtype)[6:]}: "
+            f"max|kernel-plain| y {errs[0]:.3e} hT {errs[1]:.3e}")
+    return worst
+
+
+def ssm_bound(B, S, D, N) -> tuple[float, str, float]:
+    """fp32 inputs: dt and x read and y written once (B·S·D each), B and C
+    read once (B·S·N each), a, h0 and hT once; 1 + 7·N fp32 operations per
+    (b, t, channel) (dt·x; per state: dt·A, exp, a·h, dx·B, +, h·C, +).
+    Returns (bound ms, what bounds it, the expf time on the SFUs in ms)."""
+    nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + 2 * B * D * N)
+    flops = B * S * D * (1 + 7 * N)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    sfu_ms = B * S * D * N / SFU_PER_S * 1e3
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", sfu_ms
+
+
+def time_ssm_scan(device, B, S) -> dict:
+    import torch
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_reference
+
+    D, N = JAMBA["D"], JAMBA["N"]
+    args = scan_inputs(device, B, S, D, N, torch.float32, seed=B * 1000 + S)
+    ms, eager_ms = time_both(lambda: ssm_scan(*args), iters=50)
+    plain_iters = max(2, 200 // S)
+    plain_ms = graph_ms(lambda: ssm_scan_reference(*args), iters=plain_iters, replays=2)
+    plain_eager = cuda_ms(lambda: ssm_scan_reference(*args), iters=plain_iters, warmup=1)
+    bound_ms, bound_by, sfu_ms = ssm_bound(B, S, D, N)
+    log(f"  ssm_scan ({B}, {S}, {D}, {N}) device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+        f"bound {bound_ms:.6f} ms ({bound_by}; expf on the SFUs {sfu_ms:.6f} ms); "
+        f"eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f} ms; "
+        f"no single PyTorch call computes a selective scan")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
     """The model ``cfg`` with the same seeded weights on the card and the
     host: one prefill and ``decode_steps`` decode steps on each (the host's
-    greedy tokens fed to both), logits compared within rtol 1e-4,
-    atol 1e-4·max|logits|."""
+    greedy tokens fed to both), logits and Mamba states compared within
+    rtol 1e-4, atol 1e-4·max|x|, and the greedy tokens equal."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.models import build_model
 
     n_layers = cfg.n_layers
@@ -572,28 +717,38 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
         f"in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(4, cfg.vocab, size=(1, prompt_len)))
-    rmsnorm.launches = flash_attention.launches = 0
+    zero_launches()
     worst = 0.0
+
+    def close(label, got, want):
+        got = got.cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label}: non-finite values on the card")
+        atol = LOGIT_ATOL_REL * float(want.abs().max())
+        torch.testing.assert_close(got, want, rtol=LOGIT_RTOL, atol=atol)
+        return float((got - want).abs().max()), atol
 
     def compare(label, got, want):
         nonlocal worst
-        got = got.cpu()
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{label}: non-finite logits on the card")
-        atol = LOGIT_ATOL_REL * float(want.abs().max())
-        torch.testing.assert_close(got, want, rtol=LOGIT_RTOL, atol=atol)
-        err = float((got - want).abs().max())
+        err, atol = close(label, got, want)
         worst = max(worst, err)
+        token, card_token = int(want[0, -1].argmax()), int(got[0, -1].argmax())
         log(f"  {label}: max|card-host| {err:.3e} (atol {atol:.3e}), "
-            f"argmax card {int(got[0, -1].argmax())} host {int(want[0, -1].argmax())}")
-        return int(want[0, -1].argmax())
+            f"argmax card {card_token} host {token}")
+        if card_token != token:
+            raise AssertionError(f"{label}: greedy token {card_token} on the card, {token} on the host")
+        return token
 
     caches = {}
     for name, model in (("host", host), ("card", card)):
         logits, c1 = model.forward_prefill(prompt.to(model.embed.device))
         big = model.cache_struct(1, prompt_len + decode_steps + 1)
-        for n, t in c1["b0_attn"].items():
-            big["b0_attn"][n][:, :, :prompt_len] = t
+        for key, layer in c1.items():
+            for n, t in layer.items():
+                if n in ("k", "v"):
+                    big[key][n][:, :, :prompt_len] = t
+                else:                                    # a Mamba state, whole
+                    big[key][n].copy_(t)
         caches[name] = (logits, big)
     token = compare("prefill", caches["card"][0], caches["host"][0])
     for step in range(decode_steps):
@@ -602,39 +757,44 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
         hl, _ = host.forward_decode(tok, caches["host"][1], pos)
         cl, _ = card.forward_decode(tok.to(device), caches["card"][1], pos)
         token = compare(f"decode {step}", cl, hl)
+    for key, layer in caches["host"][1].items():
+        for n, want in layer.items():
+            if n not in ("k", "v"):
+                err, atol = close(f"state {key}.{n}", caches["card"][1][key][n], want)
+                log(f"  state {key}.{n} after decode: max|card-host| {err:.3e} (atol {atol:.3e})")
     torch.cuda.synchronize()
-    want = (5 * (2 * n_layers + 1), n_layers)    # card forwards only
-    got = (rmsnorm.launches, flash_attention.launches)
+    want = expected_launches(cfg, forwards=1 + decode_steps, prefills=1)   # card only
+    got = kernel_launches()
     if got != want:
-        raise AssertionError(f"card launches (rmsnorm, flash) {got}, expected {want}")
+        raise AssertionError(f"card launches {got}, expected {want}")
     del host, card, caches
     return worst
 
 
 def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
-    """``arch`` behind ``BatchedServer`` on the card: seeded prompts of
-    32-192 tokens, greedy decoding, with the kernels' launch counts held to
-    one flash launch per layer per prefill and 2·layers + 1 RMSNorm
-    launches per forward."""
+    """``arch`` (a name or a config) behind ``BatchedServer`` on the card:
+    seeded prompts of 32-192 tokens, greedy decoding, with the kernels'
+    launch counts held to :func:`expected_launches`."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.launch.serve import BatchedServer, Request
 
     t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
     server = BatchedServer(arch, batch_slots=slots, max_ctx=max_ctx, seed=seed,
                            device=device)
     torch.cuda.synchronize()
-    log(f"  built {arch} ({server.model.n_params():,} params, "
+    log(f"  built {server.cfg.name} ({server.model.n_params():,} params, "
         f"{server.cfg.n_layers} layers) in {time.perf_counter() - t0:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
+        f"{before / 2**30:.2f} GiB of it allocated before the build")
     rng = np.random.default_rng(seed)
     lengths = rng.integers(32, 193, size=n_requests)
     requests = [Request(rid, rng.integers(4, server.cfg.vocab, size=int(n)).astype(np.int32), max_new)
                 for rid, n in enumerate(lengths)]
     torch.cuda.reset_peak_memory_stats()
-    rmsnorm.launches = flash_attention.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     for r in requests:
         server.submit(r)
@@ -648,13 +808,12 @@ def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
             decode_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(rmsnorm=rmsnorm.launches, flash_attention=flash_attention.launches)
+    launches = kernel_launches()
     peak = torch.cuda.max_memory_allocated()
 
-    L = server.cfg.n_layers
     n_prefills = len(requests)
-    want = dict(rmsnorm=(2 * L + 1) * (n_prefills + server.decode_steps),
-                flash_attention=L * n_prefills)
+    want = expected_launches(server.cfg, forwards=n_prefills + server.decode_steps,
+                             prefills=n_prefills)
     if launches != want:
         raise AssertionError(f"serving launches {launches}, expected {want}")
     if len(server.completed) != n_requests:
@@ -673,7 +832,7 @@ def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
         f"max {ttft[-1]:.1f} (from submission; all {n_requests} submitted at once)")
     log(f"  decode-only ticks: {len(decode_ms)}, median {float(np.median(decode_ms)):.3f} ms, "
         f"min {min(decode_ms):.3f} ms")
-    log(f"  peak memory {peak / 2**30:.2f} GiB")
+    log(f"  peak memory {peak / 2**30:.2f} GiB ({peak} bytes)")
     log(f"  launches: {json.dumps(launches)} (expected {json.dumps(want)})")
     log(f"  first request's tokens: {server.completed[0].tokens_out}")
     return server, launches, [int(n) for n in lengths]
@@ -736,6 +895,7 @@ def main() -> int:
     from repro_torch.core import ContainerDim, allocate, oracle_models
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
     from repro_torch.kernels.stream_flow import build, stream_flow_ell
     from repro_torch.streams import SimParams, deep_pipeline
 
@@ -749,8 +909,9 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timings = {}
 
-    timings["build"] = build_all([build.LIBRARY, rmsnorm_ops.LIBRARY, flash_ops.LIBRARY])
-    log(f"build: {timings['build']:.1f} s for 3 libraries")
+    timings["build"] = build_all([build.LIBRARY, rmsnorm_ops.LIBRARY, flash_ops.LIBRARY,
+                                  ssm_ops.LIBRARY])
+    log(f"build: {timings['build']:.1f} s for 4 libraries")
 
     t0 = time.perf_counter()
     log("phase 1: kernel vs plain")
@@ -837,13 +998,67 @@ def main() -> int:
         "(device time from CUDA-graph replay; eager time from CUDA events)")
     t_rms_prefill = time_rmsnorm(device, (1, max(lengths), d))
     t_rms = time_rmsnorm(device, (4, 1, d))
-    for S in sorted(set(lengths))[:-1]:
-        time_flash(device, S)
-    t_flash = time_flash(device, max(lengths))
+    t_flash_at = {S: time_flash(device, S) for S in sorted(set(lengths))}
+    t_flash = t_flash_at[max(lengths)]
     timings["lm_timing"] = time.perf_counter() - t0
+    n_attn = block_counts(get_config("llama3-8b"))["attn"]
+    log("flash launches x (time - bound) in phase 6: "
+        f"{excess_ms([(n_attn, t_flash_at[S]) for S in lengths]):.3f} ms")
     log(f"rmsnorm at the longest prefill (1, {max(lengths)}, {d}): {json.dumps(t_rms_prefill)}")
+
+    t0 = time.perf_counter()
+    log("phase 7: ssm_scan kernel vs plain at jamba-1.5-large's shapes")
+    D, N = JAMBA["D"], JAMBA["N"]
+    scan_err = check_ssm_scan(
+        device,
+        [(1, S, D, N, torch.float32) for S in sorted(set(lengths)) + [1, 7, 130]]
+        + [(4, 1, D, N, torch.float32), (1, 130, D, N, torch.bfloat16)],
+    )
+    timings["phase7"] = time.perf_counter() - t0
+
+    # one full-width period of jamba-1.5-large with its MoE layers made
+    # dense (each a SwiGLU of the expert's width), built with replace and
+    # never registered as an arch
+    cut = dataclasses.replace(get_config("jamba-1.5-large-398b"), n_experts=0,
+                              experts_per_token=0, n_layers=8,
+                              name="jamba-1.5-large-398b/1-period-dense")
+    t0 = time.perf_counter()
+    log("phase 8: card vs host, jamba-1.5-large at full width, one Mamba and one attention block")
+    pair = dataclasses.replace(cut, n_layers=2, block_pattern=("mamba", "attn"),
+                               name="jamba-1.5-large-398b/mamba+attn-dense")
+    hybrid_err = phase_card_vs_host(device, pair, prompt_len=48, decode_steps=4, seed=seed)
+    timings["phase8"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 9: serve one full-width period of jamba-1.5-large with dense MLPs "
+        "(BatchedServer, 4 slots, max_ctx 256)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    server, jamba_launches, _ = phase_serve(device, cut, seed, n_requests=8, slots=4,
+                                            max_ctx=256, max_new=16)
+    jamba_ticks = server.decode_steps
+    timings["phase9"] = time.perf_counter() - t0
+    log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
+    profile_serving(server, serve_rng, n_requests=4, prompt_len=128, max_new=16)
+    del server
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("timing ssm_scan at the serving path's shapes "
+        "(device time from CUDA-graph replay; eager time from CUDA events)")
+    t_scan_at = {S: time_ssm_scan(device, 1, S) for S in sorted(set(lengths))}
+    t_scan_prefill = t_scan_at[max(lengths)]
+    t_scan = time_ssm_scan(device, 4, 1)
+    timings["ssm_timing"] = time.perf_counter() - t0
+    n_mamba = block_counts(cut)["mamba"]
+    prefill_excess = excess_ms([(n_mamba, t_scan_at[S]) for S in lengths])
+    decode_excess = excess_ms([(n_mamba * jamba_ticks, t_scan)])
+    log(f"ssm_scan launches x (time - bound) in phase 9: prefills {prefill_excess:.3f} ms, "
+        f"decode ticks {decode_excess:.3f} ms, total {prefill_excess + decode_excess:.3f} ms")
+    log(f"ssm_scan at the longest prefill (1, {max(lengths)}, {D}, {N}): {json.dumps(t_scan_prefill)}")
     log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
-    log(f"card vs host: max|logit difference| {logit_err:.3e}")
+    log(f"card vs host: max|logit difference| llama3-8b {logit_err:.3e}, "
+        f"jamba mamba+attn {hybrid_err:.3e}")
 
     kernels = [
         dict(name="stream_flow_ell", route="cuda",
@@ -858,6 +1073,10 @@ def main() -> int:
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
              launches=lm_launches["flash_attention"], max_abs_err=flash_err, **t_flash),
+        dict(name="ssm_scan", route="cuda",
+             source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
+             replaces="src/repro/kernels/ssm_scan/ssm_scan.py:63",
+             launches=jamba_launches["ssm_scan"], max_abs_err=scan_err, **t_scan),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

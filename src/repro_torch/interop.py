@@ -14,6 +14,7 @@ import torch
 from .configs.base import ModelConfig
 from .core.node_model import LinearFit, NodeModel, ResourceClass
 from .kernels.stream_flow.ops import index_dtype
+from .models.transformer import period_tree
 
 
 def node_models_from_state(states: Mapping[str, Mapping]) -> dict[str, NodeModel]:
@@ -67,32 +68,37 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.
 
     ``tree`` is the reference ``Model.init`` pytree as nested dicts of numpy
     arrays, its block leaves stacked along the period axis
-    (``tree["blocks"]["b0_attn"]["attn"]["wq"]`` is (L, d, H·hd)).  The
-    result unstacks them into per-layer names (``blocks.<i>.attn.wq``), as
-    :class:`repro_torch.models.Model` names its parameters; load it with
-    ``model.load_state_dict``.
+    (``tree["blocks"]["b0_attn"]["attn"]["wq"]`` is (P, d, H·hd)).  The
+    result unstacks them into per-period names, as
+    :class:`repro_torch.models.Model` names its parameters:
+    ``blocks.<i>.attn.wq`` for the ``("attn",)`` pattern, and with the block
+    key for longer ones (``blocks.<i>.b0_mamba.mamba.in_proj``).  Load it
+    with ``model.load_state_dict``.  mLSTM/sLSTM blocks are not ported and
+    raise.
     """
-    if cfg.pattern() != ("attn",):
-        raise NotImplementedError(f"{cfg.name}: only the ('attn',) block pattern is ported")
-    n_layers = cfg.n_periods()
+    kinds = {key.split("_", 1)[1] for key in tree["blocks"]}
+    if not kinds <= {"attn", "mamba"}:
+        raise NotImplementedError(
+            f"{cfg.name}: only attention and Mamba blocks are ported, not {sorted(kinds)}")
+    n_periods = cfg.n_periods()
     out: dict[str, torch.Tensor] = {}
 
-    def walk(node: Mapping, prefix: str, layer: int | None) -> None:
+    def walk(node: Mapping, prefix: str, period: int | None) -> None:
         for key, value in node.items():
             if isinstance(value, Mapping):
-                walk(value, f"{prefix}{key}.", layer)
+                walk(value, f"{prefix}{key}.", period)
                 continue
             arr = np.asarray(value)
-            if layer is not None:
-                if arr.shape[0] != n_layers:
-                    raise ValueError(f"{prefix}{key}: {arr.shape[0]} layers, config has {n_layers}")
-                arr = arr[layer]
+            if period is not None:
+                if arr.shape[0] != n_periods:
+                    raise ValueError(f"{prefix}{key}: {arr.shape[0]} periods, config has {n_periods}")
+                arr = arr[period]
             out[f"{prefix}{key}"] = torch.from_numpy(np.array(arr, copy=True))
 
     for key, value in tree.items():
         if key != "blocks":
             walk({key: value}, "", None)
-    (stacked,) = tree["blocks"].values()
-    for i in range(n_layers):
-        walk(stacked, f"blocks.{i}.", i)
+    blocks = period_tree(cfg, tree["blocks"])
+    for i in range(n_periods):
+        walk(blocks, f"blocks.{i}.", i)
     return out

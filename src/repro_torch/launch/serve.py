@@ -11,7 +11,10 @@ from the same weights:
 
 - every active slot decodes at one shared position, the largest of the
   active slots' positions (the "conservative" shared position);
-- a prefill's cache is padded with zeros to the slot's full length;
+- a prefill's K/V cache is padded with zeros to the slot's full length,
+  and a Mamba block's state (``h`` and ``conv``) is copied whole;
+- every slot decodes on every tick, active or not, so an idle slot's Mamba
+  state drifts until the next prefill into it overwrites it;
 - greedy decoding takes the first maximum;
 - a request completes after ``max_new_tokens`` tokens or when its position
   reaches ``max_ctx - 1``.
@@ -27,6 +30,7 @@ import numpy as np
 import torch
 
 from ..configs import get_config
+from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import build_model
 
@@ -46,12 +50,16 @@ class Request:
 class BatchedServer:
     """Static-batch continuous server: slots hold active requests; prefill
     admits new requests into free slots; one batched decode step advances
-    every slot per tick."""
+    every slot per tick.
 
-    def __init__(self, arch: str, batch_slots: int = 4, max_ctx: int = 256,
+    ``arch`` is a registered architecture name or a :class:`ModelConfig`
+    (for instance one cut with ``dataclasses.replace``, which is served
+    without registering it)."""
+
+    def __init__(self, arch: str | ModelConfig, batch_slots: int = 4, max_ctx: int = 256,
                  seed: int = 0, device=None):
         self.device = resolve_device(device)
-        self.cfg = get_config(arch)
+        self.cfg = get_config(arch) if isinstance(arch, str) else arch
         self.model = build_model(self.cfg, device=self.device, dtype=torch.float32, seed=seed)
         self.slots: list[Request | None] = [None] * batch_slots
         self.max_ctx = max_ctx
@@ -78,11 +86,14 @@ class BatchedServer:
         S = len(req.prompt)
         tokens = torch.as_tensor(req.prompt[None, :].astype(np.int64), device=self.device)
         logits, caches1 = self.model.forward_prefill(tokens)
-        # copy the single-row caches into this slot of the batched caches,
-        # zero-padded to the slot's length
+        # copy the single-row caches into this slot of the batched caches:
+        # K/V zero-padded to the slot's length, Mamba states whole
         for key, layer in caches1.items():
             for name, small in layer.items():
-                big = self.caches[key][name]              # (L, B, T, KV, hd)
+                big = self.caches[key][name]              # (P, B, T, KV, hd) for K/V
+                if name not in ("k", "v"):
+                    big[:, slot] = small[:, 0]
+                    continue
                 T = small.shape[2]
                 if T > big.shape[2]:
                     raise ValueError(f"a {S}-token prompt does not fit max_ctx {self.max_ctx}")

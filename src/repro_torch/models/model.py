@@ -2,9 +2,11 @@
 prefill and decode forward passes, and decode caches.
 
 Weights keep the reference's (in, out) orientation (``x @ w``), and the
-state dict names follow its parameter tree with the layer axis unstacked:
+state dict names follow its parameter tree with the period axis unstacked:
 ``embed``, ``final_norm``, ``lm_head``, ``blocks.<i>.norm1``,
-``blocks.<i>.attn.wq`` ... ``blocks.<i>.mlp.w2``.
+``blocks.<i>.attn.wq`` ... ``blocks.<i>.mlp.w2`` for ``("attn",)`` models,
+and with the block key for longer patterns:
+``blocks.<i>.b0_mamba.mamba.in_proj`` ... ``blocks.<i>.b3_attn.attn.wq``.
 """
 from __future__ import annotations
 
@@ -15,26 +17,34 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import make_cache_struct
 from .common import count_params, init_params, rms_norm
-from .transformer import ParamModule, decoder_defs, run_decoder_stack
+from .ssm import mamba_state_struct
+from .transformer import (
+    ParamModule,
+    block_keys,
+    decoder_defs,
+    period_tree,
+    run_decoder_stack,
+)
 
 #: What this slice of the port leaves out, with the ROADMAP item that
 #: brings it (queue 1, item 11).
 _NOT_PORTED = (
     (lambda c: c.attention == "mla", "MLA attention (ROADMAP queue 1, item 11b)"),
     (lambda c: c.is_moe, "MoE feed-forward (ROADMAP queue 1, item 11c)"),
-    (lambda c: c.family in ("ssm", "hybrid") or c.pattern() != ("attn",),
-     "SSM/hybrid and xLSTM blocks (ROADMAP queue 1, item 11a)"),
+    (lambda c: not set(c.pattern()) <= {"attn", "mamba"},
+     "mLSTM/sLSTM (xLSTM) blocks (ROADMAP queue 1, item 11a)"),
     (lambda c: c.frontend is not None, "modality frontends (ROADMAP queue 1, item 11d)"),
     (lambda c: c.is_encdec, "encoder-decoder stacks (ROADMAP queue 1, item 11d)"),
 )
 
 
 class Model(nn.Module):
-    """A decoder-only LM of GQA attention blocks with dense SwiGLU MLPs.
+    """A decoder-only LM of GQA attention and Mamba blocks with dense SwiGLU
+    MLPs, in periods of ``cfg.pattern()``.
 
     ``params`` is the reference-shaped tree of tensors (block leaves stacked
-    along the layer axis), as :func:`~.common.init_params` makes it; each
-    layer's parameters are views of the stacked tensors, so building the
+    along the period axis), as :func:`~.common.init_params` makes it; each
+    period's parameters are views of the stacked tensors, so building the
     model copies nothing.
     """
 
@@ -44,7 +54,7 @@ class Model(nn.Module):
         for name, value in params.items():
             if name != "blocks":
                 self.register_parameter(name, nn.Parameter(value, requires_grad=False))
-        (stacked,) = params["blocks"].values()
+        stacked = period_tree(cfg, params["blocks"])
         self.blocks = nn.ModuleList(
             ParamModule(_tree_index(stacked, i)) for i in range(cfg.n_periods())
         )
@@ -65,9 +75,10 @@ class Model(nn.Module):
     # -- forward passes ------------------------------------------------------
     def forward_prefill(self, tokens: torch.Tensor):
         """Causal forward over ``tokens`` (B, S) that also builds the decode
-        caches.  Returns the last position's logits (B, 1, V) and the caches
-        (``{"b0_attn": {"k": (L, B, S', KV, hd), "v": ...}}``, S' = S or the
-        sliding window)."""
+        caches.  Returns the last position's logits (B, 1, V) and the caches,
+        one entry per block of the period stacked along the period axis
+        (``{"b0_attn": {"k": (P, B, S', KV, hd), "v": ...}}``, S' = S or the
+        sliding window; ``{"b1_mamba": {"h": (P, B, di, N), "conv": ...}}``)."""
         B, S = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(S, device=x.device).expand(B, S)
@@ -77,8 +88,8 @@ class Model(nn.Module):
 
     def forward_decode(self, token: torch.Tensor, caches: dict, pos: int):
         """One decode step: ``token`` (B, 1) at the shared position ``pos``.
-        Writes the new K/V into ``caches`` in place and returns (logits
-        (B, 1, V), caches)."""
+        Writes the new K/V and Mamba states into ``caches`` in place and
+        returns (logits (B, 1, V), caches)."""
         x = self.embed[token]
         x, caches = run_decoder_stack(self.blocks, x, self.cfg, "decode",
                                       caches=caches, positions=int(pos))
@@ -87,12 +98,20 @@ class Model(nn.Module):
 
     # -- caches ----------------------------------------------------------------
     def cache_struct(self, batch: int, ctx_len: int, dtype: torch.dtype | None = None) -> dict:
-        """Zero decode caches, stacked along the layer axis, on the model's
-        device."""
+        """Zero decode caches, stacked along the period axis, on the model's
+        device: K/V caches for attention blocks, Mamba states (``h`` fp32,
+        ``conv`` in ``dtype``) for Mamba blocks."""
         dtype = dtype or self.embed.dtype
-        layer = make_cache_struct(self.cfg, batch, ctx_len, dtype, self.embed.device)
-        L = self.cfg.n_periods()
-        return {"b0_attn": {n: t.new_zeros((L, *t.shape)) for n, t in layer.items()}}
+        device = self.embed.device
+        P = self.cfg.n_periods()
+        caches = {}
+        for key, kind in block_keys(self.cfg):
+            if kind == "attn":
+                one = make_cache_struct(self.cfg, batch, ctx_len, dtype, device)
+            else:
+                one = mamba_state_struct(self.cfg, batch, dtype, device)
+            caches[key] = {n: t.new_zeros((P, *t.shape)) for n, t in one.items()}
+        return caches
 
 
 def _tree_index(tree: dict, i: int) -> dict:

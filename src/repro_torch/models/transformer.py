@@ -1,12 +1,14 @@
-"""Decoder stack of attention blocks with a dense SwiGLU MLP.
+"""Decoder stack of attention and Mamba blocks, each with a dense SwiGLU
+MLP.
 
-Parameters are declared stacked along a leading "layers" axis, as in the
-reference (one period per layer for the ``("attn",)`` pattern), so both
+Parameters are declared stacked along a leading period axis, as in the
+reference: a period is one repetition of ``cfg.pattern()`` (one layer for
+``("attn",)``; jamba's 7 Mamba blocks and 1 attention block), so both
 packages count and initialise the same tree.  The port holds one
-:class:`ParamModule` per layer in an ``nn.ModuleList`` and runs the layers
-in a Python loop where the reference scans; inference needs no remat.
-Mamba, mLSTM/sLSTM, MoE and encoder-decoder blocks are later slices
-(ROADMAP queue 1, item 11).
+:class:`ParamModule` per period in an ``nn.ModuleList`` and runs the periods
+and the blocks within each in Python loops where the reference scans;
+inference needs no remat.  mLSTM/sLSTM, MoE and encoder-decoder blocks are
+later slices (ROADMAP queue 1, item 11).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import attention as attn
+from . import ssm
 from .common import ParamDef, rms_norm, swiglu
 
 
@@ -50,14 +53,18 @@ def mlp_defs(cfg: ModelConfig, stack: int) -> dict:
 
 
 def _block_defs(cfg: ModelConfig, kind: str, stack: int) -> dict:
-    if kind != "attn" or cfg.attention != "gqa" or cfg.is_moe:
+    if kind not in ("attn", "mamba") or cfg.attention != "gqa" or cfg.is_moe:
         raise NotImplementedError(
-            f"{cfg.name}: only GQA attention blocks with a dense MLP are ported "
-            "(ROADMAP queue 1, item 11)"
+            f"{cfg.name}: only GQA attention and Mamba blocks with a dense MLP "
+            "are ported (ROADMAP queue 1, item 11)"
         )
     d = cfg.d_model
     norm = lambda: ParamDef((stack, d), ("layers", "embed_w"), init="ones")
-    defs: dict = {"norm1": norm(), "attn": attn.gqa_defs(cfg, stack)}
+    defs: dict = {"norm1": norm()}
+    if kind == "attn":
+        defs["attn"] = attn.gqa_defs(cfg, stack)
+    else:
+        defs["mamba"] = ssm.mamba_defs(cfg, stack)
     if cfg.d_ff > 0:
         defs["norm2"] = norm()
         defs["mlp"] = mlp_defs(cfg, stack)
@@ -73,10 +80,7 @@ def decoder_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.padded_vocab), ("embed_w", "vocab"))
-    defs["blocks"] = {
-        f"b{i}_{kind}": _block_defs(cfg, kind, stack)
-        for i, kind in enumerate(cfg.pattern())
-    }
+    defs["blocks"] = {key: _block_defs(cfg, kind, stack) for key, kind in block_keys(cfg)}
     return defs
 
 
@@ -92,19 +96,29 @@ def _ffn_half(bp: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return x
 
 
-def apply_block(bp: nn.Module, x: torch.Tensor, cfg: ModelConfig, mode: str,
+def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, cfg: ModelConfig, mode: str,
                 state: dict | None, positions):
-    """One attention block.  ``mode`` is "prefill" (``positions`` (B, S);
-    returns the block's new KV cache) or "decode" (``positions`` is the
-    shared int position; ``state`` is the block's cache, updated in
-    place)."""
-    h = rms_norm(x, bp.norm1, cfg.norm_eps)
-    if mode == "decode":
-        y, new_state = attn.gqa_decode(bp.attn, h, cfg, state, positions)
-    elif mode == "prefill":
-        y, new_state = attn.gqa_prefill(bp.attn, h, cfg, positions, make_cache=True)
-    else:
+    """One block of ``kind`` ("attn" or "mamba").  ``mode`` is "prefill"
+    (``positions`` (B, S); returns the block's new cache or state, a Mamba
+    block's from zero state as in the reference) or "decode"
+    (``positions`` is the shared int position; ``state`` is the block's
+    cache or state, updated in place)."""
+    if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    h = rms_norm(x, bp.norm1, cfg.norm_eps)
+    if kind == "attn" and mode == "decode":
+        y, new_state = attn.gqa_decode(bp.attn, h, cfg, state, positions)
+    elif kind == "attn":
+        y, new_state = attn.gqa_prefill(bp.attn, h, cfg, positions, make_cache=True)
+    elif kind == "mamba" and mode == "decode":
+        y, ns = ssm.mamba_decode(bp.mamba, h, cfg, state)
+        for name, t in ns.items():
+            state[name].copy_(t)
+        new_state = state
+    elif kind == "mamba":
+        y, new_state = ssm.mamba_block(bp.mamba, h, cfg)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
     x = x + y
     return _ffn_half(bp, x, cfg), new_state
 
@@ -114,17 +128,43 @@ def apply_block(bp: nn.Module, x: torch.Tensor, cfg: ModelConfig, mode: str,
 # ---------------------------------------------------------------------------
 
 
+def block_keys(cfg: ModelConfig) -> list[tuple[str, str]]:
+    """(key, kind) of each block of one period: ``("b0_mamba", "mamba")``
+    ...; the keys of the reference's parameter and cache trees."""
+    return [(f"b{i}_{kind}", kind) for i, kind in enumerate(cfg.pattern())]
+
+
+def period_tree(cfg: ModelConfig, blocks: dict) -> dict:
+    """The tree one period's module holds, from the reference's ``blocks``
+    tree.  An ``("attn",)`` period's module is its one block (state-dict
+    names ``blocks.<i>.attn.wq``); longer patterns keep the block keys
+    (``blocks.<i>.b3_attn.attn.wq``)."""
+    return blocks["b0_attn"] if cfg.pattern() == ("attn",) else blocks
+
+
+def period_block(period: nn.Module, cfg: ModelConfig, key: str) -> nn.Module:
+    """One block's parameters within a period's module (see
+    :func:`period_tree`)."""
+    return period if cfg.pattern() == ("attn",) else getattr(period, key)
+
+
 def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                       mode: str, caches: dict | None = None, positions=None):
-    """Returns (x, caches).  Caches keep the reference's layout:
-    ``{"b0_attn": {"k": (L, B, T, KV, hd), "v": ...}}``.  Prefill stacks the
-    layers' new caches; decode updates ``caches`` in place and returns it."""
-    key = "b0_attn"
-    new: list[dict] = []
-    for i, bp in enumerate(blocks):
-        state = None if caches is None else {n: c[i] for n, c in caches[key].items()}
-        x, ns = apply_block(bp, x, cfg, mode, state, positions)
-        new.append(ns)
+    """Returns (x, caches).  ``blocks`` holds one module per period.  Caches
+    keep the reference's layout, one entry per block of the period stacked
+    along the period axis: ``{"b0_attn": {"k": (P, B, T, KV, hd), "v": ...},
+    "b1_mamba": {"h": (P, B, di, N), "conv": (P, B, d_conv-1, di)}}``.
+    Prefill stacks the periods' new caches; decode updates ``caches`` in
+    place and returns it."""
+    keys = block_keys(cfg)
+    new: dict[str, list[dict]] = {key: [] for key, _ in keys}
+    for i, period in enumerate(blocks):
+        for key, kind in keys:
+            state = None if caches is None else {n: c[i] for n, c in caches[key].items()}
+            x, ns = apply_block(period_block(period, cfg, key), kind, x, cfg, mode,
+                                state, positions)
+            new[key].append(ns)
     if mode == "decode":
         return x, caches
-    return x, {key: {n: torch.stack([s[n] for s in new]) for n in new[0]}}
+    return x, {key: {n: torch.stack([s[n] for s in per]) for n in per[0]}
+               for key, per in new.items()}

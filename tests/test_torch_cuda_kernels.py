@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
 version, the simulator's sparse tick running through the flow kernel, and
-the model's prefill and decode running through the RMSNorm and flash
-kernels.
+the models' prefill and decode running through the RMSNorm, flash and
+selective-scan kernels.
 
 This file imports no JAX, so it runs on a machine that has only the port's
 dependencies.  Every test carries the ``cuda`` marker and skips where
@@ -19,6 +19,7 @@ from repro_torch.core import ContainerDim, round_robin_configuration
 from repro_torch.interop import stage_padded
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_reference
 from repro_torch.kernels.stream_flow import (
     ell_rows,
     stream_flow_ell,
@@ -258,3 +259,111 @@ def test_model_on_card_runs_the_kernels_and_matches_the_host(cuda, arch):
     L = cfg.n_layers
     assert (rmsnorm.launches, flash_attention.launches) == (before[0] + 2 * L + 1, before[1] + L)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+# ----------------------------------------------------------------- ssm scan
+# fp32: rtol 1e-5, atol 1e-5·max|y| (the sum over the state width runs in
+# another order); bf16 inputs: 3e-2, as the reference holds its Pallas
+# kernel to its oracle.
+
+
+def _scan_inputs(cuda, B, S, D, N, dtype=torch.float32, seed=0, strided=False):
+    """Seeded inputs in the Mamba block's ranges, non-zero h0; with
+    ``strided`` B and C are slices of one projection, as the block makes
+    them."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    dt = torch.nn.functional.softplus(r(B, S, D)) * 0.1
+    x = r(B, S, D)
+    if strided:
+        proj = r(B, S, 3 + 2 * N) * 0.5
+        _, bm, cm = proj.split([3, N, N], dim=-1)
+    else:
+        bm, cm = r(B, S, N) * 0.5, r(B, S, N) * 0.5
+    a = -torch.exp(r(D, N) * 0.3)
+    h0 = r(B, D, N) * 0.1
+    return dt.to(dtype), x.to(dtype), bm.to(dtype), cm.to(dtype), a, h0
+
+
+def _scan_close(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5 * float(w.abs().max()))
+        else:
+            torch.testing.assert_close(g, w, rtol=3e-2, atol=3e-2)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 168, 16384, 16),   # jamba's longest serving prompt
+    (1, 7, 16384, 16),
+    (1, 130, 16384, 16),   # S not a multiple of the kernel's 32-step ranges
+    (4, 1, 16384, 16),     # decode
+    (2, 100, 48, 4),       # the reference kernel tests' odd shape
+    (3, 33, 200, 8),       # D not a multiple of the 128-channel block
+])
+def test_ssm_scan_kernel_matches_plain_version(cuda, shape):
+    B, S, D, N = shape
+    args = _scan_inputs(cuda, B, S, D, N, seed=S + N, strided=True)
+    before = ssm_scan.launches
+    got = ssm_scan(*args)
+    want = ssm_scan_reference(*args)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    _scan_close(got, want, torch.float32)
+    again = ssm_scan(*args)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))   # fixed order
+
+
+def test_ssm_scan_kernel_bf16_inputs(cuda):
+    args = _scan_inputs(cuda, 2, 75, 1000, 16, dtype=torch.bfloat16, seed=2)
+    got = ssm_scan(*args)
+    want = ssm_scan_reference(*args)
+    torch.cuda.synchronize()
+    _scan_close(got, want, torch.bfloat16)
+
+
+def test_ssm_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    dt, x, bm, cm, a, h0 = _scan_inputs(cuda, 1, 8, 64, 16)
+    with pytest.raises(ValueError, match="state width"):
+        ssm_scan(*_scan_inputs(cuda, 1, 8, 64, 17))
+    with pytest.raises(ValueError, match="x is"):
+        ssm_scan(dt, x.bfloat16(), bm, cm, a, h0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ssm_scan(*(t.half() for t in (dt, x, bm, cm)), a, h0)
+    with pytest.raises(ValueError, match="h0 is on"):
+        ssm_scan(dt, x, bm, cm, a, h0.cpu())
+    with pytest.raises(ValueError, match="bmat must have shape"):
+        ssm_scan(dt, x, bm[:, :4], cm, a, h0)
+
+
+def test_hybrid_model_on_card_runs_the_kernels_and_matches_the_host(cuda):
+    import dataclasses
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b@smoke"), n_experts=0,
+                              experts_per_token=0)
+    host = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=cuda, seed=0)
+    card.load_state_dict(host.state_dict())
+    tokens = torch.arange(4, 44).reshape(1, 40) % cfg.vocab
+    before = (rmsnorm.launches, flash_attention.launches, ssm_scan.launches)
+    got, gc = card.forward_prefill(tokens.to(cuda))
+    want, hc = host.forward_prefill(tokens)
+    caches = {"card": card.cache_struct(1, 48), "host": host.cache_struct(1, 48)}
+    for name, c1 in (("card", gc), ("host", hc)):
+        caches[name]["b1_attn"]["k"][:, :, :40] = c1["b1_attn"]["k"]
+        caches[name]["b1_attn"]["v"][:, :, :40] = c1["b1_attn"]["v"]
+        for n in ("h", "conv"):
+            caches[name]["b0_mamba"][n].copy_(c1["b0_mamba"][n])
+    gd, _ = card.forward_decode(torch.tensor([[7]], device=cuda), caches["card"], 40)
+    wd, _ = host.forward_decode(torch.tensor([[7]]), caches["host"], 40)
+    torch.cuda.synchronize()
+    P = cfg.n_periods()                 # one Mamba and one attention block per period
+    assert (rmsnorm.launches, flash_attention.launches, ssm_scan.launches) == (
+        before[0] + 2 * (2 * cfg.n_layers + 1), before[1] + P, before[2] + 2 * P)
+    for g, w in ((got, want), (gd, wd)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
+    for n in ("h", "conv"):
+        w = caches["host"]["b0_mamba"][n]
+        torch.testing.assert_close(caches["card"]["b0_mamba"][n].cpu(), w, rtol=1e-4,
+                                   atol=1e-4 * float(w.abs().max()))

@@ -146,3 +146,95 @@ def test_configs_resolve_the_same_in_both_packages():
     for arch in list_archs():
         for name in (arch, arch + "@smoke"):
             assert repr(get_config(name)) == repr(jax_get_config(name))
+
+
+# ------------------------------------------------------------------ hybrid
+# jamba@smoke with its MoE layers made dense (n_experts=0): two periods of
+# ("mamba", "attn"), each block with a dense SwiGLU MLP.  The config is
+# built with dataclasses.replace in both packages, never registered.
+
+HYBRID = ("jamba-1.5-large-398b@smoke", dict(n_experts=0, experts_per_token=0))
+
+
+def test_hybrid_parameter_counts_match():
+    arch, changes = HYBRID
+    jm = jax_build_model(dataclasses.replace(jax_get_config(arch), **changes))
+    tm = build_model(dataclasses.replace(get_config(arch), **changes), device="cpu")
+    assert tm.n_params() == jm.n_params()
+    assert sum(p.numel() for p in tm.parameters()) == jm.n_params()
+
+
+def test_one_dense_period_of_jamba_counts_as_in_the_reference():
+    """The served cut: one full-width period of jamba-1.5-large (8 layers,
+    7 Mamba and 1 attention) with dense MLPs, counted without building."""
+    from repro_torch.models.common import count_params
+    from repro_torch.models.transformer import decoder_defs
+
+    changes = dict(n_experts=0, experts_per_token=0, n_layers=8)
+    cut = dataclasses.replace(get_config("jamba-1.5-large-398b"), **changes)
+    jcut = dataclasses.replace(jax_get_config("jamba-1.5-large-398b"), **changes)
+    assert count_params(decoder_defs(cut)) == jax_build_model(jcut).n_params() == 9_116_360_704
+    assert cut.pattern().count("mamba") == 7 and cut.pattern().index("attn") == 3
+
+
+@pytest.mark.parametrize("S", [12, 40])
+def test_hybrid_prefill_and_decode_match_reference(S):
+    """Logits and every cache (attention k, v; Mamba h, conv) over a
+    prefill and 4 decode steps.  S = 40 is not a multiple of the
+    reference's scan chunk (16)."""
+    arch, changes = HYBRID
+    jm, params, tm = _pair(arch, **changes)
+    cfg = tm.cfg
+    rng = np.random.default_rng(S)
+    prompt = rng.integers(0, cfg.vocab, size=(2, S)).astype(np.int32)
+
+    jl, jc = jax.jit(jm.forward_prefill)(params, {"tokens": jnp.asarray(prompt)})
+    tl, tc = tm.forward_prefill(torch.from_numpy(prompt).long())
+    _close(tl, jl, "prefill logits")
+    assert sorted(tc) == sorted(jc) == ["b0_mamba", "b1_attn"]
+    for key in tc:
+        assert sorted(tc[key]) == sorted(jc[key])
+        for name in tc[key]:
+            _close(tc[key][name], jc[key][name], f"prefill {key} {name}")
+
+    ctx = 64
+    jbig = jm.cache_struct(2, ctx, abstract=False, dtype=jnp.float32)
+    tbig = tm.cache_struct(2, ctx)
+    for name in ("k", "v"):
+        jbig["b1_attn"][name] = jbig["b1_attn"][name].at[:, :, :S].set(jc["b1_attn"][name])
+        tbig["b1_attn"][name][:, :, :S] = tc["b1_attn"][name]
+    jbig["b0_mamba"] = jc["b0_mamba"]
+    for name in ("h", "conv"):
+        tbig["b0_mamba"][name].copy_(tc["b0_mamba"][name])
+    jdecode = jax.jit(jm.forward_decode)
+    for step in range(DECODE_STEPS):
+        token = rng.integers(0, cfg.vocab, size=(2, 1)).astype(np.int32)
+        pos = S + step
+        jl, jbig = jdecode(params, jnp.asarray(token), jbig, jnp.asarray(pos, jnp.int32))
+        tl, tbig = tm.forward_decode(torch.from_numpy(token).long(), tbig, pos)
+        _close(tl, jl, f"decode step {step} logits")
+    for key in tbig:
+        for name in tbig[key]:
+            _close(tbig[key][name], jbig[key][name], f"decode {key} {name}")
+
+
+def test_hybrid_state_dict_names_carry_the_block_key():
+    arch, changes = HYBRID
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    jm = jax_build_model(dataclasses.replace(jax_get_config(arch), **changes))
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(3)))
+    sd = model_params_from_numpy(params, cfg)
+    assert np.array_equal(sd["blocks.1.b0_mamba.mamba.in_proj"].numpy(),
+                          params["blocks"]["b0_mamba"]["mamba"]["in_proj"][1])
+    assert np.array_equal(sd["blocks.0.b1_attn.attn.wq"].numpy(),
+                          params["blocks"]["b1_attn"]["attn"]["wq"][0])
+    assert set(sd) == set(build_model(cfg, device="cpu").state_dict())
+
+
+def test_state_dict_from_an_xlstm_tree_raises():
+    jm = jax_build_model(jax_get_config("xlstm-1.3b@smoke"))
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    with pytest.raises(NotImplementedError, match="mlstm|slstm"):
+        model_params_from_numpy(params, get_config("xlstm-1.3b@smoke"))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_model(get_config("xlstm-1.3b@smoke"), device="cpu")

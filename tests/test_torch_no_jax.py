@@ -152,3 +152,70 @@ def test_kernel_libraries_build_into_one_directory_named_by_source():
     assert len({p.name.rsplit("-", 1)[1] for p in paths}) == 3
     assert build.library_path() == paths[2]
     assert build.build_log == build.LIBRARY.build_log
+
+
+_BLOCKED_SERVE_HYBRID = """
+import dataclasses
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import repro_torch.kernels.ssm_scan
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import BatchedServer, Request
+cfg = dataclasses.replace(get_config("jamba-1.5-large-398b@smoke"), n_experts=0,
+                          experts_per_token=0)
+server = BatchedServer(cfg, batch_slots=2, max_ctx=64, device="cpu")
+server.submit(Request(0, np.arange(4, 13, dtype=np.int32), 4))
+server.submit(Request(1, np.arange(4, 21, dtype=np.int32), 3))
+server.submit(Request(2, np.arange(4, 30, dtype=np.int32), 2))
+server.drain()
+assert sorted(len(r.tokens_out) for r in server.completed) == [2, 3, 4], server.completed
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("served", server.decode_steps)
+"""
+
+
+def test_port_serves_the_dense_hybrid_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_SERVE_HYBRID)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "served" in proc.stdout
+
+
+def test_hybrid_model_kernels_count_only_kernel_launches():
+    """A hybrid model's Mamba blocks take the plain scan on CPU tensors, in
+    prefill and decode, which are not launches."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_config("jamba-1.5-large-398b@smoke"), n_experts=0,
+                              experts_per_token=0)
+    model = build_model(cfg, device="cpu")
+    before = (rmsnorm.launches, flash_attention.launches, ssm_scan.launches)
+    logits, _ = model.forward_prefill(torch.arange(4, 12).reshape(1, 8))
+    logits2, _ = model.forward_decode(torch.tensor([[5]]), model.cache_struct(1, 16), 8)
+    assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+    assert (rmsnorm.launches, flash_attention.launches, ssm_scan.launches) == before
+
+
+def test_ssm_scan_library_builds_beside_the_others():
+    """The selective scan builds through the shared helper into
+    ``build/kernels`` under its own name and source hash."""
+    from repro_torch.kernels.flash_attention.ops import LIBRARY as flash
+    from repro_torch.kernels.rmsnorm.ops import LIBRARY as rms
+    from repro_torch.kernels.ssm_scan.ops import LIBRARY as scan
+    from repro_torch.kernels.stream_flow import build
+
+    path = scan.library_path()
+    assert path.parent == ROOT / "build" / "kernels"
+    assert path.name.rsplit("-", 1)[0] == "ssm_scan"
+    assert scan.source == ROOT / "src" / "repro_torch" / "kernels" / "ssm_scan" / "csrc" / "ssm_scan.cu"
+    others = {lib.library_path().name.rsplit("-", 1)[1] for lib in (flash, rms, build.LIBRARY)}
+    assert path.name.rsplit("-", 1)[1] not in others

@@ -91,3 +91,39 @@ def test_context_limit_completes_requests_as_the_reference_does():
     assert {r.rid: r.tokens_out for r in port.completed} == {
         r.rid: r.tokens_out for r in ref.completed}
     assert len(next(r for r in port.completed if r.rid == 0).tokens_out) < 50
+
+
+def test_servers_give_equal_greedy_tokens_on_the_dense_hybrid(monkeypatch):
+    """jamba@smoke with dense MLPs (Mamba and attention blocks): the port
+    serves the replaced config directly; the reference server resolves its
+    arch name through its module's ``get_config``, patched here to return
+    the same replaced config."""
+    import dataclasses
+
+    import repro.launch.serve as jax_serve
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config
+
+    arch, changes = "jamba-1.5-large-398b@smoke", dict(n_experts=0, experts_per_token=0)
+    jcfg = dataclasses.replace(jax_get_config(arch), **changes)
+    monkeypatch.setattr(jax_serve, "get_config", lambda name: jcfg)
+    ref = JaxServer(arch, batch_slots=4, max_ctx=64, seed=0)
+    port = BatchedServer(dataclasses.replace(get_config(arch), **changes), batch_slots=4,
+                         max_ctx=64, device="cpu", seed=1)
+    assert repr(port.cfg) == repr(ref.cfg)
+    port.model.load_state_dict(model_params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, ref.params), port.cfg))
+    gaps, scale = [], []
+    _record_gaps(port, gaps, scale)
+    for rid, prompt, max_new in _requests(port.cfg.vocab):
+        ref.submit(JaxRequest(rid, prompt, max_new))
+        port.submit(Request(rid, prompt, max_new))
+    ref.drain()
+    port.drain()
+
+    assert port.decode_steps == ref.decode_steps
+    want = {r.rid: r.tokens_out for r in ref.completed}
+    got = {r.rid: r.tokens_out for r in port.completed}
+    assert got == want
+    assert all(len(got[rid]) == m for rid, _, m in _requests(port.cfg.vocab))
+    assert min(gaps) > ATOL_REL * max(scale), (min(gaps), max(scale))
