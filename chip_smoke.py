@@ -5,8 +5,11 @@ Builds the four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
 ``build/kernels/`` (one ``nvcc`` per source, all at once), then:
 
 1. holds the flow-step kernel against its plain PyTorch version on the
-   card, on seeded random problems and on the padded arrays of a
-   20,000-ktps ``deep_pipeline`` allocation;
+   card, on seeded random problems (up to I = 4096, K = 2048, over the 48
+   KB a block gets without opting in) and on the padded arrays of a
+   20,000-ktps ``deep_pipeline`` allocation, and checks that the
+   allocation's row gives bit-equal results alone, inside a batch of 32,
+   padded to larger I/K/E/D and at two forced cluster sizes;
 2. drives the paper's workflow on ``deep_pipeline`` through the port's
    entry points: profile a test deployment (``training_sweep``), fit node
    models, predict three unseen packings and measure them, allocate for
@@ -39,6 +42,8 @@ Builds the four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
 
 and times each kernel, its plain version and, where there is one, the
 PyTorch call that computes the same function at the main paths' shapes.
+The flow kernel's launches in phases 2-3 are counted by input shape, and
+it is timed at every one of those shapes.
 Any failed phase raises and the script exits non-zero.  The last line is a
 JSON object with ``"ok": true`` and the device; the line before it lists
 each kernel with its launches on the main paths, its error against the
@@ -130,30 +135,48 @@ def random_flow_problem(rng, batch, n_inst, n_cont, n_edges, device):
     return stage_padded(stacked, device)
 
 
-def padded_flow_problem(configs, params, rng, device):
-    """The flow-step inputs of a batch of configurations, padded as the
-    sparse tick pads them, with a seeded random ``qout``."""
+def padded_structures(configs, params, buckets=None):
+    """Each configuration's structure padded as the sparse tick pads a batch
+    of them, or to ``buckets`` = (I, K, E, D_out, D_in), with its stream
+    managers' budget per tick; and the structures."""
     import numpy as np
-    from repro_torch.interop import stage_padded
     from repro_torch.streams import (
         bucket_size, degree_bucket_size, edge_bucket_size, pad_structure,
         structure_for,
     )
 
     sts = [structure_for(c, params) for c in configs]
-    I = bucket_size(max(s.n_inst for s in sts))
-    K = bucket_size(max(s.n_cont for s in sts))
-    E = edge_bucket_size(max(s.n_edges for s in sts))
-    d_out = degree_bucket_size(max(s.d_out for s in sts))
-    d_in = degree_bucket_size(max(s.d_in for s in sts))
+    if buckets is None:
+        buckets = (
+            bucket_size(max(s.n_inst for s in sts)),
+            bucket_size(max(s.n_cont for s in sts)),
+            edge_bucket_size(max(s.n_edges for s in sts)),
+            degree_bucket_size(max(s.d_out for s in sts)),
+            degree_bucket_size(max(s.d_in for s in sts)),
+        )
     arrays = []
     for s in sts:
-        a = pad_structure(s, I, K, E, d_out, d_in)
-        a["qout"] = (rng.uniform(0.0, 5.0, I) * a["inst_mask"]).astype(np.float32)
+        a = pad_structure(s, *buckets)
         a["sm_budget"] = (params.dt / np.maximum(a["sm_cost_eff"], 1e-9)).astype(np.float32)
         arrays.append(a)
-    stacked = {k: np.stack([a[k] for a in arrays]) for k in arrays[0]}
-    return stage_padded(stacked, device)
+    return arrays, sts
+
+
+def stage_rows(arrays, device):
+    import numpy as np
+    from repro_torch.interop import stage_padded
+    return stage_padded({k: np.stack([a[k] for a in arrays]) for k in arrays[0]}, device)
+
+
+def padded_flow_problem(configs, params, rng, device):
+    """The flow-step inputs of a batch of configurations, padded as the
+    sparse tick pads them, with a seeded random ``qout``."""
+    import numpy as np
+
+    arrays, _ = padded_structures(configs, params)
+    for a in arrays:
+        a["qout"] = (rng.uniform(0.0, 5.0, a["inst_mask"].shape[0]) * a["inst_mask"]).astype(np.float32)
+    return stage_rows(arrays, device)
 
 
 KERNEL_ARGS = (
@@ -200,6 +223,88 @@ def check_kernel(name, p) -> float:
         f"K={p['sm_budget'].shape[1]} E={p['edge_src'].shape[1]} "
         f"D=({p['ell_src'].shape[2]},{p['ell_dst'].shape[2]}) max|kernel-plain|={worst:.3e}")
     return worst
+
+
+def members_of(p):
+    """The container member lists of a staged problem, built once, as the
+    simulator builds them once per run."""
+    from repro_torch.kernels.stream_flow import container_members
+    return container_members(p["cont_of"], p["sm_budget"].shape[1])
+
+
+def phase_bitwise(device, params, alloc_config, others, rng) -> None:
+    """One allocation row alone, the same row inside a batch of 32, the same
+    row padded to larger I/K/E/D, and the row alone at two forced cluster
+    sizes: the kernel's delivered, arrivals and trav_c must be bit-equal
+    over the real instances and containers."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.stream_flow import stream_flow_ell
+
+    configs = [alloc_config] + list(others)
+    arrays, sts = padded_structures(configs, params)
+    qouts = [rng.uniform(0.0, 5.0, s.n_inst).astype(np.float32) for s in sts]
+
+    def with_qout(arrays, qouts):
+        for a, q in zip(arrays, qouts):
+            a["qout"] = np.zeros(a["inst_mask"].shape[0], np.float32)
+            a["qout"][: q.shape[0]] = q
+        return stage_rows(arrays, device)
+
+    def run(p, **kw):
+        return stream_flow_ell(*[p[k] for k in KERNEL_ARGS], None, *members_of(p), **kw)
+
+    single_arrays, _ = padded_structures(configs[:1], params)
+    single = with_qout(single_arrays, qouts[:1])
+    I, K, E = single["qout"].shape[1], single["sm_budget"].shape[1], single["edge_src"].shape[1]
+    bigger = (I + 512, K + 512, E + 8192, 2 * single["ell_src"].shape[2], 2 * single["ell_dst"].shape[2])
+    padded_arrays, _ = padded_structures(configs[:1], params, buckets=bigger)
+    padded = with_qout(padded_arrays, qouts[:1])
+    batch = with_qout(arrays, qouts)
+    alone = run(single)
+    runs = {
+        f"in the batch of {len(configs)} (I={batch['qout'].shape[1]})": run(batch),
+        "padded to (I, K, E, D_out, D_in) = " + str(bigger): run(padded),
+        "at cluster size 1": run(single, cluster_size=1),
+        "at cluster size 4": run(single, cluster_size=4),
+    }
+    torch.cuda.synchronize()
+    n_inst, n_cont = sts[0].n_inst, sts[0].n_cont
+    for label, outs in runs.items():
+        for got, want, n, name in zip(outs, alone, (n_inst, n_inst, n_cont),
+                                      ("delivered", "arrivals", "trav_c")):
+            if not torch.equal(got[0, :n], want[0, :n]):
+                diff = float((got[0, :n] - want[0, :n]).abs().max())
+                raise AssertionError(f"bitwise: {name} {label} differs from the row alone by up to {diff:.3e}")
+        log(f"  bitwise: the allocation row {label}: equal to the row alone")
+
+
+def recorder_key(p) -> tuple:
+    B, I = p["qout"].shape
+    return (B, I, p["sm_budget"].shape[1], p["edge_src"].shape[1],
+            p["ell_src"].shape[2], p["ell_dst"].shape[2])
+
+
+class LaunchRecorder:
+    """Stands in for the simulator's ``stream_flow_ell`` during the main
+    path: counts the kernel's launches by input shape (B, I, K, E, D_out,
+    D_in) and keeps each shape's first inputs for timing afterwards.  The
+    count itself is the wrapper's, read from ``.launches``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.counts: dict[tuple, int] = {}
+        self.inputs: dict[tuple, list] = {}
+
+    def __call__(self, *args, **kwargs):
+        before = self.fn.launches
+        out = self.fn(*args, **kwargs)
+        if self.fn.launches > before:
+            key = recorder_key(dict(zip(KERNEL_ARGS, args)))
+            self.counts[key] = self.counts.get(key, 0) + 1
+            if key not in self.inputs:
+                self.inputs[key] = [a.clone() if a is not None else None for a in args]
+        return out
 
 
 # ------------------------------------------------------------------ timing
@@ -282,25 +387,43 @@ def flow_bound(p) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, flops
 
 
-def time_flow(label, p, C):
+def time_flow(label, p, C) -> dict:
+    """The kernel (with the member lists built once, as the tick passes
+    them), its plain version and the ``index_add_`` segment sums on one
+    problem: device time from CUDA-graph replay, eager time beside it."""
     from repro_torch.kernels.stream_flow import (
         stream_flow_ell, stream_flow_ell_reference, stream_flow_reference,
     )
     args = [p[k] for k in KERNEL_ARGS]
+    kernel_args = args + [C, *members_of(p)]
     seg_args = [p[k] for k in SEGMENT_ARGS]
     n_inst, n_cont = p["qout"].shape[1], p["sm_budget"].shape[1]
-    ms = cuda_ms(lambda: stream_flow_ell(*args), iters=100)
-    plain_ms = cuda_ms(lambda: stream_flow_ell_reference(*args, C), iters=50)
-    library_ms = cuda_ms(
-        lambda: stream_flow_reference(*seg_args, n_inst=n_inst, n_cont=n_cont),
-        iters=50,
+    ms, eager_ms = time_both(lambda: stream_flow_ell(*kernel_args), iters=100)
+    plain_ms, plain_eager = time_both(lambda: stream_flow_ell_reference(*args, C), iters=20)
+    library_ms, library_eager = time_both(
+        lambda: stream_flow_reference(*seg_args, n_inst=n_inst, n_cont=n_cont), iters=20,
     )
     bound_ms, bound_by, nbytes, flops = flow_bound(p)
-    log(f"  {label}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-        f"index_add_ {library_ms:.4f} ms  bound {bound_ms:.5f} ms ({bound_by}: "
-        f"{nbytes} B, {flops} flop)")
+    log(f"  {label} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+        f"index_add_ {library_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}: "
+        f"{nbytes} B, {flops} flop); eager with launch cost: kernel {eager_ms:.5f}  "
+        f"plain {plain_eager:.5f}  index_add_ {library_eager:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, eager_ms=eager_ms)
+
+
+def time_recorded(key, inputs) -> dict:
+    """The kernel and its plain version on the first inputs the main path
+    gave it at one of its smaller shapes."""
+    from repro_torch.kernels.stream_flow import stream_flow_ell, stream_flow_ell_reference
+    p = dict(zip(KERNEL_ARGS, inputs))
+    ms, eager_ms = time_both(lambda: stream_flow_ell(*inputs), iters=100)
+    plain_ms, plain_eager = time_both(lambda: stream_flow_ell_reference(*inputs[:11]), iters=20)
+    bound_ms, bound_by, _, _ = flow_bound(p)
+    log(f"  B={key[0]} I={key[1]} K={key[2]} E={key[3]} D=({key[4]},{key[5]}) device (graph): "
+        f"kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}); "
+        f"eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, eager_ms=eager_ms)
 
 
 def log_device_time(prof, wall_ms: float, header: str, top: int) -> None:
@@ -921,31 +1044,50 @@ def main() -> int:
         device, rng, oracle_alloc.config, params,
         sizes=[(8, 32, 8, 100), (8, 1024, 512, 49152)],
     )
+    # a separate generator, so the one phase 3's candidates come from is
+    # where it was before these checks
+    check_rng = np.random.default_rng(15)
+    big = random_flow_problem(check_rng, 2, 4096, 2048, 196608, device)
+    max_err = max(max_err, check_kernel("random(4096,2048,196608)", big))
+    del big
+    phase_bitwise(device, params, oracle_alloc.config,
+                  candidate_configs(oracle_alloc, 32, check_rng)[1:], check_rng)
     timings["phase1"] = time.perf_counter() - t0
 
+    from repro_torch.streams import simulator
+    recorder = LaunchRecorder(simulator.stream_flow_ell)
+    simulator.stream_flow_ell = recorder
     stream_flow_ell.launches = 0
-    t0 = time.perf_counter()
-    log("phase 2: main path on deep_pipeline")
-    result = phase_main_path(device, params, dim, TARGET_KTPS, sweep_s=8.0, measure_s=10.0)
-    torch.cuda.synchronize()
-    timings["phase2"] = time.perf_counter() - t0
-    launches_main = stream_flow_ell.launches
-    log(f"  stream_flow_ell launches in phase 2: {launches_main}")
+    try:
+        t0 = time.perf_counter()
+        log("phase 2: main path on deep_pipeline")
+        result = phase_main_path(device, params, dim, TARGET_KTPS, sweep_s=8.0, measure_s=10.0)
+        torch.cuda.synchronize()
+        timings["phase2"] = time.perf_counter() - t0
+        launches_main = stream_flow_ell.launches
+        log(f"  stream_flow_ell launches in phase 2: {launches_main}")
 
-    t0 = time.perf_counter()
-    log("phase 3: 32 candidates around the allocation (sparse, summary)")
-    candidates = candidate_configs(result, 32, rng)
-    phase_batch(device, params, candidates, duration_s=20.0)
-    torch.cuda.synchronize()
-    timings["phase3"] = time.perf_counter() - t0
-    launches = stream_flow_ell.launches
+        t0 = time.perf_counter()
+        log("phase 3: 32 candidates around the allocation (sparse, summary)")
+        candidates = candidate_configs(result, 32, rng)
+        phase_batch(device, params, candidates, duration_s=20.0)
+        torch.cuda.synchronize()
+        timings["phase3"] = time.perf_counter() - t0
+        launches = stream_flow_ell.launches
+    finally:
+        simulator.stream_flow_ell = recorder.fn
     log(f"  stream_flow_ell launches in phase 3: {launches - launches_main}")
     log(f"stream_flow_ell.launches after phases 2-3: {launches}")
+    for key, n in sorted(recorder.counts.items()):
+        log(f"  launches at B={key[0]} I={key[1]} K={key[2]} E={key[3]} D=({key[4]},{key[5]}): {n}")
     if launches <= 0:
         raise AssertionError("the main path never launched the stream_flow kernel")
+    if sum(recorder.counts.values()) != launches:
+        raise AssertionError(f"launches by shape {recorder.counts} do not add up to {launches}")
 
     t0 = time.perf_counter()
-    log("timing at the main path's shapes (CUDA events)")
+    log("timing stream_flow_ell at the main path's shapes "
+        "(device time from CUDA-graph replay; eager time from CUDA events)")
     p1 = padded_flow_problem([result.config], params, rng, device)
     C1 = torch.nn.functional.one_hot(p1["cont_of"].long(), p1["sm_budget"].shape[1]).float()
     t_b1 = time_flow("batch 1 (allocation)", p1, C1)
@@ -953,6 +1095,20 @@ def main() -> int:
     C32 = torch.nn.functional.one_hot(p32["cont_of"].long(), p32["sm_budget"].shape[1]).float()
     t_b32 = time_flow("batch 32 (candidates)", p32, C32)
     max_err = max(max_err, check_kernel("batch 32 (candidates)", p32))
+    by_shape = {}
+    for key in sorted(recorder.counts):
+        if key == recorder_key(p1):
+            by_shape[key] = t_b1
+        elif key == recorder_key(p32):
+            by_shape[key] = t_b32
+        else:
+            by_shape[key] = time_recorded(key, recorder.inputs[key])
+    for key, t in by_shape.items():
+        n = recorder.counts[key]
+        log(f"  launches x (time - bound) at B={key[0]} I={key[1]}: {n} x "
+            f"({t['ms']:.5f} - {t['bound_ms']:.6f}) ms = {n * (t['ms'] - t['bound_ms']):.3f} ms")
+    flow_excess = excess_ms([(recorder.counts[k], t) for k, t in by_shape.items()])
+    log(f"stream_flow_ell launches x (time - bound) in phases 2-3: {flow_excess:.3f} ms")
     log("profile: where a tick's time goes (32 candidates, sparse, summary)")
     profile_ticks(device, params, candidates, duration_s=1.0)
     timings["timing"] = time.perf_counter() - t0
@@ -1064,7 +1220,8 @@ def main() -> int:
         dict(name="stream_flow_ell", route="cuda",
              source="src/repro_torch/kernels/stream_flow/csrc/stream_flow.cu",
              replaces="src/repro/kernels/stream_flow/stream_flow.py:94",
-             launches=launches, max_abs_err=max_err, **t_b32),
+             launches=launches, max_abs_err=max_err,
+             **{k: t_b32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23",

@@ -1,8 +1,10 @@
 """Sparse flow step of the simulator's tick: CUDA kernel and plain versions."""
-from .ops import index_dtype, stream_flow_ell
-from .ref import ell_rows, stream_flow_ell_reference, stream_flow_reference
+from .ops import cluster_size_for, index_dtype, stream_flow_ell
+from .ref import (
+    container_members, ell_rows, stream_flow_ell_reference, stream_flow_reference,
+)
 
 __all__ = [
-    "ell_rows", "index_dtype", "stream_flow_ell", "stream_flow_ell_reference",
-    "stream_flow_reference",
+    "cluster_size_for", "container_members", "ell_rows", "index_dtype",
+    "stream_flow_ell", "stream_flow_ell_reference", "stream_flow_reference",
 ]

@@ -12,10 +12,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "stream_flow.cu"
 
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.stream_flow_ell_launch.argtypes = [ptr] * 13 + [i32] * 6 + [ptr]
+    lib.stream_flow_ell_launch.argtypes = [ptr] * 14 + [i32] * 8 + [ptr]
     lib.stream_flow_ell_launch.restype = ctypes.c_int
     lib.stream_flow_ell_smem_bytes.argtypes = [i32, i32]
     lib.stream_flow_ell_smem_bytes.restype = ctypes.c_size_t
+    lib.stream_flow_ell_error_string.argtypes = [i32]
+    lib.stream_flow_ell_error_string.restype = ctypes.c_char_p
 
 
 LIBRARY = KernelLibrary("stream_flow", SOURCE, _bind)

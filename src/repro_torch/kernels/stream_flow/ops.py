@@ -7,19 +7,33 @@ either launches the kernel or raises; there is no fallback.
 
 The kernel replaces the reference package's Pallas TPU kernels
 ``kernels/stream_flow/stream_flow.py:_demand_kernel`` / ``:_flow_kernel``.
-It is bound by bytes (the ELL rows and per-edge arrays, read once per
-pass); see the note at the top of the CUDA source for what its design does
-about that.
+It is bound by bytes (the real ELL slots and the per-edge arrays they
+index); see the note at the top of the CUDA source for what its design does
+about that.  Each batch row runs on one thread-block cluster, so the kernel
+needs a card with thread-block clusters (``sm_90a``, Hopper).
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
 from . import build
-from .ref import stream_flow_ell_reference
+from .ref import container_members, stream_flow_ell_reference
 
-#: Shared memory a block may use without opting in to the larger carve-out.
-SMEM_LIMIT_BYTES = 48 * 1024
+#: Shared memory one block may use on an H100 (opted in above 48 KB).  Each
+#: CTA holds (4 I + 2 K + 1) words, so the largest row is, for example,
+#: I = 11,264 instances with K = 5,632 containers (225,284 bytes).
+SMEM_LIMIT_BYTES = 232_448
+#: Largest cluster the kernel launches (above 8 CTAs needs the non-portable
+#: opt-in, which the launch sets).
+MAX_CLUSTER = 16
+#: Fewest instances a CTA of a cluster larger than one owns: below that a
+#: CTA's warps would outnumber its ELL rows.
+MIN_SLICE = 64
+#: Threads per CTA at most (one warp per ELL row it walks).
+MAX_THREADS = 1024
 
 
 def index_dtype(device: torch.device) -> torch.dtype:
@@ -29,7 +43,29 @@ def index_dtype(device: torch.device) -> torch.dtype:
     return torch.int32 if torch.device(device).type == "cuda" else torch.int64
 
 
-def _check(qout, edge_arrays, ell_src, ell_dst, cont_of, sm_budget) -> None:
+def cluster_size_for(batch: int, n_inst: int, n_sms: int = 132) -> int:
+    """CTAs per batch row: the smallest power of two that puts a CTA on
+    every SM (``batch · n >= n_sms``), at most :data:`MAX_CLUSTER`, and no
+    more than leaves each CTA :data:`MIN_SLICE` instances."""
+    n = 1
+    while n < MAX_CLUSTER and batch * n < n_sms and n_inst >= MIN_SLICE * 2 * n:
+        n *= 2
+    return n
+
+
+def threads_for(n_inst: int, cluster: int) -> int:
+    """Threads per CTA: one warp per instance of the CTA's slice, up to
+    :data:`MAX_THREADS`."""
+    return 32 * min(MAX_THREADS // 32, math.ceil(n_inst / cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _check(qout, edge_arrays, ell_src, ell_dst, cont_of, sm_budget, cont_ptr,
+           cont_members) -> None:
     B, I = qout.shape
     K = sm_budget.shape[1]
     E = edge_arrays[0].shape[1]
@@ -44,6 +80,8 @@ def _check(qout, edge_arrays, ell_src, ell_dst, cont_of, sm_budget) -> None:
         "ell_dst": (ell_dst, torch.int32, (B, I, ell_dst.shape[-1])),
         "cont_of": (cont_of, torch.int32, (B, I)),
         "sm_budget": (sm_budget, torch.float32, (B, K)),
+        "cont_ptr": (cont_ptr, torch.int32, (B, K + 1)),
+        "cont_members": (cont_members, torch.int32, (B, I)),
     }
     for name, (t, dtype, shape) in expect.items():
         if t.device != qout.device:
@@ -56,15 +94,36 @@ def _check(qout, edge_arrays, ell_src, ell_dst, cont_of, sm_budget) -> None:
             raise ValueError(f"{name} must be contiguous")
     if max(E, I * max(ell_src.shape[-1], ell_dst.shape[-1])) >= 2**31:
         raise ValueError("edge or ELL arrays too large for int32 offsets")
+    if B > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {B}")
 
 
 def stream_flow_ell(
     qout, edge_src, edge_share, edge_remote, edge_src_cont, edge_dst_cont,
-    ell_src, ell_dst, cont_of, sm_budget, C=None,
+    ell_src, ell_dst, cont_of, sm_budget, C=None, cont_ptr=None,
+    cont_members=None, *, cluster_size=None,
 ):
     """One sparse flow step for a batch of rows: ``(delivered, arrivals,
-    trav_c)``.  Arguments as :func:`~.ref.stream_flow_ell_reference`; ``C``
-    (the one-hot container membership) is used only by the plain version.
+    trav_c)``.  Arguments as :func:`~.ref.stream_flow_ell_reference`.
+
+    ``C`` (the one-hot container membership) is used only by the plain
+    version.  ``cont_ptr``/``cont_members`` are the member lists of
+    :func:`~.ref.container_members`, which the kernel sums containers
+    through; a caller that runs many steps builds them once and passes
+    them, else they are built here for this call.  The plain version
+    ignores them.
+
+    Precondition of the kernel: each ELL row lists its real edge ids (those
+    ``< E``) first and its padding after them (:func:`~.ref.ell_rows`'s
+    layout).  A warp stops reading a row at its first chunk of 32 slots
+    that holds a padding id, so a real id after the padding is not summed.
+
+    The kernel runs each row on a cluster of :func:`cluster_size_for` CTAs,
+    each with the whole row in shared memory: a row of I instances and K
+    containers needs (4 I + 2 K + 1)·4 bytes per CTA at any cluster size,
+    and one over :data:`SMEM_LIMIT_BYTES` raises.  ``cluster_size`` forces
+    the cluster size, for tests only: the results are bit for bit the same
+    at every size.
     """
     if qout.device.type == "cpu":
         return stream_flow_ell_reference(
@@ -75,8 +134,12 @@ def stream_flow_ell(
         raise ValueError(f"stream_flow_ell runs on cuda or cpu, not {qout.device}")
     if qout.dim() != 2 or sm_budget.dim() != 2:
         raise ValueError("qout must be (B, I) and sm_budget (B, K)")
+    if (cont_ptr is None) != (cont_members is None):
+        raise ValueError("pass both cont_ptr and cont_members, or neither")
+    if cont_ptr is None:
+        cont_ptr, cont_members = container_members(cont_of, sm_budget.shape[1])
     edges = (edge_src, edge_share, edge_remote, edge_src_cont, edge_dst_cont)
-    _check(qout, edges, ell_src, ell_dst, cont_of, sm_budget)
+    _check(qout, edges, ell_src, ell_dst, cont_of, sm_budget, cont_ptr, cont_members)
     B, I = qout.shape
     K = sm_budget.shape[1]
     E = edge_src.shape[1]
@@ -85,8 +148,13 @@ def stream_flow_ell(
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(
             f"a row of {I} instances and {K} containers needs {smem} bytes of "
-            f"shared memory, over the {SMEM_LIMIT_BYTES}-byte limit"
+            f"shared memory per CTA, over the {SMEM_LIMIT_BYTES}-byte limit"
         )
+    if cluster_size is None:
+        cluster_size = cluster_size_for(B, I, _sm_count(qout.device.index or 0))
+    elif not 1 <= cluster_size <= MAX_CLUSTER:
+        raise ValueError(f"cluster_size must be in 1..{MAX_CLUSTER}, got {cluster_size}")
+    threads = threads_for(I, cluster_size)
     delivered = torch.empty_like(qout)
     arrivals = torch.empty_like(qout)
     trav_c = torch.empty_like(sm_budget)
@@ -96,12 +164,17 @@ def stream_flow_ell(
             qout.data_ptr(), edge_src.data_ptr(), edge_share.data_ptr(),
             edge_remote.data_ptr(), edge_src_cont.data_ptr(),
             edge_dst_cont.data_ptr(), ell_src.data_ptr(), ell_dst.data_ptr(),
-            cont_of.data_ptr(), sm_budget.data_ptr(), delivered.data_ptr(),
-            arrivals.data_ptr(), trav_c.data_ptr(),
-            B, I, K, E, ell_src.shape[2], ell_dst.shape[2], stream,
+            cont_ptr.data_ptr(), cont_members.data_ptr(), sm_budget.data_ptr(),
+            delivered.data_ptr(), arrivals.data_ptr(), trav_c.data_ptr(),
+            B, I, K, E, ell_src.shape[2], ell_dst.shape[2], cluster_size,
+            threads, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"stream_flow_ell launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"stream_flow_ell launch failed (cluster of {cluster_size} CTAs x "
+            f"{threads} threads, {smem} bytes of shared memory each): "
+            f"{lib.stream_flow_ell_error_string(rc).decode()} ({rc})"
+        )
     stream_flow_ell.launches += 1
     return delivered, arrivals, trav_c
 

@@ -115,10 +115,14 @@ def stream_flow_ell_reference(
     cont_of: torch.Tensor,        # (B, I) int container of each instance
     sm_budget: torch.Tensor,      # (B, K) f32
     C: torch.Tensor | None = None,  # (B, I, K) f32 one-hot of cont_of, if the caller has it
+    cont_ptr: torch.Tensor | None = None,      # (B, K + 1) member-list offsets (unused here)
+    cont_members: torch.Tensor | None = None,  # (B, I) member lists (unused here)
 ):
     """The simulator's flow step (per-instance ELL sums, then containers):
     returns ``(delivered, arrivals, trav_c)`` of shapes (B, I), (B, I),
-    (B, K).  ``trav_c`` is before padded-container masking."""
+    (B, K).  ``trav_c`` is before padded-container masking.  The member
+    lists of :func:`container_members` are what the CUDA kernel sums
+    containers through; this version takes and ignores them."""
     K = sm_budget.shape[1]
     if C is None:
         C = torch.nn.functional.one_hot(cont_of.long(), K).to(qout.dtype)
@@ -141,6 +145,22 @@ def stream_flow_ell_reference(
         _ell_sum(f * edge_remote, ell_dst), C
     )
     return delivered, arrivals, trav_c
+
+
+def container_members(cont_of: torch.Tensor, n_cont: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each row's containers as member lists: ``(cont_ptr, cont_members)``.
+
+    ``cont_members`` (B, I) is the instances sorted stably by container, so
+    row ``b``'s container ``k`` holds ``cont_members[b, cont_ptr[b, k] :
+    cont_ptr[b, k + 1]]`` in instance order; ``cont_ptr`` is (B, K + 1).
+    Every instance is listed, padded ones included (they sit in whatever
+    container ``cont_of`` gives them).  Both come in ``cont_of``'s dtype and
+    on its device; ``cont_of`` must lie in ``[0, n_cont)``.
+    """
+    ranked, members = torch.sort(cont_of, dim=1, stable=True)
+    bounds = torch.arange(n_cont + 1, dtype=cont_of.dtype, device=cont_of.device)
+    cont_ptr = torch.searchsorted(ranked, bounds.expand(cont_of.shape[0], -1).contiguous())
+    return cont_ptr.to(cont_of.dtype), members.to(cont_of.dtype)
 
 
 def ell_rows(keys: np.ndarray, n_rows: int, width: int, sentinel: int) -> np.ndarray:

@@ -45,7 +45,7 @@ from ..core.metrics import STREAM_MANAGER, InstanceSamples, MetricsStore
 from ..device import resolve_device
 from ..interop import stage_padded
 from ..kernels.stream_flow.ops import stream_flow_ell
-from ..kernels.stream_flow.ref import ell_rows, to_containers
+from ..kernels.stream_flow.ref import container_members, ell_rows, to_containers
 
 
 @dataclasses.dataclass(frozen=True)
@@ -440,6 +440,8 @@ def _simulate_core(
                 "edge_dst_cont", "ell_src", "ell_dst",
             )
         )
+        # the kernel's per-container sums walk these; built once per run
+        members = container_members(cont_of, K)
     else:
         raise ValueError(f"backend={backend!r} not in ('dense', 'sparse')")
 
@@ -529,7 +531,7 @@ def _simulate_core(
                 )
             else:
                 delivered, arrivals, trav_c = stream_flow_ell(
-                    qout, *edge_args, cont_of, sm_budget, C
+                    qout, *edge_args, cont_of, sm_budget, C, *members
                 )
             qout = qout - delivered
             qin = qin + torch.where(is_source, 0.0, arrivals)

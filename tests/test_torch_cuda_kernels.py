@@ -21,6 +21,7 @@ from repro_torch.kernels.flash_attention import flash_attention, flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_reference
 from repro_torch.kernels.stream_flow import (
+    container_members,
     ell_rows,
     stream_flow_ell,
     stream_flow_ell_reference,
@@ -128,6 +129,109 @@ def test_sparse_tick_runs_the_kernel_and_matches_dense(cuda):
     host = measure_capacity(cfg, params, duration_s=4.0, tick_kernel="sparse", device="cpu")
     # the two devices draw different noise streams: same distribution only
     assert sparse == pytest.approx(host, rel=0.05)
+
+
+def _pad_rows(p, n_inst, n_cont, n_edges, degree):
+    """``p`` padded to larger I/K/E/D as the simulator pads: new instances
+    in the last container with zero qout and empty ELL rows, new edges with
+    zero share, every padding id moved to the new E."""
+    B, I = p["qout"].shape
+    K, E = p["sm_budget"].shape[1], p["edge_src"].shape[1]
+
+    def grow(x, shape, fill):
+        out = torch.full(shape, fill, dtype=x.dtype, device=x.device)
+        out[tuple(slice(0, n) for n in x.shape)] = x
+        return out
+
+    def ell(x):
+        x = torch.where(x >= E, n_edges, x)
+        return grow(x, (B, n_inst, degree), n_edges)
+
+    return dict(
+        qout=grow(p["qout"], (B, n_inst), 0.0),
+        edge_src=grow(p["edge_src"], (B, n_edges), n_inst - 1),
+        edge_share=grow(p["edge_share"], (B, n_edges), 0.0),
+        edge_remote=grow(p["edge_remote"], (B, n_edges), 0.0),
+        edge_src_cont=grow(p["edge_src_cont"], (B, n_edges), n_cont - 1),
+        edge_dst_cont=grow(p["edge_dst_cont"], (B, n_edges), n_cont - 1),
+        ell_src=ell(p["ell_src"]),
+        ell_dst=ell(p["ell_dst"]),
+        cont_of=grow(p["cont_of"], (B, n_inst), n_cont - 1),
+        sm_budget=grow(p["sm_budget"], (B, n_cont), 1.0),
+    )
+
+
+def _with_members(p):
+    return [p[k] for k in ELL_ARGS] + [None, *container_members(p["cont_of"], p["sm_budget"].shape[1])]
+
+
+@pytest.mark.parametrize("shape", [(6, 8, 4, 30), (1, 1024, 512, 57344), (2, 4096, 2048, 196608)])
+def test_stream_flow_kernel_matches_plain_version_up_to_large_rows(cuda, shape):
+    """I = 4096, K = 2048 needs 81,924 bytes per CTA, over the 48 KB that a
+    block gets without opting in."""
+    batch, n_inst, n_cont, n_edges = shape
+    p = _problem(np.random.default_rng(n_inst + 15), batch, n_inst, n_cont, n_edges, cuda)
+    before = stream_flow_ell.launches
+    got = stream_flow_ell(*_with_members(p))
+    want = stream_flow_ell_reference(*[p[k] for k in ELL_ARGS])
+    torch.cuda.synchronize()
+    assert stream_flow_ell.launches == before + 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-6 * float(w.abs().max()))
+
+
+def test_stream_flow_kernel_is_bitwise_invariant_to_batch_padding_and_cluster_size(cuda):
+    """The fixed summation order makes a row's result independent of the
+    rows beside it, of the padding and of how many CTAs share the row."""
+    p = _problem(np.random.default_rng(21), 4, 1024, 512, 49152, cuda)
+    batch = stream_flow_ell(*_with_members(p))
+    single = {k: v[1:2].contiguous() for k, v in p.items()}
+    padded = _pad_rows(single, 1536, 1024, 65536, 512)
+    runs = [stream_flow_ell(*_with_members(single), cluster_size=n) for n in (1, 2, 8, 16)]
+    runs.append(stream_flow_ell(*_with_members(padded)))
+    runs.append(stream_flow_ell(*_with_members(padded), cluster_size=4))
+    torch.cuda.synchronize()
+    sizes = (1024, 1024, 512)
+    for run in runs:
+        for got, want, n in zip(run, batch, sizes):
+            assert torch.equal(got[0, :n], want[1, :n])
+
+
+def test_stream_flow_wrapper_rejects_bad_member_lists(cuda):
+    p = _problem(np.random.default_rng(2), 2, 32, 8, 100, cuda)
+    args = [p[k] for k in ELL_ARGS] + [None]
+    ptr, members = container_members(p["cont_of"], 8)
+    with pytest.raises(ValueError, match="cont_ptr"):
+        stream_flow_ell(*args, ptr.long(), members)
+    with pytest.raises(ValueError, match="cont_ptr"):
+        stream_flow_ell(*args, ptr[:, :-1].contiguous(), members)
+    with pytest.raises(ValueError, match="cont_members"):
+        stream_flow_ell(*args, ptr, members.float())
+    with pytest.raises(ValueError, match="cont_members"):
+        stream_flow_ell(*args, ptr, members[:1].contiguous())
+    with pytest.raises(ValueError, match="neither"):
+        stream_flow_ell(*args, ptr, None)
+    with pytest.raises(ValueError, match="cluster_size"):
+        stream_flow_ell(*args, ptr, members, cluster_size=32)
+
+
+def test_stream_flow_row_over_the_shared_memory_limit_raises(cuda):
+    """(4 I + 2 K + 1) words per CTA: 16,384 instances and 8,192 containers
+    need 327,684 bytes, over the card's 232,448."""
+    n_inst, n_cont = 16384, 8192
+    i32 = dict(dtype=torch.int32, device=cuda)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    args = [
+        torch.zeros(1, n_inst, **f32), torch.zeros(1, 1, **i32),
+        torch.zeros(1, 1, **f32), torch.zeros(1, 1, **f32),
+        torch.zeros(1, 1, **i32), torch.zeros(1, 1, **i32),
+        torch.ones(1, n_inst, 4, **i32), torch.ones(1, n_inst, 4, **i32),
+        torch.zeros(1, n_inst, **i32), torch.ones(1, n_cont, **f32),
+    ]
+    before = stream_flow_ell.launches
+    with pytest.raises(ValueError, match="327684 bytes of shared memory"):
+        stream_flow_ell(*args)
+    assert stream_flow_ell.launches == before
 
 
 # ------------------------------------------------------------------ rmsnorm

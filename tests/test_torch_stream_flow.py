@@ -1,6 +1,7 @@
 """The port's sparse flow step: its segment-sum form against the reference
 package's jnp oracle and Pallas kernel (interpret mode), its ELL form
-against its segment-sum form, and the wrapper's CPU path.  The CUDA
+against its segment-sum form, the container member lists the CUDA kernel
+sums through, its cluster-size choice, and the wrapper's CPU path.  The CUDA
 kernel's own tests are in ``test_torch_cuda_kernels.py``, which imports no
 JAX so that it runs on the card's machine."""
 import jax.numpy as jnp
@@ -11,11 +12,15 @@ import torch
 from repro.kernels.stream_flow import stream_flow as jax_stream_flow
 from repro.kernels.stream_flow import stream_flow_reference as jax_stream_flow_reference
 from repro_torch.kernels.stream_flow import (
+    cluster_size_for,
+    container_members,
     ell_rows,
     stream_flow_ell,
     stream_flow_ell_reference,
     stream_flow_reference,
 )
+from repro_torch.kernels.stream_flow.ops import threads_for
+from repro_torch.kernels.stream_flow.ref import to_containers
 from repro_torch.streams import degree_bucket_size
 
 SHAPES = [(4, 2, 7), (16, 4, 40), (32, 8, 100), (11, 5, 513)]
@@ -130,3 +135,115 @@ def test_wrapper_takes_plain_version_on_cpu():
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
     assert stream_flow_ell.launches == before
+
+
+# ---------------------------------------------------------- member lists
+# The CUDA kernel sums containers through member lists (container_members),
+# one thread per container adding its members in instance order.
+
+
+def _sequential_container_sums(vals, cont_ptr, cont_members):
+    """Each container's members summed one by one in list order, in float32:
+    the order and rounding of the kernel's per-container sums."""
+    vals = vals.numpy()
+    out = np.zeros((vals.shape[0], cont_ptr.shape[1] - 1), np.float32)
+    for b in range(vals.shape[0]):
+        for k in range(out.shape[1]):
+            acc = np.float32(0.0)
+            for i in cont_members[b, cont_ptr[b, k]:cont_ptr[b, k + 1]].tolist():
+                acc = np.float32(acc + vals[b, i])
+            out[b, k] = acc
+    return torch.from_numpy(out)
+
+
+@pytest.mark.parametrize("batch,n_inst,n_cont", [(1, 8, 4), (3, 40, 7), (2, 513, 64)])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_container_members_list_each_container_in_instance_order(batch, n_inst, n_cont, dtype):
+    rng = np.random.default_rng(n_inst + n_cont)
+    cont_of = torch.from_numpy(rng.integers(0, n_cont, (batch, n_inst))).to(dtype)
+    cont_ptr, members = container_members(cont_of, n_cont)
+    assert cont_ptr.dtype == members.dtype == dtype
+    assert cont_ptr.shape == (batch, n_cont + 1) and members.shape == (batch, n_inst)
+    for b in range(batch):
+        assert cont_ptr[b, 0] == 0 and cont_ptr[b, -1] == n_inst
+        for k in range(n_cont):
+            got = members[b, cont_ptr[b, k]:cont_ptr[b, k + 1]].tolist()
+            assert got == np.flatnonzero(cont_of[b].numpy() == k).tolist()
+
+
+def test_container_members_take_padded_instances():
+    """The simulator pads instances at the end into the last container; they
+    are listed after that container's real members, in instance order."""
+    cont_of = torch.tensor([[1, 0, 2, 1, 0, 3, 3, 3], [0, 0, 1, 1, 1, 1, 1, 1]])
+    cont_ptr, members = container_members(cont_of, 4)
+    assert cont_ptr.tolist() == [[0, 2, 4, 5, 8], [0, 2, 8, 8, 8]]
+    assert members.tolist() == [[1, 4, 0, 3, 2, 5, 6, 7], [0, 1, 2, 3, 4, 5, 6, 7]]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_to_containers_equals_sums_through_member_lists(shape):
+    n_inst, n_cont, _ = shape
+    rng = np.random.default_rng(31 + n_inst)
+    cont_of = torch.from_numpy(rng.integers(0, n_cont, (3, n_inst)))
+    vals = torch.from_numpy(rng.uniform(0.0, 5.0, (3, n_inst)).astype(np.float32))
+    C = torch.nn.functional.one_hot(cont_of, n_cont).to(torch.float32)
+    got = _sequential_container_sums(vals, *container_members(cont_of, n_cont))
+    torch.testing.assert_close(got, to_containers(vals, C), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_wrapper_on_cpu_takes_member_lists_and_equals_plain_version(shape):
+    n_inst, n_cont, n_edges = shape
+    rng = np.random.default_rng(41 + sum(shape))
+    p = _ell_batch(rng, 2, n_inst, n_cont, n_edges)
+    args = [p[k] for k in ELL_ARGS]
+    C = torch.nn.functional.one_hot(p["cont_of"].long(), n_cont).to(torch.float32)
+    before = stream_flow_ell.launches
+    got = stream_flow_ell(*args, C, *container_members(p["cont_of"], n_cont), cluster_size=2)
+    assert stream_flow_ell.launches == before
+    for x, y in zip(got, stream_flow_ell_reference(*args)):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("batch,n_inst,n_sms,want", [
+    (1, 1024, 132, 16), (32, 1024, 132, 8), (6, 8, 132, 1), (1, 8, 132, 1),
+    (1, 32, 132, 1), (1, 4096, 132, 16), (64, 1024, 132, 4), (256, 1024, 132, 1),
+    (1, 256, 132, 4), (1, 1024, 16, 16), (2, 1024, 16, 8),
+])
+def test_cluster_size_fills_the_card_and_keeps_a_warp_per_row(batch, n_inst, n_sms, want):
+    n = cluster_size_for(batch, n_inst, n_sms)
+    assert n == want
+    threads = threads_for(n_inst, n)
+    assert threads % 32 == 0 and 32 <= threads <= 1024
+    assert threads // 32 <= max(1, -(-n_inst // n))
+
+
+def test_sparse_tick_builds_member_lists_once_per_run(monkeypatch):
+    """The member lists are built before the tick loop, and every tick
+    passes them to the flow step, whose result still equals the dense tick's."""
+    from repro_torch.core import ContainerDim, round_robin_configuration
+    from repro_torch.streams import SimParams, deep_pipeline, measure_capacity
+    from repro_torch.streams import simulator
+
+    built, calls = [], []
+    real_members, real_flow = simulator.container_members, simulator.stream_flow_ell
+
+    def members(cont_of, n_cont):
+        built.append(n_cont)
+        return real_members(cont_of, n_cont)
+
+    def flow(*args, **kwargs):
+        calls.append(len(args))
+        return real_flow(*args, **kwargs)
+
+    monkeypatch.setattr(simulator, "container_members", members)
+    monkeypatch.setattr(simulator, "stream_flow_ell", flow)
+    dag = deep_pipeline()
+    cfg = round_robin_configuration(dag, {n: 2 for n in dag.node_names}, 4, ContainerDim(3.0, 4096.0))
+    params = SimParams()
+    sparse = measure_capacity(cfg, params, duration_s=1.0, tick_kernel="sparse", device="cpu")
+    assert len(built) == 1
+    assert len(calls) == int(1.0 / params.dt) and set(calls) == {13}
+    dense = measure_capacity(cfg, params, duration_s=1.0, tick_kernel="dense", device="cpu")
+    assert len(built) == 1
+    assert sparse == pytest.approx(dense, rel=1e-4)
