@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Builds the four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
-``build/kernels/`` (one ``nvcc`` per source, all at once), then:
+Builds the four CUDA kernel libraries from ``src/repro_torch/kernels/*/csrc``
+into ``build/kernels/``, with an empty kernel of its own beside them (one
+``nvcc`` per source, all at once), then:
 
 1. holds the flow-step kernel against its plain PyTorch version on the
    card, on seeded random problems (up to I = 4096, K = 2048, over the 48
    KB a block gets without opting in) and on the padded arrays of a
    20,000-ktps ``deep_pipeline`` allocation, and checks that the
    allocation's row gives bit-equal results alone, inside a batch of 32,
-   padded to larger I/K/E/D and at two forced cluster sizes;
+   padded to larger I/K/E/D and at two forced cluster sizes; and holds the
+   per-container sum kernel to its plain version, bit for bit on the host
+   and across padding;
 2. drives the paper's workflow on ``deep_pipeline`` through the port's
    entry points: profile a test deployment (``training_sweep``), fit node
    models, predict three unseen packings and measure them, allocate for
@@ -17,6 +20,10 @@ Builds the four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
    tick (which must agree);
 3. scores a batch of 32 candidate configurations around the allocation
    with the sparse tick in summary mode;
+3b. runs the allocation at two bucket settings on each tick and requires
+   the sparse tick's samples to be bit for bit equal (the dense tick's
+   largest difference is printed: its padded (I, I) sums are torch
+   reductions);
 4. holds the RMSNorm and flash-attention kernels against their plain
    versions at llama3-8b's shapes (fp32 and bf16 RMSNorm; causal, windowed
    and non-causal attention, head_dim 128 and 120);
@@ -41,9 +48,11 @@ Builds the four CUDA kernels from ``src/repro_torch/kernels/*/csrc`` into
    launch per prefill;
 
 and times each kernel, its plain version and, where there is one, the
-PyTorch call that computes the same function at the main paths' shapes.
-The flow kernel's launches in phases 2-3 are counted by input shape, and
-it is timed at every one of those shapes.
+PyTorch call that computes the same function at the main paths' shapes,
+beside the empty kernel's launch (the floor of any kernel's time).  The
+stream kernels' launches in phases 2-3 are counted by input shape, and
+each is timed at every one of those shapes; every kernel's launches x
+(time - bound) over its paths is printed, largest first.
 Any failed phase raises and the script exits non-zero.  The last line is a
 JSON object with ``"ok": true`` and the device; the line before it lists
 each kernel with its launches on the main paths, its error against the
@@ -67,6 +76,8 @@ SRC = os.path.join(ROOT, "src")
 #: NVIDIA's data sheet, for the kernel's bound.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+#: H100 SXM dense TF32 tensor-core peak (data sheet), for flash's 3xTF32 bound.
+TF32_FLOPS_PER_S = 495e12
 #: expf throughput of the special-function units (16 per clock per SM,
 #: 132 SMs, 1.98 GHz boost), logged beside the selective scan's bound.
 SFU_PER_S = 16 * 132 * 1.98e9
@@ -252,7 +263,7 @@ def phase_bitwise(device, params, alloc_config, others, rng) -> None:
         return stage_rows(arrays, device)
 
     def run(p, **kw):
-        return stream_flow_ell(*[p[k] for k in KERNEL_ARGS], None, *members_of(p), **kw)
+        return stream_flow_ell(*[p[k] for k in KERNEL_ARGS], *members_of(p), **kw)
 
     single_arrays, _ = padded_structures(configs[:1], params)
     single = with_qout(single_arrays, qouts[:1])
@@ -285,14 +296,25 @@ def recorder_key(p) -> tuple:
             p["ell_src"].shape[2], p["ell_dst"].shape[2])
 
 
-class LaunchRecorder:
-    """Stands in for the simulator's ``stream_flow_ell`` during the main
-    path: counts the kernel's launches by input shape (B, I, K, E, D_out,
-    D_in) and keeps each shape's first inputs for timing afterwards.  The
-    count itself is the wrapper's, read from ``.launches``."""
+def flow_key(args) -> tuple:
+    """(B, I, K, E, D_out, D_in) of a ``stream_flow_ell`` call."""
+    return recorder_key(dict(zip(KERNEL_ARGS, args)))
 
-    def __init__(self, fn):
+
+def sum_key(args) -> tuple:
+    """(B, I, K) of a ``container_sum`` call (vals, cont_of, cont_ptr, ...)."""
+    return (*args[0].shape, args[2].shape[1] - 1)
+
+
+class LaunchRecorder:
+    """Stands in for one of the simulator's kernel wrappers during the main
+    path: counts the kernel's launches by input shape (``key_of(args)``)
+    and keeps each shape's first inputs for timing afterwards.  The count
+    itself is the wrapper's, read from ``.launches``."""
+
+    def __init__(self, fn, key_of):
         self.fn = fn
+        self.key_of = key_of
         self.counts: dict[tuple, int] = {}
         self.inputs: dict[tuple, list] = {}
 
@@ -300,7 +322,7 @@ class LaunchRecorder:
         before = self.fn.launches
         out = self.fn(*args, **kwargs)
         if self.fn.launches > before:
-            key = recorder_key(dict(zip(KERNEL_ARGS, args)))
+            key = self.key_of(args)
             self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.inputs:
                 self.inputs[key] = [a.clone() if a is not None else None for a in args]
@@ -387,7 +409,7 @@ def flow_bound(p) -> tuple[float, str, int, int]:
     return t_ops, "operations", nbytes, flops
 
 
-def time_flow(label, p, C) -> dict:
+def time_flow(label, p) -> dict:
     """The kernel (with the member lists built once, as the tick passes
     them), its plain version and the ``index_add_`` segment sums on one
     problem: device time from CUDA-graph replay, eager time beside it."""
@@ -395,11 +417,11 @@ def time_flow(label, p, C) -> dict:
         stream_flow_ell, stream_flow_ell_reference, stream_flow_reference,
     )
     args = [p[k] for k in KERNEL_ARGS]
-    kernel_args = args + [C, *members_of(p)]
+    kernel_args = args + [*members_of(p)]
     seg_args = [p[k] for k in SEGMENT_ARGS]
     n_inst, n_cont = p["qout"].shape[1], p["sm_budget"].shape[1]
     ms, eager_ms = time_both(lambda: stream_flow_ell(*kernel_args), iters=100)
-    plain_ms, plain_eager = time_both(lambda: stream_flow_ell_reference(*args, C), iters=20)
+    plain_ms, plain_eager = time_both(lambda: stream_flow_ell_reference(*args), iters=20)
     library_ms, library_eager = time_both(
         lambda: stream_flow_reference(*seg_args, n_inst=n_inst, n_cont=n_cont), iters=20,
     )
@@ -418,12 +440,125 @@ def time_recorded(key, inputs) -> dict:
     from repro_torch.kernels.stream_flow import stream_flow_ell, stream_flow_ell_reference
     p = dict(zip(KERNEL_ARGS, inputs))
     ms, eager_ms = time_both(lambda: stream_flow_ell(*inputs), iters=100)
-    plain_ms, plain_eager = time_both(lambda: stream_flow_ell_reference(*inputs[:11]), iters=20)
+    plain_ms, plain_eager = time_both(lambda: stream_flow_ell_reference(*inputs), iters=20)
     bound_ms, bound_by, _, _ = flow_bound(p)
     log(f"  B={key[0]} I={key[1]} K={key[2]} E={key[3]} D=({key[4]},{key[5]}) device (graph): "
         f"kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}); "
         f"eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, eager_ms=eager_ms)
+
+
+def sum_inputs(p, rng):
+    """Per-instance values (zero on padded instances, as the tick's are) and
+    the container lists of a staged problem."""
+    import torch
+    vals = torch.as_tensor(rng.uniform(0.0, 5.0, p["qout"].shape).astype("float32"),
+                           device=p["qout"].device)
+    return vals, p["cont_of"], *members_of(p)
+
+
+def check_container_sum(name, args) -> float:
+    """The per-container sum kernel against its plain version: bit for bit
+    the plain version on the host (both add members in instance order
+    from 0), and within rtol 1e-6 of the plain version on the card, whose
+    ``index_add_`` adds in the order its atomics land.  Returns the largest
+    difference to the plain version on the card."""
+    import torch
+    from repro_torch.kernels.stream_flow import container_sum, container_sum_reference
+
+    vals, cont_of, cont_ptr, _ = args
+    K = cont_ptr.shape[1] - 1
+    got = container_sum(*args)
+    plain = container_sum_reference(vals, cont_of, K)
+    torch.cuda.synchronize()
+    host = container_sum_reference(vals.cpu(), cont_of.cpu(), K)
+    if not torch.equal(got.cpu(), host):
+        diff = float((got.cpu() - host).abs().max())
+        raise AssertionError(f"container_sum {name}: differs from the host's plain version by {diff:.3e}")
+    torch.testing.assert_close(got, plain, rtol=1e-6, atol=1e-6 * float(plain.abs().max()))
+    err = float((got - plain).abs().max())
+    log(f"  container_sum {name}: B={vals.shape[0]} I={vals.shape[1]} K={K}: bit-equal to the "
+        f"host's plain version; max|kernel-plain on the card|={err:.3e}")
+    return err
+
+
+def sum_bound(B, I, K) -> tuple[float, str]:
+    """What the function must move: the values and one membership word per
+    instance read once (B·I each), the sums (B·K) written once; B·I fp32
+    additions.  The kernel's offsets into its member lists are its own
+    choice of layout and are not counted."""
+    nbytes = 4 * (2 * B * I + B * K)
+    flops = B * I
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_container_sum(args) -> dict:
+    """The kernel, its plain version and ``scatter_add_`` (one PyTorch call
+    for the same sums, in the order its atomics land) on the same inputs."""
+    import torch
+    from repro_torch.kernels.stream_flow import container_sum, container_sum_reference
+
+    vals, cont_of, cont_ptr, _ = args
+    B, I = vals.shape
+    K = cont_ptr.shape[1] - 1
+    index = cont_of.long()
+    out = torch.zeros(B, K, device=vals.device)
+    ms, eager_ms = time_both(lambda: container_sum(*args), iters=200)
+    plain_ms, plain_eager = time_both(lambda: container_sum_reference(vals, cont_of, K), iters=200)
+    library_ms, library_eager = time_both(lambda: out.zero_().scatter_add_(1, index, vals), iters=200)
+    bound_ms, bound_by = sum_bound(B, I, K)
+    log(f"  container_sum B={B} I={I} K={K} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+        f"scatter_add_ {library_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}); eager with launch "
+        f"cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f}  scatter_add_ {library_eager:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+EMPTY_SOURCE = """\
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_kernel_launch(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def empty_library():
+    """A kernel that does nothing, built like the port's kernels: its
+    device time under graph replay is the floor any kernel's time can
+    approach.  Its source is written into the git-ignored build directory;
+    it is a measuring stick of this script, not part of the port."""
+    import ctypes
+    from pathlib import Path
+    from repro_torch.kernels._build import BUILD_DIR, KernelLibrary
+
+    source = Path(BUILD_DIR) / "empty_kernel.cu"
+    source.parent.mkdir(parents=True, exist_ok=True)
+    if not source.is_file() or source.read_text() != EMPTY_SOURCE:
+        source.write_text(EMPTY_SOURCE)
+
+    def bind(lib):
+        lib.empty_kernel_launch.argtypes = [ctypes.c_void_p]
+        lib.empty_kernel_launch.restype = ctypes.c_int
+
+    return KernelLibrary("empty_kernel", source, bind)
+
+
+def time_empty_kernel(library) -> float:
+    """Device time of a launch that does nothing, from CUDA-graph replay."""
+    import torch
+    lib = library.load()
+
+    def empty_kernel():
+        rc = lib.empty_kernel_launch(torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+
+    ms, eager_ms = time_both(empty_kernel, iters=200)
+    log(f"  empty kernel device (graph): {ms:.5f} ms; eager with launch cost {eager_ms:.5f} ms")
+    return ms
 
 
 def log_device_time(prof, wall_ms: float, header: str, top: int) -> None:
@@ -561,6 +696,36 @@ def phase_batch(device, params, configs, duration_s):
     return caps
 
 
+def phase_buckets(device, params, config, duration_s):
+    """The allocation alone in its own buckets and padded to I = 1536,
+    K = 1024 (and, on the sparse tick, E = 65,536, D = 512), full mode:
+    the sparse tick's samples must be bit for bit equal; the dense tick's
+    largest difference is printed (its (I, I) sums are torch reductions
+    over the padded length).  Returns {tick: largest |difference|}."""
+    import numpy as np
+    from repro_torch.streams import simulate_batch
+
+    padded = dict(min_inst_bucket=1536, min_cont_bucket=1024)
+    worst = {}
+    for kernel, extra in (("sparse", dict(min_edge_bucket=65536, min_degree_bucket=512)),
+                          ("dense", {})):
+        runs = [simulate_batch([config], 1e6, duration_s=duration_s, params=params,
+                               tick_kernel=kernel, device=device, **kw)[0]
+                for kw in ({}, {**padded, **extra})]
+        base, pad = (r.samples for r in runs)
+        diff = max(float(np.abs(pad[k] - base[k]).max()) for k in base)
+        rel = max(float(np.abs(pad[k] - base[k]).max() / max(np.abs(base[k]).max(), 1e-30))
+                  for k in base)
+        equal = all(np.array_equal(pad[k], base[k]) for k in base)
+        worst[kernel] = diff
+        log(f"  {kernel} tick, {int(duration_s / params.dt)} ticks: achieved "
+            f"{runs[0].achieved_ktps!r} vs {runs[1].achieved_ktps!r} ktps padded; samples "
+            f"{'bit-equal' if equal else 'differ'} (max |diff| {diff:.3e}, {rel:.3e} of a series' max)")
+        if kernel == "sparse" and not equal:
+            raise AssertionError("the sparse tick's samples moved with the buckets")
+    return worst
+
+
 # ------------------------------------------------------------ LM kernels
 
 LLAMA = dict(d=4096, H=32, KV=8, hd=128)
@@ -645,11 +810,19 @@ def rmsnorm_bound(rows, d) -> tuple[float, str]:
 def flash_bound(S, H, KV, hd) -> tuple[float, str]:
     """Causal attention over S positions: S(S+1)/2 scored pairs per head,
     each 2·hd flops for q·k, 2·hd for p·v and about 4 for the softmax; q, k,
-    v read once and the output written once."""
+    v read once and the output written once.  Two ways to do the products:
+    fp32 on CUDA cores (all flops at 67 TFLOP/s), or 3xTF32 on the tensor
+    cores (three tf32 products per product at 495 TFLOP/s, the softmax on
+    CUDA cores); each is held against the bytes, and the bound is the
+    faster of the two."""
     pairs = S * (S + 1) // 2
-    flops = H * pairs * (4 * hd + 4)
+    mm_flops = H * pairs * 4 * hd
+    soft_flops = H * pairs * 4
     nbytes = 4 * S * hd * (2 * H + 2 * KV)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_fp32 = (mm_flops + soft_flops) / FP32_FLOPS_PER_S
+    t_tc = 3 * mm_flops / TF32_FLOPS_PER_S + soft_flops / FP32_FLOPS_PER_S
+    t_ops = min(t_fp32, t_tc)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -680,13 +853,13 @@ def time_rmsnorm(device, shape) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def time_flash(device, S) -> dict:
+def time_flash(device, S, H=LLAMA["H"], KV=LLAMA["KV"]) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
-    H, KV, hd = LLAMA["H"], LLAMA["KV"], LLAMA["hd"]
-    q, k, v = flash_inputs(device, S, H, KV, hd, seed=S)
+    hd = LLAMA["hd"]
+    q, k, v = flash_inputs(device, S, H, KV, hd, seed=S + H)
     scale = 1.0 / hd ** 0.5
     ms, eager_ms = time_both(lambda: flash_attention(q, k, v, causal=True, scale=scale), iters=50)
     out = flash_attention(q, k, v, causal=True, scale=scale)
@@ -698,10 +871,17 @@ def time_flash(device, S) -> dict:
     library_ms, library_eager = time_both(sdpa, iters=50)
     lib_err = float((sdpa().transpose(1, 2) - out).abs().max())
     bound_ms, bound_by = flash_bound(S, H, KV, hd)
-    log(f"  flash S={S} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+    # the two block layouts, forced, beside the one the wrapper picks
+    layouts = []
+    for heads in (1, 2):
+        blocks = -(-S // 16) * KV * -(-(H // KV) // heads)
+        forced = graph_ms(lambda: flash_attention(q, k, v, causal=True, scale=scale,
+                                                  heads_per_block=heads), iters=20)
+        layouts.append(f"{heads} head(s)/block {blocks} blocks {forced:.5f} ms")
+    log(f"  flash S={S} H={H} KV={KV} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
         f"sdpa {library_ms:.5f} ms (max|sdpa-kernel|={lib_err:.2e})  bound {bound_ms:.6f} ms "
         f"({bound_by}); eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f}  "
-        f"sdpa {library_eager:.5f} ms")
+        f"sdpa {library_eager:.5f} ms; forced: {', '.join(layouts)}")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -1019,7 +1199,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
-    from repro_torch.kernels.stream_flow import build, stream_flow_ell
+    from repro_torch.kernels.stream_flow import build, container_sum, stream_flow_ell
     from repro_torch.streams import SimParams, deep_pipeline
 
     device = resolve_device("cuda")
@@ -1032,9 +1212,10 @@ def main() -> int:
     rng = np.random.default_rng(0)
     timings = {}
 
+    empty = empty_library()
     timings["build"] = build_all([build.LIBRARY, rmsnorm_ops.LIBRARY, flash_ops.LIBRARY,
-                                  ssm_ops.LIBRARY])
-    log(f"build: {timings['build']:.1f} s for 4 libraries")
+                                  ssm_ops.LIBRARY, empty])
+    log(f"build: {timings['build']:.1f} s for 4 libraries and the empty kernel")
 
     t0 = time.perf_counter()
     log("phase 1: kernel vs plain")
@@ -1049,15 +1230,17 @@ def main() -> int:
     check_rng = np.random.default_rng(15)
     big = random_flow_problem(check_rng, 2, 4096, 2048, 196608, device)
     max_err = max(max_err, check_kernel("random(4096,2048,196608)", big))
+    sum_err = check_container_sum("random(4096,2048)", sum_inputs(big, check_rng))
     del big
     phase_bitwise(device, params, oracle_alloc.config,
                   candidate_configs(oracle_alloc, 32, check_rng)[1:], check_rng)
     timings["phase1"] = time.perf_counter() - t0
 
     from repro_torch.streams import simulator
-    recorder = LaunchRecorder(simulator.stream_flow_ell)
-    simulator.stream_flow_ell = recorder
-    stream_flow_ell.launches = 0
+    flow_rec = LaunchRecorder(simulator.stream_flow_ell, flow_key)
+    sum_rec = LaunchRecorder(simulator.container_sum, sum_key)
+    simulator.stream_flow_ell, simulator.container_sum = flow_rec, sum_rec
+    stream_flow_ell.launches = container_sum.launches = 0
     try:
         t0 = time.perf_counter()
         log("phase 2: main path on deep_pipeline")
@@ -1065,7 +1248,8 @@ def main() -> int:
         torch.cuda.synchronize()
         timings["phase2"] = time.perf_counter() - t0
         launches_main = stream_flow_ell.launches
-        log(f"  stream_flow_ell launches in phase 2: {launches_main}")
+        sums_main = container_sum.launches
+        log(f"  launches in phase 2: stream_flow_ell {launches_main}, container_sum {sums_main}")
 
         t0 = time.perf_counter()
         log("phase 3: 32 candidates around the allocation (sparse, summary)")
@@ -1074,41 +1258,58 @@ def main() -> int:
         torch.cuda.synchronize()
         timings["phase3"] = time.perf_counter() - t0
         launches = stream_flow_ell.launches
+        sum_launches = container_sum.launches
     finally:
-        simulator.stream_flow_ell = recorder.fn
-    log(f"  stream_flow_ell launches in phase 3: {launches - launches_main}")
-    log(f"stream_flow_ell.launches after phases 2-3: {launches}")
-    for key, n in sorted(recorder.counts.items()):
-        log(f"  launches at B={key[0]} I={key[1]} K={key[2]} E={key[3]} D=({key[4]},{key[5]}): {n}")
-    if launches <= 0:
-        raise AssertionError("the main path never launched the stream_flow kernel")
-    if sum(recorder.counts.values()) != launches:
-        raise AssertionError(f"launches by shape {recorder.counts} do not add up to {launches}")
+        simulator.stream_flow_ell, simulator.container_sum = flow_rec.fn, sum_rec.fn
+    log(f"  launches in phase 3: stream_flow_ell {launches - launches_main}, "
+        f"container_sum {sum_launches - sums_main}; wall {timings['phase3']:.3f} s for "
+        f"{int(20.0 / params.dt)} ticks ({timings['phase3'] / (20.0 / params.dt) * 1e3:.3f} ms/tick, "
+        f"threefry noise included)")
+    log(f"launches after phases 2-3: stream_flow_ell {launches}, container_sum {sum_launches}")
+    for name, rec, total in (("stream_flow_ell", flow_rec, launches),
+                             ("container_sum", sum_rec, sum_launches)):
+        for key, n in sorted(rec.counts.items()):
+            log(f"  {name} launches at {key}: {n}")
+        if total <= 0:
+            raise AssertionError(f"the main path never launched the {name} kernel")
+        if sum(rec.counts.values()) != total:
+            raise AssertionError(f"{name} launches by shape {rec.counts} do not add up to {total}")
 
     t0 = time.perf_counter()
-    log("timing stream_flow_ell at the main path's shapes "
+    log("phase 3b: bucket invariance of the allocation on both ticks")
+    bucket_diff = phase_buckets(device, params, result.config, duration_s=4.0)
+    timings["phase3b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("timing the stream kernels at the main path's shapes "
         "(device time from CUDA-graph replay; eager time from CUDA events)")
+    empty_ms = time_empty_kernel(empty)
     p1 = padded_flow_problem([result.config], params, rng, device)
-    C1 = torch.nn.functional.one_hot(p1["cont_of"].long(), p1["sm_budget"].shape[1]).float()
-    t_b1 = time_flow("batch 1 (allocation)", p1, C1)
+    t_b1 = time_flow("batch 1 (allocation)", p1)
     p32 = padded_flow_problem(candidates, params, rng, device)
-    C32 = torch.nn.functional.one_hot(p32["cont_of"].long(), p32["sm_budget"].shape[1]).float()
-    t_b32 = time_flow("batch 32 (candidates)", p32, C32)
+    t_b32 = time_flow("batch 32 (candidates)", p32)
     max_err = max(max_err, check_kernel("batch 32 (candidates)", p32))
-    by_shape = {}
-    for key in sorted(recorder.counts):
+    flow_at = {}
+    for key in sorted(flow_rec.counts):
         if key == recorder_key(p1):
-            by_shape[key] = t_b1
+            flow_at[key] = t_b1
         elif key == recorder_key(p32):
-            by_shape[key] = t_b32
+            flow_at[key] = t_b32
         else:
-            by_shape[key] = time_recorded(key, recorder.inputs[key])
-    for key, t in by_shape.items():
-        n = recorder.counts[key]
-        log(f"  launches x (time - bound) at B={key[0]} I={key[1]}: {n} x "
-            f"({t['ms']:.5f} - {t['bound_ms']:.6f}) ms = {n * (t['ms'] - t['bound_ms']):.3f} ms")
-    flow_excess = excess_ms([(recorder.counts[k], t) for k, t in by_shape.items()])
-    log(f"stream_flow_ell launches x (time - bound) in phases 2-3: {flow_excess:.3f} ms")
+            flow_at[key] = time_recorded(key, flow_rec.inputs[key])
+    sum_at = {}
+    for key in sorted(sum_rec.counts):
+        args = sum_rec.inputs[key]
+        sum_err = max(sum_err, check_container_sum(f"main path {key}", args))
+        sum_at[key] = time_container_sum(args)
+    excess = {}
+    for name, rec, at in (("stream_flow_ell", flow_rec, flow_at), ("container_sum", sum_rec, sum_at)):
+        for key, t in at.items():
+            n = rec.counts[key]
+            log(f"  {name} launches x (time - bound) at {key}: {n} x "
+                f"({t['ms']:.5f} - {t['bound_ms']:.6f}) ms = {n * (t['ms'] - t['bound_ms']):.3f} ms")
+        excess[f"{name}, phases 2-3"] = excess_ms([(rec.counts[k], t) for k, t in at.items()])
+    t_sum32 = sum_at[max(sum_at)]            # the largest batch: the candidates
     log("profile: where a tick's time goes (32 candidates, sparse, summary)")
     profile_ticks(device, params, candidates, duration_s=1.0)
     timings["timing"] = time.perf_counter() - t0
@@ -1118,16 +1319,19 @@ def main() -> int:
     serve_rng = np.random.default_rng(seed)
     prompt_lengths = sorted({int(n) for n in serve_rng.integers(32, 193, size=8)})
     t0 = time.perf_counter()
-    log("phase 4: rmsnorm and flash_attention kernels vs plain at llama3-8b's shapes")
+    log("phase 4: rmsnorm and flash_attention kernels vs plain at llama3-8b's and jamba's shapes")
     d = LLAMA["d"]
-    rms_err = check_rmsnorm(device, [(1, S, d) for S in prompt_lengths] + [(4, 1, d), (300, d)])
+    rms_err = check_rmsnorm(device, [(1, S, d) for S in prompt_lengths] + [(4, 1, d), (300, d)]
+                            + [(1, max(prompt_lengths), 2 * d), (4, 1, 2 * d)])
+    H, KV, hd = LLAMA["H"], LLAMA["KV"], LLAMA["hd"]
     flash_err = check_flash(
         device,
-        [(S, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], True, None) for S in (1, 7, 128, 130, 192)]
-        + [(S, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], True, None) for S in prompt_lengths]
-        + [(130, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], True, 32),
-           (130, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], False, None),
-           (7, LLAMA["H"], LLAMA["KV"], LLAMA["hd"], False, None),
+        [(S, H, KV, hd, True, None) for S in (1, 7, 128, 130, 192)]
+        + [(S, H, KV, hd, True, None) for S in prompt_lengths]
+        + [(S, 2 * H, KV, hd, True, None) for S in prompt_lengths]
+        + [(130, H, KV, hd, True, 32),
+           (130, H, KV, hd, False, None),
+           (7, H, KV, hd, False, None),
            (130, 32, 8, 120, True, None)],
     )
     timings["phase4"] = time.perf_counter() - t0
@@ -1143,6 +1347,7 @@ def main() -> int:
     log("phase 6: serve llama3-8b at full depth (BatchedServer, 4 slots, max_ctx 256)")
     server, lm_launches, lengths = phase_serve(device, "llama3-8b", seed, n_requests=8, slots=4,
                                                max_ctx=256, max_new=16)
+    lm_ticks = server.decode_steps
     timings["phase6"] = time.perf_counter() - t0
     log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
     profile_serving(server, serve_rng, n_requests=4, prompt_len=128, max_new=16)
@@ -1150,17 +1355,23 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("timing rmsnorm and flash_attention at the serving path's shapes "
+    log("timing rmsnorm and flash_attention at the serving paths' shapes "
         "(device time from CUDA-graph replay; eager time from CUDA events)")
-    t_rms_prefill = time_rmsnorm(device, (1, max(lengths), d))
+    rms_at = {(S, w): time_rmsnorm(device, (1, S, w)) for w in (d, 2 * d) for S in sorted(set(lengths))}
     t_rms = time_rmsnorm(device, (4, 1, d))
-    t_flash_at = {S: time_flash(device, S) for S in sorted(set(lengths))}
-    t_flash = t_flash_at[max(lengths)]
+    t_rms_wide = time_rmsnorm(device, (4, 1, 2 * d))
+    flash_at = {S: time_flash(device, S) for S in sorted(set(lengths))}
+    flash_wide_at = {S: time_flash(device, S, H=2 * H) for S in sorted(set(lengths))}
+    t_flash = flash_at[max(lengths)]
     timings["lm_timing"] = time.perf_counter() - t0
-    n_attn = block_counts(get_config("llama3-8b"))["attn"]
-    log("flash launches x (time - bound) in phase 6: "
-        f"{excess_ms([(n_attn, t_flash_at[S]) for S in lengths]):.3f} ms")
-    log(f"rmsnorm at the longest prefill (1, {max(lengths)}, {d}): {json.dumps(t_rms_prefill)}")
+    llama, cut_cfg = get_config("llama3-8b"), get_config("jamba-1.5-large-398b")
+    n_norm = 2 * llama.n_layers + 1
+    excess["flash_attention, phase 6"] = excess_ms(
+        [(block_counts(llama)["attn"], flash_at[S]) for S in lengths])
+    excess["rmsnorm, phase 6"] = excess_ms(
+        [(n_norm, rms_at[(S, d)]) for S in lengths] + [(n_norm * lm_ticks, t_rms)])
+    log(f"rmsnorm at the longest prefill (1, {max(lengths)}, {d}): "
+        f"{json.dumps(rms_at[(max(lengths), d)])}")
 
     t0 = time.perf_counter()
     log("phase 7: ssm_scan kernel vs plain at jamba-1.5-large's shapes")
@@ -1175,8 +1386,7 @@ def main() -> int:
     # one full-width period of jamba-1.5-large with its MoE layers made
     # dense (each a SwiGLU of the expert's width), built with replace and
     # never registered as an arch
-    cut = dataclasses.replace(get_config("jamba-1.5-large-398b"), n_experts=0,
-                              experts_per_token=0, n_layers=8,
+    cut = dataclasses.replace(cut_cfg, n_experts=0, experts_per_token=0, n_layers=8,
                               name="jamba-1.5-large-398b/1-period-dense")
     t0 = time.perf_counter()
     log("phase 8: card vs host, jamba-1.5-large at full width, one Mamba and one attention block")
@@ -1202,19 +1412,26 @@ def main() -> int:
     t0 = time.perf_counter()
     log("timing ssm_scan at the serving path's shapes "
         "(device time from CUDA-graph replay; eager time from CUDA events)")
-    t_scan_at = {S: time_ssm_scan(device, 1, S) for S in sorted(set(lengths))}
-    t_scan_prefill = t_scan_at[max(lengths)]
+    scan_at = {S: time_ssm_scan(device, 1, S) for S in sorted(set(lengths))}
+    t_scan_prefill = scan_at[max(lengths)]
     t_scan = time_ssm_scan(device, 4, 1)
     timings["ssm_timing"] = time.perf_counter() - t0
-    n_mamba = block_counts(cut)["mamba"]
-    prefill_excess = excess_ms([(n_mamba, t_scan_at[S]) for S in lengths])
-    decode_excess = excess_ms([(n_mamba * jamba_ticks, t_scan)])
-    log(f"ssm_scan launches x (time - bound) in phase 9: prefills {prefill_excess:.3f} ms, "
-        f"decode ticks {decode_excess:.3f} ms, total {prefill_excess + decode_excess:.3f} ms")
+    n_mamba, n_norm9 = block_counts(cut)["mamba"], 2 * cut.n_layers + 1
+    excess["ssm_scan, phase 9 prefills"] = excess_ms([(n_mamba, scan_at[S]) for S in lengths])
+    excess["ssm_scan, phase 9 decode"] = excess_ms([(n_mamba * jamba_ticks, t_scan)])
+    excess["flash_attention, phase 9"] = excess_ms(
+        [(block_counts(cut)["attn"], flash_wide_at[S]) for S in lengths])
+    excess["rmsnorm, phase 9"] = excess_ms(
+        [(n_norm9, rms_at[(S, 2 * d)]) for S in lengths] + [(n_norm9 * jamba_ticks, t_rms_wide)])
     log(f"ssm_scan at the longest prefill (1, {max(lengths)}, {D}, {N}): {json.dumps(t_scan_prefill)}")
+    log(f"launches x (time - bound) by kernel and path, largest first (empty kernel "
+        f"{empty_ms:.5f} ms per launch):")
+    for label, ms in sorted(excess.items(), key=lambda kv: -kv[1]):
+        log(f"  {ms:10.3f} ms  {label}")
     log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
     log(f"card vs host: max|logit difference| llama3-8b {logit_err:.3e}, "
-        f"jamba mamba+attn {hybrid_err:.3e}")
+        f"jamba mamba+attn {hybrid_err:.3e}; bucket phase max|diff| sparse "
+        f"{bucket_diff['sparse']:.3e} dense {bucket_diff['dense']:.3e}")
 
     kernels = [
         dict(name="stream_flow_ell", route="cuda",
@@ -1222,6 +1439,10 @@ def main() -> int:
              replaces="src/repro/kernels/stream_flow/stream_flow.py:94",
              launches=launches, max_abs_err=max_err,
              **{k: t_b32[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}),
+        dict(name="container_sum", route="cuda",
+             source="src/repro_torch/kernels/stream_flow/csrc/stream_flow.cu",
+             replaces="src/repro/streams/simulator.py:701",
+             launches=sum_launches, max_abs_err=sum_err, **t_sum32),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23",

@@ -14,6 +14,7 @@ at the top of the CUDA source for what bounds it.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
 
 import torch
@@ -21,7 +22,7 @@ import torch
 from .._build import KernelLibrary
 from .ref import flash_attention_reference
 
-#: Largest head_dim the kernel takes (its accumulator is 4 x 8 per thread).
+#: Largest head_dim the kernel takes (a warp's accumulator is 16 x 128).
 MAX_HEAD_DIM = 128
 #: Shared memory a block may use once the kernel opts in (H100: 227 KB).
 SMEM_LIMIT_BYTES = 232_448
@@ -32,11 +33,13 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 5 + [ctypes.c_float] + [i32] * 3 + [ptr]
+        [ptr] * 4 + [i32] * 5 + [ctypes.c_float] + [i32] * 4 + [ptr]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [i32]
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+    lib.flash_attention_heads_per_block.argtypes = [i32] * 5
+    lib.flash_attention_heads_per_block.restype = i32
 
 
 LIBRARY = KernelLibrary(
@@ -73,11 +76,22 @@ def _check(q, k, v, window) -> None:
         raise ValueError("q, k or v too large for the kernel's int32 positions")
 
 
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
-                    scale: float | None = None) -> torch.Tensor:
+                    scale: float | None = None,
+                    heads_per_block: int | None = None) -> torch.Tensor:
     """Attention in the model layout: q (B, S, H, hd), k and v (B, S, KV, hd)
     with H a multiple of KV; returns (B, S, H, hd) in q's dtype.  ``scale``
-    defaults to ``hd ** -0.5``; the model passes ``1 / hd ** 0.5``."""
+    defaults to ``hd ** -0.5``; the model passes ``1 / hd ** 0.5``.
+
+    The kernel takes one query head per block when that grid fits in one
+    wave of one block per SM, else two (``flash_attention_heads_per_block``
+    in the CUDA source).  ``heads_per_block`` forces it, for tests and timing
+    only."""
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
@@ -95,6 +109,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
             f"head_dim {hd} needs {smem} bytes of shared memory, over the "
             f"{SMEM_LIMIT_BYTES}-byte limit"
         )
+    if heads_per_block is None:
+        heads_per_block = lib.flash_attention_heads_per_block(
+            B, S, H, KV, _sm_count(q.device.index or 0))
+    elif heads_per_block not in (1, 2):
+        raise ValueError(f"heads_per_block must be 1 or 2, got {heads_per_block}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -102,7 +121,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             B, S, H, KV, hd, float(scale), int(causal),
-            0 if window is None else int(window), DTYPES[q.dtype],
+            0 if window is None else int(window), DTYPES[q.dtype], heads_per_block,
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:

@@ -26,7 +26,8 @@ import torch
 from .._build import KernelLibrary
 from .ref import ssm_scan_reference
 
-#: Largest state width N the kernel takes (it keeps N floats per thread).
+#: Largest state width N the kernel takes (four lanes per channel keep N / 4
+#: states each in registers).
 MAX_STATE = 16
 #: Largest batch (the kernel's grid has one row of blocks per batch row).
 MAX_BATCH = 65535

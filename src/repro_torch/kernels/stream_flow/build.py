@@ -18,6 +18,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.stream_flow_ell_smem_bytes.restype = ctypes.c_size_t
     lib.stream_flow_ell_error_string.argtypes = [i32]
     lib.stream_flow_ell_error_string.restype = ctypes.c_char_p
+    lib.container_sum_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
+    lib.container_sum_launch.restype = ctypes.c_int
+    lib.container_sum_smem_bytes.argtypes = [i32]
+    lib.container_sum_smem_bytes.restype = ctypes.c_size_t
 
 
 LIBRARY = KernelLibrary("stream_flow", SOURCE, _bind)

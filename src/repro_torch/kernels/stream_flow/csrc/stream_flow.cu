@@ -49,6 +49,10 @@
 // butterfly shuffle; then instance order within each container; no atomics.
 // So the results are the same from run to run and bit for bit the same for
 // any batch, any I/K/E/D padding and any cluster size.
+//
+// A second entry point, container_sum, is the simulator's other per-
+// container sum (container CPU demand on both ticks, and the dense tick's
+// flow sums), in the same instance order; see its note below.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +65,8 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxThreads = 1024;
+constexpr int kSumThreads = 256;      // container_sum's block
+constexpr int kSumAhead = 16;         // loads container_sum keeps ahead of its adds
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 // Returned by the launch when no cluster of the asked size can be placed.
@@ -252,6 +258,50 @@ __global__ void __launch_bounds__(kMaxThreads) stream_flow_ell_kernel(
   }
 }
 
+// Per-container sums of per-instance values, for the simulator's container
+// CPU demand (both ticks) and its dense tick's flow sums: the plain
+// version is ref.py::container_sum_reference.  It stands in for the
+// reference simulator's one-hot products `x @ C` (streams/simulator.py),
+// which are plain jnp, not a Pallas kernel.  Each container adds its
+// members in instance order from 0, as the flow kernel's throttle does
+// above, so the sums do not depend on the padding of I or K and equal the
+// plain version bit for bit.  Bound by bytes (vals and one member id per
+// instance read once, the sums written once), but a container's sum is
+// a chain of dependent adds, and the last container also holds every
+// padded instance.  So one block per row first gathers the row's values in
+// member order into shared memory (coalesced on the member list), and then
+// one thread per container adds its contiguous slice from there, 16
+// loads in flight ahead of the adds.
+__global__ void __launch_bounds__(kSumThreads) container_sum_kernel(
+    const float* __restrict__ vals,            // (B, I)
+    const int32_t* __restrict__ cont_ptr,      // (B, K + 1)
+    const int32_t* __restrict__ cont_members,  // (B, I)
+    float* __restrict__ out,                   // (B, K)
+    int I, int K) {
+  extern __shared__ float s_sorted[];          // (I) this row's values in member order
+  const int64_t b = blockIdx.x;
+  vals += b * I;
+  cont_members += b * I;
+  cont_ptr += b * (K + 1);
+  out += b * K;
+  for (int m = threadIdx.x; m < I; m += blockDim.x) s_sorted[m] = vals[cont_members[m]];
+  __syncthreads();
+  for (int k = threadIdx.x; k < K; k += blockDim.x) {
+    const int end = cont_ptr[k + 1];
+    int m = cont_ptr[k];
+    float acc = 0.f;
+    for (; m + kSumAhead <= end; m += kSumAhead) {
+      float a[kSumAhead];
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) a[u] = s_sorted[m + u];
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) acc = __fadd_rn(acc, a[u]);
+    }
+    for (; m < end; ++m) acc = __fadd_rn(acc, s_sorted[m]);
+    out[k] = acc;
+  }
+}
+
 // Function attributes are per device: the largest dynamic shared memory
 // opted in so far, and whether clusters over 8 CTAs are allowed.  Launch
 // shapes already checked for placement are remembered, so the occupancy
@@ -357,6 +407,26 @@ int stream_flow_ell_launch(
       static_cast<const float*>(sm_budget), static_cast<float*>(delivered),
       static_cast<float*>(arrivals), static_cast<float*>(trav_c), I, K, E, D_out, D_in);
   if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared memory container_sum's block takes for a row of I instances.
+size_t container_sum_smem_bytes(int I) { return (size_t)I * sizeof(float); }
+
+// Launches the per-container sums for B rows of I instances and K
+// containers on `stream`, one block per row; returns 0 or a CUDA error code.
+int container_sum_launch(const void* vals, const void* cont_ptr, const void* cont_members,
+                         void* out, int B, int I, int K, void* stream) {
+  if (B == 0 || K == 0) return 0;
+  const size_t smem = container_sum_smem_bytes(I);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        container_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  container_sum_kernel<<<B, kSumThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(vals), static_cast<const int32_t*>(cont_ptr),
+      static_cast<const int32_t*>(cont_members), static_cast<float*>(out), I, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,15 +1,19 @@
-"""The sparse flow step as the simulator calls it.
+"""The sparse flow step and the per-container sums as the simulator calls
+them.
 
-:func:`stream_flow_ell` runs the hand-written CUDA kernel
-(``csrc/stream_flow.cu``) on CUDA tensors and its plain PyTorch version
-(:func:`~.ref.stream_flow_ell_reference`) on CPU tensors.  A CUDA input
+:func:`stream_flow_ell` and :func:`container_sum` run the hand-written CUDA
+kernels (``csrc/stream_flow.cu``) on CUDA tensors and their plain PyTorch
+versions (:func:`~.ref.stream_flow_ell_reference`,
+:func:`~.ref.container_sum_reference`) on CPU tensors.  A CUDA input
 either launches the kernel or raises; there is no fallback.
 
-The kernel replaces the reference package's Pallas TPU kernels
-``kernels/stream_flow/stream_flow.py:_demand_kernel`` / ``:_flow_kernel``.
-It is bound by bytes (the real ELL slots and the per-edge arrays they
-index); see the note at the top of the CUDA source for what its design does
-about that.  Each batch row runs on one thread-block cluster, so the kernel
+The flow-step kernel replaces the reference package's Pallas TPU kernels
+``kernels/stream_flow/stream_flow.py:_demand_kernel`` / ``:_flow_kernel``;
+the per-container sums replace the reference simulator's plain ``x @ C``
+one-hot products (``streams/simulator.py``), which are no Pallas kernel.
+The flow step is bound by bytes (the real ELL slots and the per-edge
+arrays they index); see the note at the top of the CUDA source for what its
+design does about that.  Each batch row runs on one thread-block cluster, so the kernel
 needs a card with thread-block clusters (``sm_90a``, Hopper).
 """
 from __future__ import annotations
@@ -20,7 +24,7 @@ import math
 import torch
 
 from . import build
-from .ref import container_members, stream_flow_ell_reference
+from .ref import container_members, container_sum_reference, stream_flow_ell_reference
 
 #: Shared memory one block may use on an H100 (opted in above 48 KB).  Each
 #: CTA holds (4 I + 2 K + 1) words, so the largest row is, for example,
@@ -100,14 +104,13 @@ def _check(qout, edge_arrays, ell_src, ell_dst, cont_of, sm_budget, cont_ptr,
 
 def stream_flow_ell(
     qout, edge_src, edge_share, edge_remote, edge_src_cont, edge_dst_cont,
-    ell_src, ell_dst, cont_of, sm_budget, C=None, cont_ptr=None,
-    cont_members=None, *, cluster_size=None,
+    ell_src, ell_dst, cont_of, sm_budget, cont_ptr=None, cont_members=None,
+    *, cluster_size=None,
 ):
     """One sparse flow step for a batch of rows: ``(delivered, arrivals,
     trav_c)``.  Arguments as :func:`~.ref.stream_flow_ell_reference`.
 
-    ``C`` (the one-hot container membership) is used only by the plain
-    version.  ``cont_ptr``/``cont_members`` are the member lists of
+    ``cont_ptr``/``cont_members`` are the member lists of
     :func:`~.ref.container_members`, which the kernel sums containers
     through; a caller that runs many steps builds them once and passes
     them, else they are built here for this call.  The plain version
@@ -128,7 +131,7 @@ def stream_flow_ell(
     if qout.device.type == "cpu":
         return stream_flow_ell_reference(
             qout, edge_src, edge_share, edge_remote, edge_src_cont,
-            edge_dst_cont, ell_src, ell_dst, cont_of, sm_budget, C,
+            edge_dst_cont, ell_src, ell_dst, cont_of, sm_budget,
         )
     if qout.device.type != "cuda":
         raise ValueError(f"stream_flow_ell runs on cuda or cpu, not {qout.device}")
@@ -181,3 +184,77 @@ def stream_flow_ell(
 
 #: Kernel launches since the count was last set to 0.
 stream_flow_ell.launches = 0
+
+
+def check_member_lists(cont_ptr, cont_members, batch: int, n_inst: int, device) -> None:
+    """Raise unless ``cont_ptr`` (B, K + 1) and ``cont_members`` (B, I) are
+    member lists :func:`container_sum`'s kernel takes for ``batch`` rows of
+    ``n_inst`` instances on ``device``: int32, contiguous, on the device,
+    and a row small enough for the kernel's shared memory.  A caller that
+    sums through the same lists many times (the simulator, once per run)
+    checks them here once and passes ``checked=True``."""
+    n_cont = cont_ptr.shape[-1] - 1
+    for name, t, shape in (("cont_ptr", cont_ptr, (batch, n_cont + 1)),
+                           ("cont_members", cont_members, (batch, n_inst))):
+        if t.device != torch.device(device):
+            raise ValueError(f"{name} is on {t.device}, vals on {device}")
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be torch.int32, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if batch * max(n_inst, n_cont + 1) >= 2**31:
+        raise ValueError("vals or member lists too large for the kernel's int32 counts")
+    smem = build.load().container_sum_smem_bytes(n_inst)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"a row of {n_inst} instances needs {smem} bytes of shared memory, over the "
+            f"{SMEM_LIMIT_BYTES}-byte limit"
+        )
+
+
+def container_sum(vals, cont_of, cont_ptr, cont_members, *, checked: bool = False):
+    """(B, I) fp32 per-instance values summed onto (B, K) containers, each
+    container's members in instance order (bit for bit
+    :func:`~.ref.container_sum_reference`).  ``cont_of`` (B, I) is what the
+    plain version reads; ``cont_ptr`` (B, K + 1) and ``cont_members`` (B, I)
+    are the member lists of :func:`~.ref.container_members`, built once per
+    run, which the kernel walks (int32 on the card).  The kernel holds a
+    row's I values in shared memory, so I is at most 58,112.
+    ``checked=True`` says :func:`check_member_lists` has passed these lists
+    for this (B, I) on this device; only ``vals`` is checked then."""
+    n_cont = cont_ptr.shape[1] - 1
+    if vals.device.type == "cpu":
+        return container_sum_reference(vals, cont_of, n_cont)
+    if vals.device.type != "cuda":
+        raise ValueError(f"container_sum runs on cuda or cpu, not {vals.device}")
+    if vals.dim() != 2:
+        raise ValueError(f"vals must be (B, I), got {tuple(vals.shape)}")
+    if vals.dtype != torch.float32:
+        raise ValueError(f"vals must be torch.float32, got {vals.dtype}")
+    if not vals.is_contiguous():
+        raise ValueError("vals must be contiguous")
+    B, I = vals.shape
+    if not checked:
+        check_member_lists(cont_ptr, cont_members, B, I, vals.device)
+    elif cont_members.shape != vals.shape:
+        raise ValueError(f"vals is {tuple(vals.shape)}, the member lists "
+                         f"{tuple(cont_members.shape)}")
+    lib = build.load()
+    out = torch.empty((B, n_cont), dtype=torch.float32, device=vals.device)
+    with torch.cuda.device(vals.device):
+        rc = lib.container_sum_launch(
+            vals.data_ptr(), cont_ptr.data_ptr(), cont_members.data_ptr(),
+            out.data_ptr(), B, I, n_cont, torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"container_sum launch failed: {lib.stream_flow_ell_error_string(rc).decode()} ({rc})"
+        )
+    container_sum.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last set to 0.
+container_sum.launches = 0

@@ -97,10 +97,22 @@ def _ell_sum(vals: torch.Tensor, ell: torch.Tensor) -> torch.Tensor:
     return torch.gather(padded, 1, ids).reshape(ell.shape).sum(dim=2)
 
 
-def to_containers(vals: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
-    """(B, I) per-instance values summed onto containers through the (B, I,
-    K) one-hot membership ``C`` — the reference simulator's ``x @ C``."""
-    return torch.bmm(vals.unsqueeze(1), C).squeeze(1)
+def container_sum_reference(vals: torch.Tensor, cont_of: torch.Tensor, n_cont: int) -> torch.Tensor:
+    """(B, I) per-instance values summed onto (B, ``n_cont``) containers —
+    the reference simulator's ``x @ C`` — with each container's members
+    added one by one in instance order, starting from 0.0.
+
+    The order is fixed by the instances alone, so the sums do not depend on
+    how far I or K are padded (padded instances carry zeros), and they are
+    bit for bit what the CUDA ``container_sum`` kernel computes from the
+    member lists of :func:`container_members`.  On the CPU ``index_add_``
+    into a flat tensor adds in index order.
+    """
+    B, I = vals.shape
+    rows = torch.arange(B, device=vals.device)[:, None] * n_cont
+    idx = (cont_of.long() + rows).reshape(-1)
+    out = vals.new_zeros(B * n_cont).index_add_(0, idx, vals.reshape(-1))
+    return out.reshape(B, n_cont)
 
 
 def stream_flow_ell_reference(
@@ -114,21 +126,23 @@ def stream_flow_ell_reference(
     ell_dst: torch.Tensor,        # (B, I, D_in) edge ids entering each instance, E = empty
     cont_of: torch.Tensor,        # (B, I) int container of each instance
     sm_budget: torch.Tensor,      # (B, K) f32
-    C: torch.Tensor | None = None,  # (B, I, K) f32 one-hot of cont_of, if the caller has it
     cont_ptr: torch.Tensor | None = None,      # (B, K + 1) member-list offsets (unused here)
     cont_members: torch.Tensor | None = None,  # (B, I) member lists (unused here)
 ):
     """The simulator's flow step (per-instance ELL sums, then containers):
     returns ``(delivered, arrivals, trav_c)`` of shapes (B, I), (B, I),
-    (B, K).  ``trav_c`` is before padded-container masking.  The member
-    lists of :func:`container_members` are what the CUDA kernel sums
-    containers through; this version takes and ignores them."""
+    (B, K).  ``trav_c`` is before padded-container masking.  Containers sum
+    their members in instance order (:func:`container_sum_reference`), as
+    the CUDA kernel does through the member lists of
+    :func:`container_members`; this version takes and ignores those."""
     K = sm_budget.shape[1]
-    if C is None:
-        C = torch.nn.functional.one_hot(cont_of.long(), K).to(qout.dtype)
+
+    def to_containers(vals):
+        return container_sum_reference(vals, cont_of, K)
+
     f_want = torch.gather(qout, 1, edge_src.long()) * edge_share
-    orig_c = to_containers(_ell_sum(f_want, ell_src), C)
-    arr_c = to_containers(_ell_sum(f_want * edge_remote, ell_dst), C)
+    orig_c = to_containers(_ell_sum(f_want, ell_src))
+    arr_c = to_containers(_ell_sum(f_want * edge_remote, ell_dst))
     s_c = torch.clamp(sm_budget / torch.clamp(orig_c + arr_c, min=1e-9), max=1.0)
     eff = torch.minimum(
         torch.gather(s_c, 1, edge_src_cont.long()),
@@ -141,9 +155,7 @@ def stream_flow_ell_reference(
     f = f_want * eff
     delivered = _ell_sum(f, ell_src)
     arrivals = _ell_sum(f, ell_dst)
-    trav_c = to_containers(delivered, C) + to_containers(
-        _ell_sum(f * edge_remote, ell_dst), C
-    )
+    trav_c = to_containers(delivered) + to_containers(_ell_sum(f * edge_remote, ell_dst))
     return delivered, arrivals, trav_c
 
 

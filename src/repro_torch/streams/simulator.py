@@ -26,10 +26,13 @@ batched matmuls) and ``"sparse"`` (edge lists with ELL row gathers, one call
 to :func:`~repro_torch.kernels.stream_flow.stream_flow_ell` per tick — the
 hand-written CUDA kernel on the card).
 
-Noise comes from a ``torch.Generator`` per row seeded with the row's seed,
-not from ``jax.random``, so runs with ``noise_std > 0`` agree with the
-reference only in distribution; at ``noise_std = 0`` the two agree to float
-tolerance.
+Noise is the reference's: each row's seed keys JAX's threefry2x32
+generator (:mod:`.prng`, integer torch math), split once per tick, and tick
+``t`` draws ``normal(k_t, (I,))`` over the padded instances, so a row's
+noise depends on its seed alone, not on the bucket or the batch.  The
+normals equal ``jax.random.normal``'s to a few float32 ulps (``erfinv``
+rounds differently; at most 6e-6 relative measured), so runs agree with the
+reference to float tolerance with noise on or off.
 """
 from __future__ import annotations
 
@@ -44,8 +47,9 @@ from ..core.dag import Configuration, Grouping
 from ..core.metrics import STREAM_MANAGER, InstanceSamples, MetricsStore
 from ..device import resolve_device
 from ..interop import stage_padded
-from ..kernels.stream_flow.ops import stream_flow_ell
-from ..kernels.stream_flow.ref import container_members, ell_rows, to_containers
+from ..kernels.stream_flow.ops import check_member_lists, container_sum, stream_flow_ell
+from ..kernels.stream_flow.ref import container_members, ell_rows
+from . import prng
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,11 +384,15 @@ _METRIC_KEYS = (
 )
 
 
+#: Normals drawn per pass of the noise (windows at a time, about 32 MiB
+#: per int64 temporary of the threefry hash).
+NOISE_DRAW_ELEMENTS = 1 << 22
+
+
 def _simulate_core(
     arrays: dict,
     offered_per_tick: torch.Tensor,   # (B, n_ticks) total source ktuples per tick
     seeds: Sequence[int],
-    n_real: Sequence[int],
     params: SimParams,
     *,
     n_ticks: int,
@@ -396,10 +404,11 @@ def _simulate_core(
     The tick is the reference's ``_simulate_core`` operation for operation.
     ``backend`` picks the stream-manager transfer: ``"dense"`` is the (I, I)
     flow matrix, ``"sparse"`` the edge-list step run by
-    :func:`~repro_torch.kernels.stream_flow.stream_flow_ell`.  ``n_real``
-    is each row's unpadded instance count: row ``b`` draws its noise for
-    those instances only, from a generator seeded with ``seeds[b]``, so a
-    row's result does not depend on the bucket or on the rest of the batch.
+    :func:`~repro_torch.kernels.stream_flow.stream_flow_ell`.  Row ``b``
+    draws its noise from ``seeds[b]`` as the reference does (:mod:`.prng`);
+    padded instances draw too and are masked out, and every per-container
+    sum runs in instance order, so a row's result does not depend on the
+    bucket or on the rest of the batch.
     Returns the windowed metric trajectories ((B, S, ...) per metric) or, in
     ``"summary"`` mode, :func:`_summarize_windowed` of them.  Nothing here
     waits on the device.
@@ -423,7 +432,18 @@ def _simulate_core(
     B, I = busy_cost.shape
     K = cont_cpus.shape[1]
     cont_long = cont_of.long()
-    C = torch.nn.functional.one_hot(cont_long, K).to(torch.float32)  # (B, I, K)
+    # every per-container sum walks these member lists in instance order,
+    # so no sum depends on the padding; built once per run
+    members = container_members(cont_of, K)
+    whole_row = torch.zeros_like(cont_of)
+    whole_members = container_members(whole_row, 1)
+    if device.type == "cuda":
+        for lists in (members, whole_members):
+            check_member_lists(*lists, B, I, device)
+
+    def to_containers(vals):
+        return container_sum(vals, cont_of, *members, checked=True)
+
     n_src = is_source.sum(dim=1).clamp(min=1).to(torch.float32)
     sm_budget = dt / torch.clamp(sm_cost_eff, min=1e-9)   # traversals per tick
     if backend == "dense":
@@ -440,27 +460,31 @@ def _simulate_core(
                 "edge_dst_cont", "ell_src", "ell_dst",
             )
         )
-        # the kernel's per-container sums walk these; built once per run
-        members = container_members(cont_of, K)
     else:
         raise ValueError(f"backend={backend!r} not in ('dense', 'sparse')")
 
-    gens = []
-    if noise_std > 0:
-        for s in seeds:
-            g = torch.Generator(device=device)
-            g.manual_seed(int(s))
-            gens.append(g)
-
     se = params.sample_every
     n_samples = n_ticks // se
+    if noise_std > 0:
+        # every tick's key of the run at once; the noise is drawn for
+        # `chunk` windows per pass, (B, chunk·se, I) normals from counters
+        # 0 .. I-1, which are the same values as one pass per window (each
+        # depends only on its tick key and counter) for a fraction of the
+        # launches
+        tick_keys = prng.split(prng.prng_key(seeds, device), 0, n_samples * se)
+        chunk = max(1, NOISE_DRAW_ELEMENTS // (B * se * I))
+    else:
+        tick_keys = None
     qin = torch.zeros(B, I, device=device)
     qout = torch.zeros(B, I, device=device)
     mem = mem_base + 0.0
-    # initial admission starts LOW and grows multiplicatively (slow start)
-    src_cap0 = torch.where(
-        is_source, dt / torch.clamp(busy_cost, min=1e-9), 0.0
-    ).sum(dim=1)
+    # initial admission starts LOW and grows multiplicatively (slow start);
+    # the sources' capacity is summed in instance order too (all instances
+    # as one container), as a padded-length torch.sum need not be
+    src_cap0 = container_sum(
+        torch.where(is_source, dt / torch.clamp(busy_cost, min=1e-9), 0.0),
+        whole_row, *whole_members, checked=True,
+    )[:, 0]
     admit = src_cap0 * 0.05
     sm_cpu_prev = torch.zeros(B, K, device=device)
 
@@ -473,18 +497,17 @@ def _simulate_core(
     acc = [torch.zeros(shapes[k], device=device) for k in _METRIC_KEYS]
 
     for w in range(n_samples):
-        if gens:
-            z = torch.zeros(B, se, I, device=device)
-            for b, g in enumerate(gens):
-                z[b, :, : n_real[b]] = torch.randn(
-                    (se, n_real[b]), generator=g, device=device
-                )
+        if tick_keys is not None and w % chunk == 0:
+            z = prng.normal(tick_keys[:, w * se:(w + chunk) * se], I)
             noise = torch.clamp(1.0 + noise_std * z, 0.7, 1.3)
         for a in acc:
             a.zero_()
         for t in range(se):
             offered = offered_per_tick[:, w * se + t]
-            busy = busy_cost * noise[:, t] if gens else busy_cost
+            if tick_keys is not None:
+                busy = busy_cost * noise[:, (w % chunk) * se + t]
+            else:
+                busy = busy_cost
 
             # 1) spouts admit min(offered, admit) per tick
             admitted = torch.minimum(offered, admit)
@@ -500,7 +523,7 @@ def _simulate_core(
             want = want * inst_mask
 
             # 3) container CPU contention (incl. last tick's SM CPU)
-            demand = to_containers(want * cpu_cost, C) + sm_cpu_prev
+            demand = to_containers(want * cpu_cost) + sm_cpu_prev
             scale_c = torch.clamp(
                 cont_cpus * dt / torch.clamp(demand, min=1e-9), max=1.0
             )
@@ -512,8 +535,8 @@ def _simulate_core(
             # 4) stream-manager transfer with per-container budgets
             if backend == "dense":
                 F_want = qout[:, :, None] * share
-                orig_c = to_containers(F_want.sum(dim=2), C)
-                arr_c = to_containers((F_want * remote_f).sum(dim=1), C)
+                orig_c = to_containers(F_want.sum(dim=2))
+                arr_c = to_containers((F_want * remote_f).sum(dim=1))
                 s_c = torch.clamp(
                     sm_budget / torch.clamp(orig_c + arr_c, min=1e-9), max=1.0
                 )
@@ -526,12 +549,12 @@ def _simulate_core(
                 F = F_want * eff
                 delivered = F.sum(dim=2)
                 arrivals = F.sum(dim=1)
-                trav_c = to_containers(delivered, C) + to_containers(
-                    (F * remote_f).sum(dim=1), C
+                trav_c = to_containers(delivered) + to_containers(
+                    (F * remote_f).sum(dim=1)
                 )
             else:
                 delivered, arrivals, trav_c = stream_flow_ell(
-                    qout, *edge_args, cont_of, sm_budget, C, *members
+                    qout, *edge_args, cont_of, sm_budget, *members
                 )
             qout = qout - delivered
             qin = qin + torch.where(is_source, 0.0, arrivals)
@@ -865,7 +888,6 @@ def simulate_batch(
         arrays,
         offered_dev,
         [seeds[i] for i in rows],
-        [structures[i].n_inst for i in rows],
         params,
         n_ticks=n_ticks,
         backend=backend,

@@ -14,13 +14,14 @@ from repro.kernels.stream_flow import stream_flow_reference as jax_stream_flow_r
 from repro_torch.kernels.stream_flow import (
     cluster_size_for,
     container_members,
+    container_sum,
+    container_sum_reference,
     ell_rows,
     stream_flow_ell,
     stream_flow_ell_reference,
     stream_flow_reference,
 )
 from repro_torch.kernels.stream_flow.ops import threads_for
-from repro_torch.kernels.stream_flow.ref import to_containers
 from repro_torch.streams import degree_bucket_size
 
 SHAPES = [(4, 2, 7), (16, 4, 40), (32, 8, 100), (11, 5, 513)]
@@ -182,13 +183,45 @@ def test_container_members_take_padded_instances():
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_to_containers_equals_sums_through_member_lists(shape):
+    """The plain container sum (the simulator's ``to_containers``) adds each
+    container's members in instance order: bit for bit the member-list walk
+    of the CUDA kernel."""
     n_inst, n_cont, _ = shape
     rng = np.random.default_rng(31 + n_inst)
     cont_of = torch.from_numpy(rng.integers(0, n_cont, (3, n_inst)))
     vals = torch.from_numpy(rng.uniform(0.0, 5.0, (3, n_inst)).astype(np.float32))
-    C = torch.nn.functional.one_hot(cont_of, n_cont).to(torch.float32)
     got = _sequential_container_sums(vals, *container_members(cont_of, n_cont))
-    torch.testing.assert_close(got, to_containers(vals, C), rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, container_sum_reference(vals, cont_of, n_cont))
+
+
+@pytest.mark.parametrize("batch,n_inst,n_cont", [(1, 8, 4), (3, 40, 7), (2, 513, 64), (4, 1024, 512)])
+def test_container_sum_is_bitwise_invariant_to_padding(batch, n_inst, n_cont):
+    """Padded instances (zero values, in the last container) and padded
+    containers leave every real container's sum bit for bit unchanged, and
+    the CPU wrapper takes the plain version without a launch."""
+    rng = np.random.default_rng(batch + n_inst)
+    cont_of = torch.from_numpy(rng.integers(0, n_cont, (batch, n_inst)))
+    vals = torch.from_numpy(rng.uniform(0.0, 5.0, (batch, n_inst)).astype(np.float32))
+    base = container_sum_reference(vals, cont_of, n_cont)
+    for extra_i, extra_k in ((0, 0), (3, 0), (24, 24), (n_inst, 2 * n_cont)):
+        K = n_cont + extra_k
+        padded_of = torch.cat([cont_of, torch.full((batch, extra_i), K - 1)], dim=1)
+        padded = torch.cat([vals, torch.zeros(batch, extra_i)], dim=1)
+        before = container_sum.launches
+        got = container_sum(padded, padded_of, *container_members(padded_of, K))
+        assert container_sum.launches == before
+        assert torch.equal(got[:, :n_cont], base)
+        assert torch.equal(got[:, n_cont:], torch.zeros(batch, extra_k))
+
+
+def test_container_sum_is_not_a_matmul():
+    """Values whose float32 sum depends on the order: the plain version
+    adds them in instance order, the one-hot product (the old
+    ``torch.bmm``) need not."""
+    vals = torch.tensor([[1e8, 1.0, -1e8, 1.0]], dtype=torch.float32)
+    cont_of = torch.zeros(1, 4, dtype=torch.int64)
+    got = container_sum_reference(vals, cont_of, 1)
+    assert got.item() == ((np.float32(1e8) + np.float32(1.0)) - np.float32(1e8)) + np.float32(1.0)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -197,9 +230,8 @@ def test_wrapper_on_cpu_takes_member_lists_and_equals_plain_version(shape):
     rng = np.random.default_rng(41 + sum(shape))
     p = _ell_batch(rng, 2, n_inst, n_cont, n_edges)
     args = [p[k] for k in ELL_ARGS]
-    C = torch.nn.functional.one_hot(p["cont_of"].long(), n_cont).to(torch.float32)
     before = stream_flow_ell.launches
-    got = stream_flow_ell(*args, C, *container_members(p["cont_of"], n_cont), cluster_size=2)
+    got = stream_flow_ell(*args, *container_members(p["cont_of"], n_cont), cluster_size=2)
     assert stream_flow_ell.launches == before
     for x, y in zip(got, stream_flow_ell_reference(*args)):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
@@ -219,8 +251,9 @@ def test_cluster_size_fills_the_card_and_keeps_a_warp_per_row(batch, n_inst, n_s
 
 
 def test_sparse_tick_builds_member_lists_once_per_run(monkeypatch):
-    """The member lists are built before the tick loop, and every tick
-    passes them to the flow step, whose result still equals the dense tick's."""
+    """The member lists are built before the tick loop (on either tick, for
+    the container sums), and every sparse tick passes them to the flow
+    step, whose result still equals the dense tick's."""
     from repro_torch.core import ContainerDim, round_robin_configuration
     from repro_torch.streams import SimParams, deep_pipeline, measure_capacity
     from repro_torch.streams import simulator
@@ -242,8 +275,10 @@ def test_sparse_tick_builds_member_lists_once_per_run(monkeypatch):
     cfg = round_robin_configuration(dag, {n: 2 for n in dag.node_names}, 4, ContainerDim(3.0, 4096.0))
     params = SimParams()
     sparse = measure_capacity(cfg, params, duration_s=1.0, tick_kernel="sparse", device="cpu")
-    assert len(built) == 1
-    assert len(calls) == int(1.0 / params.dt) and set(calls) == {13}
+    # the containers' lists (K = 8), and the whole row as one container for
+    # the sources' capacity
+    assert built == [8, 1]
+    assert len(calls) == int(1.0 / params.dt) and set(calls) == {12}
     dense = measure_capacity(cfg, params, duration_s=1.0, tick_kernel="dense", device="cpu")
-    assert len(built) == 1
+    assert built == [8, 1, 8, 1] and len(calls) == int(1.0 / params.dt)
     assert sparse == pytest.approx(dense, rel=1e-4)

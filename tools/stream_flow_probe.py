@@ -58,7 +58,7 @@ def main() -> int:
     threads_for = ops.threads_for
     for B, p in problems.items():
         E = p["edge_src"].shape[1]
-        args = [p[k] for k in cs.KERNEL_ARGS] + [None, *cs.members_of(p)]
+        args = [p[k] for k in cs.KERNEL_ARGS] + [*cs.members_of(p)]
         bound = cs.flow_bound(p)[0]
         print(f"B={B}: bound {bound:.6f} ms", flush=True)
         for cap in (1024, 512, 256):
@@ -80,7 +80,7 @@ def main() -> int:
         padded = p["inst_mask"] == 0
         dealt = dict(p, cont_of=p["cont_of"].clone())
         dealt["cont_of"][padded] = (torch.arange(int(padded.sum()), device=device) % K).to(torch.int32)
-        spread = args[:8] + [dealt["cont_of"]] + args[9:11] + list(cs.members_of(dealt))
+        spread = args[:8] + [dealt["cont_of"]] + args[9:10] + list(cs.members_of(dealt))
         ms = cs.graph_ms(lambda: stream_flow_ell(*spread), iters=50)
         longest = int(torch.bincount(p["cont_of"][0].long()).max())
         print(f"  padded instances dealt over all {K} containers (longest member list "
