@@ -10,9 +10,11 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    KB a block gets without opting in) and on the padded arrays of a
    20,000-ktps ``deep_pipeline`` allocation, and checks that the
    allocation's row gives bit-equal results alone, inside a batch of 32,
-   padded to larger I/K/E/D and at two forced cluster sizes; and holds the
+   padded to larger I/K/E/D and at two forced cluster sizes; holds the
    per-container sum kernel to its plain version, bit for bit on the host
-   and across padding;
+   and across padding; and holds the fixed-order axis sums (the dense
+   tick's and the summary's) to theirs, bit for bit at the dense tick's
+   shape and padded beyond it;
 2. drives the paper's workflow on ``deep_pipeline`` through the port's
    entry points: profile a test deployment (``training_sweep``), fit node
    models, predict three unseen packings and measure them, allocate for
@@ -20,10 +22,9 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    tick (which must agree);
 3. scores a batch of 32 candidate configurations around the allocation
    with the sparse tick in summary mode;
-3b. runs the allocation at two bucket settings on each tick and requires
-   the sparse tick's samples to be bit for bit equal (the dense tick's
-   largest difference is printed: its padded (I, I) sums are torch
-   reductions);
+3b. runs the allocation at two bucket settings on each tick, in full and
+   in summary mode, and requires its samples and its summary to be bit for
+   bit equal on both ticks;
 4. holds the RMSNorm and flash-attention kernels against their plain
    versions at llama3-8b's shapes (fp32 and bf16 RMSNorm; causal, windowed
    and non-causal attention, head_dim 128 and 120);
@@ -50,7 +51,7 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
 and times each kernel, its plain version and, where there is one, the
 PyTorch call that computes the same function at the main paths' shapes,
 beside the empty kernel's launch (the floor of any kernel's time).  The
-stream kernels' launches in phases 2-3 are counted by input shape, and
+three stream kernels' launches in phases 2-3 are counted by input shape, and
 each is timed at every one of those shapes; every kernel's launches x
 (time - bound) over its paths is printed, largest first.
 Any failed phase raises and the script exits non-zero.  The last line is a
@@ -306,6 +307,12 @@ def sum_key(args) -> tuple:
     return (*args[0].shape, args[2].shape[1] - 1)
 
 
+def ordered_key(args) -> tuple:
+    """(B, R, L, dim, masked) of an ``ordered_sum`` call (x, dim[, mask])."""
+    masked = len(args) > 2 and args[2] is not None
+    return (*args[0].shape, args[1], masked)
+
+
 class LaunchRecorder:
     """Stands in for one of the simulator's kernel wrappers during the main
     path: counts the kernel's launches by input shape (``key_of(args)``)
@@ -325,7 +332,7 @@ class LaunchRecorder:
             key = self.key_of(args)
             self.counts[key] = self.counts.get(key, 0) + 1
             if key not in self.inputs:
-                self.inputs[key] = [a.clone() if a is not None else None for a in args]
+                self.inputs[key] = [a.clone() if hasattr(a, "clone") else a for a in args]
         return out
 
 
@@ -515,6 +522,103 @@ def time_container_sum(args) -> dict:
                 bound_by=bound_by)
 
 
+def check_ordered_sum(name, args) -> float:
+    """The fixed-order sum kernel against its plain version, bit for bit on
+    the card and on the host (both add the same lanes in the same order with
+    elementwise float32 adds).  Returns the largest difference (0.0)."""
+    import torch
+    from repro_torch.kernels.stream_flow import ordered_sum, ordered_sum_reference
+
+    x, dim, mask = (list(args) + [None])[:3]
+    got = ordered_sum(x, dim, mask)
+    plain = ordered_sum_reference(x, dim, mask)
+    torch.cuda.synchronize()
+    host = ordered_sum_reference(x.cpu(), dim, None if mask is None else mask.cpu())
+    for label, want in (("the plain version on the card", plain), ("the host's plain version", host)):
+        if not torch.equal(got.cpu(), want.cpu()):
+            diff = float((got.cpu() - want.cpu()).abs().max())
+            raise AssertionError(f"ordered_sum {name}: differs from {label} by {diff:.3e}")
+    log(f"  ordered_sum {name}: {tuple(x.shape)} dim {dim} {'masked' if mask is not None else 'unmasked'}: "
+        f"bit-equal to the plain version on the card and on the host")
+    return float((got - plain).abs().max())
+
+
+def check_ordered_padding(name, x, dim, mask, pad) -> None:
+    """``x`` (and ``mask``) with ``pad`` = (B, R, L) zeros appended: the sums
+    of the real entries must be bit for bit those of ``x`` alone."""
+    import torch
+    from repro_torch.kernels.stream_flow import ordered_sum
+
+    B, R, L = x.shape
+    big = torch.zeros(B + pad[0], R + pad[1], L + pad[2], device=x.device)
+    big[:B, :R, :L] = x
+    big_mask = None
+    if mask is not None:
+        big_mask = torch.zeros(big.shape, dtype=torch.bool, device=x.device)
+        big_mask[:B, :R, :L] = mask
+    n = R if dim == 2 else L
+    got = ordered_sum(big, dim, big_mask)[:B, :n]
+    want = ordered_sum(x, dim, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"ordered_sum {name}: padding by {pad} moved the sums by up to "
+                             f"{float((got - want).abs().max()):.3e}")
+    log(f"  ordered_sum {name}: padded by (B, R, L) = {pad}: bit-equal")
+
+
+def ordered_bound(B, R, L, dim, masked) -> tuple[float, str]:
+    """What the function must move: the tensor (and its one-byte mask) read
+    once, the sums written once; one fp32 add per element (and one multiply
+    when masked)."""
+    n = B * R * L
+    nbytes = 4 * n + (n if masked else 0) + 4 * B * (R if dim == 2 else L)
+    flops = n * (2 if masked else 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_ordered_sum(args) -> dict:
+    """The kernel, its plain version and, unmasked, ``torch.sum`` (one
+    PyTorch call for the same sums, in the order its reduction picks) on
+    the same inputs; a masked sum has no one PyTorch call."""
+    from repro_torch.kernels.stream_flow import ordered_sum, ordered_sum_reference
+
+    x, dim, mask = (list(args) + [None])[:3]
+    ms, eager_ms = time_both(lambda: ordered_sum(x, dim, mask), iters=200)
+    plain_ms, plain_eager = time_both(lambda: ordered_sum_reference(x, dim, mask), iters=20)
+    library_ms = library_eager = None
+    if mask is None:
+        library_ms, library_eager = time_both(lambda: x.sum(dim=dim), iters=200)
+    bound_ms, bound_by = ordered_bound(*x.shape, dim, mask is not None)
+    lib = "none (masked)" if library_ms is None else f"{library_ms:.5f} ms"
+    lib_eager = "" if library_eager is None else f"  torch.sum {library_eager:.5f} ms"
+    log(f"  ordered_sum {tuple(x.shape)} dim {dim} {'masked' if mask is not None else 'unmasked'} "
+        f"device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  torch.sum {lib}  "
+        f"bound {bound_ms:.6f} ms ({bound_by}); eager with launch cost: kernel {eager_ms:.5f}  "
+        f"plain {plain_eager:.5f}{lib_eager}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def phase_ordered_sum(device, rng) -> float:
+    """The fixed-order sums at the dense tick's shape on the allocation
+    (B = 1, I = 1024) and the summary's at phase 3's (32 rows, 80 samples,
+    1024 instances), each with and without the mask, and padded beyond
+    them (as phase 3b pads the allocation)."""
+    import torch
+
+    worst = 0.0
+    for shape in ((1, 1024, 1024), (32, 80, 1024)):
+        x = torch.as_tensor(rng.uniform(0.0, 5.0, shape).astype("float32"), device=device)
+        mask = torch.as_tensor(rng.random(shape) < 0.5, device=device)
+        for dim in (1, 2):
+            for m in (None, mask):
+                worst = max(worst, check_ordered_sum("random", [x, dim, m]))
+        check_ordered_padding("random", x, 1, mask, (2, 512, 512))
+        check_ordered_padding("random", x, 2, None, (1, 512, 512))
+    return worst
+
+
 EMPTY_SOURCE = """\
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -623,10 +727,22 @@ def phase_main_path(device, params, dim, target, sweep_s, measure_s):
         deep_pipeline, measure_capacity, structure_for, training_sweep,
     )
 
+    import torch
+
+    walls = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     dag = deep_pipeline()
     test_cfg = round_robin_configuration(dag, {n: 1 for n in dag.node_names}, 2, dim)
     store = training_sweep(test_cfg, np.linspace(25, 150, 6), params,
                            seconds_per_rate=sweep_s, device=device)
+    lap("profile")
     log(f"  profiled {test_cfg.describe()}: {len(store)} timeseries")
     models = fit_workload(store)
     for name, m in sorted(models.items()):
@@ -648,12 +764,17 @@ def phase_main_path(device, params, dim, target, sweep_s, measure_s):
             raise AssertionError("prediction or measurement is not a positive number")
         if err > 0.25:
             raise AssertionError(f"prediction off by {err:.1%} (> 25%)")
+    lap("predict and measure 3 packings")
     result = allocate(dag, models, target, overprovision=1.1)
     st = structure_for(result.config, params)
     log(f"  allocation for {target:.0f} ktps: {st.n_inst} instances, "
         f"{st.n_cont} containers, {st.n_edges} edges, {result.total_cpus:.1f} cpus")
+    lap("allocate")
     dense = measure_capacity(result.config, params, tick_kernel="dense", device=device)
+    lap("measure dense")
     sparse = measure_capacity(result.config, params, tick_kernel="sparse", device=device)
+    lap("measure sparse")
+    log("  phase 2 walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
     rel = abs(sparse - dense) / dense
     log(f"  measured: dense {dense:.3f} ktps  sparse {sparse:.3f} ktps  rel {rel:.2e}")
     if not (np.isfinite(dense) and dense > 0):
@@ -698,10 +819,9 @@ def phase_batch(device, params, configs, duration_s):
 
 def phase_buckets(device, params, config, duration_s):
     """The allocation alone in its own buckets and padded to I = 1536,
-    K = 1024 (and, on the sparse tick, E = 65,536, D = 512), full mode:
-    the sparse tick's samples must be bit for bit equal; the dense tick's
-    largest difference is printed (its (I, I) sums are torch reductions
-    over the padded length).  Returns {tick: largest |difference|}."""
+    K = 1024 (and, on the sparse tick, E = 65,536, D = 512), in full and in
+    summary mode: on both ticks the samples and the summary must be bit for
+    bit equal.  Returns {(tick, mode): largest |difference|} (all 0.0)."""
     import numpy as np
     from repro_torch.streams import simulate_batch
 
@@ -709,20 +829,20 @@ def phase_buckets(device, params, config, duration_s):
     worst = {}
     for kernel, extra in (("sparse", dict(min_edge_bucket=65536, min_degree_bucket=512)),
                           ("dense", {})):
-        runs = [simulate_batch([config], 1e6, duration_s=duration_s, params=params,
-                               tick_kernel=kernel, device=device, **kw)[0]
-                for kw in ({}, {**padded, **extra})]
-        base, pad = (r.samples for r in runs)
-        diff = max(float(np.abs(pad[k] - base[k]).max()) for k in base)
-        rel = max(float(np.abs(pad[k] - base[k]).max() / max(np.abs(base[k]).max(), 1e-30))
-                  for k in base)
-        equal = all(np.array_equal(pad[k], base[k]) for k in base)
-        worst[kernel] = diff
-        log(f"  {kernel} tick, {int(duration_s / params.dt)} ticks: achieved "
-            f"{runs[0].achieved_ktps!r} vs {runs[1].achieved_ktps!r} ktps padded; samples "
-            f"{'bit-equal' if equal else 'differ'} (max |diff| {diff:.3e}, {rel:.3e} of a series' max)")
-        if kernel == "sparse" and not equal:
-            raise AssertionError("the sparse tick's samples moved with the buckets")
+        for mode in ("full", "summary"):
+            runs = [simulate_batch([config], 1e6, duration_s=duration_s, params=params,
+                                   tick_kernel=kernel, samples=mode, device=device, **kw)[0]
+                    for kw in ({}, {**padded, **extra})]
+            base, pad = ((r.samples if mode == "full" else r.summary) for r in runs)
+            diff = max(float(np.abs(np.asarray(pad[k]) - np.asarray(base[k])).max()) for k in base)
+            equal = all(np.array_equal(pad[k], base[k]) for k in base)
+            worst[(kernel, mode)] = diff
+            log(f"  {kernel} tick, {mode}, {int(duration_s / params.dt)} ticks: achieved "
+                f"{runs[0].achieved_ktps!r} vs {runs[1].achieved_ktps!r} ktps padded; "
+                f"{'samples' if mode == 'full' else 'summary'} "
+                f"{'bit-equal' if equal else 'differ'} (max |diff| {diff:.3e})")
+            if not equal:
+                raise AssertionError(f"the {kernel} tick's {mode} results moved with the buckets")
     return worst
 
 
@@ -1199,7 +1319,7 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
-    from repro_torch.kernels.stream_flow import build, container_sum, stream_flow_ell
+    from repro_torch.kernels.stream_flow import build, container_sum, ordered_sum, stream_flow_ell
     from repro_torch.streams import SimParams, deep_pipeline
 
     device = resolve_device("cuda")
@@ -1232,6 +1352,7 @@ def main() -> int:
     max_err = max(max_err, check_kernel("random(4096,2048,196608)", big))
     sum_err = check_container_sum("random(4096,2048)", sum_inputs(big, check_rng))
     del big
+    ord_err = phase_ordered_sum(device, check_rng)
     phase_bitwise(device, params, oracle_alloc.config,
                   candidate_configs(oracle_alloc, 32, check_rng)[1:], check_rng)
     timings["phase1"] = time.perf_counter() - t0
@@ -1239,8 +1360,10 @@ def main() -> int:
     from repro_torch.streams import simulator
     flow_rec = LaunchRecorder(simulator.stream_flow_ell, flow_key)
     sum_rec = LaunchRecorder(simulator.container_sum, sum_key)
+    ord_rec = LaunchRecorder(simulator.ordered_sum, ordered_key)
     simulator.stream_flow_ell, simulator.container_sum = flow_rec, sum_rec
-    stream_flow_ell.launches = container_sum.launches = 0
+    simulator.ordered_sum = ord_rec
+    stream_flow_ell.launches = container_sum.launches = ordered_sum.launches = 0
     try:
         t0 = time.perf_counter()
         log("phase 2: main path on deep_pipeline")
@@ -1249,7 +1372,9 @@ def main() -> int:
         timings["phase2"] = time.perf_counter() - t0
         launches_main = stream_flow_ell.launches
         sums_main = container_sum.launches
-        log(f"  launches in phase 2: stream_flow_ell {launches_main}, container_sum {sums_main}")
+        ordered_main = ordered_sum.launches
+        log(f"  launches in phase 2: stream_flow_ell {launches_main}, container_sum {sums_main}, "
+            f"ordered_sum {ordered_main}")
 
         t0 = time.perf_counter()
         log("phase 3: 32 candidates around the allocation (sparse, summary)")
@@ -1259,15 +1384,20 @@ def main() -> int:
         timings["phase3"] = time.perf_counter() - t0
         launches = stream_flow_ell.launches
         sum_launches = container_sum.launches
+        ordered_launches = ordered_sum.launches
     finally:
         simulator.stream_flow_ell, simulator.container_sum = flow_rec.fn, sum_rec.fn
+        simulator.ordered_sum = ord_rec.fn
     log(f"  launches in phase 3: stream_flow_ell {launches - launches_main}, "
-        f"container_sum {sum_launches - sums_main}; wall {timings['phase3']:.3f} s for "
+        f"container_sum {sum_launches - sums_main}, ordered_sum {ordered_launches - ordered_main}; "
+        f"wall {timings['phase3']:.3f} s for "
         f"{int(20.0 / params.dt)} ticks ({timings['phase3'] / (20.0 / params.dt) * 1e3:.3f} ms/tick, "
         f"threefry noise included)")
-    log(f"launches after phases 2-3: stream_flow_ell {launches}, container_sum {sum_launches}")
+    log(f"launches after phases 2-3: stream_flow_ell {launches}, container_sum {sum_launches}, "
+        f"ordered_sum {ordered_launches}")
     for name, rec, total in (("stream_flow_ell", flow_rec, launches),
-                             ("container_sum", sum_rec, sum_launches)):
+                             ("container_sum", sum_rec, sum_launches),
+                             ("ordered_sum", ord_rec, ordered_launches)):
         for key, n in sorted(rec.counts.items()):
             log(f"  {name} launches at {key}: {n}")
         if total <= 0:
@@ -1302,14 +1432,23 @@ def main() -> int:
         args = sum_rec.inputs[key]
         sum_err = max(sum_err, check_container_sum(f"main path {key}", args))
         sum_at[key] = time_container_sum(args)
+    ord_at = {}
+    for key in sorted(ord_rec.counts):
+        args = ord_rec.inputs[key]
+        ord_err = max(ord_err, check_ordered_sum(f"main path {key}", args))
+        ord_at[key] = time_ordered_sum(args)
     excess = {}
-    for name, rec, at in (("stream_flow_ell", flow_rec, flow_at), ("container_sum", sum_rec, sum_at)):
+    for name, rec, at in (("stream_flow_ell", flow_rec, flow_at), ("container_sum", sum_rec, sum_at),
+                          ("ordered_sum", ord_rec, ord_at)):
         for key, t in at.items():
             n = rec.counts[key]
             log(f"  {name} launches x (time - bound) at {key}: {n} x "
                 f"({t['ms']:.5f} - {t['bound_ms']:.6f}) ms = {n * (t['ms'] - t['bound_ms']):.3f} ms")
         excess[f"{name}, phases 2-3"] = excess_ms([(rec.counts[k], t) for k, t in at.items()])
     t_sum32 = sum_at[max(sum_at)]            # the largest batch: the candidates
+    ord_main = max(ord_rec.counts, key=lambda k: (ord_rec.counts[k], k))   # the most launched shape
+    log(f"ordered_sum at its most launched shape {ord_main} ({ord_rec.counts[ord_main]} launches): "
+        f"{json.dumps(ord_at[ord_main])}")
     log("profile: where a tick's time goes (32 candidates, sparse, summary)")
     profile_ticks(device, params, candidates, duration_s=1.0)
     timings["timing"] = time.perf_counter() - t0
@@ -1430,8 +1569,8 @@ def main() -> int:
         log(f"  {ms:10.3f} ms  {label}")
     log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
     log(f"card vs host: max|logit difference| llama3-8b {logit_err:.3e}, "
-        f"jamba mamba+attn {hybrid_err:.3e}; bucket phase max|diff| sparse "
-        f"{bucket_diff['sparse']:.3e} dense {bucket_diff['dense']:.3e}")
+        f"jamba mamba+attn {hybrid_err:.3e}; bucket phase max|diff| "
+        + ", ".join(f"{k} {m} {v:.3e}" for (k, m), v in bucket_diff.items()))
 
     kernels = [
         dict(name="stream_flow_ell", route="cuda",
@@ -1443,6 +1582,10 @@ def main() -> int:
              source="src/repro_torch/kernels/stream_flow/csrc/stream_flow.cu",
              replaces="src/repro/streams/simulator.py:701",
              launches=sum_launches, max_abs_err=sum_err, **t_sum32),
+        dict(name="ordered_sum", route="cuda",
+             source="src/repro_torch/kernels/stream_flow/csrc/stream_flow.cu",
+             replaces="src/repro/streams/simulator.py:716",
+             launches=ordered_launches, max_abs_err=ord_err, **ord_at[ord_main]),
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23",

@@ -1,5 +1,6 @@
-"""Build and load the CUDA flow-step kernel (``csrc/stream_flow.cu``)
-through the shared helper :mod:`repro_torch.kernels._build`."""
+"""Build and load the CUDA flow-step, container-sum and ordered-sum kernels
+(``csrc/stream_flow.cu``) through the shared helper
+:mod:`repro_torch.kernels._build`."""
 from __future__ import annotations
 
 import ctypes
@@ -20,8 +21,8 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.stream_flow_ell_error_string.restype = ctypes.c_char_p
     lib.container_sum_launch.argtypes = [ptr] * 4 + [i32] * 3 + [ptr]
     lib.container_sum_launch.restype = ctypes.c_int
-    lib.container_sum_smem_bytes.argtypes = [i32]
-    lib.container_sum_smem_bytes.restype = ctypes.c_size_t
+    lib.ordered_sum_launch.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+    lib.ordered_sum_launch.restype = ctypes.c_int
 
 
 LIBRARY = KernelLibrary("stream_flow", SOURCE, _bind)

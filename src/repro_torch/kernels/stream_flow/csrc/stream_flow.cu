@@ -50,9 +50,12 @@
 // So the results are the same from run to run and bit for bit the same for
 // any batch, any I/K/E/D padding and any cluster size.
 //
-// A second entry point, container_sum, is the simulator's other per-
-// container sum (container CPU demand on both ticks, and the dense tick's
-// flow sums), in the same instance order; see its note below.
+// Two more entry points serve the rest of the tick, each in a fixed order
+// that padding cannot move (see their notes below): container_sum, the
+// simulator's other per-container sums (container CPU demand on both
+// ticks, the dense tick's flow sums), in instance order; and ordered_sum,
+// the dense tick's row and column sums over the padded instance axis and
+// the summary's source sum, lane-strided with a fixed butterfly.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,8 +68,12 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kMaxThreads = 1024;
-constexpr int kSumThreads = 256;      // container_sum's block
-constexpr int kSumAhead = 16;         // loads container_sum keeps ahead of its adds
+constexpr int kSumWarps = 4;          // warps per container_sum block, a container per lane
+constexpr int kLaneMembers = 8;       // longest member list one lane sums alone
+constexpr int kWarpAhead = 16;        // loads per lane per step when a warp walks a long list
+constexpr int kSumAhead = 8;          // loads an ordered_sum lane keeps in flight ahead of its adds
+constexpr int kRowWarps = 8;          // rows per block of ordered_sum over dim 2
+constexpr int kColTile = 16;          // columns per block of ordered_sum over dim 1
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
 // Returned by the launch when no cluster of the asked size can be placed.
@@ -263,42 +270,169 @@ __global__ void __launch_bounds__(kMaxThreads) stream_flow_ell_kernel(
 // version is ref.py::container_sum_reference.  It stands in for the
 // reference simulator's one-hot products `x @ C` (streams/simulator.py),
 // which are plain jnp, not a Pallas kernel.  Each container adds its
-// members in instance order from 0, as the flow kernel's throttle does
+// members in instance order from +0.0, as the flow kernel's throttle does
 // above, so the sums do not depend on the padding of I or K and equal the
-// plain version bit for bit.  Bound by bytes (vals and one member id per
-// instance read once, the sums written once), but a container's sum is
-// a chain of dependent adds, and the last container also holds every
-// padded instance.  So one block per row first gathers the row's values in
-// member order into shared memory (coalesced on the member list), and then
-// one thread per container adds its contiguous slice from there, 16
-// loads in flight ahead of the adds.
-__global__ void __launch_bounds__(kSumThreads) container_sum_kernel(
+// plain version bit for bit.
+//
+// What bounds it: bytes (vals and one member id per instance read once,
+// the sums written once), a few KB a row, so in practice the latency of
+// two dependent gathers.  A container's sum is a chain of dependent adds,
+// and the simulator puts every padded instance in the last container (382
+// of 1024 at the smoke's allocation), where one thread walking the list
+// would set the kernel's critical path, while the real containers hold
+// about two members each.  The design:
+//
+// * One lane per container, 128 containers a block (grid (ceil(K / 128),
+//   B)): 4 blocks at B = 1, K = 512, 128 at B = 32, all resident at once.
+//   A lane whose list holds at most 8 members gathers them all at once
+//   (8 loads in flight) and adds them in list order.  No shared memory, no
+//   barrier.
+// * The longer lists of a warp (the padded container, and any large real
+//   one) are walked by the whole warp, one list at a time: 512 members a
+//   step through the member list (16 loads in flight per lane), then the
+//   step's nonzero values added in list order through shuffles.  Zeros are
+//   skipped: a sum begun at +0.0 never becomes -0.0, and adding +0.0 or
+//   -0.0 to it leaves it as it was, so skipping them changes no bit.  The
+//   padded members, all zeros, cost one step of loads and no adds.
+__global__ void __launch_bounds__(kSumWarps * kWarp) container_sum_kernel(
     const float* __restrict__ vals,            // (B, I)
     const int32_t* __restrict__ cont_ptr,      // (B, K + 1)
     const int32_t* __restrict__ cont_members,  // (B, I)
     float* __restrict__ out,                   // (B, K)
     int I, int K) {
-  extern __shared__ float s_sorted[];          // (I) this row's values in member order
-  const int64_t b = blockIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const int k = blockIdx.x * kSumWarps * kWarp + threadIdx.x;
+  const int64_t b = blockIdx.y;
   vals += b * I;
   cont_members += b * I;
   cont_ptr += b * (K + 1);
-  out += b * K;
-  for (int m = threadIdx.x; m < I; m += blockDim.x) s_sorted[m] = vals[cont_members[m]];
-  __syncthreads();
-  for (int k = threadIdx.x; k < K; k += blockDim.x) {
-    const int end = cont_ptr[k + 1];
-    int m = cont_ptr[k];
-    float acc = 0.f;
-    for (; m + kSumAhead <= end; m += kSumAhead) {
-      float a[kSumAhead];
+  int begin = 0, end = 0;
+  if (k < K) {
+    begin = cont_ptr[k];
+    end = cont_ptr[k + 1];
+  }
+  const int count = end - begin;
+  float acc = 0.f;
+  if (count <= kLaneMembers) {
+    float v[kLaneMembers];
 #pragma unroll
-      for (int u = 0; u < kSumAhead; ++u) a[u] = s_sorted[m + u];
+    for (int u = 0; u < kLaneMembers; ++u) v[u] = u < count ? vals[cont_members[begin + u]] : 0.f;
 #pragma unroll
-      for (int u = 0; u < kSumAhead; ++u) acc = __fadd_rn(acc, a[u]);
+    for (int u = 0; u < kLaneMembers; ++u) {
+      if (u < count) acc = __fadd_rn(acc, v[u]);
     }
-    for (; m < end; ++m) acc = __fadd_rn(acc, s_sorted[m]);
-    out[k] = acc;
+  }
+  for (unsigned longs = __ballot_sync(kFull, count > kLaneMembers); longs != 0; longs &= longs - 1) {
+    const int owner = __ffs(longs) - 1;
+    const int first = __shfl_sync(kFull, begin, owner);
+    const int last = __shfl_sync(kFull, end, owner);
+    float sum = 0.f;
+    for (int m0 = first; m0 < last; m0 += kWarpAhead * kWarp) {
+      float v[kWarpAhead];
+#pragma unroll
+      for (int u = 0; u < kWarpAhead; ++u) {
+        const int m = m0 + u * kWarp + lane;
+        v[u] = m < last ? vals[cont_members[m]] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kWarpAhead; ++u) {
+        for (unsigned nz = __ballot_sync(kFull, v[u] != 0.f); nz != 0; nz &= nz - 1) {
+          sum = __fadd_rn(sum, __shfl_sync(kFull, v[u], __ffs(nz) - 1));
+        }
+      }
+    }
+    if (lane == owner) acc = sum;
+  }
+  if (k < K) out[b * K + k] = acc;
+}
+
+// Sums over one axis of a (B, R, L) fp32 tensor, times an optional 0/1
+// mask, in a fixed order: the plain version is ref.py::ordered_sum_reference.
+// It stands in for the reference simulator's dense-tick sums over the
+// instance axis (`F_want.sum`, `F.sum`, streams/simulator.py l. 716-727)
+// and its summary's source sum (l. 568), plain jnp, not a Pallas kernel.
+// Element j of the reduced axis goes to lane j % 32, each lane adds its
+// elements in index order from +0.0, and the 32 lane sums meet in a
+// __shfl_xor_sync butterfly.  Padded elements are zeros at the end of the
+// axis, which leave every lane's sum as it was, so the result does not
+// depend on the padding of B, R or L (torch's reductions group by the
+// padded length).
+//
+// What bounds it: bytes, the tensor (and mask) read once.  The design:
+// row sums (dim 2) give each row one warp, whose lanes read 128
+// contiguous bytes a step; column sums (dim 1) give each block 16 columns
+// and all 32 lanes of each, a warp reading two rows of 64 contiguous
+// bytes a step (8 columns a block were 8% slower), the lane sums meeting
+// in shared memory for the butterfly.  Either way each lane keeps 8 loads
+// in flight ahead of its adds.
+template <bool kMasked>
+__device__ __forceinline__ float masked_load(const float* x, const uint8_t* mask, int64_t i) {
+  return kMasked ? __fmul_rn(x[i], mask[i] ? 1.f : 0.f) : x[i];
+}
+
+template <bool kMasked>
+__global__ void __launch_bounds__(kRowWarps * kWarp) ordered_row_sum_kernel(
+    const float* __restrict__ x,        // (B, R, L)
+    const uint8_t* __restrict__ mask,   // (B, R, L) or null
+    float* __restrict__ out,            // (B, R)
+    int R, int L) {
+  const int r = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
+  if (r >= R) return;                   // the whole warp
+  const int lane = threadIdx.x % kWarp;
+  const int64_t row = (static_cast<int64_t>(blockIdx.y) * R + r) * L;
+  x += row;
+  if (kMasked) mask += row;
+  float acc = 0.f;
+  int j = lane;
+  for (; j + (kSumAhead - 1) * kWarp < L; j += kSumAhead * kWarp) {
+    float v[kSumAhead];
+#pragma unroll
+    for (int u = 0; u < kSumAhead; ++u) v[u] = masked_load<kMasked>(x, mask, j + u * kWarp);
+#pragma unroll
+    for (int u = 0; u < kSumAhead; ++u) acc = __fadd_rn(acc, v[u]);
+  }
+  for (; j < L; j += kWarp) acc = __fadd_rn(acc, masked_load<kMasked>(x, mask, j));
+  acc = warp_sum(acc);
+  if (lane == 0) out[static_cast<int64_t>(blockIdx.y) * R + r] = acc;
+}
+
+template <bool kMasked>
+__global__ void __launch_bounds__(kColTile * kWarp) ordered_col_sum_kernel(
+    const float* __restrict__ x,        // (B, R, L)
+    const uint8_t* __restrict__ mask,   // (B, R, L) or null
+    float* __restrict__ out,            // (B, L)
+    int R, int L) {
+  __shared__ float s_lane[kWarp][kColTile + 1];   // lane sums, padded against bank conflicts
+  const int c = threadIdx.x % kColTile;
+  const int lane = threadIdx.x / kColTile;        // the row lane: rows lane, lane + 32, ...
+  const int col = blockIdx.x * kColTile + c;
+  const int64_t base = static_cast<int64_t>(blockIdx.y) * R * L + col;
+  x += base;
+  if (kMasked) mask += base;
+  float acc = 0.f;
+  if (col < L) {
+    int r = lane;
+    for (; r + (kSumAhead - 1) * kWarp < R; r += kSumAhead * kWarp) {
+      float v[kSumAhead];
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) {
+        v[u] = masked_load<kMasked>(x, mask, static_cast<int64_t>(r + u * kWarp) * L);
+      }
+#pragma unroll
+      for (int u = 0; u < kSumAhead; ++u) acc = __fadd_rn(acc, v[u]);
+    }
+    for (; r < R; r += kWarp) {
+      acc = __fadd_rn(acc, masked_load<kMasked>(x, mask, static_cast<int64_t>(r) * L));
+    }
+  }
+  s_lane[lane][c] = acc;
+  __syncthreads();
+  // warp w joins the 32 lane sums of the tile's column w
+  const int w = threadIdx.x / kWarp;
+  const float total = warp_sum(s_lane[threadIdx.x % kWarp][w]);
+  const int out_col = blockIdx.x * kColTile + w;
+  if (threadIdx.x % kWarp == 0 && out_col < L) {
+    out[static_cast<int64_t>(blockIdx.y) * L + out_col] = total;
   }
 }
 
@@ -410,23 +544,46 @@ int stream_flow_ell_launch(
   return static_cast<int>(cudaGetLastError());
 }
 
-// Shared memory container_sum's block takes for a row of I instances.
-size_t container_sum_smem_bytes(int I) { return (size_t)I * sizeof(float); }
-
 // Launches the per-container sums for B rows of I instances and K
-// containers on `stream`, one block per row; returns 0 or a CUDA error code.
+// containers on `stream`, one lane per container; returns 0 or a CUDA
+// error code.
 int container_sum_launch(const void* vals, const void* cont_ptr, const void* cont_members,
                          void* out, int B, int I, int K, void* stream) {
   if (B == 0 || K == 0) return 0;
-  const size_t smem = container_sum_smem_bytes(I);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        container_sum_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  container_sum_kernel<<<B, kSumThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((K + kSumWarps * kWarp - 1) / (kSumWarps * kWarp), B);
+  container_sum_kernel<<<grid, kSumWarps * kWarp, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(vals), static_cast<const int32_t*>(cont_ptr),
       static_cast<const int32_t*>(cont_members), static_cast<float*>(out), I, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches the fixed-order sums of a (B, R, L) tensor over dim 1 (out (B,
+// L)) or dim 2 (out (B, R)) on `stream`; `mask` (bytes 0/1, x's shape) may
+// be null.  Returns 0 or a CUDA error code.
+int ordered_sum_launch(const void* x, const void* mask, void* out, int B, int R, int L,
+                       int dim, void* stream) {
+  if (B == 0 || (dim == 2 ? R : L) == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const uint8_t* m = static_cast<const uint8_t*>(mask);
+  float* o = static_cast<float*>(out);
+  if (dim == 2) {
+    const dim3 grid((R + kRowWarps - 1) / kRowWarps, B);
+    if (m) {
+      ordered_row_sum_kernel<true><<<grid, kRowWarps * kWarp, 0, s>>>(xf, m, o, R, L);
+    } else {
+      ordered_row_sum_kernel<false><<<grid, kRowWarps * kWarp, 0, s>>>(xf, m, o, R, L);
+    }
+  } else if (dim == 1) {
+    const dim3 grid((L + kColTile - 1) / kColTile, B);
+    if (m) {
+      ordered_col_sum_kernel<true><<<grid, kColTile * kWarp, 0, s>>>(xf, m, o, R, L);
+    } else {
+      ordered_col_sum_kernel<false><<<grid, kColTile * kWarp, 0, s>>>(xf, m, o, R, L);
+    }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,20 +1,24 @@
-"""The sparse flow step and the per-container sums as the simulator calls
-them.
+"""The sparse flow step, the per-container sums and the fixed-order axis
+sums as the simulator calls them.
 
-:func:`stream_flow_ell` and :func:`container_sum` run the hand-written CUDA
-kernels (``csrc/stream_flow.cu``) on CUDA tensors and their plain PyTorch
-versions (:func:`~.ref.stream_flow_ell_reference`,
-:func:`~.ref.container_sum_reference`) on CPU tensors.  A CUDA input
-either launches the kernel or raises; there is no fallback.
+:func:`stream_flow_ell`, :func:`container_sum` and :func:`ordered_sum` run
+the hand-written CUDA kernels (``csrc/stream_flow.cu``) on CUDA tensors
+and their plain PyTorch versions (:func:`~.ref.stream_flow_ell_reference`,
+:func:`~.ref.container_sum_reference`, :func:`~.ref.ordered_sum_reference`)
+on CPU tensors.  A CUDA input either launches the kernel or raises; there
+is no fallback.
 
 The flow-step kernel replaces the reference package's Pallas TPU kernels
 ``kernels/stream_flow/stream_flow.py:_demand_kernel`` / ``:_flow_kernel``;
 the per-container sums replace the reference simulator's plain ``x @ C``
-one-hot products (``streams/simulator.py``), which are no Pallas kernel.
-The flow step is bound by bytes (the real ELL slots and the per-edge
-arrays they index); see the note at the top of the CUDA source for what its
-design does about that.  Each batch row runs on one thread-block cluster, so the kernel
-needs a card with thread-block clusters (``sm_90a``, Hopper).
+one-hot products and the ordered sums its dense tick's ``F.sum`` and its
+summary's source sum (``streams/simulator.py``), which are no Pallas
+kernels.  The flow step is bound by bytes (the real ELL slots and the
+per-edge arrays they index); see the note at the top of the CUDA source
+for what its design does about that.  Each batch row runs on one
+thread-block cluster, so the kernel needs a card with thread-block
+clusters (``sm_90a``, Hopper).  The two sums are launched once or more per
+tick, so their wrappers keep the host's work to what a launch needs.
 """
 from __future__ import annotations
 
@@ -24,7 +28,9 @@ import math
 import torch
 
 from . import build
-from .ref import container_members, container_sum_reference, stream_flow_ell_reference
+from .ref import (
+    container_members, container_sum_reference, ordered_sum_reference, stream_flow_ell_reference,
+)
 
 #: Shared memory one block may use on an H100 (opted in above 48 KB).  Each
 #: CTA holds (4 I + 2 K + 1) words, so the largest row is, for example,
@@ -66,6 +72,17 @@ def threads_for(n_inst: int, cluster: int) -> int:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch(t: torch.Tensor, launch, *args) -> int:
+    """``launch(*args, stream)`` on the current stream of ``t``'s card, as a
+    raw handle (no ``torch.cuda.Stream`` object is made).  The card is made
+    current only when it is not already."""
+    index = t.get_device()
+    if index == torch.cuda.current_device():
+        return launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return launch(*args, torch._C._cuda_getCurrentRawStream(index))
 
 
 def _check(qout, edge_arrays, ell_src, ell_dst, cont_of, sm_budget, cont_ptr,
@@ -161,17 +178,15 @@ def stream_flow_ell(
     delivered = torch.empty_like(qout)
     arrivals = torch.empty_like(qout)
     trav_c = torch.empty_like(sm_budget)
-    with torch.cuda.device(qout.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.stream_flow_ell_launch(
-            qout.data_ptr(), edge_src.data_ptr(), edge_share.data_ptr(),
-            edge_remote.data_ptr(), edge_src_cont.data_ptr(),
-            edge_dst_cont.data_ptr(), ell_src.data_ptr(), ell_dst.data_ptr(),
-            cont_ptr.data_ptr(), cont_members.data_ptr(), sm_budget.data_ptr(),
-            delivered.data_ptr(), arrivals.data_ptr(), trav_c.data_ptr(),
-            B, I, K, E, ell_src.shape[2], ell_dst.shape[2], cluster_size,
-            threads, stream,
-        )
+    rc = _launch(
+        qout, lib.stream_flow_ell_launch,
+        qout.data_ptr(), edge_src.data_ptr(), edge_share.data_ptr(),
+        edge_remote.data_ptr(), edge_src_cont.data_ptr(),
+        edge_dst_cont.data_ptr(), ell_src.data_ptr(), ell_dst.data_ptr(),
+        cont_ptr.data_ptr(), cont_members.data_ptr(), sm_budget.data_ptr(),
+        delivered.data_ptr(), arrivals.data_ptr(), trav_c.data_ptr(),
+        B, I, K, E, ell_src.shape[2], ell_dst.shape[2], cluster_size, threads,
+    )
     if rc != 0:
         raise RuntimeError(
             f"stream_flow_ell launch failed (cluster of {cluster_size} CTAs x "
@@ -189,10 +204,9 @@ stream_flow_ell.launches = 0
 def check_member_lists(cont_ptr, cont_members, batch: int, n_inst: int, device) -> None:
     """Raise unless ``cont_ptr`` (B, K + 1) and ``cont_members`` (B, I) are
     member lists :func:`container_sum`'s kernel takes for ``batch`` rows of
-    ``n_inst`` instances on ``device``: int32, contiguous, on the device,
-    and a row small enough for the kernel's shared memory.  A caller that
-    sums through the same lists many times (the simulator, once per run)
-    checks them here once and passes ``checked=True``."""
+    ``n_inst`` instances on ``device``: int32, contiguous, on the device.
+    A caller that sums through the same lists many times (the simulator,
+    once per run) checks them here once and passes ``checked=True``."""
     n_cont = cont_ptr.shape[-1] - 1
     for name, t, shape in (("cont_ptr", cont_ptr, (batch, n_cont + 1)),
                            ("cont_members", cont_members, (batch, n_inst))):
@@ -206,12 +220,17 @@ def check_member_lists(cont_ptr, cont_members, batch: int, n_inst: int, device) 
             raise ValueError(f"{name} must be contiguous")
     if batch * max(n_inst, n_cont + 1) >= 2**31:
         raise ValueError("vals or member lists too large for the kernel's int32 counts")
-    smem = build.load().container_sum_smem_bytes(n_inst)
-    if smem > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"a row of {n_inst} instances needs {smem} bytes of shared memory, over the "
-            f"{SMEM_LIMIT_BYTES}-byte limit"
-        )
+    if batch > 65535:
+        raise ValueError(f"at most 65535 rows per launch, got {batch}")
+
+
+def _check_values(name: str, t: torch.Tensor, ndim: int) -> None:
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dimensions, got {tuple(t.shape)}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} must be torch.float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
 
 
 def container_sum(vals, cont_of, cont_ptr, cont_members, *, checked: bool = False):
@@ -220,34 +239,26 @@ def container_sum(vals, cont_of, cont_ptr, cont_members, *, checked: bool = Fals
     :func:`~.ref.container_sum_reference`).  ``cont_of`` (B, I) is what the
     plain version reads; ``cont_ptr`` (B, K + 1) and ``cont_members`` (B, I)
     are the member lists of :func:`~.ref.container_members`, built once per
-    run, which the kernel walks (int32 on the card).  The kernel holds a
-    row's I values in shared memory, so I is at most 58,112.
-    ``checked=True`` says :func:`check_member_lists` has passed these lists
-    for this (B, I) on this device; only ``vals`` is checked then."""
+    run, which the kernel walks (int32 on the card), one lane per
+    container and the whole warp for a long list.  ``checked=True`` says
+    :func:`check_member_lists` has passed these lists for this (B, I) on
+    this device; only ``vals`` is checked then."""
     n_cont = cont_ptr.shape[1] - 1
-    if vals.device.type == "cpu":
-        return container_sum_reference(vals, cont_of, n_cont)
-    if vals.device.type != "cuda":
+    if not vals.is_cuda:
+        if vals.device.type == "cpu":
+            return container_sum_reference(vals, cont_of, n_cont)
         raise ValueError(f"container_sum runs on cuda or cpu, not {vals.device}")
-    if vals.dim() != 2:
-        raise ValueError(f"vals must be (B, I), got {tuple(vals.shape)}")
-    if vals.dtype != torch.float32:
-        raise ValueError(f"vals must be torch.float32, got {vals.dtype}")
-    if not vals.is_contiguous():
-        raise ValueError("vals must be contiguous")
+    _check_values("vals", vals, 2)
     B, I = vals.shape
     if not checked:
         check_member_lists(cont_ptr, cont_members, B, I, vals.device)
     elif cont_members.shape != vals.shape:
         raise ValueError(f"vals is {tuple(vals.shape)}, the member lists "
                          f"{tuple(cont_members.shape)}")
-    lib = build.load()
     out = torch.empty((B, n_cont), dtype=torch.float32, device=vals.device)
-    with torch.cuda.device(vals.device):
-        rc = lib.container_sum_launch(
-            vals.data_ptr(), cont_ptr.data_ptr(), cont_members.data_ptr(),
-            out.data_ptr(), B, I, n_cont, torch.cuda.current_stream().cuda_stream,
-        )
+    lib = build.load()
+    rc = _launch(vals, lib.container_sum_launch, vals.data_ptr(), cont_ptr.data_ptr(),
+                 cont_members.data_ptr(), out.data_ptr(), B, I, n_cont)
     if rc != 0:
         raise RuntimeError(
             f"container_sum launch failed: {lib.stream_flow_ell_error_string(rc).decode()} ({rc})"
@@ -258,3 +269,41 @@ def container_sum(vals, cont_of, cont_ptr, cont_members, *, checked: bool = Fals
 
 #: Kernel launches since the count was last set to 0.
 container_sum.launches = 0
+
+
+def ordered_sum(x, dim: int, mask=None):
+    """Sums of a contiguous (B, R, L) fp32 tensor over ``dim`` (2: row
+    sums, (B, R); 1: column sums, (B, L)), each element times the bool
+    ``mask`` (x's shape) where one is given, in the fixed order of
+    :func:`~.ref.ordered_sum_reference`, which they equal bit for bit: the
+    same at any zero padding of B, R and L."""
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return ordered_sum_reference(x, dim, mask)
+        raise ValueError(f"ordered_sum runs on cuda or cpu, not {x.device}")
+    _check_values("x", x, 3)
+    if dim not in (1, 2):
+        raise ValueError(f"dim must be 1 or 2, got {dim}")
+    B, R, L = x.shape
+    if mask is not None:
+        if mask.device != x.device or mask.dtype != torch.bool or mask.shape != x.shape:
+            raise ValueError(f"mask must be a torch.bool tensor of x's shape {tuple(x.shape)} "
+                             f"on {x.device}, got {mask.dtype} {tuple(mask.shape)} on {mask.device}")
+        if not mask.is_contiguous():
+            raise ValueError("mask must be contiguous")
+    if B > 65535 or max(R, L) >= 2**31:
+        raise ValueError(f"at most 65535 rows and 2**31 - 1 entries per axis, got {tuple(x.shape)}")
+    out = torch.empty((B, R if dim == 2 else L), dtype=torch.float32, device=x.device)
+    lib = build.load()
+    rc = _launch(x, lib.ordered_sum_launch, x.data_ptr(),
+                 None if mask is None else mask.data_ptr(), out.data_ptr(), B, R, L, dim)
+    if rc != 0:
+        raise RuntimeError(
+            f"ordered_sum launch failed: {lib.stream_flow_ell_error_string(rc).decode()} ({rc})"
+        )
+    ordered_sum.launches += 1
+    return out
+
+
+#: Kernel launches since the count was last set to 0.
+ordered_sum.launches = 0

@@ -115,6 +115,47 @@ def container_sum_reference(vals: torch.Tensor, cont_of: torch.Tensor, n_cont: i
     return out.reshape(B, n_cont)
 
 
+#: Lanes of :func:`ordered_sum_reference`'s order: a warp's width.
+ORDERED_LANES = 32
+
+
+def ordered_sum_reference(x: torch.Tensor, dim: int, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Sums of a (B, R, L) float32 tensor over ``dim`` (2: row sums, (B,
+    R); 1: column sums, (B, L)), times the 0/1 ``mask`` (bool, x's shape)
+    where one is given, in a fixed order: element ``j`` of the reduced axis
+    goes to lane ``j % 32``, each lane adds its elements in index order
+    from +0.0, and the 32 lane sums are joined by a halving tree (lane ``l``
+    takes lane ``l + 16``, then ``l + 8``, ... ``l + 1``), the order of a
+    ``__shfl_xor_sync`` butterfly.
+
+    A real element's place in that grouping does not depend on how many
+    zeros follow it, and adding +0.0 or -0.0 to a sum begun at +0.0 leaves
+    it as it was, so the sums are bit for bit the same at any padding of
+    B, R and L with zeros.  The CUDA ``ordered_sum`` kernel adds in this
+    order too.  Every step here is an elementwise float32 add (no
+    ``sum``, no ``cumsum``), so the result is the same on the CPU and on the
+    card."""
+    if dim not in (1, 2):
+        raise ValueError(f"dim must be 1 or 2, got {dim}")
+    if mask is not None:
+        x = x * mask
+    if dim == 1:
+        x = x.transpose(1, 2)
+    B, R, L = x.shape
+    n = -(-L // ORDERED_LANES) * ORDERED_LANES
+    if n != L:
+        x = torch.nn.functional.pad(x, (0, n - L))
+    lanes = x.reshape(B, R, n // ORDERED_LANES, ORDERED_LANES)
+    acc = x.new_zeros(B, R, ORDERED_LANES)
+    for c in range(n // ORDERED_LANES):
+        acc = acc + lanes[:, :, c]
+    width = ORDERED_LANES // 2
+    while width:
+        acc = acc[..., :width] + acc[..., width:2 * width]
+        width //= 2
+    return acc[..., 0]
+
+
 def stream_flow_ell_reference(
     qout: torch.Tensor,           # (B, I) f32
     edge_src: torch.Tensor,       # (B, E) int source instance per edge

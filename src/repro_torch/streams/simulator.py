@@ -21,10 +21,14 @@ The device half (:func:`_simulate_core`) runs a batch of padded
 configurations as eager torch on one device: a leading batch axis stands in
 for ``vmap`` and Python loops over sample windows and ticks stand in for
 the window-nested ``lax.scan``, with per-window metric means accumulated in
-place.  The flow step has two backends: ``"dense"`` (an (I, I) flow matrix,
-batched matmuls) and ``"sparse"`` (edge lists with ELL row gathers, one call
-to :func:`~repro_torch.kernels.stream_flow.stream_flow_ell` per tick — the
-hand-written CUDA kernel on the card).
+place.  The flow step has two backends: ``"dense"`` (an (I, I) flow matrix
+whose row and column sums run through
+:func:`~repro_torch.kernels.stream_flow.ordered_sum`) and ``"sparse"``
+(edge lists with ELL row gathers, one call to
+:func:`~repro_torch.kernels.stream_flow.stream_flow_ell` per tick).  On the
+card each is a hand-written CUDA kernel, as are the per-container sums
+(:func:`~repro_torch.kernels.stream_flow.container_sum`); on the host their
+plain versions run, in the same order.
 
 Noise is the reference's: each row's seed keys JAX's threefry2x32
 generator (:mod:`.prng`, integer torch math), split once per tick, and tick
@@ -47,7 +51,9 @@ from ..core.dag import Configuration, Grouping
 from ..core.metrics import STREAM_MANAGER, InstanceSamples, MetricsStore
 from ..device import resolve_device
 from ..interop import stage_padded
-from ..kernels.stream_flow.ops import check_member_lists, container_sum, stream_flow_ell
+from ..kernels.stream_flow.ops import (
+    check_member_lists, container_sum, ordered_sum, stream_flow_ell,
+)
 from ..kernels.stream_flow.ref import container_members, ell_rows
 from . import prng
 
@@ -256,6 +262,15 @@ def resolve_tick_kernel(n_inst: int, n_edges: int, tick_kernel: str = "auto") ->
     return "sparse" if n_edges <= SPARSE_DENSITY_THRESHOLD * dense_cells else "dense"
 
 
+def padded_rowsum(st: SimStructure, n_inst_bucket: int) -> np.ndarray:
+    """``W``'s float32 row sums (copies per output tuple), taken over the
+    real instances on the host and padded with zeros to the bucket, so they
+    do not depend on it.  Both ticks derive each edge's share from these."""
+    out = np.zeros(int(n_inst_bucket), np.float32)
+    out[: st.n_inst] = st.W.astype(np.float32).sum(axis=1)
+    return out
+
+
 def pad_structure(
     st: SimStructure,
     n_inst_bucket: int,
@@ -319,10 +334,10 @@ def pad_structure(
             f"edge bucket {E} smaller than structure ({st.n_edges} edges)"
         )
     # per-edge share of the source's output queue, in float32 exactly as the
-    # dense backend derives it from the padded W
-    rowsum32 = st.W.astype(np.float32).sum(axis=1)
+    # dense backend derives it from W and the same row sums
+    rowsum = padded_rowsum(st, I)
     share = st.edge_w.astype(np.float32) / np.maximum(
-        rowsum32[st.edge_src], 1e-9
+        rowsum[st.edge_src], 1e-9
     )
     edge_mask = np.zeros(E, np.float32)
     edge_mask[: st.n_edges] = 1.0
@@ -334,7 +349,7 @@ def pad_structure(
             f"degrees ({st.d_out},{st.d_in})"
         )
     arrays.update(
-        rowsum=pad1(rowsum32, I, 0.0, np.float32),
+        rowsum=rowsum,
         edge_src=pad1(st.edge_src, E, I - 1, np.int32),
         edge_dst=pad1(st.edge_dst, E, I - 1, np.int32),
         edge_share=pad1(share, E, 0.0, np.float32),
@@ -365,8 +380,8 @@ def _summarize_windowed(samples: dict, is_source: torch.Tensor) -> dict:
     """
     proc = samples["proc"]
     half = proc.shape[1] // 2
-    src = is_source.to(proc.dtype)
-    per_sample_src = (proc * src[:, None, :]).sum(dim=2)
+    # over the padded instances, in an order their padding cannot move
+    per_sample_src = ordered_sum(proc * is_source[:, None, :], 2)
     return dict(
         src_half_mean=per_sample_src[:, half:].mean(dim=1),
         caputil_half_mean=samples["caputil"][:, half:].mean(dim=1),
@@ -406,9 +421,13 @@ def _simulate_core(
     flow matrix, ``"sparse"`` the edge-list step run by
     :func:`~repro_torch.kernels.stream_flow.stream_flow_ell`.  Row ``b``
     draws its noise from ``seeds[b]`` as the reference does (:mod:`.prng`);
-    padded instances draw too and are masked out, and every per-container
-    sum runs in instance order, so a row's result does not depend on the
-    bucket or on the rest of the batch.
+    padded instances draw too and are masked out, every per-container sum
+    runs in instance order, and every other sum over the padded instance
+    axis (the dense tick's flow sums, the summary's source sum) in the fixed
+    order of :func:`~repro_torch.kernels.stream_flow.ordered_sum`, so a
+    row's result does not depend on the bucket or on the rest of the batch.
+    ``arrays`` holds the padded structure of :func:`pad_structure` and, for
+    the dense tick, the row sums of :func:`padded_rowsum` as ``"rowsum"``.
     Returns the windowed metric trajectories ((B, S, ...) per metric) or, in
     ``"summary"`` mode, :func:`_summarize_windowed` of them.  Nothing here
     waits on the device.
@@ -446,14 +465,11 @@ def _simulate_core(
 
     n_src = is_source.sum(dim=1).clamp(min=1).to(torch.float32)
     sm_budget = dt / torch.clamp(sm_cost_eff, min=1e-9)   # traversals per tick
+    rowsum = arrays["rowsum"]
     if backend == "dense":
-        W = arrays["W"]
         remote = arrays["remote"]
-        remote_f = remote.to(torch.float32)
-        rowsum = W.sum(dim=2)
-        share = W / torch.clamp(rowsum, min=1e-9)[:, :, None]
+        share = arrays["W"] / torch.clamp(rowsum, min=1e-9)[:, :, None]
     elif backend == "sparse":
-        rowsum = arrays["rowsum"]
         edge_args = tuple(
             arrays[k] for k in (
                 "edge_src", "edge_share", "edge_remote", "edge_src_cont",
@@ -534,9 +550,11 @@ def _simulate_core(
 
             # 4) stream-manager transfer with per-container budgets
             if backend == "dense":
+                # row sums by source, column sums by destination (remote
+                # ones masked in), each in ordered_sum's fixed order
                 F_want = qout[:, :, None] * share
-                orig_c = to_containers(F_want.sum(dim=2))
-                arr_c = to_containers((F_want * remote_f).sum(dim=1))
+                orig_c = to_containers(ordered_sum(F_want, 2))
+                arr_c = to_containers(ordered_sum(F_want, 1, remote))
                 s_c = torch.clamp(
                     sm_budget / torch.clamp(orig_c + arr_c, min=1e-9), max=1.0
                 )
@@ -547,10 +565,10 @@ def _simulate_core(
                     torch.where(remote, s_inst[:, None, :], 1.0),
                 )
                 F = F_want * eff
-                delivered = F.sum(dim=2)
-                arrivals = F.sum(dim=1)
+                delivered = ordered_sum(F, 2)
+                arrivals = ordered_sum(F, 1)
                 trav_c = to_containers(delivered) + to_containers(
-                    (F * remote_f).sum(dim=1)
+                    ordered_sum(F, 1, remote)
                 )
             else:
                 delivered, arrivals, trav_c = stream_flow_ell(
@@ -879,6 +897,9 @@ def simulate_batch(
         pad_structure(st, n_inst_b, n_cont_b, n_edge_b, d_out_b, d_in_b)
         for st in structures
     ]
+    if backend == "dense":
+        for st, a in zip(structures, padded):
+            a["rowsum"] = padded_rowsum(st, n_inst_b)
     stacked = {k: np.stack([padded[i][k] for i in rows]) for k in padded[0]}
     arrays = stage_padded(stacked, device)
     offered_dev = torch.as_tensor(

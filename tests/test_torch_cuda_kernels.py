@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each against its plain PyTorch
-version, the simulator's sparse tick running through the flow kernel, and
+version, the simulator's ticks running through the stream kernels (bit for
+bit the same at any bucket), and
 the models' prefill and decode running through the RMSNorm, flash and
 selective-scan kernels.
 
@@ -25,6 +26,8 @@ from repro_torch.kernels.stream_flow import (
     container_sum,
     container_sum_reference,
     ell_rows,
+    ordered_sum,
+    ordered_sum_reference,
     stream_flow_ell,
     stream_flow_ell_reference,
 )
@@ -266,43 +269,131 @@ def test_container_sum_kernel_is_bitwise_plain_across_padding(cuda, batch, n_ins
         assert not bool(got[:, n_cont:].any())
 
 
+@pytest.mark.parametrize("batch,n_inst,n_cont,n_real,n_real_cont", [
+    (1, 1024, 512, 642, 321), (3, 1024, 512, 642, 321), (32, 1024, 512, 642, 321),
+    (1, 4096, 2048, 4096, 2048), (3, 4096, 2048, 3000, 1500),
+])
+def test_container_sum_kernel_at_the_simulators_layout(cuda, batch, n_inst, n_cont, n_real,
+                                                       n_real_cont):
+    """The simulator's layout: real instances dealt over the real
+    containers, every padded instance (a zero) in the last container; some
+    real values are +0.0 or -0.0, which the kernel skips.  Bit for bit the
+    host's plain version, real and padded containers alike."""
+    rng = np.random.default_rng(n_inst + batch + n_real)
+    cont_of = np.full((batch, n_inst), n_cont - 1, np.int32)
+    cont_of[:, :n_real] = rng.integers(0, n_real_cont, (batch, n_real))
+    vals = np.zeros((batch, n_inst), np.float32)
+    vals[:, :n_real] = rng.uniform(-1.0, 5.0, (batch, n_real))
+    vals[:, :n_real][rng.random((batch, n_real)) < 0.1] = 0.0
+    vals[:, :n_real][rng.random((batch, n_real)) < 0.05] = -0.0
+    cont_of, vals = torch.from_numpy(cont_of).to(cuda), torch.from_numpy(vals).to(cuda)
+    want = container_sum_reference(vals.cpu(), cont_of.cpu(), n_cont)
+    before = container_sum.launches
+    got = container_sum(vals, cont_of, *container_members(cont_of, n_cont))
+    torch.cuda.synchronize()
+    assert container_sum.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
 def test_container_sum_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     cont_of = torch.zeros(2, 16, dtype=torch.int32, device=cuda)
     vals = torch.ones(2, 16, device=cuda)
     ptr, members = container_members(cont_of, 4)
+    before = container_sum.launches
     with pytest.raises(ValueError, match="cont_ptr"):
         container_sum(vals, cont_of, ptr.long(), members)
     with pytest.raises(ValueError, match="vals"):
         container_sum(vals.double(), cont_of, ptr, members)
+    with pytest.raises(ValueError, match="vals"):
+        container_sum(vals[:, ::2], cont_of[:, ::2], ptr, members[:, :8].contiguous())
     with pytest.raises(ValueError, match="cont_members"):
         container_sum(vals, cont_of, ptr, members[:, :8].contiguous())
-    # a row's values live in shared memory: 60,000 instances need 240,000 bytes
-    wide = torch.zeros(1, 60000, dtype=torch.int32, device=cuda)
-    before = container_sum.launches
-    with pytest.raises(ValueError, match="240000 bytes of shared memory"):
-        container_sum(torch.ones(1, 60000, device=cuda), wide, *container_members(wide, 4))
+    with pytest.raises(ValueError, match="cont_ptr is on cpu"):
+        container_sum(vals, cont_of, ptr.cpu(), members)
     assert container_sum.launches == before
+    # no row-wide staging: a row over shared memory's 58,112 values sums too
+    wide = torch.zeros(1, 60000, dtype=torch.int32, device=cuda)
+    got = container_sum(torch.ones(1, 60000, device=cuda), wide, *container_members(wide, 4))
+    assert got.cpu().tolist() == [[60000.0, 0.0, 0.0, 0.0]]
 
 
+# ------------------------------------------------------------- ordered sums
+# Bit for bit the plain version (lane-strided adds, a fixed butterfly), and
+# so bit for bit the same at any zero padding of B, R and L.
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 5, 70), (1, 1024, 1024), (32, 80, 1024),
+                                   (3, 643, 641), (1, 4096, 300)])
+def test_ordered_sum_kernel_is_bitwise_plain_across_padding(cuda, shape, dim, masked):
+    rng = np.random.default_rng(sum(shape) + dim)
+    x = torch.from_numpy(rng.uniform(-5.0, 5.0, shape).astype(np.float32))
+    mask = torch.from_numpy(rng.random(shape) < 0.5) if masked else None
+    want = ordered_sum_reference(x, dim, mask)
+    B, R, L = shape
+    for extra in ((0, 0, 0), (2, 0, 0), (0, 31, 0), (0, 0, 33), (1, 512, 512)):
+        big = torch.zeros(B + extra[0], R + extra[1], L + extra[2])
+        big[:B, :R, :L] = x
+        big_mask = None
+        if masked:
+            big_mask = torch.zeros(big.shape, dtype=torch.bool)
+            big_mask[:B, :R, :L] = mask
+            big_mask = big_mask.to(cuda)
+        before = ordered_sum.launches
+        got = ordered_sum(big.to(cuda), dim, big_mask)
+        torch.cuda.synchronize()
+        assert ordered_sum.launches == before + 1
+        n = R if dim == 2 else L
+        got = got.cpu()
+        assert torch.equal(got[:B, :n], want), extra
+        assert not bool(got[B:].any()) and not bool(got[:, n:].any())
+    # the plain version on the card: elementwise adds, the same bits
+    on_card = ordered_sum_reference(x.to(cuda), dim, None if mask is None else mask.to(cuda))
+    assert torch.equal(on_card.cpu(), want)
+
+
+def test_ordered_sum_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.ones(2, 8, 16, device=cuda)
+    mask = torch.ones(2, 8, 16, dtype=torch.bool, device=cuda)
+    before = ordered_sum.launches
+    with pytest.raises(ValueError, match="dim"):
+        ordered_sum(x, 0)
+    with pytest.raises(ValueError, match="x must"):
+        ordered_sum(x.double(), 2)
+    with pytest.raises(ValueError, match="x must"):
+        ordered_sum(x[0], 1)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        ordered_sum(x.transpose(1, 2), 2)
+    with pytest.raises(ValueError, match="mask"):
+        ordered_sum(x, 2, mask.float())
+    with pytest.raises(ValueError, match="mask"):
+        ordered_sum(x, 2, mask[:, :4])
+    with pytest.raises(ValueError, match="mask"):
+        ordered_sum(x, 2, mask.cpu())
+    assert ordered_sum.launches == before
+
+
+@pytest.mark.parametrize("samples", ["full", "summary"])
 @pytest.mark.parametrize("kernel", ["dense", "sparse"])
-def test_tick_on_card_against_buckets_and_host(cuda, kernel):
-    """The sparse tick's samples are bit for bit the same at any bucket on
-    the card; the dense tick's padded (I, I) sums are torch reductions whose
-    order may follow the padded length, so it is held to rel 1e-6.  Both
-    stay within 1e-4 of the host's run of the same seed."""
+def test_tick_on_card_against_buckets_and_host(cuda, kernel, samples):
+    """Both ticks' samples, and their summaries, are bit for bit the same
+    at any bucket on the card: every sum over the padded instances runs in
+    a fixed order (the flow kernel, container_sum, ordered_sum).  Both stay
+    within 1e-4 of the host's run of the same seed."""
     dag = wordcount()
     cfg = round_robin_configuration(dag, {"W": 3, "C": 2}, 1, ContainerDim(3.0, 4096.0))
+    before = ordered_sum.launches
     runs = [simulate_batch([cfg], 1e6, duration_s=2.0, tick_kernel=kernel, device=cuda,
-                           min_inst_bucket=i, min_cont_bucket=k)[0]
+                           min_inst_bucket=i, min_cont_bucket=k, samples=samples)[0]
             for i, k in ((0, 0), (32, 32), (128, 32))]
+    per_run = (5 * 200 if kernel == "dense" else 0) + (samples == "summary")
+    assert ordered_sum.launches == before + 3 * per_run
     host = simulate_batch([cfg], 1e6, duration_s=2.0, tick_kernel=kernel, device="cpu")[0]
     for r in runs[1:]:
-        for key, base in runs[0].samples.items():
-            if kernel == "sparse":
-                np.testing.assert_array_equal(r.samples[key], base, err_msg=key)
-            else:
-                np.testing.assert_allclose(r.samples[key], base, rtol=1e-6,
-                                           atol=1e-6 * float(np.abs(base).max()), err_msg=key)
+        got, want = (r.samples, runs[0].samples) if samples == "full" else (r.summary, runs[0].summary)
+        for key, base in want.items():
+            np.testing.assert_array_equal(got[key], base, err_msg=key)
     assert runs[0].achieved_ktps == pytest.approx(host.achieved_ktps, rel=1e-4)
 
 

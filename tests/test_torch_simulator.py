@@ -173,27 +173,57 @@ def test_batch_rows_match_single_runs_and_buckets_do_not_move_results():
 
 # The inputs at which the port's results moved with the buckets while the
 # reference's did not: its container sums were a one-hot ``torch.bmm``,
-# whose summation order BLAS picks from the shape.
+# whose summation order BLAS picks from the shape.  Summary mode adds the
+# epilogue's source sum over the padded instances.
 BUCKET_CASES = [
-    (par, kernel, buckets)
+    (par, kernel, buckets, samples)
     for par in ({"W": 3, "C": 2}, {"W": 4, "C": 4})
     for kernel in ("dense", "sparse")
     for buckets in ((32, 32), (128, 32))
+    for samples in ("full", "summary")
 ]
 
 
-@pytest.mark.parametrize("par,kernel,buckets", BUCKET_CASES)
-def test_buckets_leave_results_bitwise_equal(par, kernel, buckets):
+@pytest.mark.parametrize("par,kernel,buckets,samples", BUCKET_CASES)
+def test_buckets_leave_results_bitwise_equal(par, kernel, buckets, samples):
     dag = port.WORKLOADS["wordcount"]()
     cfg = port_core.round_robin_configuration(dag, par, 1, port_core.ContainerDim(3.0, 4096.0))
-    base = port.simulate_batch([cfg], 1e6, duration_s=2.0, tick_kernel=kernel, device="cpu")[0]
+    base = port.simulate_batch([cfg], 1e6, duration_s=2.0, tick_kernel=kernel,
+                               samples=samples, device="cpu")[0]
     padded = port.simulate_batch([cfg], 1e6, duration_s=2.0, tick_kernel=kernel,
                                  min_inst_bucket=buckets[0], min_cont_bucket=buckets[1],
-                                 device="cpu")[0]
+                                 samples=samples, device="cpu")[0]
     assert padded.achieved_ktps == base.achieved_ktps
     assert padded.bottleneck_node() == base.bottleneck_node()
-    for k in base.samples:
-        np.testing.assert_array_equal(padded.samples[k], base.samples[k], err_msg=k)
+    got, want = ((padded.samples, base.samples) if samples == "full"
+                 else (padded.summary, base.summary))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_dense_tick_takes_the_sparse_ticks_row_sums(monkeypatch):
+    """Both ticks derive each edge's share from :func:`padded_rowsum`, the
+    real rows' float32 sums staged from the host, so no padded ``W.sum``
+    runs on the device."""
+    _, ct = _configs("diamond")
+    st = port.structure_for(ct, PORT_PARAMS)
+    rowsum = port_sim.padded_rowsum(st, 32)
+    np.testing.assert_array_equal(rowsum[: st.n_inst], st.W.astype(np.float32).sum(axis=1))
+    assert not rowsum[st.n_inst:].any()
+    sparse = port.pad_structure(st, 32, 8, 32)
+    np.testing.assert_array_equal(sparse["rowsum"], rowsum)
+    staged = []
+    real_core = port_sim._simulate_core
+
+    def core(arrays, *args, **kwargs):
+        staged.append(arrays["rowsum"].clone())
+        return real_core(arrays, *args, **kwargs)
+
+    monkeypatch.setattr(port_sim, "_simulate_core", core)
+    port.simulate_batch([ct], 1e6, duration_s=0.5, params=PORT_PARAMS, tick_kernel="dense",
+                        min_inst_bucket=32, device="cpu")
+    np.testing.assert_array_equal(staged[0][0].numpy(), rowsum)
 
 
 #: Port against reference with noise on.  The noise bits are the

@@ -1,8 +1,9 @@
 """The port's sparse flow step: its segment-sum form against the reference
 package's jnp oracle and Pallas kernel (interpret mode), its ELL form
 against its segment-sum form, the container member lists the CUDA kernel
-sums through, its cluster-size choice, and the wrapper's CPU path.  The CUDA
-kernel's own tests are in ``test_torch_cuda_kernels.py``, which imports no
+sums through, its cluster-size choice, and the wrapper's CPU path; and the
+fixed-order axis sums of the dense tick against a plain loop.  The CUDA
+kernels' own tests are in ``test_torch_cuda_kernels.py``, which imports no
 JAX so that it runs on the card's machine."""
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,8 @@ from repro_torch.kernels.stream_flow import (
     container_sum,
     container_sum_reference,
     ell_rows,
+    ordered_sum,
+    ordered_sum_reference,
     stream_flow_ell,
     stream_flow_ell_reference,
     stream_flow_reference,
@@ -282,3 +285,107 @@ def test_sparse_tick_builds_member_lists_once_per_run(monkeypatch):
     dense = measure_capacity(cfg, params, duration_s=1.0, tick_kernel="dense", device="cpu")
     assert built == [8, 1, 8, 1] and len(calls) == int(1.0 / params.dt)
     assert sparse == pytest.approx(dense, rel=1e-4)
+
+
+# --------------------------------------------------------- ordered sums
+# The dense tick's sums over the padded instance axis: lane j % 32 adds
+# element j in index order from +0.0, then a halving tree over the lanes.
+
+
+def _loop_ordered_sum(x, dim, mask=None):
+    """The stated order, one float32 add at a time."""
+    x = x.numpy()
+    if mask is not None:
+        x = x * mask.numpy()
+    if dim == 1:
+        x = x.transpose(0, 2, 1)
+    B, R, L = x.shape
+    out = np.zeros((B, R), np.float32)
+    for b in range(B):
+        for r in range(R):
+            lanes = [np.float32(0.0)] * 32
+            for j in range(L):
+                lanes[j % 32] = np.float32(lanes[j % 32] + x[b, r, j])
+            width = 16
+            while width:
+                lanes = [np.float32(lanes[l] + lanes[l + width]) for l in range(width)]
+                width //= 2
+            out[b, r] = lanes[0]
+    return torch.from_numpy(out)
+
+
+def _ordered_inputs(shape, seed, signed=False):
+    rng = np.random.default_rng(seed)
+    low = -5.0 if signed else 0.0
+    x = torch.from_numpy(rng.uniform(low, 5.0, shape).astype(np.float32))
+    mask = torch.from_numpy(rng.random(shape) < 0.5)
+    return x, mask
+
+
+ORDERED_SHAPES = [(1, 1, 1), (2, 5, 70), (1, 33, 33), (3, 4, 1), (2, 64, 100)]
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("shape", ORDERED_SHAPES)
+def test_ordered_sum_reference_is_the_stated_loop(shape, dim, masked):
+    x, mask = _ordered_inputs(shape, sum(shape) + dim, signed=True)
+    mask = mask if masked else None
+    got = ordered_sum_reference(x, dim, mask)
+    assert got.dtype == torch.float32
+    assert tuple(got.shape) == (shape[0], shape[3 - dim])
+    assert torch.equal(got, _loop_ordered_sum(x, dim, mask))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 8, 8), (2, 40, 33), (3, 130, 97)])
+def test_ordered_sum_is_bitwise_invariant_to_trailing_zero_padding(shape, dim, masked):
+    """Zeros after the real entries of B, R and L (the simulator's padding)
+    leave every real sum bit for bit as it was, and the CPU wrapper takes
+    the plain version without a launch."""
+    x, mask = _ordered_inputs(shape, 7 * sum(shape) + dim)
+    base = ordered_sum_reference(x, dim, mask if masked else None)
+    B, R, L = shape
+    for extra in ((0, 0, 0), (1, 0, 0), (0, 5, 31), (2, 32, 64), (0, 200, 1)):
+        big = torch.zeros(B + extra[0], R + extra[1], L + extra[2])
+        big[:B, :R, :L] = x
+        big_mask = torch.ones(big.shape, dtype=torch.bool)
+        big_mask[:B, :R, :L] = mask
+        before = ordered_sum.launches
+        got = ordered_sum(big, dim, big_mask if masked else None)
+        assert ordered_sum.launches == before
+        n = R if dim == 2 else L
+        assert torch.equal(got[:B, :n], base), extra
+        assert not bool(got[B:].any()) and not bool(got[:, n:].any())
+
+
+@pytest.mark.parametrize("dim", [1, 2])
+@pytest.mark.parametrize("shape", [(1, 1024, 1024), (4, 80, 1024), (2, 300, 7)])
+def test_ordered_sum_is_close_to_torch_sum(shape, dim):
+    x, mask = _ordered_inputs(shape, 3 + dim)
+    for m in (None, mask):
+        want = (x if m is None else x * m).double().sum(dim=dim)
+        got = ordered_sum(x, dim, m).double()
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        torch.testing.assert_close(got.float(), (x if m is None else x * m).sum(dim=dim),
+                                   rtol=1e-6, atol=0)
+
+
+def test_ordered_sum_adds_by_lane_not_in_sequence():
+    """Values whose float32 sum depends on the grouping: lane 0 holds the
+    cancelling pair and lane 1 the two ones, so the lanes give 2, where
+    adding in index order loses a one to rounding at 1e8."""
+    x = torch.zeros(1, 1, 64)
+    x[0, 0, [0, 1, 32, 33]] = torch.tensor([1e8, 1.0, -1e8, 1.0])
+    in_sequence = np.float32(0.0)
+    for v in (1e8, 1.0, -1e8, 1.0):
+        in_sequence = np.float32(in_sequence + np.float32(v))
+    assert in_sequence == 1.0
+    assert ordered_sum_reference(x, 2).item() == 2.0
+
+
+def test_ordered_sum_rejects_bad_arguments():
+    x = torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError, match="dim"):
+        ordered_sum(x, 0)

@@ -15,10 +15,12 @@ every run scores the same configurations.  After one untimed run (kernel
 build, warm-up) it prints one line per timed run: the wall and, where the
 port has them, the host time spent inside the noise draw
 (``streams/prng.py``'s ``split`` and ``normal``) and inside the
-``container_sum`` wrapper.  Nothing there waits on the device, so that is
-the host's cost of issuing their launches.  ``--noise off`` runs with
-``noise_std=0``; ``--draw-elements N`` sets the normals the simulator
-draws per pass (1: one sample window per draw).
+``container_sum`` and ``ordered_sum`` wrappers.  Nothing there waits on the
+device, so that is the host's cost of issuing their launches.  ``--noise
+off`` runs with ``noise_std=0``; ``--draw-elements N`` sets the normals the
+simulator draws per pass (1: one sample window per draw).  ``--tick dense
+--batch 1`` times the dense tick on the allocation alone, the shape phase
+2's dense measurement runs.
 """
 from __future__ import annotations
 
@@ -54,6 +56,9 @@ def main() -> int:
     parser.add_argument("--seconds", type=float, default=20.0)
     parser.add_argument("--noise", choices=("on", "off"), default="on")
     parser.add_argument("--draw-elements", type=int, default=None)
+    parser.add_argument("--tick", choices=("sparse", "dense"), default="sparse")
+    parser.add_argument("--batch", type=int, default=32,
+                        help="score the first N candidates (the allocation is the first)")
     args = parser.parse_args()
 
     import numpy as np
@@ -74,7 +79,7 @@ def main() -> int:
     dag = deep_pipeline()
     alloc = allocate(dag, oracle_models(dag, params.sm_cost_per_ktuple),
                      chip_smoke.TARGET_KTPS, overprovision=1.1)
-    configs = chip_smoke.candidate_configs(alloc, 32, np.random.default_rng(0))
+    configs = chip_smoke.candidate_configs(alloc, 32, np.random.default_rng(0))[: args.batch]
     n_ticks = int(args.seconds / params.dt)
 
     # the timed functions, where this port has them (older trees lack them)
@@ -82,8 +87,9 @@ def main() -> int:
     prng = getattr(simulator, "prng", None)
     if prng is not None:
         timed["noise draw"] = [(prng, "split"), (prng, "normal")]
-    if hasattr(simulator, "container_sum"):
-        timed["container_sum wrapper"] = [(simulator, "container_sum")]
+    for name in ("container_sum", "ordered_sum"):
+        if hasattr(simulator, name):
+            timed[f"{name} wrapper"] = [(simulator, name)]
 
     def run():
         timers = {}
@@ -97,7 +103,7 @@ def main() -> int:
         try:
             t0 = time.perf_counter()
             simulate_batch(configs, 1e6, duration_s=args.seconds, params=params,
-                           tick_kernel="sparse", samples="summary", device="cuda")
+                           tick_kernel=args.tick, samples="summary", device="cuda")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         finally:
@@ -108,7 +114,8 @@ def main() -> int:
     run()
     for i in range(args.runs):
         wall, timers = run()
-        parts = [f"{args.label} run {i + 1}: {wall:.3f} s, {wall / n_ticks * 1e3:.4f} ms/tick"]
+        parts = [f"{args.label} {args.tick} B={len(configs)} run {i + 1}: {wall:.3f} s, "
+                 f"{wall / n_ticks * 1e3:.4f} ms/tick"]
         for name, ts in timers.items():
             seconds = sum(t.seconds for t in ts)
             calls = ts[-1].calls
