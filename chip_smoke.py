@@ -25,16 +25,20 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
 3b. runs the allocation at two bucket settings on each tick, in full and
    in summary mode, and requires its samples and its summary to be bit for
    bit equal on both ticks;
-4. holds the RMSNorm and flash-attention kernels against their plain
-   versions at llama3-8b's shapes (fp32 and bf16 RMSNorm; causal, windowed
-   and non-causal attention, head_dim 128 and 120);
+4. holds the RMSNorm kernels (the norm alone, and fused with the residual
+   add before it) and the flash-attention kernel against their plain
+   versions at llama3-8b's and jamba's shapes (fp32 and bf16 RMSNorm, an
+   odd width and an unaligned view; the fused norm bit for bit the norm of
+   ``x + delta``; causal, windowed and non-causal attention, head_dim 128
+   and 120);
 5. runs a 2-layer llama3-8b at full width with the same seeded weights on
    the card and on the host, one prefill and 4 decode steps, and compares
    the logits;
 6. serves 8 seeded requests (32-192-token prompts, 16 new tokens each)
    with the full 32-layer llama3-8b behind ``BatchedServer`` on the card,
    and holds the kernels' launch counts to one flash launch per layer per
-   prefill and 2 x 32 + 1 RMSNorm launches per forward;
+   prefill and, per forward, one RMSNorm launch and 2 x 32 fused
+   add-and-RMSNorm launches;
 7. holds the selective-scan kernel against its plain version at
    jamba-1.5-large's shapes (16,384 channels, state 16: each serving prompt
    length, S = 1, 7, 130 and batch-4 decode; non-zero h0, B and C strided
@@ -45,15 +49,17 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
 9. serves the same 8 seeded prompt lengths with one full-width period of
    jamba-1.5-large with dense MLPs (8 layers: 7 Mamba, 1 attention;
    9,116,360,704 parameters) behind ``BatchedServer``, and holds the launch
-   counts to 7 selective scans and 17 RMSNorms per forward and one flash
-   launch per prefill;
+   counts to 7 selective scans, 1 RMSNorm and 16 fused add-and-RMSNorms
+   per forward and one flash launch per prefill;
 
 and times each kernel, its plain version and, where there is one, the
 PyTorch call that computes the same function at the main paths' shapes,
-beside the empty kernel's launch (the floor of any kernel's time).  The
+beside the empty kernel's launch (the floor of any kernel's time); the
+norms at prefill shapes over input sets that miss L2, as in serving.  The
 three stream kernels' launches in phases 2-3 are counted by input shape, and
 each is timed at every one of those shapes; every kernel's launches x
-(time - bound) over its paths is printed, largest first.
+(time - bound) over its paths is printed, largest first.  After phases 6
+and 9 the profiler counts the kernel launches of one decode forward.
 Any failed phase raises and the script exits non-zero.  The last line is a
 JSON object with ``"ok": true`` and the device; the line before it lists
 each kernel with its launches on the main paths, its error against the
@@ -64,7 +70,9 @@ Run from the root of the repository:  python3 chip_smoke.py
 from __future__ import annotations
 
 import functools
+import itertools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -82,6 +90,11 @@ TF32_FLOPS_PER_S = 495e12
 #: expf throughput of the special-function units (16 per clock per SM,
 #: 132 SMs, 1.98 GHz boost), logged beside the selective scan's bound.
 SFU_PER_S = 16 * 132 * 1.98e9
+#: H100 SXM L2 (data sheet).  A norm's timing at prefill cycles through
+#: input sets that move three L2s between two calls on one set, so each
+#: call reads its inputs from HBM as in serving, where the projections
+#: before a norm stream far more than L2 of weights.
+L2_BYTES = 50 * 2**20
 
 TARGET_KTPS = 20000.0
 RTOL, ATOL_REL = 1e-5, 1e-6          # kernel vs plain: rtol, atol = ATOL_REL * max|plain|
@@ -888,6 +901,54 @@ def check_rmsnorm(device, rows_shapes) -> float:
     return worst
 
 
+def check_add_rmsnorm(device, shapes) -> float:
+    """The fused add-and-RMSNorm kernel against its plain version on seeded
+    inputs, fp32 and bf16: ``s`` bit for bit ``x + delta``, ``h`` bit for
+    bit the RMSNorm kernel on ``x + delta`` and within 1e-6 (fp32) or one
+    bf16 ulp of the plain version.  Beside ``shapes``, an odd width and an
+    unaligned view (one element into a buffer) take the generic path.
+    Returns the largest fp32 absolute difference of ``h``."""
+    import torch
+    from repro_torch.kernels.rmsnorm import add_rmsnorm, add_rmsnorm_reference, rmsnorm
+
+    g = torch.Generator(device=device).manual_seed(13)
+    cases = []
+    for shape in shapes:
+        d = shape[-1]
+        x = torch.randn(shape, generator=g, device=device)
+        delta = 0.5 * torch.randn(shape, generator=g, device=device)
+        cases.append((f"{tuple(shape)}", x, delta, d))
+    d = 4096
+    buf = torch.randn(2, 6 * d + 1, generator=g, device=device)
+    cases.append((f"(6, {d}) unaligned view", buf[0, 1:].view(6, d), buf[1, 1:].view(6, d), d))
+    x = torch.randn(4, 1, 4097, generator=g, device=device)
+    cases.append(("(4, 1, 4097)", x, 0.5 * torch.randn(x.shape, generator=g, device=device), 4097))
+    worst = 0.0
+    for label, x32, delta32, d in cases:
+        gain = 1.0 + 0.1 * torch.randn(d, generator=g, device=device)
+        for x, delta in ((x32, delta32), (x32.bfloat16(), delta32.bfloat16())):
+            s, h = add_rmsnorm(x, delta, gain, 1e-5)
+            want_s, want_h = add_rmsnorm_reference(x, delta, gain, 1e-5)
+            norm_of_sum = rmsnorm(x + delta, gain, 1e-5)
+            torch.cuda.synchronize()
+            name = f"add_rmsnorm {label} {str(x.dtype)[6:]}"
+            if not torch.isfinite(h).all():
+                raise AssertionError(f"{name}: non-finite output")
+            if not torch.equal(s, want_s):
+                raise AssertionError(f"{name}: s is not x + delta bit for bit")
+            if not torch.equal(h, norm_of_sum):
+                raise AssertionError(f"{name}: h is not rmsnorm(x + delta) bit for bit")
+            err = (h.float() - want_h.float()).abs()
+            if x.dtype == torch.float32:
+                torch.testing.assert_close(h, want_h, rtol=RMS_FP32_TOL, atol=RMS_FP32_TOL)
+                worst = max(worst, float(err.max()))
+            elif not bool((err <= bf16_ulp(want_h)).all()):
+                raise AssertionError(f"{name}: off by more than one bf16 ulp")
+            log(f"  {name}: max|kernel-plain|={float(err.max()):.3e}, s and h bit-equal "
+                f"to x + delta and rmsnorm(x + delta)")
+    return worst
+
+
 def flash_inputs(device, S, H, KV, hd, seed):
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
@@ -920,11 +981,20 @@ def check_flash(device, cases) -> float:
     return worst
 
 
+def _bytes_or_flops(nbytes, flops) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def rmsnorm_bound(rows, d) -> tuple[float, str]:
-    nbytes = 2 * rows * d * 4 + d * 4               # x read, out written, gain read
-    flops = rows * d * 4
-    return max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S) * 1e3, (
-        "bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS_PER_S else "operations")
+    """fp32: x read, out written, gain read once; 4 flops per element."""
+    return _bytes_or_flops(2 * rows * d * 4 + d * 4, rows * d * 4)
+
+
+def add_rmsnorm_bound(rows, d) -> tuple[float, str]:
+    """fp32: x and delta read, s and h written, gain read once; 5 flops per
+    element (the add, the square-and-sum, two scalings)."""
+    return _bytes_or_flops((4 * rows * d + d) * 4, rows * d * 5)
 
 
 def flash_bound(S, H, KV, hd) -> tuple[float, str]:
@@ -952,25 +1022,73 @@ def excess_ms(runs) -> float:
     return sum(n * (t["ms"] - t["bound_ms"]) for n, t in runs)
 
 
+def input_ring(make, call_bytes: int) -> list:
+    """The input sets a norm's timing cycles through: one at decode (4
+    rows, under 1 MiB a call, where launch and latency set the time), else
+    enough that three L2s of traffic pass between two calls on one set.
+    ``make(i)`` builds set i."""
+    n = 1 if call_bytes < 2**20 else -(-3 * L2_BYTES // call_bytes)
+    return [make(i) for i in range(n)]
+
+
+def cycling(fn, sets):
+    """``fn`` called on the next input set at each call."""
+    it = itertools.cycle(sets)
+    return lambda: fn(*next(it))
+
+
 def time_rmsnorm(device, shape) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
 
     g = torch.Generator(device=device).manual_seed(5)
-    x = torch.randn(shape, generator=g, device=device)
     gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=device)
-    ms, eager_ms = time_both(lambda: rmsnorm(x, gain, 1e-5), iters=200)
-    plain_ms, plain_eager = time_both(lambda: rmsnorm_reference(x, gain, 1e-5), iters=200)
-    library_ms, library_eager = time_both(lambda: F.rms_norm(x, (shape[-1],), gain, 1e-5), iters=200)
-    rows = x.numel() // shape[-1]
+    rows = math.prod(shape[:-1])
+    sets = input_ring(lambda i: (torch.randn(shape, generator=g, device=device),),
+                      2 * rows * shape[-1] * 4)
+    ms, eager_ms = time_both(cycling(lambda x: rmsnorm(x, gain, 1e-5), sets), iters=200)
+    plain_ms, plain_eager = time_both(
+        cycling(lambda x: rmsnorm_reference(x, gain, 1e-5), sets), iters=200)
+    library_ms, library_eager = time_both(
+        cycling(lambda x: F.rms_norm(x, (shape[-1],), gain, 1e-5), sets), iters=200)
     bound_ms, bound_by = rmsnorm_bound(rows, shape[-1])
-    log(f"  rmsnorm {tuple(shape)} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
-        f"F.rms_norm {library_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}); "
-        f"eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f}  "
-        f"F.rms_norm {library_eager:.5f} ms")
+    log(f"  rmsnorm {tuple(shape)} device (graph, {len(sets)} input sets in turn): kernel "
+        f"{ms:.5f} ms  plain {plain_ms:.5f} ms  F.rms_norm {library_ms:.5f} ms  bound "
+        f"{bound_ms:.6f} ms ({bound_by}); eager with launch cost: kernel {eager_ms:.5f}  "
+        f"plain {plain_eager:.5f}  F.rms_norm {library_eager:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def time_add_rmsnorm(device, shape) -> dict:
+    """The fused kernel, its plain version and, as the yardstick, the two
+    calls it replaces (``x + delta``, then ``F.rms_norm``); no single
+    PyTorch call computes the fused function, so ``library_ms`` is None."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import add_rmsnorm, add_rmsnorm_reference
+
+    g = torch.Generator(device=device).manual_seed(6)
+    gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=device)
+    rows = math.prod(shape[:-1])
+    sets = input_ring(lambda i: (torch.randn(shape, generator=g, device=device),
+                                 0.5 * torch.randn(shape, generator=g, device=device)),
+                      4 * rows * shape[-1] * 4)
+    ms, eager_ms = time_both(
+        cycling(lambda x, delta: add_rmsnorm(x, delta, gain, 1e-5), sets), iters=200)
+    plain_ms, plain_eager = time_both(
+        cycling(lambda x, delta: add_rmsnorm_reference(x, delta, gain, 1e-5), sets), iters=200)
+    pair_ms, pair_eager = time_both(
+        cycling(lambda x, delta: F.rms_norm(x + delta, (shape[-1],), gain, 1e-5), sets),
+        iters=200)
+    bound_ms, bound_by = add_rmsnorm_bound(rows, shape[-1])
+    log(f"  add_rmsnorm {tuple(shape)} device (graph, {len(sets)} input sets in turn): kernel "
+        f"{ms:.5f} ms  plain {plain_ms:.5f} ms  two calls x + delta, F.rms_norm {pair_ms:.5f} ms  "
+        f"bound {bound_ms:.6f} ms ({bound_by}); eager with launch cost: kernel {eager_ms:.5f}  "
+        f"plain {plain_eager:.5f}  two calls {pair_eager:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, pair_ms=pair_ms)
 
 
 def time_flash(device, S, H=LLAMA["H"], KV=LLAMA["KV"]) -> dict:
@@ -1011,31 +1129,39 @@ def block_counts(cfg) -> dict:
     return {kind: cfg.n_periods() * cfg.pattern().count(kind) for kind in ("attn", "mamba")}
 
 
+def norms_per_forward(cfg) -> int:
+    """RMSNorms of one forward: one before each block's mixer, one before
+    each MLP, and the final one."""
+    return cfg.n_layers * (2 if cfg.d_ff > 0 else 1) + 1
+
+
 def expected_launches(cfg, forwards, prefills) -> dict:
     """Kernel launches of ``forwards`` forward passes, ``prefills`` of them
-    prefills: two RMSNorms per block (every block has an MLP) and the final
-    one each forward, one selective scan per Mamba block each forward (the
-    decode step runs the kernel with S = 1), one flash launch per attention
-    block each prefill (decode attention is plain torch)."""
+    prefills: per forward, the first norm (on the embedding) alone and every
+    other norm fused with the residual add before it, and one selective scan
+    per Mamba block (the decode step runs the kernel with S = 1); one flash
+    launch per attention block each prefill (decode attention is plain
+    torch)."""
     n = block_counts(cfg)
-    return dict(rmsnorm=(2 * cfg.n_layers + 1) * forwards,
+    return dict(rmsnorm=forwards,
+                add_rmsnorm=(norms_per_forward(cfg) - 1) * forwards,
                 flash_attention=n["attn"] * prefills,
                 ssm_scan=n["mamba"] * forwards)
 
 
 def kernel_launches() -> dict:
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
     from repro_torch.kernels.ssm_scan import ssm_scan
-    return dict(rmsnorm=rmsnorm.launches, flash_attention=flash_attention.launches,
-                ssm_scan=ssm_scan.launches)
+    return dict(rmsnorm=rmsnorm.launches, add_rmsnorm=add_rmsnorm.launches,
+                flash_attention=flash_attention.launches, ssm_scan=ssm_scan.launches)
 
 
 def zero_launches() -> None:
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
     from repro_torch.kernels.ssm_scan import ssm_scan
-    rmsnorm.launches = flash_attention.launches = ssm_scan.launches = 0
+    rmsnorm.launches = add_rmsnorm.launches = flash_attention.launches = ssm_scan.launches = 0
 
 
 # ------------------------------------------------------------ selective scan
@@ -1279,6 +1405,38 @@ def profile_serving(server, rng, n_requests, prompt_len, max_new):
         wall_ms = (time.perf_counter() - t0) * 1e3
     log_device_time(prof, wall_ms, f"profiler over {n_requests} requests x {max_new} tokens "
                     f"({prompt_len}-token prompts)", top=8)
+    decode_forward_launches(server, rng, prompt_len)
+
+
+def decode_forward_launches(server, rng, prompt_len, steps=2):
+    """Device launches of one decode forward under the profiler, for
+    ``steps`` steps: every slot holds a request admitted beforehand, so each
+    profiled step is one forward of the whole batch.  The profiler may drop
+    events; the launch counters of phases 6 and 9 are the exact count."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import Request
+
+    for rid in range(len(server.slots)):
+        prompt = rng.integers(4, server.cfg.vocab, size=prompt_len).astype(np.int32)
+        server.submit(Request(2000 + rid, prompt, 2 + steps))
+    server.step()                                   # admits every slot, one decode
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            server.step()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels = [n for n in names if not n.startswith(("Memcpy", "Memset"))]
+        norms = collections.Counter(n for n in kernels if "rmsnorm" in n)
+        log(f"  one decode forward (profiler): {len(kernels)} kernel launches, "
+            f"{len(names) - len(kernels)} copies/memsets; rmsnorm.cu's: "
+            + ", ".join(f"{n} x {name[:90]}" for name, n in sorted(norms.items())))
+    server.drain()
 
 
 def build_all(libraries) -> float:
@@ -1458,10 +1616,13 @@ def main() -> int:
     serve_rng = np.random.default_rng(seed)
     prompt_lengths = sorted({int(n) for n in serve_rng.integers(32, 193, size=8)})
     t0 = time.perf_counter()
-    log("phase 4: rmsnorm and flash_attention kernels vs plain at llama3-8b's and jamba's shapes")
+    log("phase 4: rmsnorm, add_rmsnorm and flash_attention kernels vs plain at llama3-8b's "
+        "and jamba's shapes")
     d = LLAMA["d"]
-    rms_err = check_rmsnorm(device, [(1, S, d) for S in prompt_lengths] + [(4, 1, d), (300, d)]
-                            + [(1, max(prompt_lengths), 2 * d), (4, 1, 2 * d)])
+    norm_shapes = ([(1, S, d) for S in prompt_lengths] + [(4, 1, d), (300, d)]
+                   + [(1, max(prompt_lengths), 2 * d), (4, 1, 2 * d)])
+    rms_err = check_rmsnorm(device, norm_shapes)
+    add_err = check_add_rmsnorm(device, norm_shapes)
     H, KV, hd = LLAMA["H"], LLAMA["KV"], LLAMA["hd"]
     flash_err = check_flash(
         device,
@@ -1494,23 +1655,31 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    log("timing rmsnorm and flash_attention at the serving paths' shapes "
+    log("timing rmsnorm, add_rmsnorm and flash_attention at the serving paths' shapes "
         "(device time from CUDA-graph replay; eager time from CUDA events)")
     rms_at = {(S, w): time_rmsnorm(device, (1, S, w)) for w in (d, 2 * d) for S in sorted(set(lengths))}
     t_rms = time_rmsnorm(device, (4, 1, d))
     t_rms_wide = time_rmsnorm(device, (4, 1, 2 * d))
+    add_at = {(S, w): time_add_rmsnorm(device, (1, S, w))
+              for w in (d, 2 * d) for S in sorted(set(lengths))}
+    t_add = time_add_rmsnorm(device, (4, 1, d))
+    t_add_wide = time_add_rmsnorm(device, (4, 1, 2 * d))
     flash_at = {S: time_flash(device, S) for S in sorted(set(lengths))}
     flash_wide_at = {S: time_flash(device, S, H=2 * H) for S in sorted(set(lengths))}
     t_flash = flash_at[max(lengths)]
     timings["lm_timing"] = time.perf_counter() - t0
     llama, cut_cfg = get_config("llama3-8b"), get_config("jamba-1.5-large-398b")
-    n_norm = 2 * llama.n_layers + 1
+    n_add = norms_per_forward(llama) - 1
     excess["flash_attention, phase 6"] = excess_ms(
         [(block_counts(llama)["attn"], flash_at[S]) for S in lengths])
     excess["rmsnorm, phase 6"] = excess_ms(
-        [(n_norm, rms_at[(S, d)]) for S in lengths] + [(n_norm * lm_ticks, t_rms)])
+        [(1, rms_at[(S, d)]) for S in lengths] + [(lm_ticks, t_rms)])
+    excess["add_rmsnorm, phase 6"] = excess_ms(
+        [(n_add, add_at[(S, d)]) for S in lengths] + [(n_add * lm_ticks, t_add)])
     log(f"rmsnorm at the longest prefill (1, {max(lengths)}, {d}): "
         f"{json.dumps(rms_at[(max(lengths), d)])}")
+    log(f"add_rmsnorm at the longest prefill (1, {max(lengths)}, {d}): "
+        f"{json.dumps(add_at[(max(lengths), d)])}")
 
     t0 = time.perf_counter()
     log("phase 7: ssm_scan kernel vs plain at jamba-1.5-large's shapes")
@@ -1555,13 +1724,15 @@ def main() -> int:
     t_scan_prefill = scan_at[max(lengths)]
     t_scan = time_ssm_scan(device, 4, 1)
     timings["ssm_timing"] = time.perf_counter() - t0
-    n_mamba, n_norm9 = block_counts(cut)["mamba"], 2 * cut.n_layers + 1
+    n_mamba, n_add9 = block_counts(cut)["mamba"], norms_per_forward(cut) - 1
     excess["ssm_scan, phase 9 prefills"] = excess_ms([(n_mamba, scan_at[S]) for S in lengths])
     excess["ssm_scan, phase 9 decode"] = excess_ms([(n_mamba * jamba_ticks, t_scan)])
     excess["flash_attention, phase 9"] = excess_ms(
         [(block_counts(cut)["attn"], flash_wide_at[S]) for S in lengths])
     excess["rmsnorm, phase 9"] = excess_ms(
-        [(n_norm9, rms_at[(S, 2 * d)]) for S in lengths] + [(n_norm9 * jamba_ticks, t_rms_wide)])
+        [(1, rms_at[(S, 2 * d)]) for S in lengths] + [(jamba_ticks, t_rms_wide)])
+    excess["add_rmsnorm, phase 9"] = excess_ms(
+        [(n_add9, add_at[(S, 2 * d)]) for S in lengths] + [(n_add9 * jamba_ticks, t_add_wide)])
     log(f"ssm_scan at the longest prefill (1, {max(lengths)}, {D}, {N}): {json.dumps(t_scan_prefill)}")
     log(f"launches x (time - bound) by kernel and path, largest first (empty kernel "
         f"{empty_ms:.5f} ms per launch):")
@@ -1590,6 +1761,12 @@ def main() -> int:
              source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23",
              launches=lm_launches["rmsnorm"], max_abs_err=rms_err, **t_rms),
+        dict(name="add_rmsnorm", route="cuda",
+             source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23 with the residual adds at "
+                      "src/repro/models/transformer.py:122, :173",
+             launches=lm_launches["add_rmsnorm"], max_abs_err=add_err,
+             **{k: t_add[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:89",

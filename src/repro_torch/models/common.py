@@ -17,7 +17,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from ..kernels.rmsnorm import rmsnorm
+from ..kernels.rmsnorm import add_rmsnorm
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -102,10 +102,13 @@ def count_params(defs: ParamTree) -> int:
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm over the last axis: the CUDA kernel on the card, its plain
-    version on the CPU (:func:`repro_torch.kernels.rmsnorm.rmsnorm`)."""
-    return rmsnorm(x, gain, eps)
+def add_rms_norm(x: torch.Tensor, delta: torch.Tensor | None, gain: torch.Tensor,
+                 eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the RMSNorm after it: returns ``(x + delta,
+    rmsnorm(x + delta))``, or ``(x, rmsnorm(x))`` when ``delta`` is None.
+    One CUDA launch on the card, the plain versions on the CPU
+    (:func:`repro_torch.kernels.rmsnorm.add_rmsnorm`)."""
+    return add_rmsnorm(x, delta, gain, eps)
 
 
 def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:

@@ -16,7 +16,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import make_cache_struct
-from .common import count_params, init_params, rms_norm
+from .common import add_rms_norm, count_params, init_params
 from .ssm import mamba_state_struct
 from .transformer import (
     ParamModule,
@@ -82,19 +82,20 @@ class Model(nn.Module):
         B, S = tokens.shape
         x = self.embed[tokens]
         positions = torch.arange(S, device=x.device).expand(B, S)
-        x, caches = run_decoder_stack(self.blocks, x, self.cfg, "prefill", positions=positions)
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return self._head(x[:, -1:, :]), caches
+        x, delta, caches = run_decoder_stack(self.blocks, x, self.cfg, "prefill",
+                                             positions=positions)
+        _, h = add_rms_norm(x, delta, self.final_norm, self.cfg.norm_eps)
+        return self._head(h[:, -1:, :]), caches
 
     def forward_decode(self, token: torch.Tensor, caches: dict, pos: int):
         """One decode step: ``token`` (B, 1) at the shared position ``pos``.
         Writes the new K/V and Mamba states into ``caches`` in place and
         returns (logits (B, 1, V), caches)."""
         x = self.embed[token]
-        x, caches = run_decoder_stack(self.blocks, x, self.cfg, "decode",
-                                      caches=caches, positions=int(pos))
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
-        return self._head(x), caches
+        x, delta, caches = run_decoder_stack(self.blocks, x, self.cfg, "decode",
+                                             caches=caches, positions=int(pos))
+        _, h = add_rms_norm(x, delta, self.final_norm, self.cfg.norm_eps)
+        return self._head(h), caches
 
     # -- caches ----------------------------------------------------------------
     def cache_struct(self, batch: int, ctx_len: int, dtype: torch.dtype | None = None) -> dict:

@@ -18,7 +18,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import ssm
-from .common import ParamDef, rms_norm, swiglu
+from .common import ParamDef, add_rms_norm, swiglu
 
 
 class ParamModule(nn.Module):
@@ -89,23 +89,33 @@ def decoder_defs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ffn_half(bp: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn_half(bp: nn.Module, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig):
+    """The MLP half after a mixer whose output is ``y``: returns ``(x + y,
+    mlp(rmsnorm(x + y)))``, the MLP's output being the residual update
+    still to add.  A block without an MLP returns ``(x, y)``: ``y`` is
+    added by the next norm."""
     if hasattr(bp, "mlp"):
-        h = rms_norm(x, bp.norm2, cfg.norm_eps)
-        return x + swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
-    return x
+        x, h = add_rms_norm(x, y, bp.norm2, cfg.norm_eps)
+        return x, swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
+    return x, y
 
 
-def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, cfg: ModelConfig, mode: str,
-                state: dict | None, positions):
-    """One block of ``kind`` ("attn" or "mamba").  ``mode`` is "prefill"
-    (``positions`` (B, S); returns the block's new cache or state, a Mamba
-    block's from zero state as in the reference) or "decode"
-    (``positions`` is the shared int position; ``state`` is the block's
-    cache or state, updated in place)."""
+def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor | None,
+                cfg: ModelConfig, mode: str, state: dict | None, positions):
+    """One block of ``kind`` ("attn" or "mamba") on the residual stream
+    ``x + delta``: ``delta`` is the previous block's update, not yet added
+    (None before the first block).  The add is fused into the block's first
+    norm and the mixer's output into its second, so the block returns
+    ``(x, delta, state)`` with its own update as the new ``delta``; the
+    reference's stream after the block is ``x + delta``.
+
+    ``mode`` is "prefill" (``positions`` (B, S); the returned state is the
+    block's new cache or state, a Mamba block's from zero state as in the
+    reference) or "decode" (``positions`` is the shared int position;
+    ``state`` is the block's cache or state, updated in place)."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
-    h = rms_norm(x, bp.norm1, cfg.norm_eps)
+    x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
     if kind == "attn" and mode == "decode":
         y, new_state = attn.gqa_decode(bp.attn, h, cfg, state, positions)
     elif kind == "attn":
@@ -119,8 +129,7 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, cfg: ModelConfig, mod
         y, new_state = ssm.mamba_block(bp.mamba, h, cfg)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
-    x = x + y
-    return _ffn_half(bp, x, cfg), new_state
+    return (*_ffn_half(bp, x, y, cfg), new_state)
 
 
 # ---------------------------------------------------------------------------
@@ -150,21 +159,24 @@ def period_block(period: nn.Module, cfg: ModelConfig, key: str) -> nn.Module:
 
 def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                       mode: str, caches: dict | None = None, positions=None):
-    """Returns (x, caches).  ``blocks`` holds one module per period.  Caches
-    keep the reference's layout, one entry per block of the period stacked
-    along the period axis: ``{"b0_attn": {"k": (P, B, T, KV, hd), "v": ...},
-    "b1_mamba": {"h": (P, B, di, N), "conv": (P, B, d_conv-1, di)}}``.
-    Prefill stacks the periods' new caches; decode updates ``caches`` in
-    place and returns it."""
+    """Returns (x, delta, caches): the residual stream after the stack is
+    ``x + delta``, the last block's update left for the final norm to add.
+    ``blocks`` holds one module per period.  Caches keep the reference's
+    layout, one entry per block of the period stacked along the period
+    axis: ``{"b0_attn": {"k": (P, B, T, KV, hd), "v": ...}, "b1_mamba":
+    {"h": (P, B, di, N), "conv": (P, B, d_conv-1, di)}}``.  Prefill stacks
+    the periods' new caches; decode updates ``caches`` in place and returns
+    it."""
     keys = block_keys(cfg)
     new: dict[str, list[dict]] = {key: [] for key, _ in keys}
+    delta = None
     for i, period in enumerate(blocks):
         for key, kind in keys:
             state = None if caches is None else {n: c[i] for n, c in caches[key].items()}
-            x, ns = apply_block(period_block(period, cfg, key), kind, x, cfg, mode,
-                                state, positions)
+            x, delta, ns = apply_block(period_block(period, cfg, key), kind, x, delta, cfg,
+                                       mode, state, positions)
             new[key].append(ns)
     if mode == "decode":
-        return x, caches
-    return x, {key: {n: torch.stack([s[n] for s in per]) for n in per[0]}
-               for key, per in new.items()}
+        return x, delta, caches
+    return x, delta, {key: {n: torch.stack([s[n] for s in per]) for n in per[0]}
+                      for key, per in new.items()}

@@ -19,7 +19,12 @@ from repro_torch.configs import get_config
 from repro_torch.core import ContainerDim, round_robin_configuration
 from repro_torch.interop import stage_padded
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_reference
+from repro_torch.kernels.rmsnorm import (
+    add_rmsnorm,
+    add_rmsnorm_reference,
+    rmsnorm,
+    rmsnorm_reference,
+)
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_reference
 from repro_torch.kernels.stream_flow import (
     container_members,
@@ -436,6 +441,102 @@ def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         rmsnorm(x.t(), torch.ones(4, device=cuda))
 
 
+def _add_norm_inputs(cuda, shape, dtype, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed + shape[-1])
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    delta = (0.5 * torch.randn(shape, generator=g, device=cuda)).to(dtype)
+    gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    return x, delta, gain
+
+
+def _assert_norm_close(got, want):
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    else:
+        assert bool(((got.float() - want.float()).abs() <= _bf16_ulp(want)).all())
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 4096), (1, 168, 4096), (4, 1, 8192), (1, 168, 8192),
+                                   (300, 4096), (300, 96), (7, 130)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_kernel_matches_plain_version(cuda, shape, dtype):
+    x, delta, gain = _add_norm_inputs(cuda, shape, dtype)
+    before = (rmsnorm.launches, add_rmsnorm.launches)
+    s, h = add_rmsnorm(x, delta, gain, 1e-5)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches, add_rmsnorm.launches) == (before[0], before[1] + 1)
+    assert s.dtype == h.dtype == dtype and s.shape == h.shape == x.shape
+    want_s, want_h = add_rmsnorm_reference(x, delta, gain, 1e-5)
+    assert torch.equal(s, want_s)                        # x + delta, rounded as torch rounds
+    _assert_norm_close(h, want_h)
+    assert torch.equal(h, rmsnorm(x + delta, gain, 1e-5))   # one summation order
+    s2, h2 = add_rmsnorm(x, delta, gain, 1e-5)
+    assert torch.equal(s2, s) and torch.equal(h2, h)     # run to run
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4096, 4097, 130])
+def test_add_rmsnorm_generic_path_keeps_the_order(cuda, dtype, d):
+    """Unaligned views (one element into a buffer) and odd widths take the
+    generic path; its norm is bit for bit the register path's on the same
+    values, and both are the plain version's within tolerance."""
+    rows = 6
+    x, delta, _ = _add_norm_inputs(cuda, (rows * d + 1,), dtype, seed=3)
+    gain = 1.0 + 0.1 * torch.randn(d, generator=torch.Generator(device=cuda).manual_seed(d),
+                                   device=cuda)
+    xv, dv = x[1:].view(rows, d), delta[1:].view(rows, d)
+    s, h = add_rmsnorm(xv, dv, gain, 1e-5)
+    want_s, want_h = add_rmsnorm_reference(xv, dv, gain, 1e-5)
+    assert torch.equal(s, want_s)
+    _assert_norm_close(h, want_h)
+    aligned = (xv + dv).contiguous()                     # a fresh, aligned tensor
+    assert torch.equal(h, rmsnorm(aligned, gain, 1e-5))
+    assert torch.equal(rmsnorm(xv, gain, 1e-5), rmsnorm(xv.clone(), gain, 1e-5))
+
+
+@pytest.mark.parametrize("d", [4096, 8192, 130])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_add_rmsnorm_rows_do_not_depend_on_the_batch(cuda, d, dtype):
+    """A row's bits are the same alone, among 4 rows (decode) and among 40
+    (prefill): nothing in the launch depends on the row count."""
+    x, delta, gain = _add_norm_inputs(cuda, (40, d), dtype, seed=7)
+    s, h = add_rmsnorm(x, delta, gain, 1e-5)
+    for lo, hi in ((0, 4), (36, 40), (17, 18)):
+        s_part, h_part = add_rmsnorm(x[lo:hi].contiguous(), delta[lo:hi].contiguous(), gain, 1e-5)
+        assert torch.equal(s_part, s[lo:hi]) and torch.equal(h_part, h[lo:hi])
+        alone = rmsnorm(x[lo:hi].contiguous(), gain, 1e-5)
+        assert torch.equal(alone, rmsnorm(x, gain, 1e-5)[lo:hi])
+
+
+def test_add_rmsnorm_without_delta_runs_the_plain_norm_kernel(cuda):
+    x, _, gain = _add_norm_inputs(cuda, (4, 1, 4096), torch.float32)
+    before = (rmsnorm.launches, add_rmsnorm.launches)
+    s, h = add_rmsnorm(x, None, gain, 1e-5)
+    assert s is x
+    assert (rmsnorm.launches, add_rmsnorm.launches) == (before[0] + 1, before[1])
+    assert torch.equal(h, rmsnorm(x, gain, 1e-5))
+
+
+def test_add_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x, delta, gain = _add_norm_inputs(cuda, (4, 64), torch.float32)
+    before = add_rmsnorm.launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        add_rmsnorm(x.half(), delta.half(), gain)
+    with pytest.raises(ValueError, match="delta must match"):
+        add_rmsnorm(x, delta.bfloat16(), gain)
+    with pytest.raises(ValueError, match="delta must match"):
+        add_rmsnorm(x, delta[:, :32], gain)
+    with pytest.raises(ValueError, match="delta is on"):
+        add_rmsnorm(x, delta.cpu(), gain)
+    with pytest.raises(ValueError, match="delta must be contiguous"):
+        add_rmsnorm(x, delta.t().contiguous().t(), gain)
+    with pytest.raises(ValueError, match="gain"):
+        add_rmsnorm(x, delta, gain[:32])
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        add_rmsnorm(x.t(), delta.t(), torch.ones(4, device=cuda))
+    assert add_rmsnorm.launches == before
+
+
 # ---------------------------------------------------------- flash attention
 # fp32: within 2e-5 (rtol and atol; online softmax over tiles against one
 # softmax over the row).
@@ -574,12 +675,14 @@ def test_model_on_card_runs_the_kernels_and_matches_the_host(cuda, arch):
     card = build_model(cfg, device=cuda, seed=0)
     card.load_state_dict(host.state_dict())
     tokens = torch.arange(4, 44).reshape(1, 40) % cfg.vocab
-    before = (rmsnorm.launches, flash_attention.launches)
+    before = (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches)
     got, _ = card.forward_prefill(tokens.to(cuda))
     want, _ = host.forward_prefill(tokens)
     torch.cuda.synchronize()
     L = cfg.n_layers
-    assert (rmsnorm.launches, flash_attention.launches) == (before[0] + 2 * L + 1, before[1] + L)
+    # the first norm alone, every other norm fused with the residual add
+    assert (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches) == (
+        before[0] + 1, before[1] + 2 * L, before[2] + L)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
 
 
@@ -700,7 +803,8 @@ def test_hybrid_model_on_card_runs_the_kernels_and_matches_the_host(cuda):
     card = build_model(cfg, device=cuda, seed=0)
     card.load_state_dict(host.state_dict())
     tokens = torch.arange(4, 44).reshape(1, 40) % cfg.vocab
-    before = (rmsnorm.launches, flash_attention.launches, ssm_scan.launches)
+    before = (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches,
+              ssm_scan.launches)
     got, gc = card.forward_prefill(tokens.to(cuda))
     want, hc = host.forward_prefill(tokens)
     caches = {"card": card.cache_struct(1, 48), "host": host.cache_struct(1, 48)}
@@ -713,8 +817,9 @@ def test_hybrid_model_on_card_runs_the_kernels_and_matches_the_host(cuda):
     wd, _ = host.forward_decode(torch.tensor([[7]]), caches["host"], 40)
     torch.cuda.synchronize()
     P = cfg.n_periods()                 # one Mamba and one attention block per period
-    assert (rmsnorm.launches, flash_attention.launches, ssm_scan.launches) == (
-        before[0] + 2 * (2 * cfg.n_layers + 1), before[1] + P, before[2] + 2 * P)
+    assert (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches,
+            ssm_scan.launches) == (before[0] + 2, before[1] + 2 * 2 * cfg.n_layers,
+                                   before[2] + P, before[3] + 2 * P)
     for g, w in ((got, want), (gd, wd)):
         torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4 * float(w.abs().max()))
     for n in ("h", "conv"):
