@@ -25,6 +25,22 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
 3b. runs the allocation at two bucket settings on each tick, in full and
    in summary mode, and requires its samples and its summary to be bit for
    bit equal on both ticks;
+3c. submits phase 3's candidates, duplicates mixed in, through
+   ``SimulatorEvaluator`` on the sparse tick and requires its dedup, result
+   cache, resident batches and trajectory refetch to be bit for bit the
+   uncached path; then drives a 48-step diurnal day of ``deep_pipeline``
+   (6,700 ktps base, about 20,000 at the peak) through ``ControlLoop`` with
+   ``HybridPolicy`` and with a learning ``PredictivePolicy`` on that
+   evaluator, and requires every step to deploy a configuration and the
+   flow kernel to run; then a 24-step diurnal day of ``adanalytics``, whose
+   flow LPs take milliseconds, through a ``PredictivePolicy`` learning with
+   the default calibration batch on a simulator whose stream managers cost
+   2.5x what the models assume, and requires the loop's own calibration
+   flushes to raise the version that keys the result cache and some steps
+   after it not to breach.  Phase 3c's launches of the three stream
+   kernels are counted by input shape apart from phases 2-3's, each kernel
+   is held against its plain version and timed at every one of those
+   shapes, and the engine's caches are emptied before phase 4;
 4. holds the RMSNorm kernels (the norm alone, and fused with the residual
    add before it) and the flash-attention kernel against their plain
    versions at llama3-8b's and jamba's shapes (fp32 and bf16 RMSNorm, an
@@ -57,9 +73,10 @@ PyTorch call that computes the same function at the main paths' shapes,
 beside the empty kernel's launch (the floor of any kernel's time); the
 norms at prefill shapes over input sets that miss L2, as in serving.  The
 three stream kernels' launches in phases 2-3 are counted by input shape, and
-each is timed at every one of those shapes; every kernel's launches x
-(time - bound) over its paths is printed, largest first.  After phases 6
-and 9 the profiler counts the kernel launches of one decode forward.
+each is timed at every one of those shapes (phase 3c's likewise, on their
+own); every kernel's launches x (time - bound) over its paths is printed,
+largest first.  After phases 6 and 9 the profiler counts the kernel
+launches of one decode forward.
 Any failed phase raises and the script exits non-zero.  The last line is a
 JSON object with ``"ok": true`` and the device; the line before it lists
 each kernel with its launches on the main paths, its error against the
@@ -215,8 +232,9 @@ SEGMENT_ARGS = (
 
 
 def check_kernel(name, p) -> float:
-    """Kernel vs plain version (and vs the segment-sum contract) on the same
-    inputs; returns the largest absolute difference to the plain version."""
+    """Kernel vs plain version (and vs the segment-sum contract, where ``p``
+    holds the edge list it needs) on the same inputs; returns the largest
+    absolute difference to the plain version."""
     import torch
     from repro_torch.kernels.stream_flow import (
         stream_flow_ell, stream_flow_ell_reference, stream_flow_reference,
@@ -225,10 +243,12 @@ def check_kernel(name, p) -> float:
     args = [p[k] for k in KERNEL_ARGS]
     got = stream_flow_ell(*args)
     plain = stream_flow_ell_reference(*args)
-    seg = stream_flow_reference(
-        *[p[k] for k in SEGMENT_ARGS],
-        n_inst=p["qout"].shape[1], n_cont=p["sm_budget"].shape[1],
-    )
+    seg = (None,) * 3
+    if all(k in p for k in SEGMENT_ARGS):
+        seg = stream_flow_reference(
+            *[p[k] for k in SEGMENT_ARGS],
+            n_inst=p["qout"].shape[1], n_cont=p["sm_budget"].shape[1],
+        )
     if got[0].is_cuda:
         torch.cuda.synchronize()
     worst = 0.0
@@ -242,7 +262,8 @@ def check_kernel(name, p) -> float:
                 f"{name}: {label} differs from the plain version by up to "
                 f"{float(err.max()):.3e} (rtol {RTOL}, atol {ATOL_REL}*max|x|)"
             )
-        torch.testing.assert_close(out, sref, rtol=SEGMENT_RTOL, atol=SEGMENT_ATOL)
+        if sref is not None:
+            torch.testing.assert_close(out, sref, rtol=SEGMENT_RTOL, atol=SEGMENT_ATOL)
         worst = max(worst, float(err.max()))
     log(f"  {name}: B={p['qout'].shape[0]} I={p['qout'].shape[1]} "
         f"K={p['sm_budget'].shape[1]} E={p['edge_src'].shape[1]} "
@@ -857,6 +878,290 @@ def phase_buckets(device, params, config, duration_s):
             if not equal:
                 raise AssertionError(f"the {kernel} tick's {mode} results moved with the buckets")
     return worst
+
+
+def _same_rows(got, want, label):
+    """Bit-equal achieved rates and summaries, row by row."""
+    import numpy as np
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.achieved_ktps != b.achieved_ktps or a.bottleneck != b.bottleneck:
+            raise AssertionError(f"{label}: row {i} achieved {a.achieved_ktps!r} "
+                                 f"({a.bottleneck}) against {b.achieved_ktps!r} ({b.bottleneck})")
+        for k, v in b.sim.summary.items():
+            if not np.array_equal(a.sim.summary[k], v):
+                raise AssertionError(f"{label}: row {i} summary {k} differs")
+
+
+def phase_engine(device, params, candidates, duration_s, n_repeats=8):
+    """Phase 3c (a): the candidates, with ``n_repeats`` of them submitted
+    twice, through ``SimulatorEvaluator`` on the sparse tick: bit for bit
+    the escape hatch (no dedup, no result cache, no resident batches); an
+    identical resubmission runs no row; with the result cache cleared a
+    third call takes the resident batch; a summary row's refetched
+    trajectory is bit for bit a full-mode run.  Returns the evaluator."""
+    import numpy as np
+    from repro_torch.streams import (
+        SimulatorEvaluator, cache_stats, dedup_info, resident_cache_info, simulate_batch,
+        transfer_info,
+    )
+
+    def evaluator(**kw):
+        return SimulatorEvaluator(params=params, duration_s=duration_s, tick_kernel="sparse",
+                                  device=device, **kw)
+
+    # overload and the target, alternating; every third candidate repeated
+    # at its own load
+    loads = [1e6 if i % 2 else TARGET_KTPS for i in range(len(candidates))]
+    repeats = range(0, 3 * n_repeats, 3)
+    configs = candidates + [candidates[i] for i in repeats]
+    loads = loads + [loads[i] for i in repeats]
+    n_unique = len(set(zip(configs, loads)))
+    ev, plain = evaluator(), evaluator(dedup=False, cache=False, resident_batches=False)
+    walls = {}
+    t0 = time.perf_counter()
+    want = plain.evaluate_batch(configs, loads)
+    walls["escape hatch"] = time.perf_counter() - t0
+    executed0 = dedup_info()["rows_executed"]
+    t0 = time.perf_counter()
+    first = ev.evaluate_batch(configs, loads)
+    walls["first"] = time.perf_counter() - t0
+    _same_rows(first, want, "dedup + result cache + resident")
+    executed = dedup_info()["rows_executed"]
+    if executed - executed0 != n_unique:
+        raise AssertionError(f"{executed - executed0} rows ran for {n_unique} unique rows")
+    hits = ev.result_cache.info()["hits"]
+    t0 = time.perf_counter()
+    again = ev.evaluate_batch(configs, loads)
+    walls["resubmission"] = time.perf_counter() - t0
+    _same_rows(again, want, "resubmission")
+    if dedup_info()["rows_executed"] != executed:
+        raise AssertionError("an identical resubmission ran rows")
+    if ev.result_cache.info()["hits"] - hits != n_unique:
+        raise AssertionError(f"{ev.result_cache.info()['hits'] - hits} result-cache hits "
+                             f"for {n_unique} unique rows")
+    ev.result_cache.clear()
+    resident_hits = resident_cache_info()["hits"]
+    t0 = time.perf_counter()
+    third = ev.evaluate_batch(configs, loads)
+    walls["resident"] = time.perf_counter() - t0
+    _same_rows(third, want, "resident batch")
+    if resident_cache_info()["hits"] <= resident_hits:
+        raise AssertionError("the third call did not take the resident batch")
+    row = 3
+    refetches = transfer_info()["refetches"]
+    t0 = time.perf_counter()
+    samples = third[row].sim.samples
+    walls["refetch"] = time.perf_counter() - t0
+    full = simulate_batch([configs[row]], loads[row], duration_s=duration_s, params=params,
+                          tick_kernel="sparse", samples="full", device=device)[0]
+    if transfer_info()["refetches"] != refetches + 1:
+        raise AssertionError("the refetch was not counted")
+    for k, v in full.samples.items():
+        if not np.array_equal(samples[k], v):
+            raise AssertionError(f"refetched {k} differs from a full-mode run")
+    log(f"  {len(configs)} rows ({n_unique} unique) at {int(duration_s / params.dt)} "
+        f"ticks: bit-equal to the escape hatch; resubmission ran 0 rows "
+        f"({n_unique} result-cache hits); third call took the resident batch; "
+        f"row {row}'s refetch is bit for bit a full-mode run")
+    log("  walls: " + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()))
+    log(f"  cache_stats: {json.dumps(cache_stats())}")
+    return ev
+
+
+def phase_control(device, params, ev, dag, trace, dim, season, launch_fns):
+    """Phase 3c (b): a diurnal day of ``dag`` through ``ControlLoop`` on the
+    evaluator of part (a), once with ``HybridPolicy`` (no learner, as the
+    example runs it) and once with ``PredictivePolicy`` (Holt-Winters,
+    horizon 4) learning into its ``ModelStore``: every saturated step pools
+    the row's trajectory (a refetch), and after the day the store retrains
+    from the pool, which must make the evaluator's cached results
+    unreachable.  The predictive loop's calibration batch is longer than
+    the day, so no predict-back calibration runs: it solves the flow LP of
+    each measured configuration, minutes apiece at these sizes
+    (``tools/lp_scaling.py``); :func:`phase_learning` runs the loop's own
+    flushes at a size where they take milliseconds.  Returns per-policy
+    figures, the stream kernels' launches among them."""
+    import numpy as np
+    import torch
+    from repro_torch.control import (
+        ControlLoop, GuardBands, HoltWintersForecaster, HybridPolicy, ModelStore,
+        PredictivePolicy,
+    )
+    from repro_torch.core import oracle_models
+    from repro_torch.streams import dedup_info, transfer_info
+
+    thr = 0.95
+    guards = GuardBands(headroom=1.0, deadband=0.2)
+    models = oracle_models(dag, params.sm_cost_per_ktuple)
+    out = {}
+    for name in ("hybrid", "predictive"):
+        store = ModelStore(models)
+        if name == "hybrid":
+            loop = ControlLoop(HybridPolicy(dag, store, preferred_dim=dim), guards=guards,
+                               evaluator=ev, saturation_threshold=thr)
+        else:
+            loop = ControlLoop(PredictivePolicy(dag, store, preferred_dim=dim), guards=guards,
+                               evaluator=ev, learner=store,
+                               forecaster=HoltWintersForecaster(season=season), horizon=4,
+                               saturation_threshold=thr, calibration_batch=len(trace) + 1)
+        launches0 = [fn.launches for fn in launch_fns]
+        dedup0, transfer0 = dedup_info(), transfer_info()
+        hits0 = ev.result_cache.info()["hits"]
+        version0 = store.version
+        t0 = time.perf_counter()
+        for load in trace:
+            step = loop.step(float(load))
+            if loop.action is None or loop.action.config is None:
+                raise AssertionError(f"{name}: step {step.step} logged no configuration")
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        retrain_s = None
+        if name == "predictive" and len(store.metrics):
+            t1 = time.perf_counter()
+            store.retrain()                   # from the pooled trajectories
+            retrain_s = time.perf_counter() - t1
+            misses = ev.result_cache.info()["misses"]
+            ev.evaluate(loop.action.config, float(trace[-1]))
+            if ev.result_cache.info()["misses"] != misses + 1:
+                raise AssertionError("the retrain's version bump left the cached result reachable")
+        dedup, transfer = dedup_info(), transfer_info()
+        fig = dict(
+            steps=len(loop.events),
+            breach_steps=sum(e.achieved < thr * e.load for e in loop.events),
+            proactive_replans=sum(e.cause == "forecast" for e in loop.events),
+            acted=sum(e.acted for e in loop.events),
+            wall_s=wall,
+            wall_per_step_s=wall / max(len(loop.events), 1),
+            rows={k: dedup[k] - dedup0[k] for k in ("rows_in", "rows_unique", "rows_executed")},
+            result_cache_hits=ev.result_cache.info()["hits"] - hits0,
+            transfer={k: transfer[k] - transfer0[k]
+                      for k in ("batches", "bytes_full", "bytes_summary", "refetches")},
+            launches={fn.__name__: fn.launches - n for fn, n in zip(launch_fns, launches0)},
+            version=(version0, store.version),
+            pooled_series=len(store.metrics),
+            pending_calibration=len(loop._pending_configs),
+            retrain_s=retrain_s,
+            achieved_mean_ktps=float(np.mean([e.achieved for e in loop.events])),
+            load_mean_ktps=float(np.mean([e.load for e in loop.events])),
+        )
+        log(f"  {name}: {json.dumps(fig)}")
+        if name == "predictive" and fig["breach_steps"]:
+            if fig["transfer"]["refetches"] <= 0:
+                raise AssertionError("saturated predictive steps refetched no trajectory")
+            if ev.version_source is not store or store.version <= version0:
+                raise AssertionError("the learner's version did not reach the evaluator")
+        if fig["launches"]["stream_flow_ell"] <= 0:
+            raise AssertionError(f"{name}: the control path never launched the stream_flow_ell kernel")
+        out[name] = fig
+    return out
+
+
+def phase_learning(device, params, dim, launch_fns, steps=24, drift=2.5):
+    """Phase 3c (c): the paper's online refinement on the card, at a size
+    where the flow LP of a calibration takes milliseconds: a diurnal
+    ``adanalytics`` day through ``ControlLoop(PredictivePolicy)`` learning
+    into its ``ModelStore`` with the default calibration batch, on a
+    simulator whose stream managers cost ``drift`` times what the oracle
+    models assume.  The day saturates until the loop's own flush calibrates
+    the store; the version that keys the result cache must rise inside the
+    loop, every saturated step must refetch its row's trajectory, and some
+    steps after the first rise must not breach.  Returns the figures."""
+    import dataclasses
+
+    from repro_torch.control import (
+        ControlLoop, GuardBands, HoltWintersForecaster, ModelStore, PredictivePolicy, make_trace,
+    )
+    from repro_torch.core import oracle_models
+    from repro_torch.streams import SimulatorEvaluator, adanalytics, dedup_info, transfer_info
+
+    thr = 0.95
+    dag = adanalytics()
+    store = ModelStore(oracle_models(dag, params.sm_cost_per_ktuple))
+    drifted = dataclasses.replace(params, sm_cost_per_ktuple=drift * params.sm_cost_per_ktuple)
+    ev = SimulatorEvaluator(params=drifted, duration_s=2.0, tick_kernel="sparse", device=device)
+    loop = ControlLoop(PredictivePolicy(dag, store, preferred_dim=dim),
+                       guards=GuardBands(headroom=1.0, deadband=0.2), evaluator=ev, learner=store,
+                       forecaster=HoltWintersForecaster(season=steps // 2), horizon=4,
+                       saturation_threshold=thr)
+    launches0 = [fn.launches for fn in launch_fns]
+    dedup0, refetches0 = dedup_info(), transfer_info()["refetches"]
+    versions = []
+    t0 = time.perf_counter()
+    for load in make_trace("diurnal", steps, base_ktps=600.0, seed=3):
+        step = loop.step(float(load))
+        if loop.action is None or loop.action.config is None:
+            raise AssertionError(f"learning: step {step.step} logged no configuration")
+        versions.append(store.version)
+    wall = time.perf_counter() - t0
+    breach = [e.achieved < thr * e.load for e in loop.events]
+    first = next((i for i, v in enumerate(versions) if v > 0), None)
+    fig = dict(
+        steps=len(loop.events),
+        breach_steps=sum(breach),
+        breach_at=[i for i, b in enumerate(breach) if b],
+        proactive_replans=sum(e.cause == "forecast" for e in loop.events),
+        retrains=sum(e.retrained for e in loop.events),
+        versions=versions,
+        first_version_rise_step=first,
+        containers=[e.containers for e in loop.events],
+        wall_s=wall,
+        wall_per_step_s=wall / max(len(loop.events), 1),
+        rows={k: dedup_info()[k] - dedup0[k] for k in ("rows_in", "rows_unique", "rows_executed")},
+        refetches=transfer_info()["refetches"] - refetches0,
+        launches={fn.__name__: fn.launches - n for fn, n in zip(launch_fns, launches0)},
+    )
+    log(f"  learning: {json.dumps(fig)}")
+    if ev.version_source is not store:
+        raise AssertionError("learning: the evaluator's version source is not the learner")
+    if first is None:
+        raise AssertionError("learning: the loop's own calibration flushes never raised the version")
+    if fig["refetches"] < sum(breach):
+        raise AssertionError(f"learning: {fig['refetches']} refetches for {sum(breach)} saturated steps")
+    if all(breach[first + 1:]):
+        raise AssertionError("learning: every step after the store learned still breached")
+    return fig
+
+
+def check_and_time(flow, sums, ords, label, excess):
+    """Each stream kernel against its plain version, and timed, at every
+    input shape its recorder saw; adds each kernel's launches x (time -
+    bound) to ``excess`` under ``label``.  Returns the largest error of
+    each kernel."""
+    errs = {"stream_flow_ell": 0.0, "container_sum": 0.0, "ordered_sum": 0.0}
+    at = {"stream_flow_ell": {}, "container_sum": {}, "ordered_sum": {}}
+    for key in sorted(flow.counts):
+        inputs = flow.inputs[key]
+        errs["stream_flow_ell"] = max(errs["stream_flow_ell"],
+                                      check_kernel(f"{label} {key}", dict(zip(KERNEL_ARGS, inputs))))
+        at["stream_flow_ell"][key] = time_recorded(key, inputs)
+    for key in sorted(sums.counts):
+        args = sums.inputs[key]
+        errs["container_sum"] = max(errs["container_sum"], check_container_sum(f"{label} {key}", args))
+        at["container_sum"][key] = time_container_sum(args)
+    for key in sorted(ords.counts):
+        args = ords.inputs[key]
+        errs["ordered_sum"] = max(errs["ordered_sum"], check_ordered_sum(f"{label} {key}", args))
+        at["ordered_sum"][key] = time_ordered_sum(args)
+    for name, rec in (("stream_flow_ell", flow), ("container_sum", sums), ("ordered_sum", ords)):
+        for key, t in at[name].items():
+            n = rec.counts[key]
+            log(f"  {name} launches x (time - bound) at {key}: {n} x "
+                f"({t['ms']:.5f} - {t['bound_ms']:.6f}) ms = {n * (t['ms'] - t['bound_ms']):.3f} ms")
+        excess[f"{name}, {label}"] = excess_ms([(rec.counts[k], t) for k, t in at[name].items()])
+    return errs
+
+
+def log_shapes(recs, totals, label):
+    """Each recorder's launches by input shape; their sum must be the
+    wrapper's own count."""
+    for (name, rec), total in zip(recs, totals):
+        for key, n in sorted(rec.counts.items()):
+            log(f"  {name} launches at {key}: {n}")
+        if total <= 0:
+            raise AssertionError(f"{label} never launched the {name} kernel")
+        if sum(rec.counts.values()) != total:
+            raise AssertionError(f"{label}: {name} launches by shape {rec.counts} do not add up to {total}")
 
 
 # ------------------------------------------------------------ LM kernels
@@ -1477,6 +1782,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
     from repro_torch.kernels.ssm_scan import ops as ssm_ops
+    from repro_torch.control import make_trace
+    from repro_torch.streams import (
+        cache_stats, clear_resident_cache, clear_result_caches, clear_structure_cache,
+    )
     from repro_torch.kernels.stream_flow import build, container_sum, ordered_sum, stream_flow_ell
     from repro_torch.streams import SimParams, deep_pipeline
 
@@ -1553,20 +1862,69 @@ def main() -> int:
         f"threefry noise included)")
     log(f"launches after phases 2-3: stream_flow_ell {launches}, container_sum {sum_launches}, "
         f"ordered_sum {ordered_launches}")
-    for name, rec, total in (("stream_flow_ell", flow_rec, launches),
-                             ("container_sum", sum_rec, sum_launches),
-                             ("ordered_sum", ord_rec, ordered_launches)):
-        for key, n in sorted(rec.counts.items()):
-            log(f"  {name} launches at {key}: {n}")
-        if total <= 0:
-            raise AssertionError(f"the main path never launched the {name} kernel")
-        if sum(rec.counts.values()) != total:
-            raise AssertionError(f"{name} launches by shape {rec.counts} do not add up to {total}")
+    stream_fns = (stream_flow_ell, container_sum, ordered_sum)
+    log_shapes((("stream_flow_ell", flow_rec), ("container_sum", sum_rec), ("ordered_sum", ord_rec)),
+               (launches, sum_launches, ordered_launches), "the main path")
 
     t0 = time.perf_counter()
     log("phase 3b: bucket invariance of the allocation on both ticks")
     bucket_diff = phase_buckets(device, params, result.config, duration_s=4.0)
     timings["phase3b"] = time.perf_counter() - t0
+
+    # phase 3c counts its launches by shape on recorders of its own, so
+    # phases 2-3's counts (the kernel table's launch column) stay as they were
+    flow_c = LaunchRecorder(flow_rec.fn, flow_key)
+    sum_c = LaunchRecorder(sum_rec.fn, sum_key)
+    ord_c = LaunchRecorder(ord_rec.fn, ordered_key)
+    simulator.stream_flow_ell, simulator.container_sum = flow_c, sum_c
+    simulator.ordered_sum = ord_c
+    stream_flow_ell.launches = container_sum.launches = ordered_sum.launches = 0
+    try:
+        t0 = time.perf_counter()
+        log("phase 3c (a): the candidates through SimulatorEvaluator (sparse, 2 s): dedup, "
+            "result cache, resident batches and refetch against the escape hatch")
+        evaluator = phase_engine(device, params, candidates, duration_s=2.0)
+        timings["phase3c_engine"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        day = make_trace("diurnal", 48, base_ktps=6700.0, seed=3)
+        log(f"phase 3c (b): a diurnal day of deep_pipeline ({len(day)} steps, "
+            f"{day.min():.0f}-{day.max():.0f} ktps) through ControlLoop, HybridPolicy and "
+            f"PredictivePolicy (Holt-Winters, season 24, horizon 4) on that evaluator")
+        phase_control(device, params, evaluator, deep_pipeline(), day, dim, season=24,
+                      launch_fns=stream_fns)
+        torch.cuda.synchronize()
+        timings["phase3c_control"] = time.perf_counter() - t0
+        log(f"  cache_stats after the day: {json.dumps(cache_stats())}")
+        t0 = time.perf_counter()
+        log("phase 3c (c): a diurnal day of adanalytics (24 steps, 600 ktps base) through "
+            "ControlLoop and PredictivePolicy learning with the default calibration batch, "
+            "stream managers costing 2.5x what the models assume")
+        phase_learning(device, params, dim, launch_fns=stream_fns)
+        torch.cuda.synchronize()
+        timings["phase3c_learning"] = time.perf_counter() - t0
+    finally:
+        simulator.stream_flow_ell, simulator.container_sum = flow_c.fn, sum_c.fn
+        simulator.ordered_sum = ord_c.fn
+    launches_3c = {fn.__name__: fn.launches for fn in stream_fns}
+    log(f"launches in phase 3c: {json.dumps(launches_3c)}")
+    log_shapes((("stream_flow_ell", flow_c), ("container_sum", sum_c), ("ordered_sum", ord_c)),
+               tuple(launches_3c.values()), "phase 3c")
+    del evaluator
+    # the engine's caches hold staged device tensors (the resident batches)
+    # and host memos; empty them, so phases 4-9 start, and read their peak
+    # memory, as they did before phase 3c
+    clear_resident_cache()
+    clear_structure_cache()
+    clear_result_caches()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    log("phase 3c: each stream kernel against its plain version, and timed, at every shape "
+        "phase 3c launched it at (device time from CUDA-graph replay; eager time from CUDA events)")
+    excess = {}
+    errs_3c = check_and_time(flow_c, sum_c, ord_c, "phase 3c", excess)
+    del flow_c, sum_c, ord_c
+    torch.cuda.empty_cache()
+    timings["phase3c_shapes"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     log("timing the stream kernels at the main path's shapes "
@@ -1595,7 +1953,9 @@ def main() -> int:
         args = ord_rec.inputs[key]
         ord_err = max(ord_err, check_ordered_sum(f"main path {key}", args))
         ord_at[key] = time_ordered_sum(args)
-    excess = {}
+    max_err = max(max_err, errs_3c["stream_flow_ell"])
+    sum_err = max(sum_err, errs_3c["container_sum"])
+    ord_err = max(ord_err, errs_3c["ordered_sum"])
     for name, rec, at in (("stream_flow_ell", flow_rec, flow_at), ("container_sum", sum_rec, sum_at),
                           ("ordered_sum", ord_rec, ord_at)):
         for key, t in at.items():

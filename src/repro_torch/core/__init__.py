@@ -1,7 +1,8 @@
 """Trevor core on the host (numpy): learned performance models, the LP
-data-flow solver and the balanced-container allocator.  A self-contained
-copy of the reference package's core; calibration, the autoscaler and the
-reactive scaler are not ported yet."""
+data-flow solver, the balanced-container allocator, predict-back
+calibration, the declarative autoscaler and the Dhalion-style reactive
+scaler.  A self-contained copy of the reference package's core, less its
+JAX batch paths (``fit_many_jax``, ``jax_linprog``) and the LM bridge."""
 
 from .dag import (
     Configuration,
@@ -35,16 +36,19 @@ from .allocator import (
     allocate_under_budget,
     minimal_footprint,
 )
+from .calibration import Calibrator
+from .autoscaler import AutoScaler, run_against_trace
+from .reactive import ReactiveResult, reactive_scale
 
 __all__ = [
-    "AllocationResult", "BalancedContainer", "BudgetedAllocation",
-    "Configuration", "ContainerDim", "DagSpec", "EdgeSpec",
+    "AllocationResult", "AutoScaler", "BalancedContainer", "BudgetedAllocation",
+    "Calibrator", "Configuration", "ContainerDim", "DagSpec", "EdgeSpec",
     "FlowSolution", "Grouping", "InstanceSamples", "LinearFit", "MetricsStore",
-    "NodeModel", "NodeSpec", "ResourceBudget",
+    "NodeModel", "NodeSpec", "ReactiveResult", "ResourceBudget",
     "ResourceClass", "STREAM_MANAGER", "allocate", "allocate_point",
     "allocate_under_budget",
     "build_flow_problem", "classify_bound", "fit_node", "fit_workload",
     "linear_fit", "minimal_footprint", "oracle_models", "propagate_rates",
-    "round_robin_configuration",
+    "reactive_scale", "round_robin_configuration", "run_against_trace",
     "single_container_configuration", "solve_flow",
 ]

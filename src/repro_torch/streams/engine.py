@@ -1,0 +1,453 @@
+"""Engine abstraction for configuration evaluation.
+
+Every control layer (allocator candidate scoring, the Dhalion-style reactive
+baseline, autoscaler calibration) asks the same question: *what rate does
+this configuration achieve, and what limits it?*  This module defines the
+:class:`ConfigEvaluator` protocol that answers it and its simulator backend,
+:class:`SimulatorEvaluator`: the discrete-time cluster simulator on the
+card, with batched candidate sweeps, **sticky shape buckets** (once a bucket
+has been used, smaller configurations keep padding up to it, so a whole
+autoscaling trace runs at one or two launch shapes) and the cache-first
+evaluation path (in-batch dedup, a per-evaluator result cache,
+device-resident batches).  The reference package's executor backend is not
+part of this package.
+"""
+from __future__ import annotations
+
+import dataclasses
+from collections import OrderedDict
+from typing import Protocol, Sequence, runtime_checkable
+
+from ..core.dag import Configuration
+from ..device import resolve_device
+from .cache import ResultCache
+from .simulator import (
+    SAMPLES_MODES,
+    SimParams,
+    SimResult,
+    _grid_through_batch,
+    batch_bucket_size,
+    bucket_size,
+    degree_bucket_size,
+    edge_bucket_size,
+    is_scalar_load,
+    resolve_tick_kernel,
+    simulate_batch,
+    structure_for,
+)
+
+#: A multi-job evaluation request: one candidate-configuration list per job.
+JobGroups = Sequence[Sequence[Configuration]]
+
+#: Offered load far above any realistic capacity: backpressure gating
+#: throttles the spouts and the achieved rate *is* the capacity.
+OVERLOAD_KTPS = 1e6
+
+
+class PerCandidateLoads(tuple):
+    """A per-*candidate* offered-load entry for one ``evaluate_jobs`` group.
+
+    A plain per-job load (scalar or per-sample trace) applies to every
+    candidate of that job's group.  Wrapping a sequence of scalars in
+    ``PerCandidateLoads`` instead gives each candidate its *own* offered
+    load (for example one rate scaled by each candidate's host speed),
+    still inside one batched call.  The wrapper is
+    the disambiguator: a bare sequence keeps meaning a shared per-sample
+    trace."""
+
+    __slots__ = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalResult:
+    """One configuration's evaluation: achieved rate + limiting component."""
+
+    config: Configuration
+    achieved_ktps: float
+    bottleneck: str | None            # node name, STREAM_MANAGER, or None
+    sim: SimResult | None = None      # backend detail (simulator only)
+
+
+@runtime_checkable
+class ConfigEvaluator(Protocol):
+    """What a configuration-evaluation backend must provide.
+
+    All four entry points answer the same question at different shapes:
+    *what rate does this configuration achieve under this offered load, and
+    which component limits it?*  Control layers depend only on this
+    protocol; how bulk evaluation happens (a batched simulation on the
+    card, serial scoring of a real deployment, a caching wrapper...) is the
+    backend's business.  Backends written before the multi-job/grid entry points
+    existed keep working through :func:`evaluate_jobs_with` /
+    :func:`evaluate_grid_with`.
+    """
+
+    def evaluate(
+        self, config: Configuration, offered_ktps: float = OVERLOAD_KTPS
+    ) -> EvalResult:
+        """Score one configuration.
+
+        Args:
+            config: the physical configuration to score.
+            offered_ktps: offered source load — a scalar rate or a
+                per-sample trace.  The default :data:`OVERLOAD_KTPS` is far
+                above any realistic capacity, so the achieved rate *is* the
+                configuration's capacity (a capacity probe).
+
+        Returns:
+            An :class:`EvalResult` with the achieved rate and the limiting
+            component (a node name, :data:`~repro_torch.core.metrics
+            .STREAM_MANAGER`, or None when unsaturated).
+        """
+        ...
+
+    def evaluate_batch(
+        self, configs: Sequence[Configuration], offered_ktps=OVERLOAD_KTPS
+    ) -> list[EvalResult]:
+        """Score N configurations in one call.
+
+        Args:
+            configs: the candidate configurations.
+            offered_ktps: a shared scalar, or one load per *config* (each a
+                scalar or per-sample trace).
+
+        Returns:
+            One :class:`EvalResult` per config, in input order.  Batching
+            backends answer this with a single kernel dispatch; serial
+            backends loop — callers must not assume either.
+        """
+        ...
+
+    def evaluate_jobs(
+        self, groups: JobGroups, offered_ktps=OVERLOAD_KTPS
+    ) -> list[list[EvalResult]]:
+        """Score candidate sets for N independent jobs in one call.
+
+        Args:
+            groups: ``groups[j]`` holds job ``j``'s candidate
+                configurations — jobs may be entirely different DAGs.
+            offered_ktps: a shared scalar, or one entry per *job*: a scalar
+                or per-sample trace applied to every candidate of that
+                job's group, or a :class:`PerCandidateLoads` giving each
+                candidate its own load.
+
+        Returns:
+            Per-job lists of :class:`EvalResult`, mirroring ``groups``'
+            shape: every job's candidate set costs one batched
+            evaluation.
+        """
+        ...
+
+    def evaluate_grid(
+        self, configs: Sequence[Configuration], rates_ktps
+    ) -> list[list[EvalResult]]:
+        """Score the configs × rates cross-product in one call.
+
+        Args:
+            configs: C candidate configurations.
+            rates_ktps: R offered rates (scalars).
+
+        Returns:
+            ``out[i][j]`` scores config ``i`` at rate ``j``.  Predictive
+            policies use this to check a candidate ladder against a whole
+            forecast window; on batching backends the grid rides the
+            batch axis in a single run.
+        """
+        ...
+
+
+def evaluate_grid_with(
+    evaluator, configs: Sequence[Configuration], rates_ktps
+) -> list["list[EvalResult]"]:
+    """``evaluate_grid`` on *any* evaluator, including backends written
+    before the grid entry point existed: those fall back to one flattened
+    ``evaluate_batch`` over the cross-product — still a single batched call
+    on batching backends.  Predictive policies call through this shim so
+    old evaluators (counting/caching wrappers) keep working."""
+    fn = getattr(evaluator, "evaluate_grid", None)
+    if fn is not None:
+        return fn(configs, rates_ktps)
+    return _grid_through_batch(evaluator.evaluate_batch, configs, rates_ktps)
+
+
+def _expand_job_loads(groups: list[list[Configuration]], offered_ktps):
+    """Per-job offered loads → one per-config flat list.
+
+    A scalar is shared by every config of every job; a per-job entry is a
+    scalar or per-sample trace shared by that job's candidates, or a
+    :class:`PerCandidateLoads` giving each candidate its own scalar load."""
+    if is_scalar_load(offered_ktps):
+        return [offered_ktps for g in groups for _ in g]
+    loads = list(offered_ktps)
+    if len(loads) != len(groups):
+        raise ValueError(
+            f"offered_ktps has {len(loads)} entries for {len(groups)} jobs"
+        )
+    flat = []
+    for g, o in zip(groups, loads):
+        if isinstance(o, PerCandidateLoads):
+            if len(o) != len(g):
+                raise ValueError(
+                    f"PerCandidateLoads has {len(o)} entries for a "
+                    f"{len(g)}-candidate group"
+                )
+            flat.extend(float(x) for x in o)
+        else:
+            flat.extend(o for _ in g)
+    return flat
+
+
+def _regroup(flat: list, groups: list[list]) -> list[list]:
+    """Undo the flattening: slice per-config results back into job groups."""
+    out: list[list] = []
+    i = 0
+    for g in groups:
+        out.append(flat[i : i + len(g)])
+        i += len(g)
+    return out
+
+
+def evaluate_jobs_with(
+    evaluator, groups: JobGroups, offered_ktps=OVERLOAD_KTPS
+) -> list["list[EvalResult]"]:
+    """``evaluate_jobs`` on *any* evaluator, including backends written
+    against the pre-multi-job protocol (``evaluate``/``evaluate_batch``
+    only, e.g. counting/caching wrappers): those fall back to one flattened
+    ``evaluate_batch`` call with the same grouping semantics."""
+    fn = getattr(evaluator, "evaluate_jobs", None)
+    if fn is not None:
+        return fn(groups, offered_ktps)
+    groups = [list(g) for g in groups]
+    flat = [c for g in groups for c in g]
+    if not flat:
+        return [[] for _ in groups]
+    loads = _expand_job_loads(groups, offered_ktps)
+    return _regroup(evaluator.evaluate_batch(flat, loads), groups)
+
+
+class SimulatorEvaluator:
+    """Batched simulator backend with sticky shape buckets, on one device.
+
+    ``device`` is resolved when the evaluator is built (``None``: the CUDA
+    card, and building raises without one; the tests pass ``"cpu"``).
+    ``duration_s`` trades fidelity for speed (8 s reaches steady state for
+    the bundled workloads).  With ``sticky_buckets`` every call pads at least
+    to the largest bucket seen so far, so bucket growth, not call count,
+    sets the number of launch shapes.  ``devices`` is forwarded to
+    :func:`~repro_torch.streams.simulator.simulate_batch`: ``None`` keeps
+    every batch on ``device``, a count shards it over that many CUDA cards.
+
+    ``sticky_batch`` extends the same idea to the *batch axis*: batch sizes
+    pad up to a sticky :data:`~repro_torch.streams.simulator.BATCH_LADDER`
+    rung (replicating the last configuration; replicas are dropped on
+    unpack).  Off by default: for one-shot batches the padding is pure
+    overhead.
+
+    ``tick_kernel`` picks the flow-physics backend (``"dense"``,
+    ``"sparse"``, or ``"auto"``).  ``"auto"`` is resolved ONCE, from the
+    first batch seen, and then pinned, so fluctuating candidate sets never
+    flip the backend.  The sparse edge and degree buckets are sticky like
+    the shape buckets.  ``resident_batches`` turns on the device-resident
+    staging cache of :func:`simulate_batch`: repeated submissions skip
+    ``np.stack`` and the host→device copies (results stay bit for bit the
+    same).  ``saturation_threshold`` is forwarded to
+    :meth:`SimResult.bottleneck_node` when labelling the limiting component.
+
+    ``dedup`` / ``cache`` turn on the cache-first evaluation path
+    (:func:`~repro_torch.streams.simulator.simulate_batch` Tiers 1 and 2):
+    value-identical rows in one batch collapse to one row, and unique rows
+    are memoized across calls in a per-evaluator
+    :class:`~repro_torch.streams.cache.ResultCache` (``cache=True`` builds
+    one; pass an instance to share it, ``False`` to disable).  Both tiers
+    are bit for bit transparent: ``SimulatorEvaluator(dedup=False,
+    cache=False, resident_batches=False)`` runs every row as submitted.
+    ``version_source`` is the invalidation hook: any object exposing a
+    ``version`` attribute (a
+    :class:`~repro_torch.control.learning.ModelStore`) is folded into every
+    cache key, so calibration/retrain bumps make stale entries unreachable.
+    The control loop wires it when left unset.
+
+    ``samples`` picks the per-result payload.  The default ``"summary"``
+    keeps trajectories on the device (every scoring consumer of an
+    :class:`EvalResult` reads ``achieved_ktps`` and ``bottleneck``, which
+    the on-device reductions answer exactly as full mode does), and the
+    rare trajectory consumer (a control loop pooling
+    ``sim.to_metrics_store()`` on saturation) refetches.
+    ``samples="full"`` ships every row's trajectory.
+    """
+
+    def __init__(
+        self,
+        params: SimParams = SimParams(),
+        duration_s: float = 8.0,
+        sticky_buckets: bool = True,
+        devices: int | None = None,
+        sticky_batch: bool = False,
+        tick_kernel: str = "auto",
+        resident_batches: bool = True,
+        saturation_threshold: float = 0.8,
+        dedup: bool = True,
+        cache: "bool | ResultCache" = True,
+        version_source=None,
+        samples: str = "summary",
+        device=None,
+    ) -> None:
+        if samples not in SAMPLES_MODES:
+            raise ValueError(f"samples={samples!r} not in {SAMPLES_MODES}")
+        self.device = resolve_device(device)
+        self.samples = samples
+        self.params = params
+        self.duration_s = duration_s
+        self.sticky_buckets = sticky_buckets
+        self.devices = devices
+        self.sticky_batch = sticky_batch
+        self.tick_kernel = tick_kernel
+        self.resident_batches = resident_batches
+        self.saturation_threshold = saturation_threshold
+        self.dedup = dedup
+        if cache is True:
+            cache = ResultCache(name="simulator")
+        # identity test, not truthiness: an *empty* ResultCache is len() 0
+        self.result_cache: ResultCache | None = (
+            cache if isinstance(cache, ResultCache) else None
+        )
+        self.version_source = version_source
+        self._inst_floor = 0
+        self._cont_floor = 0
+        self._batch_floor = 0
+        self._edge_floor = 0
+        self._degree_floor = 0
+        self._backend: str | None = None if tick_kernel == "auto" else tick_kernel
+        # shape-scan memo: flat config tuple (by identity) -> bucket inputs,
+        # so resubmitting the same candidate list skips the re-scan.  Values
+        # hold the configs, keeping the ids valid.
+        self._layout_memo: OrderedDict[tuple, tuple] = OrderedDict()
+
+    def presize(
+        self, n_inst: int, n_cont: int, n_batch: int = 0, n_edges: int = 0,
+        max_degree: int = 0,
+    ) -> None:
+        """Pin bucket floors for the largest configuration (and optionally
+        batch size / sparse edge count / ELL row width) expected, so every
+        call runs at one launch shape."""
+        self._inst_floor = max(self._inst_floor, bucket_size(n_inst))
+        self._cont_floor = max(self._cont_floor, bucket_size(n_cont))
+        if n_batch:
+            self._batch_floor = max(self._batch_floor, batch_bucket_size(n_batch))
+        if n_edges:
+            self._edge_floor = max(self._edge_floor, edge_bucket_size(n_edges))
+        if max_degree:
+            self._degree_floor = max(
+                self._degree_floor, degree_bucket_size(max_degree)
+            )
+
+    def _layout(self, configs: list[Configuration]) -> tuple[int, int, int, int]:
+        """Max (instances, containers, edges, in-/out-degree) across
+        ``configs``, memoized on the identity signature of the batch."""
+        sig = tuple(id(c) for c in configs)
+        hit = self._layout_memo.get(sig)
+        if hit is not None:
+            self._layout_memo.move_to_end(sig)
+            return hit[1], hit[2], hit[3], hit[4]
+        n_inst = max(sum(len(p) for p in c.packing) for c in configs)
+        n_cont = max(c.n_containers for c in configs)
+        # structure_for is value-memoized: this warms the cache
+        # simulate_batch reads, with no duplicate structure builds
+        sts = [structure_for(c, self.params) for c in configs]
+        n_edges = max(st.n_edges for st in sts)
+        d_max = max(max(st.d_out, st.d_in) for st in sts)
+        self._layout_memo[sig] = (tuple(configs), n_inst, n_cont, n_edges, d_max)
+        if len(self._layout_memo) > 128:
+            self._layout_memo.popitem(last=False)
+        return n_inst, n_cont, n_edges, d_max
+
+    def _cache_token(self):
+        """Invalidation token folded into every result-cache key: the
+        ``version`` of :attr:`version_source` (``None`` when unwired)."""
+        vs = self.version_source
+        if vs is None:
+            return None
+        return ("models", getattr(vs, "version", None))
+
+    def evaluate(
+        self, config: Configuration, offered_ktps: float = OVERLOAD_KTPS
+    ) -> EvalResult:
+        return self.evaluate_batch([config], offered_ktps)[0]
+
+    def evaluate_batch(
+        self, configs: Sequence[Configuration], offered_ktps=OVERLOAD_KTPS
+    ) -> list[EvalResult]:
+        configs = list(configs)
+        if not configs:
+            return []
+        if self.sticky_buckets:
+            n_inst, n_cont, n_edges, d_max = self._layout(configs)
+            self._inst_floor = max(self._inst_floor, bucket_size(n_inst))
+            self._cont_floor = max(self._cont_floor, bucket_size(n_cont))
+            if self._backend is None:
+                # pin "auto" on first contact so later batches with other
+                # densities never flip the backend
+                self._backend = resolve_tick_kernel(n_inst, n_edges, "auto")
+            if self._backend == "sparse":
+                self._edge_floor = max(
+                    self._edge_floor, edge_bucket_size(n_edges)
+                )
+                self._degree_floor = max(
+                    self._degree_floor, degree_bucket_size(d_max)
+                )
+        if self.sticky_batch:
+            self._batch_floor = max(
+                self._batch_floor, batch_bucket_size(len(configs))
+            )
+        results = simulate_batch(
+            configs,
+            offered_ktps,
+            duration_s=self.duration_s,
+            params=self.params,
+            min_inst_bucket=self._inst_floor,
+            min_cont_bucket=self._cont_floor,
+            devices=self.devices,
+            min_batch_bucket=self._batch_floor,
+            tick_kernel=self._backend if self._backend else self.tick_kernel,
+            min_edge_bucket=self._edge_floor,
+            min_degree_bucket=self._degree_floor,
+            resident=self.resident_batches,
+            samples=self.samples,
+            dedup=self.dedup,
+            cache=self.result_cache,
+            cache_token=self._cache_token(),
+            device=self.device,
+        )
+        return [
+            EvalResult(
+                config=c,
+                achieved_ktps=r.achieved_ktps,
+                bottleneck=r.bottleneck_node(self.saturation_threshold),
+                sim=r,
+            )
+            for c, r in zip(configs, results)
+        ]
+
+    def evaluate_jobs(
+        self, groups: JobGroups, offered_ktps=OVERLOAD_KTPS
+    ) -> list[list[EvalResult]]:
+        """Score candidate sets for N independent jobs in ONE batched run.
+
+        ``groups[j]`` holds job ``j``'s candidate configurations (the jobs
+        may be entirely different DAGs: padding buckets them together);
+        ``offered_ktps`` is a shared scalar or one load per *job* (scalar,
+        per-sample trace, or :class:`PerCandidateLoads`).
+        """
+        groups = [list(g) for g in groups]
+        flat = [c for g in groups for c in g]
+        if not flat:
+            return [[] for _ in groups]
+        loads = _expand_job_loads(groups, offered_ktps)
+        return _regroup(self.evaluate_batch(flat, loads), groups)
+
+    def evaluate_grid(
+        self, configs: Sequence[Configuration], rates_ktps
+    ) -> list[list[EvalResult]]:
+        """Candidate configs × rates in ONE batched run: the rates ride the
+        batch axis (config-major cross-product) at the sticky buckets."""
+        return _grid_through_batch(self.evaluate_batch, configs, rates_ktps)

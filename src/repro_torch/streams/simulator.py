@@ -40,8 +40,9 @@ reference to float tolerance with noise on or off.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
+from collections import OrderedDict
 from typing import Sequence
 
 import numpy as np
@@ -187,11 +188,95 @@ def build_structure(config: Configuration, params: SimParams) -> SimStructure:
     )
 
 
-@functools.lru_cache(maxsize=4096)
+# ---------------------------------------------------------------------------
+# Structure memoization
+# ---------------------------------------------------------------------------
+
+#: ``build_structure`` is pure in ``(config, params)`` (both frozen,
+#: hashable by value), so structures and their padded layouts are kept in
+#: bounded LRUs keyed by value: two equal Configuration objects share one.
+_STRUCTURE_CACHE: "OrderedDict[tuple, SimStructure]" = OrderedDict()
+_PAD_CACHE: "OrderedDict[tuple, dict]" = OrderedDict()
+_STRUCTURE_CACHE_MAX = 4096
+_STRUCTURE_STATS = {"hits": 0, "misses": 0}
+
+
+def _lru_get(cache: OrderedDict, key, build):
+    hit = cache.get(key)
+    if hit is not None:
+        _STRUCTURE_STATS["hits"] += 1
+        cache.move_to_end(key)
+        return hit
+    _STRUCTURE_STATS["misses"] += 1
+    out = build()
+    cache[key] = out
+    if len(cache) > _STRUCTURE_CACHE_MAX:
+        cache.popitem(last=False)
+    return out
+
+
 def structure_for(config: Configuration, params: SimParams) -> SimStructure:
     """Memoized :func:`build_structure`, keyed by value (treat the result as
     read-only)."""
-    return build_structure(config, params)
+    return _lru_get(
+        _STRUCTURE_CACHE, (config, params), lambda: build_structure(config, params)
+    )
+
+
+def _padded_for(
+    st: SimStructure,
+    params: SimParams,
+    n_inst_bucket: int,
+    n_cont_bucket: int,
+    n_edge_bucket: int | None = None,
+    d_out_bucket: int | None = None,
+    d_in_bucket: int | None = None,
+) -> dict:
+    """Memoized :func:`pad_structure`, with the dense layout's
+    :func:`padded_rowsum` added as ``"rowsum"`` (the sparse layout carries
+    it already).  The arrays are shared across calls: read-only."""
+
+    def build() -> dict:
+        arrays = pad_structure(st, n_inst_bucket, n_cont_bucket, n_edge_bucket,
+                               d_out_bucket, d_in_bucket)
+        if n_edge_bucket is None:
+            arrays = {**arrays, "rowsum": padded_rowsum(st, n_inst_bucket)}
+        return arrays
+
+    return _lru_get(
+        _PAD_CACHE,
+        (st.config, params, n_inst_bucket, n_cont_bucket, n_edge_bucket,
+         d_out_bucket, d_in_bucket),
+        build,
+    )
+
+
+def _ndarray_bytes(obj) -> int:
+    """Bytes of the numpy arrays hanging off ``obj`` (a
+    :class:`SimStructure` or a padded-array dict)."""
+    values = obj.values() if isinstance(obj, dict) else vars(obj).values()
+    return sum(v.nbytes for v in values if isinstance(v, np.ndarray))
+
+
+def structure_cache_info() -> dict:
+    """Host-side structure/padding memo statistics (entries, their numpy
+    bytes, hits and misses)."""
+    return {
+        "structures": len(_STRUCTURE_CACHE),
+        "padded": len(_PAD_CACHE),
+        "structure_bytes": sum(
+            _ndarray_bytes(v) for v in _STRUCTURE_CACHE.values()
+        ),
+        "padded_bytes": sum(_ndarray_bytes(v) for v in _PAD_CACHE.values()),
+        **_STRUCTURE_STATS,
+    }
+
+
+def clear_structure_cache() -> None:
+    _STRUCTURE_CACHE.clear()
+    _PAD_CACHE.clear()
+    _STRUCTURE_STATS["hits"] = 0
+    _STRUCTURE_STATS["misses"] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -626,13 +711,134 @@ def _simulate_core(
 
 
 # ---------------------------------------------------------------------------
+# Launch shapes, sharding, device-resident batches, transfers
+# ---------------------------------------------------------------------------
+
+#: The distinct launch shapes run so far: (per-shard batch, buckets, ticks,
+#: shards, backend, samples mode).  The port compiles nothing per shape (the
+#: kernels are built once, for any shape); the reference compiles one XLA
+#: executable per shape, so :func:`kernel_cache_info` reports these shapes
+#: under its compile-cache names, a "miss" being the first run at a shape.
+_LAUNCH_SHAPES: dict[tuple, None] = {}
+_LAUNCH_SHAPE_STATS = {"hits": 0, "misses": 0}
+_LAUNCH_SHAPE_FIELDS = ("batch", "n_inst", "n_cont", "n_ticks", "sample_every", "devices",
+                        "backend", "n_edges", "d_out", "d_in", "samples")
+
+
+def _note_shape(key: tuple) -> None:
+    if key in _LAUNCH_SHAPES:
+        _LAUNCH_SHAPE_STATS["hits"] += 1
+    else:
+        _LAUNCH_SHAPE_STATS["misses"] += 1
+        _LAUNCH_SHAPES[key] = None
+
+
+def kernel_cache_info() -> dict:
+    """Distinct launch shapes, under the reference's compile-cache names:
+    ``misses`` (and ``size``) count the shapes run, ``hits`` the runs at a
+    shape seen before, ``entries`` describes each shape."""
+    return {
+        "size": len(_LAUNCH_SHAPES),
+        **_LAUNCH_SHAPE_STATS,
+        "entries": [dict(zip(_LAUNCH_SHAPE_FIELDS, k)) for k in _LAUNCH_SHAPES],
+    }
+
+
+def clear_kernel_cache() -> None:
+    """Forget the launch shapes counted by :func:`kernel_cache_info`."""
+    _LAUNCH_SHAPES.clear()
+    _LAUNCH_SHAPE_STATS["hits"] = 0
+    _LAUNCH_SHAPE_STATS["misses"] = 0
+
+
+def shard_count(batch: int, devices: int | None = None, device=None) -> int:
+    """How many devices :func:`simulate_batch` shards a batch over: one
+    shard per CUDA card (``cuda:0 … cuda:n-1``); a CPU run has one device.
+    ``device`` is the run's device (``None``: CUDA).
+
+    ``devices=None`` keeps the batch on the run's one device.  Unlike the
+    reference, which shards automatically while every shard keeps two
+    configurations, the port shards only when the caller passes a count:
+    its multi-card path has not run on a host with several cards.  An
+    explicit count pins the shard count (never more shards than rows), and
+    asking for more devices than the host has raises."""
+    if devices is None:
+        return 1
+    dev = torch.device("cuda" if device is None else device)
+    available = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = int(devices)
+    if n > available:
+        raise ValueError(
+            f"devices={n} requested but only {available} local "
+            f"device(s) are available"
+        )
+    return max(1, min(n, int(batch)))
+
+
+#: Staged, stacked structure tensors keyed by (configs, params, buckets,
+#: backend, shard layout, device): a caller that re-submits the same
+#: candidate set skips ``np.stack`` and the host→device copies.  LRU-bounded
+#: by entries and by bytes.
+_RESIDENT_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
+_RESIDENT_STATS = {"hits": 0, "misses": 0, "bytes": 0}
+_RESIDENT_CACHE_MAX_ENTRIES = 32
+_RESIDENT_CACHE_MAX_BYTES = 1 << 28      # 256 MB of staged batch tensors
+
+
+def _resident_put(key: tuple, shards: list[dict]) -> None:
+    nbytes = sum(t.numel() * t.element_size() for s in shards for t in s.values())
+    if nbytes > _RESIDENT_CACHE_MAX_BYTES:
+        return                            # larger than the whole budget
+    _RESIDENT_CACHE[key] = (shards, nbytes)
+    _RESIDENT_STATS["bytes"] += nbytes
+    while (
+        len(_RESIDENT_CACHE) > _RESIDENT_CACHE_MAX_ENTRIES
+        or _RESIDENT_STATS["bytes"] > _RESIDENT_CACHE_MAX_BYTES
+    ):
+        _, (_, evicted) = _RESIDENT_CACHE.popitem(last=False)
+        _RESIDENT_STATS["bytes"] -= evicted
+
+
+def resident_cache_info() -> dict:
+    """Batch-staging (device-residency) cache statistics."""
+    return {"size": len(_RESIDENT_CACHE), **_RESIDENT_STATS}
+
+
+def clear_resident_cache() -> None:
+    _RESIDENT_CACHE.clear()
+    _RESIDENT_STATS["hits"] = 0
+    _RESIDENT_STATS["misses"] = 0
+    _RESIDENT_STATS["bytes"] = 0
+
+
+#: Device→host transfers of the evaluation path: ``bytes_full`` /
+#: ``bytes_summary`` count the bytes of each batch's one copy of its
+#: outputs to the host, by payload mode; ``refetches`` counts
+#: summary-backed results that re-ran in full mode for their trajectory.
+_TRANSFER_STATS = {
+    "batches": 0, "bytes_full": 0, "bytes_summary": 0, "refetches": 0,
+}
+
+
+def transfer_info() -> dict:
+    """Device→host transfer statistics of the evaluation path."""
+    return dict(_TRANSFER_STATS)
+
+
+def clear_transfer_stats() -> None:
+    for k in _TRANSFER_STATS:
+        _TRANSFER_STATS[k] = 0
+
+
+# ---------------------------------------------------------------------------
 # Results
 # ---------------------------------------------------------------------------
 
 
 class TrajectoryUnavailable(RuntimeError):
     """Raised on trajectory access (``SimResult.samples``) of a
-    summary-backed result: the trajectory never left the device."""
+    summary-backed result that has no refetch hook: the trajectory never
+    left the device."""
 
 
 def _bottleneck_from_reductions(
@@ -673,9 +879,12 @@ class SimResult:
 
     ``mode="full"`` results hold the windowed metric trajectory in
     :attr:`samples`; ``mode="summary"`` results hold only the summary
-    reductions (:attr:`summary`) and raise :class:`TrajectoryUnavailable`
-    on trajectory access.  :attr:`achieved_ktps` and
-    :meth:`bottleneck_node` answer from the summary in both modes.
+    reductions (:attr:`summary`), and trajectory access re-runs the row in
+    full mode through the ``refetch`` hook (bit for bit what full mode
+    returns, since a row's run does not depend on its buckets or batch) or,
+    without one, raises :class:`TrajectoryUnavailable`.
+    :attr:`achieved_ktps` and :meth:`bottleneck_node` answer from the
+    summary in both modes.
     """
 
     def __init__(
@@ -686,6 +895,7 @@ class SimResult:
         samples: dict | None = None,
         summary: dict | None = None,
         mode: str = "full",
+        refetch=None,
     ) -> None:
         if samples is None and summary is None:
             raise ValueError("SimResult needs samples and/or summary")
@@ -695,16 +905,22 @@ class SimResult:
         self.mode = mode
         self._samples = samples
         self._summary = summary
+        self._refetch = refetch
         self._achieved: float | None = None
 
     @property
     def samples(self) -> dict:
-        """The windowed metric trajectory (numpy, sliced to real entries)."""
+        """The windowed metric trajectory (numpy, sliced to real entries);
+        a summary-backed result refetches it once (one full-mode run of
+        the row, counted in :func:`transfer_info` as a ``refetch``)."""
         if self._samples is None:
-            raise TrajectoryUnavailable(
-                "summary-backed SimResult has no trajectory; re-evaluate "
-                "with samples='full'"
-            )
+            if self._refetch is None:
+                raise TrajectoryUnavailable(
+                    "summary-backed SimResult has no trajectory; re-evaluate "
+                    "with samples='full'"
+                )
+            _TRANSFER_STATS["refetches"] += 1
+            self._samples = self._refetch()
         return self._samples
 
     @property
@@ -818,6 +1034,45 @@ def _per_tick_trace(offered_ktps, n_ticks: int, dt: float) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+#: Tier-1 accounting: rows submitted, value-distinct rows, and rows that
+#: reached the device (distinct rows less result-cache hits).
+_DEDUP_STATS = {"batches": 0, "rows_in": 0, "rows_unique": 0, "rows_executed": 0}
+
+
+def dedup_info() -> dict:
+    """In-batch request-dedup statistics for :func:`simulate_batch`:
+    ``rows_in`` submitted rows, ``rows_unique`` value-distinct rows, and
+    ``rows_executed`` the rows that actually ran (unique rows minus
+    result-cache hits)."""
+    return dict(_DEDUP_STATS)
+
+
+def clear_dedup_stats() -> None:
+    for k in _DEDUP_STATS:
+        _DEDUP_STATS[k] = 0
+
+
+def _canonical_load(offered) -> object:
+    """Hashable value key for one offered-load entry: scalars collapse to
+    ``float`` (``400`` and ``400.0`` are one request), per-sample traces to
+    their float64 shape and bytes."""
+    if is_scalar_load(offered):
+        return float(offered)
+    a = np.asarray(offered, np.float64)
+    return ("trace", a.shape, a.tobytes())
+
+
+def _result_nbytes(res: SimResult) -> int:
+    """Resident bytes of one cached :class:`SimResult`: its samples, or its
+    much smaller summary (the structure is shared through
+    :func:`structure_for`)."""
+    payload = res._samples if res._samples is not None else res._summary
+    return int(
+        sum(np.asarray(v).nbytes for v in payload.values())
+        + np.asarray(res.offered_ktps).nbytes
+    )
+
+
 def simulate_batch(
     configs: Sequence[Configuration],
     offered_ktps,
@@ -826,11 +1081,16 @@ def simulate_batch(
     seeds: Sequence[int] | None = None,
     min_inst_bucket: int = 0,
     min_cont_bucket: int = 0,
+    devices: int | None = None,
     min_batch_bucket: int = 0,
     tick_kernel: str = "auto",
     min_edge_bucket: int = 0,
     min_degree_bucket: int = 0,
+    resident: bool = False,
     samples: str = "full",
+    dedup: bool = True,
+    cache=None,
+    cache_token=None,
     device=None,
 ) -> list[SimResult]:
     """Evaluate N configurations in one batched run on ``device`` (the CUDA
@@ -844,8 +1104,34 @@ def simulate_batch(
     last configuration (replicas are dropped).  ``tick_kernel`` is
     ``"dense"``, ``"sparse"`` or ``"auto"`` (:func:`resolve_tick_kernel`).
     ``samples="full"`` returns each row's windowed trajectory,
-    ``"summary"`` only its O(I) reductions.  The outputs reach the host once
-    per batch, after the last tick.
+    ``"summary"`` only its O(I) reductions; a summary-backed result
+    refetches its trajectory on access.  The outputs reach the host once
+    per batch, after the last tick (:func:`transfer_info`).
+
+    ``devices`` shards the batch over CUDA cards (:func:`shard_count`;
+    ``None`` keeps it on ``device``): the batch is padded to a multiple of the shard count by replicating the
+    last row, and shard ``k`` runs on ``cuda:k``.  ``resident=True`` keeps
+    the staged, stacked structure tensors in an LRU
+    (:func:`resident_cache_info`), so a resubmitted candidate set skips
+    stacking and staging; per-tick loads and seeds are staged fresh.
+
+    ``dedup=True`` (Tier 1) collapses rows with equal (configuration,
+    offered load, seed) before padding, runs the unique rows only and
+    scatters the results back (duplicates share one :class:`SimResult`);
+    :func:`dedup_info` counts them.  ``cache`` (Tier 2, a
+    :class:`~repro_torch.streams.cache.ResultCache` or anything with
+    ``get(key)`` / ``put(key, value, nbytes)``) memoizes unique rows across
+    calls under (configuration, load, seed, params, tick count, resolved
+    backend, samples mode, ``cache_token``, device type): the backend and
+    the device because dense and sparse, and the card's flow kernel and
+    the host's plain version, agree only to float tolerance; the mode so
+    that a summary entry never answers a full lookup.  Buckets, residency
+    and sharding are not in the key: a row's result does not depend on
+    them.  ``cache_token`` is the caller's invalidation handle (the engine
+    passes its learner's ``ModelStore.version``).  With a cache, the
+    executed rows are padded to a :data:`BATCH_LADDER` rung kept sticky in
+    ``cache.batch_floor``, so hits do not make launch shapes data-dependent.
+    ``dedup=False, cache=None`` runs every submitted row, uncounted.
     """
     if samples not in SAMPLES_MODES:
         raise ValueError(f"samples={samples!r} not in {SAMPLES_MODES}")
@@ -870,6 +1156,147 @@ def simulate_batch(
     n_ticks = int(duration_s / params.dt)
     n_ticks = (n_ticks // params.sample_every) * params.sample_every
 
+    def run(rows: list[int], kernel_sel: str) -> list[SimResult]:
+        return _run_batch(
+            [configs[i] for i in rows],
+            [offered_list[i] for i in rows],
+            [seeds[i] for i in rows],
+            n_ticks=n_ticks,
+            params=params,
+            min_inst_bucket=min_inst_bucket,
+            min_cont_bucket=min_cont_bucket,
+            devices=devices,
+            min_batch_bucket=min_batch_bucket,
+            tick_kernel=kernel_sel,
+            min_edge_bucket=min_edge_bucket,
+            min_degree_bucket=min_degree_bucket,
+            resident=resident,
+            samples_mode=samples,
+            device=device,
+        )
+
+    if not dedup and cache is None:
+        return run(list(range(B)), tick_kernel)
+
+    # Tier 1: collapse value-identical rows before padding and stacking
+    row_keys = [
+        (c, _canonical_load(o), int(s))
+        for c, o, s in zip(configs, offered_list, seeds)
+    ]
+    if dedup:
+        first: dict = {}
+        uniq: list[int] = []
+        row_of: list[int] = []
+        for i, k in enumerate(row_keys):
+            j = first.get(k)
+            if j is None:
+                j = len(uniq)
+                first[k] = j
+                uniq.append(i)
+            row_of.append(j)
+    else:
+        uniq = list(range(B))
+        row_of = list(range(B))
+    _DEDUP_STATS["batches"] += 1
+    _DEDUP_STATS["rows_in"] += B
+    _DEDUP_STATS["rows_unique"] += len(uniq)
+
+    results_u: list = [None] * len(uniq)
+    backend = tick_kernel
+    full_keys = None
+    if cache is not None:
+        # the backend is resolved from the unique rows' unpadded maxima and
+        # pinned for the executed subset, so the key's backend is the run's
+        # even when hits remove the densest row
+        sts = [structure_for(configs[i], params) for i in uniq]
+        backend = resolve_tick_kernel(
+            max(st.n_inst for st in sts),
+            max(st.n_edges for st in sts),
+            tick_kernel,
+        )
+        full_keys = [
+            row_keys[i] + (params, n_ticks, backend, samples, cache_token, device.type)
+            for i in uniq
+        ]
+        miss = []
+        for j, key in enumerate(full_keys):
+            hit = cache.get(key)
+            if hit is None:
+                miss.append(j)
+            else:
+                results_u[j] = hit
+    else:
+        miss = list(range(len(uniq)))
+
+    _DEDUP_STATS["rows_executed"] += len(miss)
+    if miss:
+        rows = [uniq[j] for j in miss]
+        # with a cache, pad the executed subset to its BATCH_LADDER rung,
+        # sticky through the cache and capped by this call's own deduped
+        # rung; replicas of the last missed row are dropped by the zip below
+        pad_to = len(uniq)
+        if cache is not None:
+            floor = int(getattr(cache, "batch_floor", 0))
+            pad_to = min(
+                batch_bucket_size(len(rows), floor),
+                batch_bucket_size(len(uniq)),
+            )
+            try:
+                cache.batch_floor = max(floor, pad_to)
+            except AttributeError:
+                pass
+        rows += [rows[-1]] * (pad_to - len(rows))
+        executed = run(rows, backend)
+        for j, res in zip(miss, executed):
+            results_u[j] = res
+            if cache is not None:
+                cache.put(full_keys[j], res, _result_nbytes(res))
+    return [results_u[j] for j in row_of]
+
+
+def _make_refetch(config, offered, seed, n_ticks: int, params: SimParams,
+                  backend: str, device: torch.device):
+    """Refetch hook of one summary-backed result: re-run this row alone in
+    full mode on ``device``, on the batch's resolved backend, at default
+    buckets on one device, bypassing dedup and the result caches (so their
+    counters never count a refetch)."""
+
+    def refetch() -> dict:
+        return _run_batch(
+            [config], [offered], [seed],
+            n_ticks=n_ticks, params=params,
+            min_inst_bucket=0, min_cont_bucket=0, devices=1,
+            min_batch_bucket=0, tick_kernel=backend,
+            min_edge_bucket=0, min_degree_bucket=0, resident=False,
+            samples_mode="full", device=device,
+        )[0]._samples
+
+    return refetch
+
+
+def _run_batch(
+    configs: list[Configuration],
+    offered_list: list,
+    seeds: list,
+    n_ticks: int,
+    params: SimParams,
+    min_inst_bucket: int,
+    min_cont_bucket: int,
+    devices: int | None,
+    min_batch_bucket: int,
+    tick_kernel: str,
+    min_edge_bucket: int,
+    min_degree_bucket: int,
+    resident: bool,
+    samples_mode: str,
+    device: torch.device,
+) -> list[SimResult]:
+    """Execute one canonicalized batch: pad, stack, stage (or take the
+    resident tensors), run :func:`_simulate_core` on each shard, and bring
+    the outputs to the host once, counted in :func:`transfer_info`."""
+    B = len(configs)
+    B_bucket = batch_bucket_size(B, min_batch_bucket) if min_batch_bucket else B
+    n_dev = shard_count(B_bucket, devices, device)
     structures = [structure_for(c, params) for c in configs]
     n_inst_b = bucket_size(max(st.n_inst for st in structures), min_inst_bucket)
     n_cont_b = bucket_size(max(st.n_cont for st in structures), min_cont_bucket)
@@ -891,30 +1318,71 @@ def simulate_batch(
         )
 
     per_tick = np.stack([_per_tick_trace(o, n_ticks, params.dt) for o in offered_list])
-    fill = (batch_bucket_size(B, min_batch_bucket) - B) if min_batch_bucket else 0
+    # pad the batch axis up to the batch bucket, then to a multiple of the
+    # shard count, by replicating the last row (dropped on unpack)
+    fill = (B_bucket - B) + ((-B_bucket) % n_dev)
     rows = list(range(B)) + [B - 1] * fill
-    padded = [
-        pad_structure(st, n_inst_b, n_cont_b, n_edge_b, d_out_b, d_in_b)
-        for st in structures
-    ]
-    if backend == "dense":
-        for st, a in zip(structures, padded):
-            a["rowsum"] = padded_rowsum(st, n_inst_b)
-    stacked = {k: np.stack([padded[i][k] for i in rows]) for k in padded[0]}
-    arrays = stage_padded(stacked, device)
-    offered_dev = torch.as_tensor(
-        np.asarray(per_tick[rows], np.float32), device=device
+    per_dev_B = len(rows) // n_dev
+    shard_devices = (
+        [device] if n_dev == 1 else [torch.device("cuda", k) for k in range(n_dev)]
     )
-    out = _simulate_core(
-        arrays,
-        offered_dev,
-        [seeds[i] for i in rows],
-        params,
-        n_ticks=n_ticks,
-        backend=backend,
-        samples_mode=samples,
-    )
-    out = {k: v[:B].cpu().numpy() for k, v in out.items()}
+    spans = [range(s * per_dev_B, (s + 1) * per_dev_B) for s in range(n_dev)]
+
+    stage_key = None
+    staged = None
+    if resident:
+        stage_key = (
+            tuple(configs), params, n_inst_b, n_cont_b, n_edge_b, d_out_b,
+            d_in_b, backend, n_dev, fill, str(device),
+        )
+        hit = _RESIDENT_CACHE.get(stage_key)
+        if hit is not None:
+            _RESIDENT_STATS["hits"] += 1
+            _RESIDENT_CACHE.move_to_end(stage_key)
+            staged = hit[0]
+        else:
+            _RESIDENT_STATS["misses"] += 1
+    if staged is None:
+        padded = [
+            _padded_for(st, params, n_inst_b, n_cont_b, n_edge_b, d_out_b, d_in_b)
+            for st in structures
+        ]
+        staged = [
+            stage_padded(
+                {k: np.stack([padded[rows[i]][k] for i in span]) for k in padded[0]},
+                dev,
+            )
+            for span, dev in zip(spans, shard_devices)
+        ]
+        if stage_key is not None:
+            _resident_put(stage_key, staged)
+
+    _note_shape((per_dev_B, n_inst_b, n_cont_b, n_ticks, params.sample_every, n_dev,
+                 backend, n_edge_b or 0, d_out_b or 0, d_in_b or 0, samples_mode))
+    per_tick_in = np.asarray(per_tick[rows], np.float32)
+    outs = []
+    for arrays, span, dev in zip(staged, spans, shard_devices):
+        with torch.cuda.device(dev) if dev.type == "cuda" else contextlib.nullcontext():
+            outs.append(_simulate_core(
+                arrays,
+                torch.as_tensor(per_tick_in[span.start:span.stop], device=dev),
+                [seeds[rows[i]] for i in span],
+                params,
+                n_ticks=n_ticks,
+                backend=backend,
+                samples_mode=samples_mode,
+            ))
+    # one copy to the host per batch (per shard); the fill replicas stay on
+    # the device
+    host = []
+    for o, span in zip(outs, spans):
+        keep = max(0, min(B, span.stop) - span.start)
+        host.append({k: v[:keep].cpu().numpy() for k, v in o.items()})
+    out = {k: np.concatenate([h[k] for h in host]) for k in host[0]}
+    _TRANSFER_STATS["batches"] += 1
+    _TRANSFER_STATS[
+        "bytes_summary" if samples_mode == "summary" else "bytes_full"
+    ] += sum(int(v.nbytes) for v in out.values())
 
     n_samples = n_ticks // params.sample_every
     results: list[SimResult] = []
@@ -925,7 +1393,7 @@ def simulate_batch(
             .mean(1)
             / params.dt
         )
-        if samples == "summary":
+        if samples_mode == "summary":
             summary = dict(
                 src_half_mean=out["src_half_mean"][i],
                 caputil_half_mean=out["caputil_half_mean"][i][: st.n_inst],
@@ -938,6 +1406,10 @@ def simulate_batch(
                 SimResult(
                     structure=st, params=params, offered_ktps=off,
                     summary=summary, mode="summary",
+                    refetch=_make_refetch(
+                        configs[i], offered_list[i], seeds[i], n_ticks,
+                        params, backend, device,
+                    ),
                 )
             )
             continue
@@ -979,11 +1451,16 @@ def simulate_grid(
     params: SimParams = SimParams(),
     min_inst_bucket: int = 0,
     min_cont_bucket: int = 0,
+    devices: int | None = None,
     min_batch_bucket: int = 0,
     tick_kernel: str = "auto",
     min_edge_bucket: int = 0,
     min_degree_bucket: int = 0,
+    resident: bool = False,
     samples: str = "full",
+    dedup: bool = True,
+    cache=None,
+    cache_token=None,
     device=None,
 ) -> list[list[SimResult]]:
     """Score C configurations × R offered rates in ONE batched run; returns
@@ -997,11 +1474,16 @@ def simulate_grid(
             params=params,
             min_inst_bucket=min_inst_bucket,
             min_cont_bucket=min_cont_bucket,
+            devices=devices,
             min_batch_bucket=min_batch_bucket,
             tick_kernel=tick_kernel,
             min_edge_bucket=min_edge_bucket,
             min_degree_bucket=min_degree_bucket,
+            resident=resident,
             samples=samples,
+            dedup=dedup,
+            cache=cache,
+            cache_token=cache_token,
             device=device,
         )
 
@@ -1015,12 +1497,16 @@ def simulate(
     params: SimParams = SimParams(),
     tick_kernel: str = "auto",
     samples: str = "full",
+    cache=None,
+    cache_token=None,
     device=None,
 ) -> SimResult:
-    """Run ``config`` under ``offered_ktps`` (scalar or per-sample array)."""
+    """Run ``config`` under ``offered_ktps`` (scalar or per-sample array);
+    ``cache`` memoizes the result across calls (:func:`simulate_batch`)."""
     return simulate_batch(
         [config], [offered_ktps], duration_s, params, seeds=[params.seed],
-        tick_kernel=tick_kernel, samples=samples, device=device,
+        tick_kernel=tick_kernel, samples=samples, cache=cache,
+        cache_token=cache_token, device=device,
     )[0]
 
 
@@ -1031,6 +1517,8 @@ def measure_capacity(
     overload_ktps: float = 1e6,
     tick_kernel: str = "auto",
     samples: str = "summary",
+    cache=None,
+    cache_token=None,
     device=None,
 ) -> float:
     """The 'measured rate' of a configuration: offered load far above
@@ -1038,7 +1526,7 @@ def measure_capacity(
     admission is the capacity."""
     return simulate(
         config, overload_ktps, duration_s, params, tick_kernel=tick_kernel,
-        samples=samples, device=device,
+        samples=samples, cache=cache, cache_token=cache_token, device=device,
     ).achieved_ktps
 
 
@@ -1048,6 +1536,8 @@ def training_sweep(
     params: SimParams = SimParams(),
     seconds_per_rate: float = 10.0,
     tick_kernel: str = "auto",
+    cache=None,
+    cache_token=None,
     device=None,
 ) -> MetricsStore:
     """The paper's profiling procedure (§5.1): sweep a throttled producer
@@ -1059,7 +1549,7 @@ def training_sweep(
     results = simulate_batch(
         [config] * len(rates), rates, duration_s=seconds_per_rate,
         params=params, seeds=seeds, tick_kernel=tick_kernel, samples="full",
-        device=device,
+        cache=cache, cache_token=cache_token, device=device,
     )
     store = MetricsStore()
     for res in results:

@@ -219,3 +219,51 @@ def test_ssm_scan_library_builds_beside_the_others():
     assert scan.source == ROOT / "src" / "repro_torch" / "kernels" / "ssm_scan" / "csrc" / "ssm_scan.cu"
     others = {lib.library_path().name.rsplit("-", 1)[1] for lib in (flash, rms, build.LIBRARY)}
     assert path.name.rsplit("-", 1)[1] not in others
+
+
+_BLOCKED_CONTROL = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.control import (
+    ControlLoop, GuardBands, HoltWintersForecaster, ModelStore, PredictivePolicy, make_trace,
+)
+from repro_torch.core import ContainerDim, oracle_models
+from repro_torch.streams import SimulatorEvaluator, adanalytics, cache_stats
+dag = adanalytics()
+store = ModelStore(oracle_models(dag, 1.0 / 724.0))
+loop = ControlLoop(
+    PredictivePolicy(dag, store, preferred_dim=ContainerDim(3.0, 4096.0)),
+    guards=GuardBands(headroom=1.0, deadband=0.2),
+    evaluator=SimulatorEvaluator(duration_s=1.0, device="cpu"),
+    learner=store, forecaster=HoltWintersForecaster(season=4), horizon=2,
+    saturation_threshold=0.95,
+)
+records = loop.run(make_trace("diurnal", 4, base_ktps=150.0, seed=3))
+assert len(records) == 4 and all(r.achieved > 0 for r in records), records
+assert all(e.policy == "predictive" for e in loop.events)
+assert cache_stats()["dedup"]["rows_executed"] > 0
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("controlled", [e.containers for e in loop.events])
+"""
+
+
+def test_port_control_loop_runs_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_CONTROL)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "controlled" in proc.stdout
+
+
+def test_evaluator_runs_on_the_card_or_raises():
+    """``SimulatorEvaluator()`` resolves its device when it is built: the
+    card, or an error without one, never the CPU unless asked for."""
+    from repro_torch.streams import SimulatorEvaluator
+
+    if torch.cuda.is_available():
+        assert SimulatorEvaluator().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            SimulatorEvaluator()
+    assert SimulatorEvaluator(device="cpu").device.type == "cpu"

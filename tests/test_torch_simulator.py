@@ -126,8 +126,15 @@ def test_summary_mode_matches_reference_summary_mode(name, kernel):
         np.testing.assert_allclose(y, x, rtol=5e-4, atol=5e-4 * scale, err_msg=k)
     assert b.achieved_ktps == pytest.approx(a.achieved_ktps, rel=1e-4)
     assert b.bottleneck_node() == a.bottleneck_node()
+    # trajectory access refetches the row in full mode, as the reference does
+    full = port.simulate(ct, 1e6, duration_s=6.0, params=PORT_PARAMS, tick_kernel=kernel,
+                         device="cpu")
+    for k in full.samples:
+        np.testing.assert_array_equal(b.samples[k], full.samples[k], err_msg=k)
+    bare = port.SimResult(b.structure, b.params, b.offered_ktps, summary=b.summary,
+                          mode="summary")
     with pytest.raises(port.TrajectoryUnavailable):
-        b.samples
+        bare.samples
 
 
 @pytest.mark.parametrize("name", WORKLOADS)
