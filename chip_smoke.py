@@ -40,7 +40,22 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    after it not to breach.  Phase 3c's launches of the three stream
    kernels are counted by input shape apart from phases 2-3's, each kernel
    is held against its plain version and timed at every one of those
-   shapes, and the engine's caches are emptied before phase 4;
+   shapes, and the engine's caches are emptied before phase 3d;
+3d. drives the fleet on ``SimulatorEvaluator`` on the card: the three
+   tenants of ``examples/fleet_demo.py`` for its 24 steps through
+   ``FleetLoop`` (the guaranteed tenant meets its SLA on every step, the
+   best-effort one is shed on every squeezed step, a replan is proactive,
+   warm replans move fewer containers than cold ones would restart), then
+   the same day with the controller crashed after step 12 and restarted
+   from its checkpoint, whose events must equal the uninterrupted run's;
+   N+1 on the demo cluster through a host failure with no guaranteed
+   breach; and 999 tenants (333 copies of the trio at seeded rates) on
+   1,998 hosts for 4 steps with N+1 for the guaranteed tier, each step's
+   measurement one call with one row per admitted tenant, 64 of its rows
+   equal on the host (rel 1e-5) and uncached on the card (bit for bit).
+   Its stream-kernel launches are counted by shape on recorders of their
+   own, and each kernel is held to its plain version and timed at each
+   shape;
 4. holds the RMSNorm kernels (the norm alone, and fused with the residual
    add before it) and the flash-attention kernel against their plain
    versions at llama3-8b's and jamba's shapes (fp32 and bf16 RMSNorm, an
@@ -1123,6 +1138,405 @@ def phase_learning(device, params, dim, launch_fns, steps=24, drift=2.5):
     return fig
 
 
+# ------------------------------------------------------------------- fleet
+
+DEMO_STEPS = 24
+#: phase 3d (c): copies of the demo's trio (999 tenants) and steps.  Eight
+#: steps took 566 s (``tools/fleet_probe.py``; NVIDIA H100 80GB HBM3, 700 W),
+#: almost all of it the scheduler's host-side allocation under the squeeze,
+#: so four run here.
+FLEET_COPIES, FLEET_STEPS = 333, 4
+
+
+def demo_fleet(params, copies=1, factors=None):
+    """``examples/fleet_demo.py``'s setup built from the port: its three
+    tenants (l. 66-71), its cluster (l. 74-79) and its traces (l. 81-88).
+    With ``copies`` > 1 the trio is repeated under the names ``ads000``,
+    ``clicks000``, ``wc000``, ...; copy ``c`` scales its targets and trace
+    bases by ``factors[c]`` and adds ``10 c`` to its trace seeds, and the
+    cluster holds the demo's machine classes ``copies`` times over.
+    Returns ``(tenants, traces, cluster)``."""
+    from repro_torch.control import GuardBands, HoltWintersForecaster, make_trace
+    from repro_torch.core import ContainerDim, oracle_models
+    from repro_torch.fleet import Cluster, MachineClass, QosTier, TenantSpec
+    from repro_torch.streams import adanalytics, diamond, wordcount
+
+    dim = ContainerDim(cpus=3.0, mem_mb=4096.0)
+    trio = (
+        ("ads", "ads", adanalytics, QosTier.GUARANTEED, 400.0, "diurnal", 260.0, 3,
+         dict(peak_ratio=3.0)),
+        ("clicks", "clicks", diamond, QosTier.STANDARD, 250.0, "sawtooth", 140.0, 5,
+         dict(ratio=2.0)),
+        ("wordcount", "wc", wordcount, QosTier.BEST_EFFORT, 1000.0, "bursty", 900.0, 7,
+         dict(burst_ratio=3.0)),
+    )
+    tenants, traces = [], {}
+    for c in range(copies):
+        f = 1.0 if factors is None else float(factors[c])
+        for name, short, dag_fn, qos, target, scenario, base, seed, kw in trio:
+            if copies > 1:
+                name = f"{short}{c:03d}"
+            dag = dag_fn()
+            forecaster = (HoltWintersForecaster(season=DEMO_STEPS // 2)
+                          if qos == QosTier.GUARANTEED else None)
+            tenants.append(TenantSpec(
+                name=name, dag=dag, target_ktps=target * f, qos=qos,
+                models=oracle_models(dag, params.sm_cost_per_ktuple),
+                guards=GuardBands.for_scenario(scenario), preferred_dim=dim,
+                forecaster=forecaster, horizon=4,
+            ))
+            traces[name] = make_trace(scenario, DEMO_STEPS, base_ktps=base * f,
+                                      seed=seed + 10 * c, **kw)
+    cluster = Cluster([
+        MachineClass("std", count=5 * copies, cores=4.0, mem_mb=16384.0),
+        MachineClass("big", count=copies, cores=8.0, mem_mb=32768.0, speed=1.05),
+    ])
+    return tenants, traces, cluster
+
+
+def loads_at(traces, i) -> dict:
+    return {n: float(t[i]) for n, t in traces.items()}
+
+
+def check_packing(cluster, plan, label) -> None:
+    """No container on a failed host, none unplaced in an admitted plan,
+    and no host holding more cores or memory than it has."""
+    failed = cluster.failed_hosts()
+    cap = {h.name: (h.cores, h.mem_mb) for h in cluster.inventory()}
+    used: dict = {}
+    for a in plan.allocations:
+        if a.config is None or a.placement is None:
+            continue
+        for d, h in zip(a.config.dims, a.placement.host_names):
+            if not h or h in failed:
+                raise AssertionError(f"{label}: {a.tenant} has a container on {h!r}")
+            c, m = used.get(h, (0.0, 0.0))
+            used[h] = (c + d.cpus, m + d.mem_mb)
+    for h, (c, m) in used.items():
+        if c > cap[h][0] + 1e-9 or m > cap[h][1] + 1e-9:
+            raise AssertionError(f"{label}: host {h} holds {c} cores, {m} MB of {cap[h]}")
+
+
+def first_difference(got, want) -> str:
+    """The first event (and field) where two fleet event logs differ."""
+    import dataclasses
+    if len(got) != len(want):
+        return f"{len(got)} events against {len(want)}"
+    for a, b in zip(got, want):
+        da, db = dataclasses.asdict(a), dataclasses.asdict(b)
+        for k in db:
+            if da[k] != db[k]:
+                return f"step {b.step}: {k} {da[k]!r} against {db[k]!r}"
+    return ""
+
+
+def phase_fleet_demo(device, params):
+    """Phase 3d (a): the demo's 24 steps through the port's ``FleetLoop``
+    on a ``SimulatorEvaluator(duration_s=4.0)`` on the card, held to the
+    example's contract; then the same day with the controller crashed after
+    step 12 (``FailurePlan``, ``run_with_restarts``).  The controller
+    checkpoints every step through the port's ``Checkpointer``; the restart
+    builds a fresh loop and evaluator, restores the learned state
+    (``FleetLoop.restore``) and takes over the deployment the cluster still
+    runs (the plan, which by design is not checkpointed).  Its events must
+    equal the uninterrupted run's field for field.  Returns the figures."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import Checkpointer, controller_state
+    from repro_torch.fleet import FleetLoop
+    from repro_torch.runtime import FailurePlan, run_with_restarts
+    from repro_torch.streams import SimulatorEvaluator, dedup_info
+
+    def evaluator():
+        return SimulatorEvaluator(params=params, duration_s=4.0, device=device)
+
+    tenants, traces, cluster = demo_fleet(params)
+    ev = evaluator()
+    loop = FleetLoop(tenants, cluster, ev)
+    containers = []
+    dedup0 = dedup_info()
+    t0 = time.perf_counter()
+    for i in range(DEMO_STEPS):
+        e = loop.step(loads_at(traces, i))
+        check_packing(cluster, loop.plan, f"demo step {i}")
+        if e.replanned:
+            containers.append(sum(len(a.config.dims) for a in loop.plan.allocations if a.config))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = loop.events
+    gold, be = "ads", "wordcount"
+    squeeze = [e.step for e in events if any(t.degraded for t in e.tenants)]
+    fig = dict(
+        steps=len(events), wall_s=wall, backend=ev._backend,
+        replans=sum(e.replanned for e in events),
+        causes=[e.cause if e.replanned else "-" for e in events],
+        squeeze_steps=squeeze,
+        gold_breach_steps=[e.step for e in events if not e.tenant(gold).sla_met],
+        be_kept_on_squeeze=[s for s in squeeze
+                            if not events[s].tenant(be).degraded and events[s].tenant(be).admitted],
+        forecast_replans=[e.step for e in events if e.replanned and e.cause == "forecast"],
+        moves=sum(e.moves for e in events if e.replanned),
+        evicted=sum(e.evicted for e in events),
+        cold_restarts=sum(containers),
+        rows={k: dedup_info()[k] - dedup0[k] for k in ("rows_in", "rows_unique", "rows_executed")},
+        achieved={t.tenant: [round(e.tenant(t.tenant).achieved_ktps, 3) for e in events]
+                  for t in events[0].tenants},
+    )
+    log(f"  demo: {json.dumps(fig)}")
+    if fig["gold_breach_steps"]:
+        raise AssertionError(f"demo: the guaranteed tenant missed its SLA at {fig['gold_breach_steps']}")
+    if not squeeze or fig["be_kept_on_squeeze"]:
+        raise AssertionError(f"demo: squeeze steps {squeeze}, best-effort untouched at "
+                             f"{fig['be_kept_on_squeeze']}")
+    if not fig["forecast_replans"]:
+        raise AssertionError("demo: no replan had cause 'forecast'")
+    if not fig["moves"] < fig["cold_restarts"]:
+        raise AssertionError(f"demo: replans moved {fig['moves']} containers, a cold repack "
+                             f"restarts {fig['cold_restarts']}")
+
+    crash_after = 12
+    tenants_r, _, cluster_r = demo_fleet(params)
+    failures = FailurePlan(fail_after_steps=(crash_after,))
+    deployed = {}          # what the cluster runs: it outlives the controller
+    rerun, starts, backends = [], [], []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp, keep=3)
+
+        def attempt(n):
+            fresh = tenants_r if n == 0 else demo_fleet(params)[0]
+            ev_r = evaluator()
+            loop_r = FleetLoop(fresh, cluster_r, ev_r)
+            start = 0
+            if n:
+                start = loop_r.restore(ckpt)
+                loop_r.plan = deployed["plan"]
+            starts.append(start)
+            for i in range(start, DEMO_STEPS):
+                e = loop_r.step(loads_at(traces, i))
+                rerun.append(dataclasses.replace(e, step=start + e.step))
+                deployed["plan"] = loop_r.plan
+                # the checkpoint names the day's step, which a restored loop
+                # (its event log empty) cannot count for itself
+                state = controller_state(loop_r)
+                state["step"] = i + 1
+                ckpt.save(i + 1, state, blocking=True)
+                failures.maybe_fail(i)
+            backends.append(ev_r._backend)
+            return start
+
+        _, restarts = run_with_restarts(attempt)
+        kept = ckpt.list_steps()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    crash_wall = time.perf_counter() - t0
+    diff = first_difference(rerun, events)
+    log(f"  crash after step {crash_after}: {restarts} restart, resumed at step {starts[-1]} "
+        f"(backends {backends}), checkpoints kept {kept}, wall {crash_wall:.3f} s; events "
+        f"{'equal to the uninterrupted run, field for field' if not diff else 'differ: ' + diff}")
+    if restarts != 1 or starts != [0, crash_after + 1]:
+        raise AssertionError(f"demo crash: {restarts} restarts, starts {starts}")
+    if diff:
+        raise AssertionError(f"demo crash: the restarted run differs from the uninterrupted one: {diff}")
+    fig.update(crash_wall_s=crash_wall, restarts=restarts, resumed_at=starts[-1],
+               crash_backends=backends)
+    return fig
+
+
+def phase_fleet_n1(device, params):
+    """Phase 3d (b): N+1 on the demo cluster (racks r1 and r2), the port of
+    ``tests/test_fleet_failure.py``'s headline on the card: a host of the
+    guaranteed tenant fails at step 2, the replan is a failover that moves
+    its containers off the dead host, and the guaranteed tenant books no
+    breach step.  Returns the figures."""
+    from repro_torch.control import GuardBands
+    from repro_torch.core import ContainerDim, oracle_models
+    from repro_torch.fleet import Cluster, FleetLoop, MachineClass, QosTier, TenantSpec
+    from repro_torch.streams import SimulatorEvaluator, adanalytics, diamond, wordcount
+
+    dim = ContainerDim(cpus=3.0, mem_mb=4096.0)
+
+    def tenant(name, qos, target, dag):
+        return TenantSpec(name=name, dag=dag, target_ktps=target, qos=qos,
+                          models=oracle_models(dag, params.sm_cost_per_ktuple),
+                          guards=GuardBands(headroom=1.2, deadband=0.15), preferred_dim=dim)
+
+    ev = SimulatorEvaluator(params=params, duration_s=2.0, sticky_batch=True, device=device)
+    tenants = [tenant("ads", QosTier.GUARANTEED, 300.0, adanalytics()),
+               tenant("clicks", QosTier.STANDARD, 150.0, diamond()),
+               tenant("wc", QosTier.BEST_EFFORT, 200.0, wordcount())]
+    cluster = Cluster([
+        MachineClass("std", count=5, cores=4.0, mem_mb=16384.0, rack="r1"),
+        MachineClass("alt", count=5, cores=4.0, mem_mb=16384.0, rack="r2"),
+        MachineClass("big", count=1, cores=8.0, mem_mb=32768.0, speed=1.05, rack="r1"),
+    ])
+    loop = FleetLoop(tenants, cluster, ev, anti_affinity=True, n1_tiers=(QosTier.GUARANTEED,))
+    traces = {"ads": [260.0, 300.0, 300.0, 300.0], "clicks": [120.0, 150.0, 150.0, 150.0],
+              "wc": [200.0, 260.0, 200.0, 200.0]}
+    t0 = time.perf_counter()
+    loop.step(loads_at(traces, 0))
+    loop.step(loads_at(traces, 1))
+    n1 = loop.plan.allocation("ads").n1_feasible
+    victim = loop.plan.allocation("ads").placement.host_names[0]
+    e2 = loop.step(loads_at(traces, 2), failures=[("fail", victim)])
+    after = loop.plan.allocation("ads").placement.host_names
+    loop.step(loads_at(traces, 3))
+    wall = time.perf_counter() - t0
+    breach = [e.step for e in loop.events if not e.tenant("ads").sla_met]
+    fig = dict(wall_s=wall, backend=ev._backend, n1_feasible=n1, victim=victim,
+               cause=e2.cause, failover=list(e2.failover), ads_failover=e2.tenant("ads").failover,
+               ads_hosts_after=list(after), ads_breach_steps=breach,
+               achieved={n: [round(e.tenant(n).achieved_ktps, 3) for e in loop.events]
+                         for n in traces})
+    log(f"  n+1: {json.dumps(fig)}")
+    if n1 is not True:
+        raise AssertionError(f"n+1: the guaranteed allocation is not n1_feasible ({n1})")
+    if not (e2.replanned and e2.cause == "failover" and e2.tenant("ads").failover >= 1):
+        raise AssertionError(f"n+1: step 2 replanned={e2.replanned} cause={e2.cause!r}")
+    if victim in after:
+        raise AssertionError(f"n+1: the failed host {victim} is still in the new placement")
+    if breach:
+        raise AssertionError(f"n+1: the guaranteed tenant breached at steps {breach}")
+    check_packing(cluster, loop.plan, "n+1")
+    return fig
+
+
+def phase_fleet_scale(device, params, copies, steps, recs, sample=64):
+    """Phase 3d (c): ``copies`` copies of the demo's trio (rate factors
+    log-uniform in [0.5, 2] from ``default_rng(0)``) on the demo's machine
+    classes ``copies`` times over, ``steps`` steps through ``FleetLoop``
+    with N+1 for the guaranteed tier on a ``SimulatorEvaluator(duration_s=
+    4.0)`` on the card.  Every guaranteed tenant must be admitted and meet
+    its SLA on every step, no host may be overcommitted, and each step's
+    act measurement must be one call with one row per admitted tenant.
+    Then ``sample`` rows of step 0's measurement run on the host (rel 1e-5
+    of the card) and uncached on the card (bit for bit the engine's).
+    Returns the figures."""
+    import numpy as np
+    import torch
+    import repro_torch.fleet.loop as fleet_loop
+    import repro_torch.fleet.scheduler as fleet_scheduler
+    from repro_torch.fleet import FleetLoop, QosTier
+    from repro_torch.streams import SimulatorEvaluator, dedup_info, simulate_batch
+
+    rng = np.random.default_rng(0)
+    factors = np.exp(rng.uniform(np.log(0.5), np.log(2.0), copies))
+    t0 = time.perf_counter()
+    tenants, traces, cluster = demo_fleet(params, copies, factors)
+    ev = SimulatorEvaluator(params=params, duration_s=4.0, device=device)
+    loop = FleetLoop(tenants, cluster, ev, n1_tiers=(QosTier.GUARANTEED,))
+    build_s = time.perf_counter() - t0
+    n_gold = sum(t.qos == QosTier.GUARANTEED for t in tenants)
+    tiers = {q.name: [t.name for t in tenants if t.qos == q] for q in QosTier}
+    calls = {"act": [], "score": []}
+
+    def recorded(fn, kind):
+        def call(evaluator, groups, offered):
+            d0 = dedup_info()
+            out = fn(evaluator, groups, offered)
+            d1 = dedup_info()
+            calls[kind].append(dict(
+                groups=[list(g) for g in groups] if kind == "act" else None,
+                offered=list(offered) if kind == "act" else None, out=out if kind == "act" else None,
+                rows=sum(len(g) for g in groups),
+                **{k: d1[k] - d0[k] for k in ("rows_unique", "rows_executed")}))
+            return out
+        return call
+
+    saved = (fleet_loop.evaluate_jobs_with, fleet_scheduler.evaluate_jobs_with)
+    fleet_loop.evaluate_jobs_with = recorded(saved[0], "act")
+    fleet_scheduler.evaluate_jobs_with = recorded(saved[1], "score")
+    per_step, step0_act = [], None
+    try:
+        for i in range(steps):
+            counts0 = [dict(r.counts) for _name, r in recs]
+            d0 = dedup_info()
+            n_act, n_score = len(calls["act"]), len(calls["score"])
+            t0 = time.perf_counter()
+            e = loop.step(loads_at(traces, i))
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            d1 = dedup_info()
+            check_packing(cluster, loop.plan, f"fleet step {i}")
+            acts = calls["act"][n_act:]
+            by = {t.tenant: t for t in e.tenants}
+            admitted = sum(t.admitted for t in e.tenants)
+            shapes = {name: {str(k): n - c0.get(k, 0) for k, n in r.counts.items() if n > c0.get(k, 0)}
+                      for (name, r), c0 in zip(recs, counts0)}
+            fig = dict(
+                step=i, wall_s=wall, replanned=e.replanned, cause=e.cause,
+                timings=({k: loop.plan.timings.get(k) for k in
+                          ("restore", "allocate", "pack", "score", "repair", "total")}
+                         if e.replanned else None),
+                touched=len(loop.plan.touched) if e.replanned else 0,
+                eval_rows=loop.plan.eval_rows if e.replanned else 0,
+                score_calls=[{k: c[k] for k in ("rows", "rows_unique", "rows_executed")}
+                             for c in calls["score"][n_score:]],
+                act_calls=[{k: c[k] for k in ("rows", "rows_unique", "rows_executed")} for c in acts],
+                rows={k: d1[k] - d0[k] for k in ("rows_in", "rows_unique", "rows_executed")},
+                backend=ev._backend, launch_shapes=shapes,
+                moves=e.moves, evicted=e.evicted, admitted=admitted,
+                degraded=sum(t.degraded for t in e.tenants), cores_used=e.cores_used,
+                sla_met={q: f"{sum(by[n].sla_met for n in names)}/{len(names)}"
+                         for q, names in tiers.items()},
+            )
+            log(f"  fleet step {i}: {json.dumps(fig)}")
+            per_step.append(fig)
+            bad = [n for n in tiers["GUARANTEED"]
+                   if not (by[n].admitted and by[n].sla_met)]
+            if bad:
+                raise AssertionError(f"fleet step {i}: guaranteed tenants {bad[:8]} "
+                                     f"({len(bad)}) not admitted or below their SLA")
+            if len(acts) != 1 or len(acts[0]["groups"]) != admitted or acts[0]["rows"] != admitted:
+                raise AssertionError(f"fleet step {i}: act calls {fig['act_calls']} for {admitted} "
+                                     f"admitted tenants")
+            if admitted < n_gold:
+                raise AssertionError(f"fleet step {i}: {admitted} admitted, {n_gold} guaranteed")
+            if i == 0:
+                step0_act = dict(acts[0])
+            for c in acts:
+                c["groups"] = c["out"] = c["offered"] = None
+    finally:
+        fleet_loop.evaluate_jobs_with, fleet_scheduler.evaluate_jobs_with = saved
+    backend = ev._backend
+
+    # a seeded sample of step 0's measurement: on the host, and uncached on the card
+    pick = np.sort(np.random.default_rng(1).choice(len(step0_act["groups"]), size=sample, replace=False))
+    cfgs = [step0_act["groups"][j][0] for j in pick]
+    offered = [float(step0_act["offered"][j]) for j in pick]
+    engine = [step0_act["out"][j][0] for j in pick]
+    t0 = time.perf_counter()
+    host = simulate_batch(cfgs, offered, duration_s=4.0, params=params, tick_kernel=backend,
+                          samples="summary", device="cpu")
+    host_s = time.perf_counter() - t0
+    uncached = simulate_batch(cfgs, offered, duration_s=4.0, params=params, tick_kernel=backend,
+                              samples="summary", dedup=False, cache=None, resident=False,
+                              device=device)
+    card = np.array([r.achieved_ktps for r in engine], dtype=np.float64)
+    host_k = np.array([r.achieved_ktps for r in host], dtype=np.float64)
+    rel = float(np.max(np.abs(host_k - card) / np.maximum(np.abs(card), 1e-30)))
+    log(f"  {sample} rows of step 0's measurement (seeded): host vs card max rel "
+        f"{rel:.3e} (host run {host_s:.3f} s); uncached on the card: "
+        f"{'bit for bit the engine' if all(u.achieved_ktps == r.achieved_ktps for u, r in zip(uncached, engine)) else 'differs'}")
+    if not rel <= 1e-5:
+        raise AssertionError(f"fleet: host and card differ by rel {rel:.3e} > 1e-5")
+    for j, (u, r) in enumerate(zip(uncached, engine)):
+        if u.achieved_ktps != r.achieved_ktps or u.bottleneck_node(0.8) != r.bottleneck:
+            raise AssertionError(f"fleet: sampled row {j} achieved {u.achieved_ktps!r} "
+                                 f"({u.bottleneck_node(0.8)}) uncached against "
+                                 f"{r.achieved_ktps!r} ({r.bottleneck}) through the engine")
+        for k, v in r.sim.summary.items():
+            if not np.array_equal(u.summary[k], v):
+                raise AssertionError(f"fleet: sampled row {j} summary {k} differs uncached: "
+                                     f"{u.summary[k]!r} against {v!r}")
+    return dict(tenants=len(tenants), hosts=cluster.n_hosts, build_s=build_s, backend=backend,
+                steps=per_step, sample_rel=rel)
+
+
 def check_and_time(flow, sums, ords, label, excess):
     """Each stream kernel against its plain version, and timed, at every
     input shape its recorder saw; adds each kernel's launches x (time -
@@ -1911,12 +2325,56 @@ def main() -> int:
                tuple(launches_3c.values()), "phase 3c")
     del evaluator
     # the engine's caches hold staged device tensors (the resident batches)
-    # and host memos; empty them, so phases 4-9 start, and read their peak
-    # memory, as they did before phase 3c
+    # and host memos; empty them, so phase 3d starts, and phases 4-9 read
+    # their peak memory, as they did before phase 3c
     clear_resident_cache()
     clear_structure_cache()
     clear_result_caches()
     torch.cuda.empty_cache()
+
+    # phase 3d, the fleet, counts its launches by shape on recorders of its own too
+    flow_d = LaunchRecorder(flow_rec.fn, flow_key)
+    sum_d = LaunchRecorder(sum_rec.fn, sum_key)
+    ord_d = LaunchRecorder(ord_rec.fn, ordered_key)
+    simulator.stream_flow_ell, simulator.container_sum = flow_d, sum_d
+    simulator.ordered_sum = ord_d
+    stream_flow_ell.launches = container_sum.launches = ordered_sum.launches = 0
+    recs_3d = (("stream_flow_ell", flow_d), ("container_sum", sum_d), ("ordered_sum", ord_d))
+    try:
+        t0 = time.perf_counter()
+        log(f"phase 3d (a): examples/fleet_demo.py's three tenants, {DEMO_STEPS} steps through "
+            "FleetLoop on SimulatorEvaluator(duration_s=4.0), then again with the controller "
+            "crashed after step 12 and restored from its checkpoint")
+        fleet_demo = phase_fleet_demo(device, params)
+        timings["phase3d_demo"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log("phase 3d (b): N+1 on the demo cluster, a host of the guaranteed tenant failed at step 2")
+        fleet_n1 = phase_fleet_n1(device, params)
+        timings["phase3d_n1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log(f"phase 3d (c): {FLEET_COPIES * 3} tenants ({FLEET_COPIES} copies of the demo's trio), "
+            f"{FLEET_STEPS} steps through FleetLoop with N+1 for the guaranteed tier")
+        fleet_scale = phase_fleet_scale(device, params, FLEET_COPIES, FLEET_STEPS, recs_3d)
+        timings["phase3d_fleet"] = time.perf_counter() - t0
+    finally:
+        simulator.stream_flow_ell, simulator.container_sum = flow_d.fn, sum_d.fn
+        simulator.ordered_sum = ord_d.fn
+    launches_3d = {fn.__name__: fn.launches for fn in stream_fns}
+    backends_3d = {fleet_demo["backend"], *fleet_demo["crash_backends"], fleet_n1["backend"],
+                   fleet_scale["backend"]}
+    log(f"launches in phase 3d: {json.dumps(launches_3d)}; backends {sorted(backends_3d)}")
+    # the flow kernel runs only where an evaluator's "auto" resolved to the sparse tick
+    must_3d = [i for i, (name, _) in enumerate(recs_3d)
+               if name != "stream_flow_ell" or "sparse" in backends_3d]
+    if "sparse" not in backends_3d and launches_3d["stream_flow_ell"]:
+        raise AssertionError("phase 3d ran the dense tick only, yet launched the flow kernel")
+    log_shapes([recs_3d[i] for i in must_3d], [list(launches_3d.values())[i] for i in must_3d],
+               "phase 3d")
+    clear_resident_cache()
+    clear_structure_cache()
+    clear_result_caches()
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     log("phase 3c: each stream kernel against its plain version, and timed, at every shape "
         "phase 3c launched it at (device time from CUDA-graph replay; eager time from CUDA events)")
@@ -1925,6 +2383,13 @@ def main() -> int:
     del flow_c, sum_c, ord_c
     torch.cuda.empty_cache()
     timings["phase3c_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 3d: each stream kernel against its plain version, and timed, at every shape "
+        "phase 3d launched it at")
+    errs_3d = check_and_time(flow_d, sum_d, ord_d, "phase 3d", excess)
+    del flow_d, sum_d, ord_d, recs_3d
+    torch.cuda.empty_cache()
+    timings["phase3d_shapes"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     log("timing the stream kernels at the main path's shapes "
@@ -1953,9 +2418,9 @@ def main() -> int:
         args = ord_rec.inputs[key]
         ord_err = max(ord_err, check_ordered_sum(f"main path {key}", args))
         ord_at[key] = time_ordered_sum(args)
-    max_err = max(max_err, errs_3c["stream_flow_ell"])
-    sum_err = max(sum_err, errs_3c["container_sum"])
-    ord_err = max(ord_err, errs_3c["ordered_sum"])
+    max_err = max(max_err, errs_3c["stream_flow_ell"], errs_3d["stream_flow_ell"])
+    sum_err = max(sum_err, errs_3c["container_sum"], errs_3d["container_sum"])
+    ord_err = max(ord_err, errs_3c["ordered_sum"], errs_3d["ordered_sum"])
     for name, rec, at in (("stream_flow_ell", flow_rec, flow_at), ("container_sum", sum_rec, sum_at),
                           ("ordered_sum", ord_rec, ord_at)):
         for key, t in at.items():

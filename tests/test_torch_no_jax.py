@@ -81,6 +81,10 @@ def test_port_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
+    assert {"fleet/cluster.py", "fleet/scheduler.py", "fleet/loop.py",
+            "checkpoint/checkpointer.py", "checkpoint/control_state.py",
+            "runtime/fault.py"} <= names
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -267,3 +271,53 @@ def test_evaluator_runs_on_the_card_or_raises():
         with pytest.raises(RuntimeError, match="CUDA"):
             SimulatorEvaluator()
     assert SimulatorEvaluator(device="cpu").device.type == "cpu"
+
+
+_BLOCKED_FLEET = """
+import sys, tempfile
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch.checkpoint
+import repro_torch.fleet
+import repro_torch.runtime
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.control import GuardBands
+from repro_torch.core import ContainerDim, oracle_models
+from repro_torch.fleet import Cluster, FleetLoop, MachineClass, QosTier, TenantSpec
+from repro_torch.runtime import FailurePlan, run_with_restarts
+from repro_torch.streams import SimulatorEvaluator, adanalytics, wordcount
+tenants = [
+    TenantSpec(name=n, dag=d, target_ktps=t, qos=q, models=oracle_models(d, 1.0 / 724.0),
+               guards=GuardBands(headroom=1.2, deadband=0.15),
+               preferred_dim=ContainerDim(3.0, 4096.0))
+    for n, d, t, q in (("ads", adanalytics(), 200.0, QosTier.GUARANTEED),
+                       ("wc", wordcount(), 300.0, QosTier.BEST_EFFORT))
+]
+cluster = Cluster([MachineClass("std", count=4, cores=4.0, mem_mb=16384.0)])
+loop = FleetLoop(tenants, cluster, SimulatorEvaluator(duration_s=1.0, device="cpu"))
+plan = FailurePlan(fail_after_steps=(0,))
+with tempfile.TemporaryDirectory() as tmp:
+    ckpt = Checkpointer(tmp)
+
+    def run(attempt):
+        if attempt:
+            assert loop.restore(ckpt) == 1
+        e = loop.step({"ads": 200.0 + 50.0 * attempt, "wc": 300.0})
+        loop.checkpoint(ckpt)
+        plan.maybe_fail(0)
+        return e
+
+    last, restarts = run_with_restarts(run)
+assert restarts == 1 and len(loop.events) == 2, (restarts, loop.events)
+assert all(t.achieved_ktps > 0 for e in loop.events for t in e.tenants), loop.events
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("scheduled", [e.cause for e in loop.events])
+"""
+
+
+def test_port_fleet_runs_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_FLEET)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "scheduled" in proc.stdout
