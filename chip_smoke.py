@@ -56,6 +56,20 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    Its stream-kernel launches are counted by shape on recorders of their
    own, and each kernel is held to its plain version and timed at each
    shape;
+3e. runs the real operators on the card: ``run_dag`` on wordcount,
+   adanalytics and mobile_analytics at the reference's defaults and with
+   their sources at 2^20 tuples a batch (per-node microseconds per tuple
+   logged), and each DAG on card and host with one source of the same
+   seeded batches (ints and bools bit for bit, floats to rel 1e-5);
+   ``ExecutorEvaluator()`` over the fleet demo trio's candidates (each DAG
+   calibrated once, a resubmission served from the result cache, a model
+   version bump a miss) and ``fold_executor_timings`` into a card
+   ``SimulatorEvaluator``, whose stream-kernel launches are counted on
+   recorders of their own and checked and timed by shape; and the batched
+   simplex ``torch_linprog`` against numpy's ``linprog`` (the seeded suite,
+   a 24 x 16 LP batched 256 ways, deep_pipeline's flow LPs at 500-3,000
+   ktps at B = 1 and 32 in float64 and float32, ``maxiter`` stepped to
+   optimal) and ``fit_many_torch`` against numpy's least squares;
 4. holds the RMSNorm kernels (the norm alone, and fused with the residual
    add before it) and the flash-attention kernel against their plain
    versions at llama3-8b's and jamba's shapes (fp32 and bf16 RMSNorm, an
@@ -1578,6 +1592,453 @@ def log_shapes(recs, totals, label):
             raise AssertionError(f"{label}: {name} launches by shape {rec.counts} do not add up to {total}")
 
 
+# ------------------------------------------------- executor and batched LP
+
+EXEC_DAGS = ("wordcount", "adanalytics", "mobile_analytics")
+#: phase 3e (a): the sources' batch where the card is not launch-bound, and
+#: the batch of the card-against-host comparison
+EXEC_BIG_BATCH, EXEC_CMP_BATCH = 1 << 20, 1 << 16
+EXEC_RTOL = 1e-5                    # card vs host float columns and anomaly state
+ANOMALY_Z_BAND = 1e-4               # flags compared except where |z - 3| < this
+LP_REL, LP_ABS = 2e-4, 1e-5         # float32 simplex vs numpy (tests/test_lp.py)
+LP_TARGETS = (500.0, 1000.0, 2000.0, 3000.0)   # tools/lp_scaling.py's targets
+LP_MAXITERS = (1024, 4096, 16384)
+LP_BATCH = 32
+LP_MAX_TABLEAU_BYTES = 8 * 2**30
+LP_MAX_SOLVE_S = 30.0
+
+
+def _default(device):
+    """``None`` where ``device`` is the card, so the entry points resolve
+    their own default; the device itself in a rehearsal on the host."""
+    return None if device.type == "cuda" else device
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def source_factory(name):
+    from repro_torch.streams import operators as ops
+    return {"wordcount": ops.make_word_producer, "adanalytics": ops.make_ad_source,
+            "mobile_analytics": ops.make_mobile_source}[name]
+
+
+def with_source(dag, fn):
+    """``dag`` with its source node's operator body replaced by ``fn``."""
+    import dataclasses
+    return dataclasses.replace(dag, nodes=tuple(
+        dataclasses.replace(n, fn=fn) if n.is_source else n for n in dag.nodes))
+
+
+def numpy_source_batches(name, n, size, seed):
+    """Seeded numpy batches with the columns, dtypes and ranges of ``name``'s
+    source at its default sizes (vocabulary 4,096; 1,000 ads; 100,000
+    users; 3,000 cells)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        if name == "wordcount":
+            b = {"key": rng.integers(0, 4096, size).astype(np.int32),
+                 "value": np.ones(size, np.int32)}
+        elif name == "adanalytics":
+            b = {"ad_id": rng.integers(0, 1000, size).astype(np.int32),
+                 "event_type": rng.integers(0, 3, size).astype(np.int32),
+                 "ts": (rng.random(size) * 1e6).astype(np.float32)}
+        else:
+            b = {"user": rng.integers(0, 100_000, size).astype(np.int32),
+                 "cell": rng.integers(0, 3000, size).astype(np.int32),
+                 "bytes": (rng.exponential(size=size) * 1500.0).astype(np.float32),
+                 "latency_ms": (rng.gamma(2.0, size=size) * 10.0).astype(np.float32)}
+        out.append(b)
+    return out
+
+
+def _replay(batches):
+    """A source that hands out ``batches`` in turn, on its generator's device."""
+    import torch
+    it = iter(batches)
+    return lambda gen, _=None: (gen, {k: torch.as_tensor(v, device=gen.device)
+                                      for k, v in next(it).items()})
+
+
+def _recording_anomaly(seen):
+    """``anomaly_detector`` that keeps the state it returns in ``seen``."""
+    from repro_torch.streams.operators import anomaly_detector
+
+    def step(state, batch):
+        st, out = anomaly_detector(state, batch)
+        seen["state"] = st
+        return st, out
+    return step
+
+
+def card_vs_host_outputs(name, card, size, seed):
+    """Phase 3e (a)'s comparison: ``name`` run on the card and on the host
+    with one source of the same seeded batches; every node's last-batch
+    columns must agree (ints and bools bit for bit, ``cell_kpi``'s
+    last-writer values too; floats to rel 1e-5; the anomaly flags except
+    within 1e-4 of the threshold, and the detector's state to rel 1e-5)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.streams import WORKLOADS
+    from repro_torch.streams.executor import run_dag
+
+    batches = numpy_source_batches(name, 3, size, seed)
+    seen = {"card": {}, "host": {}}
+    out = {}
+    for side, dev in (("card", card), ("host", torch.device("cpu"))):
+        dag = with_source(WORKLOADS[name](), _replay(batches))
+        dag = dataclasses.replace(dag, nodes=tuple(
+            dataclasses.replace(n, fn=_recording_anomaly(seen[side]))
+            if n.name == "anomaly_detector" else n for n in dag.nodes))
+        out[side] = run_dag(dag, n_batches=2, warmup=1, device=dev).outputs
+    worst, excluded, compared = 0.0, 0, 0
+    for node, cols in out["host"].items():
+        if sorted(out["card"][node]) != sorted(cols):
+            raise AssertionError(f"{name}.{node}: columns {sorted(out['card'][node])} "
+                                 f"against {sorted(cols)}")
+        for k, want in cols.items():
+            got, want = out["card"][node][k].cpu().numpy(), want.numpy()
+            if got.dtype != want.dtype:
+                raise AssertionError(f"{name}.{node}.{k}: {got.dtype} against {want.dtype}")
+            if k == "anomaly":
+                mean, var, n = (float(t) for t in seen["host"]["state"])
+                x = out["host"][node]["session_kb"].numpy().astype(np.float64)
+                z = (x - mean) / np.sqrt(max(var / n, 1e-6))
+                keep = np.abs(z - 3.0) >= ANOMALY_Z_BAND
+                excluded += int((~keep).sum())
+                if not np.array_equal(got[keep], want[keep]):
+                    raise AssertionError(f"{name}.{node}.anomaly: "
+                                         f"{int((got[keep] != want[keep]).sum())} flags differ "
+                                         "away from the threshold")
+            elif np.issubdtype(want.dtype, np.floating):
+                np.testing.assert_allclose(got, want, rtol=EXEC_RTOL, atol=0,
+                                           err_msg=f"{name}.{node}.{k}")
+                nz = want != 0
+                if nz.any():
+                    worst = max(worst, float(np.max(np.abs(got[nz] - want[nz]) / np.abs(want[nz]))))
+            elif not np.array_equal(got, want):
+                raise AssertionError(f"{name}.{node}.{k}: {int((got != want).sum())} of "
+                                     f"{want.size} differ")
+            compared += 1
+    if seen["host"]:
+        for g, w in zip(seen["card"]["state"], seen["host"]["state"]):
+            np.testing.assert_allclose(float(g), float(w), rtol=EXEC_RTOL, err_msg="anomaly state")
+    return dict(columns=compared, max_rel_float=worst, anomaly_excluded=excluded)
+
+
+def phase_executor(device):
+    """Phase 3e (a): ``run_dag`` on the three paper DAGs at the reference's
+    defaults (batch 2,048, 20 batches after 3 warmups) and with their
+    sources rebuilt at 2^20 tuples a batch, per-node microseconds per tuple
+    logged; then each DAG on card and host against one source of the same
+    batches."""
+    from repro_torch.streams import WORKLOADS
+    from repro_torch.streams.executor import run_dag
+
+    fig = {}
+    for name in EXEC_DAGS:
+        for batch in (2048, EXEC_BIG_BATCH):
+            dag = WORKLOADS[name]()
+            if batch != 2048:
+                dag = with_source(dag, source_factory(name)(batch=batch))
+            t0 = time.perf_counter()
+            report = run_dag(dag, device=_default(device))
+            _sync(device)
+            wall = time.perf_counter() - t0
+            timed = [n.name for n in dag.nodes if n.fn is not None]
+            if sorted(report.per_node_us_per_tuple) != sorted(timed):
+                raise AssertionError(f"{name} at {batch}: timed "
+                                     f"{sorted(report.per_node_us_per_tuple)}, operators {sorted(timed)}")
+            if report.tuples_processed != 20 * batch:
+                raise AssertionError(f"{name} at {batch}: {report.tuples_processed} tuples")
+            src = report.outputs[dag.sources()[0].name]
+            if next(iter(src.values())).device.type != device.type:
+                raise AssertionError(f"{name}: the source's batch is not on {device}")
+            row = dict(tuples_processed=report.tuples_processed, wall_s=wall,
+                       us_per_tuple=report.per_node_us_per_tuple)
+            log(f"  run_dag {name} batch {batch}: {json.dumps(row)}")
+            fig[f"{name}@{batch}"] = row
+    for i, name in enumerate(EXEC_DAGS):
+        t0 = time.perf_counter()
+        cmp = card_vs_host_outputs(name, device, EXEC_CMP_BATCH, seed=30 + i)
+        cmp["s"] = time.perf_counter() - t0
+        log(f"  card = host, {name} at batch {EXEC_CMP_BATCH}: {json.dumps(cmp)}")
+        fig[f"{name} card=host"] = cmp
+    return fig
+
+
+def trio_candidates(params):
+    """Candidate configurations of the fleet demo's three tenants (as phase
+    3d (a) builds them): each tenant's allocation at 0.5-1.5x its target.
+    Returns ``(tenants, groups)``."""
+    from repro_torch.core import allocate
+    tenants, _, _ = demo_fleet(params)
+    groups = [[allocate(t.dag, t.models, t.target_ktps * f, preferred_dim=t.preferred_dim).config
+               for f in (0.5, 0.75, 1.0, 1.25, 1.5)] for t in tenants]
+    return tenants, groups
+
+
+def phase_executor_evaluator(device, params, dim):
+    """Phase 3e (b): ``ExecutorEvaluator()`` on the card scores the demo
+    trio's candidates with ``evaluate_jobs``: each distinct DAG calibrated
+    once, a resubmission served from the result cache, a ``ModelStore``
+    version bump a miss; then ``fold_executor_timings(adanalytics(), ev)``
+    re-parameterizes a card ``SimulatorEvaluator`` that scores a round-robin
+    configuration of the calibrated DAG."""
+    import numpy as np
+    from repro_torch.control import ModelStore, fold_executor_timings
+    from repro_torch.core import round_robin_configuration
+    from repro_torch.streams import ExecutorEvaluator, SimulatorEvaluator, adanalytics
+    from repro_torch.streams import executor
+
+    tenants, groups = trio_candidates(params)
+    n = sum(len(g) for g in groups)
+    loads = [t.target_ktps for t in tenants]
+    store = ModelStore(tenants[0].models)
+    calls = []
+    calibrate = executor.calibrate_dag
+
+    def counting(dag, **kw):
+        calls.append(dag.name)
+        return calibrate(dag, **kw)
+
+    executor.calibrate_dag = counting
+    try:
+        ev = ExecutorEvaluator(version_source=store, device=_default(device))
+        if ev.device.type != device.type:
+            raise AssertionError(f"ExecutorEvaluator() resolved to {ev.device}")
+        fig = {}
+        t0 = time.perf_counter()
+        first = ev.evaluate_jobs(groups, loads)
+        fig["first_s"] = time.perf_counter() - t0
+        if sorted(calls) != sorted(t.dag.name for t in tenants):
+            raise AssertionError(f"calibrations {calls} for the trio's three DAGs")
+        info0 = ev.result_cache.info()
+        t0 = time.perf_counter()
+        again = ev.evaluate_jobs(groups, loads)
+        fig["resubmit_s"] = time.perf_counter() - t0
+        info1 = ev.result_cache.info()
+        if (info1["hits"] - info0["hits"], info1["misses"] - info0["misses"]) != (n, 0):
+            raise AssertionError(f"resubmission: {info0} -> {info1} for {n} configurations")
+        if ([[r.achieved_ktps for r in g] for g in again]
+                != [[r.achieved_ktps for r in g] for g in first]):
+            raise AssertionError("resubmission changed a result")
+        ads = first[0][2]
+        store.observe(ads.config, 0.9 * ads.achieved_ktps)
+        if store.version == 0:
+            raise AssertionError("observe did not bump the store's version")
+        ev.evaluate_jobs(groups, loads)
+        info2 = ev.result_cache.info()
+        # every distinct (configuration, load) of the first call misses again
+        if info2["misses"] - info1["misses"] != info0["misses"] or len(calls) != 3:
+            raise AssertionError(f"after the version bump: {info1} -> {info2}, calibrations {calls}")
+        fig["configurations"], fig["distinct"] = n, info0["misses"]
+        fig["achieved"] = {t.name: [round(r.achieved_ktps, 3) for r in g]
+                           for t, g in zip(tenants, first)}
+        fig["bottlenecks"] = {t.name: [r.bottleneck for r in g] for t, g in zip(tenants, first)}
+        if not all(r.achieved_ktps > 0 for g in first for r in g):
+            raise AssertionError(f"a candidate scored 0: {fig['achieved']}")
+        cal, cal_params = fold_executor_timings(adanalytics(), ev)
+        if len(calls) != 4:
+            raise AssertionError(f"fold_executor_timings: calibrations {calls}")
+    finally:
+        executor.calibrate_dag = calibrate
+    fig["calibrated_s_per_ktuple"] = {n.name: n.cpu_cost_per_ktuple for n in cal.nodes}
+    fig["sm_cost_scale"] = cal_params.sm_cost_per_ktuple / params.sm_cost_per_ktuple
+    sim = SimulatorEvaluator(params=cal_params, duration_s=2.0, device=device)
+    cfg = round_robin_configuration(cal, {n: 2 for n in cal.node_names}, 4, dim)
+    t0 = time.perf_counter()
+    res = sim.evaluate(cfg)
+    _sync(device)
+    fig["folded_sim"] = dict(achieved_ktps=res.achieved_ktps, bottleneck=res.bottleneck,
+                             backend=sim._backend, s=time.perf_counter() - t0)
+    if not (res.achieved_ktps > 0 and np.isfinite(res.achieved_ktps)):
+        raise AssertionError(f"the folded simulator scored {res.achieved_ktps}")
+    log(f"  executor evaluator: {json.dumps(fig)}")
+    return fig
+
+
+def _lp_seeded(seed):
+    """``tests/test_lp.py``'s seeded problem ``100 + seed``."""
+    import numpy as np
+    rng = np.random.default_rng(100 + seed)
+    n = int(rng.integers(2, 7))
+    m_ub = int(rng.integers(1, 5))
+    m_eq = int(rng.integers(0, 3))
+    c = rng.normal(size=n)
+    A_ub = rng.normal(size=(m_ub, n))
+    b_ub = rng.uniform(0.5, 3.0, size=m_ub)
+    A_eq, b_eq = np.zeros((0, n)), np.zeros(0)
+    if m_eq:
+        A_eq = rng.normal(size=(m_eq, n))
+        x0 = rng.uniform(0, 1, size=n)
+        b_eq = A_eq @ x0
+        b_ub = np.maximum(b_ub, A_ub @ x0 + 0.1)
+    return c, A_ub, b_ub, A_eq, b_eq
+
+
+def _lp_check(label, status, fun, ref):
+    if status != ref.status:
+        raise AssertionError(f"{label}: status {status}, numpy {ref.status}")
+    if ref.status == 0 and not math.isclose(fun, ref.fun, rel_tol=LP_REL, abs_tol=LP_ABS):
+        raise AssertionError(f"{label}: fun {fun}, numpy {ref.fun}")
+
+
+def solve_flow_lp(prob, b_ub, dtype, device):
+    """One flow LP (or a batch of them) with ``maxiter`` stepped through
+    ``LP_MAXITERS`` until every row is optimal.  Returns ``(rates, statuses,
+    attempts)``."""
+    from repro_torch.core import lp
+    attempts = []
+    for maxiter in LP_MAXITERS:
+        _sync(device)
+        t0 = time.perf_counter()
+        _, fun, status = lp.torch_linprog(-prob.c, prob.A_ub, b_ub, prob.A_eq, prob.b_eq,
+                                          maxiter=maxiter, dtype=dtype, device=_default(device))
+        status = status.reshape(-1).cpu().numpy()
+        rates = -fun.reshape(-1).double().cpu().numpy()
+        attempts.append(dict(maxiter=maxiter, s=time.perf_counter() - t0,
+                             optimal=int((status == 0).sum())))
+        if (status == 0).all() or attempts[-1]["s"] > LP_MAX_SOLVE_S:
+            break
+    return rates, status, attempts
+
+
+def phase_flow_lps(device, params, dim):
+    """Phase 3e (c), the flow LPs: ``build_flow_problem`` of deep_pipeline
+    allocations at ``LP_TARGETS``, each solved at B = 1 and at B = 32 with
+    ``b_ub`` scaled by seeded factors in [0.9, 1.1] (row 0 unscaled), in
+    float64 and float32, against numpy's ``linprog``.  Gated: float64 at B =
+    1 optimal and at numpy's rate to rel 1e-6 up to 1,000 ktps.  Stops at the
+    first size whose B = 32 float64 tableau would pass 8 GiB or one of whose
+    solves takes more than 30 s."""
+    import numpy as np
+    import torch
+    from repro_torch.core import allocate, build_flow_problem, lp, oracle_models
+    from repro_torch.streams import deep_pipeline
+
+    dag = deep_pipeline()
+    models = oracle_models(dag, params.sm_cost_per_ktuple)
+    rows_out = []
+    for target in LP_TARGETS:
+        cfg = allocate(dag, models, target, preferred_dim=dim).config
+        prob = build_flow_problem(cfg, models)
+        nv, m = prob.c.shape[0], prob.A_ub.shape[0] + prob.A_eq.shape[0]
+        cells = (m + 1) * (nv + prob.A_ub.shape[0] + m + 1)
+        if cells * 8 * LP_BATCH > LP_MAX_TABLEAU_BYTES:
+            log(f"  flow LP at {target} ktps: a B = {LP_BATCH} float64 tableau passes 8 GiB; stop")
+            break
+        t0 = time.perf_counter()
+        ref = lp.linprog_maximize(prob.c, A_ub=prob.A_ub, b_ub=prob.b_ub, A_eq=prob.A_eq,
+                                  b_eq=prob.b_eq)
+        numpy_s = time.perf_counter() - t0
+        scale = np.random.default_rng(int(target)).uniform(0.9, 1.1, size=(LP_BATCH, 1))
+        scale[0] = 1.0
+        # numpy checks as many scaled rows as its solve time allows
+        n_check = LP_BATCH if numpy_s < 0.1 else (4 if numpy_s < 2.0 else 1)
+        refs = [ref.fun] + [lp.linprog_maximize(prob.c, A_ub=prob.A_ub,
+                                                b_ub=prob.b_ub * scale[i, 0], A_eq=prob.A_eq,
+                                                b_eq=prob.b_eq).fun
+                            for i in range(1, n_check)]
+        slow = False
+        for dtype in (torch.float64, torch.float32):
+            for B in (1, LP_BATCH):
+                rates, status, attempts = solve_flow_lp(
+                    prob, prob.b_ub if B == 1 else prob.b_ub[None] * scale, dtype, device)
+                optimal = bool((status == 0).all())
+                checked = min(B, n_check)
+                errs = [abs(rates[i] - refs[i]) / refs[i] for i in range(checked) if status[i] == 0]
+                row = dict(target_ktps=target, instances=sum(len(p) for p in cfg.packing),
+                           variables=nv, rows=m, B=B, dtype=str(dtype).replace("torch.", ""),
+                           tableau_bytes=cells * dtype.itemsize * B,
+                           status=sorted({int(s) for s in status}),
+                           least_maxiter=attempts[-1]["maxiter"] if optimal else None,
+                           s=attempts[-1]["s"], attempts=attempts,
+                           rate_rel_err=max(errs) if errs else None, rows_checked=checked,
+                           numpy_s=numpy_s, numpy_rate=ref.fun)
+                log(f"  flow LP: {json.dumps(row)}")
+                rows_out.append(row)
+                if dtype == torch.float64 and B == 1 and target <= 1000.0 and (
+                        not optimal or row["rate_rel_err"] > 1e-6):
+                    raise AssertionError(f"float64 flow LP at {target} ktps: {row}")
+                slow = slow or any(a["s"] > LP_MAX_SOLVE_S for a in attempts)
+        if slow:
+            log(f"  flow LP at {target} ktps: a solve took more than {LP_MAX_SOLVE_S} s; stop")
+            break
+    return rows_out
+
+
+def phase_batched_lp(device, params, dim):
+    """Phase 3e (c): ``torch_linprog`` on the card against numpy's
+    ``linprog`` (the seeded suite of ``tests/test_lp.py`` and
+    ``benchmarks/bench_speed.py``'s 24 x 16 problem batched 256 ways), the
+    flow LPs (``phase_flow_lps``), and ``fit_many_torch`` against numpy's
+    float64 least squares on (700, 64) seeded samples."""
+    import numpy as np
+    from repro_torch.core import lp
+    from repro_torch.core.node_model import fit_many_torch
+
+    dev = _default(device)
+    fig = {}
+    for seed in range(10):
+        c, A_ub, b_ub, A_eq, b_eq = _lp_seeded(seed)
+        x, fun, status = lp.torch_linprog(c, A_ub, b_ub, A_eq, b_eq, device=dev)
+        if x.device.type != device.type:
+            raise AssertionError(f"torch_linprog ran on {x.device}")
+        _lp_check(f"seeded {seed}", int(status), float(fun),
+                  lp.linprog(c, A_ub=A_ub, b_ub=b_ub, A_eq=A_eq, b_eq=b_eq))
+    rng = np.random.default_rng(0)
+    n, m = 24, 16
+    c = rng.normal(size=n)
+    A = np.abs(rng.normal(size=(m, n))) + 0.05
+    b = rng.uniform(1, 4, size=m)
+    bs = np.tile(b, (256, 1)) * rng.uniform(0.8, 1.2, size=(256, 1))
+    A_eq, b_eq = np.zeros((0, n)), np.zeros((256, 0))
+    lp.torch_linprog(c, A, bs, A_eq, b_eq, device=dev)        # warm up
+    _sync(device)
+    reps = 5
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _, funs, statuses = lp.torch_linprog(c, A, bs, A_eq, b_eq, device=dev)
+    _sync(device)
+    batch_s = (time.perf_counter() - t0) / reps
+    t0 = time.perf_counter()
+    refs = [lp.linprog(c, A_ub=A, b_ub=bb) for bb in bs]
+    numpy_s = (time.perf_counter() - t0) / len(bs)
+    for i, r in enumerate(refs):
+        _lp_check(f"24 x 16 row {i}", int(statuses[i]), float(funs[i]), r)
+    fig["bench_256"] = dict(batch_s=batch_s, per_lp_us=batch_s / 256 * 1e6,
+                            numpy_single_us=numpy_s * 1e6)
+    log(f"  24 x 16 LP batched 256 ways: {json.dumps(fig['bench_256'])}")
+    fig["flow"] = phase_flow_lps(device, params, dim)
+
+    rng = np.random.default_rng(7)
+    rate = rng.uniform(10.0, 900.0, size=(700, 64))
+    y = (rng.uniform(1e-3, 3e-3, size=(700, 1)) * rate + rng.uniform(0.05, 0.3, size=(700, 1))
+         + rng.normal(scale=0.01, size=(700, 64)))
+    slope, intercept, r2 = (t.cpu().numpy().astype(np.float64)
+                            for t in fit_many_torch(rate, y, device=dev))
+    want = np.array([np.linalg.lstsq(np.stack([rate[i], np.ones(64)], 1), y[i], rcond=None)[0]
+                     for i in range(700)])
+    resid = y - (want[:, :1] * rate + want[:, 1:])
+    yc = y - y.mean(1, keepdims=True)
+    r2_want = 1.0 - (resid ** 2).sum(1) / (yc ** 2).sum(1)
+    fit_err = max(float(np.max(np.abs(got - w) / np.abs(w)))
+                  for got, w in ((slope, want[:, 0]), (intercept, want[:, 1]), (r2, r2_want)))
+    if fit_err > 1e-4:
+        raise AssertionError(f"fit_many_torch against numpy's least squares: rel {fit_err}")
+    fig["fit_rel_err"] = fit_err
+    log(f"  fit_many_torch (700, 64) against numpy float64 least squares: max rel {fit_err:.3e}")
+    return fig
+
+
 # ------------------------------------------------------------ LM kernels
 
 LLAMA = dict(d=4096, H=32, KV=8, hd=128)
@@ -2375,6 +2836,54 @@ def main() -> int:
     clear_result_caches()
     torch.cuda.empty_cache()
 
+    # phase 3e, the executor and the batched LP, counts the stream kernels'
+    # launches (its folded simulator's) on recorders of its own too
+    flow_e = LaunchRecorder(flow_rec.fn, flow_key)
+    sum_e = LaunchRecorder(sum_rec.fn, sum_key)
+    ord_e = LaunchRecorder(ord_rec.fn, ordered_key)
+    simulator.stream_flow_ell, simulator.container_sum = flow_e, sum_e
+    simulator.ordered_sum = ord_e
+    stream_flow_ell.launches = container_sum.launches = ordered_sum.launches = 0
+    recs_3e = (("stream_flow_ell", flow_e), ("container_sum", sum_e), ("ordered_sum", ord_e))
+    t_3e = time.perf_counter()
+    try:
+        t0 = time.perf_counter()
+        log("phase 3e (a): run_dag on wordcount, adanalytics and mobile_analytics on the card at "
+            f"batch 2,048 and {EXEC_BIG_BATCH:,}, then card against host on one source of the "
+            f"same batches ({EXEC_CMP_BATCH:,} tuples)")
+        exec_fig = phase_executor(device)
+        timings["phase3e_executor"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log("phase 3e (b): ExecutorEvaluator() on the card over the fleet demo trio's candidates, "
+            "then fold_executor_timings(adanalytics()) into a card SimulatorEvaluator")
+        exec_eval_fig = phase_executor_evaluator(device, params, dim)
+        timings["phase3e_evaluator"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        log("phase 3e (c): torch_linprog on the card against numpy's linprog (seeded suite, "
+            "24 x 16 batched 256 ways, deep_pipeline flow LPs at "
+            f"{', '.join(f'{t:,.0f}' for t in LP_TARGETS)} ktps) and fit_many_torch")
+        lp_fig = phase_batched_lp(device, params, dim)
+        timings["phase3e_lp"] = time.perf_counter() - t0
+    finally:
+        simulator.stream_flow_ell, simulator.container_sum = flow_e.fn, sum_e.fn
+        simulator.ordered_sum = ord_e.fn
+    timings["phase3e"] = time.perf_counter() - t_3e
+    launches_3e = {fn.__name__: fn.launches for fn in stream_fns}
+    backend_3e = exec_eval_fig["folded_sim"]["backend"]
+    log(f"launches in phase 3e: {json.dumps(launches_3e)}; backend {backend_3e}; "
+        f"{timings['phase3e']:.1f} s")
+    must_3e = [i for i, (name, _) in enumerate(recs_3e)
+               if name != "stream_flow_ell" or backend_3e == "sparse"]
+    if backend_3e != "sparse" and launches_3e["stream_flow_ell"]:
+        raise AssertionError("phase 3e ran the dense tick only, yet launched the flow kernel")
+    log_shapes([recs_3e[i] for i in must_3e], [list(launches_3e.values())[i] for i in must_3e],
+               "phase 3e")
+    del exec_fig, exec_eval_fig, lp_fig
+    clear_resident_cache()
+    clear_structure_cache()
+    clear_result_caches()
+    torch.cuda.empty_cache()
+
     t0 = time.perf_counter()
     log("phase 3c: each stream kernel against its plain version, and timed, at every shape "
         "phase 3c launched it at (device time from CUDA-graph replay; eager time from CUDA events)")
@@ -2390,6 +2899,13 @@ def main() -> int:
     del flow_d, sum_d, ord_d, recs_3d
     torch.cuda.empty_cache()
     timings["phase3d_shapes"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 3e: each stream kernel against its plain version, and timed, at every shape "
+        "phase 3e launched it at")
+    errs_3e = check_and_time(flow_e, sum_e, ord_e, "phase 3e", excess)
+    del flow_e, sum_e, ord_e, recs_3e
+    torch.cuda.empty_cache()
+    timings["phase3e_shapes"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     log("timing the stream kernels at the main path's shapes "
@@ -2418,9 +2934,9 @@ def main() -> int:
         args = ord_rec.inputs[key]
         ord_err = max(ord_err, check_ordered_sum(f"main path {key}", args))
         ord_at[key] = time_ordered_sum(args)
-    max_err = max(max_err, errs_3c["stream_flow_ell"], errs_3d["stream_flow_ell"])
-    sum_err = max(sum_err, errs_3c["container_sum"], errs_3d["container_sum"])
-    ord_err = max(ord_err, errs_3c["ordered_sum"], errs_3d["ordered_sum"])
+    max_err = max(max_err, *(e["stream_flow_ell"] for e in (errs_3c, errs_3d, errs_3e)))
+    sum_err = max(sum_err, *(e["container_sum"] for e in (errs_3c, errs_3d, errs_3e)))
+    ord_err = max(ord_err, *(e["ordered_sum"] for e in (errs_3c, errs_3d, errs_3e)))
     for name, rec, at in (("stream_flow_ell", flow_rec, flow_at), ("container_sum", sum_rec, sum_at),
                           ("ordered_sum", ord_rec, ord_at)):
         for key, t in at.items():

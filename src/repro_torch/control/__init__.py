@@ -6,7 +6,8 @@ each action fired, pooled learning/drift/retraining, and a
 scenario-diverse load-trace library.  A host-side (numpy) copy of the
 reference package's control plane; the policies score configurations
 through :class:`~repro_torch.streams.engine.SimulatorEvaluator` on the
-card."""
+card, and :func:`fold_executor_timings` folds the real executor's timings
+into the simulator's physics."""
 
 from .loop import (
     Action,
@@ -27,7 +28,7 @@ from .forecast import (
     ReplayForecaster,
     make_forecaster,
 )
-from .learning import ForecastTracker, ModelStore
+from .learning import ForecastTracker, ModelStore, fold_executor_timings
 from .policies import (
     DeclarativePolicy,
     HybridPolicy,
@@ -50,6 +51,6 @@ __all__ = [
     "Forecaster", "GUARD_PRESETS", "GuardBands", "HoltWintersForecaster",
     "HybridPolicy", "LastValueForecaster", "LoadSource", "ModelStore",
     "PlanContext", "Policy", "PredictivePolicy", "ReactivePolicy",
-    "ReplayForecaster", "SCENARIOS", "StepRecord",
+    "ReplayForecaster", "SCENARIOS", "StepRecord", "fold_executor_timings",
     "make_failure_trace", "make_forecaster", "make_trace", "replay",
 ]

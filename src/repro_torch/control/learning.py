@@ -5,6 +5,13 @@ Calibration, drift detection and retraining have one owner,
 exposes the over-provisioning factor to every policy, and — on drift —
 refits the node models from the pooled Heron-style metrics.
 
+:func:`fold_executor_timings` closes the loop between the two evaluation
+backends: operator timings measured by the real executor are folded back
+into the simulator's physical truth (calibrated per-node costs + a
+speed-scaled stream-manager cost in :class:`SimParams`), so drift
+experiments can replay "the same pipeline, on this machine" through the
+batched simulator.
+
 :class:`ForecastTracker` extends the same predict-back idiom to the
 forecast phase: one-step-ahead forecasts are scored against the sensed
 load, and a persistent bias becomes a multiplicative correction factor on
@@ -13,14 +20,18 @@ as the calibrator's over-provisioning factor refines the node models.
 """
 from __future__ import annotations
 
-from typing import Mapping, Sequence
+from typing import TYPE_CHECKING, Mapping, Sequence
 
 import numpy as np
 
 from ..core.calibration import Calibrator
-from ..core.dag import Configuration
+from ..core.dag import Configuration, DagSpec
 from ..core.metrics import MetricsStore
 from ..core.node_model import LinearFit, NodeModel, ResourceClass, fit_workload
+
+if TYPE_CHECKING:
+    from ..streams.engine import ExecutorEvaluator
+    from ..streams.simulator import SimParams
 
 
 class ModelStore:
@@ -234,3 +245,48 @@ class ForecastTracker:
         return float(
             np.clip(ratio, 1.0 / self.max_correction, self.max_correction)
         )
+
+
+def fold_executor_timings(
+    dag: DagSpec,
+    evaluator: "ExecutorEvaluator | None" = None,
+    params: "SimParams | None" = None,
+    n_batches: int = 5,
+    floor_ktps: float = 50.0,
+    device=None,
+) -> tuple[DagSpec, "SimParams"]:
+    """Fold real-executor operator timings into the simulator's physics.
+
+    Returns ``(calibrated_dag, calibrated_params)``: the DAG's ground-truth
+    per-ktuple costs become the wall-clock costs measured by the executor,
+    and ``SimParams.sm_cost_per_ktuple`` is rescaled by the median speed
+    ratio (measured/spec cost over the timed operators) so the simulated
+    stream managers slow down (or speed up) with the node bodies.  Feeding
+    the result to a :class:`~repro_torch.streams.engine.SimulatorEvaluator`
+    yields a simulator that drifts exactly as the measured machine drifts.
+
+    The timings come from ``evaluator`` (its cached calibration, on its
+    device) or, without one, from a fresh ``calibrate_dag`` run on
+    ``device`` (``None``: the CUDA card).
+    """
+    from ..streams.simulator import SimParams
+    import dataclasses
+
+    if params is None:
+        params = SimParams()
+    if evaluator is not None:
+        cal = evaluator.calibrated_dag(dag)
+    else:
+        from ..streams.executor import calibrate_dag
+
+        cal = calibrate_dag(dag, n_batches=n_batches, floor_ktps=floor_ktps, device=device)
+    ratios = [
+        b.cpu_cost_per_ktuple / a.cpu_cost_per_ktuple
+        for a, b in zip(dag.nodes, cal.nodes)
+        if a.cpu_cost_per_ktuple > 0 and b.cpu_cost_per_ktuple != a.cpu_cost_per_ktuple
+    ]
+    scale = float(np.median(ratios)) if ratios else 1.0
+    new_params = dataclasses.replace(
+        params, sm_cost_per_ktuple=params.sm_cost_per_ktuple * scale
+    )
+    return cal, new_params

@@ -1,8 +1,9 @@
 """Trevor core on the host (numpy): learned performance models, the LP
 data-flow solver, the balanced-container allocator, predict-back
 calibration, the declarative autoscaler and the Dhalion-style reactive
-scaler.  A self-contained copy of the reference package's core, less its
-JAX batch paths (``fit_many_jax``, ``jax_linprog``) and the LM bridge."""
+scaler.  A self-contained copy of the reference package's core, with its
+batch paths in PyTorch on the card (``node_model.fit_many_torch``,
+``lp.torch_linprog``), less the LM bridge."""
 
 from .dag import (
     Configuration,

@@ -11,7 +11,8 @@ after the DAG transformation ``W -> S -> C``) we learn from runtime metrics:
 * a resource-class label per Table 3 (CPU / IO / memory-bound, saturated),
   with the paper's IO normalization applied to the CPU model.
 
-The fits are closed-form least squares on the host (numpy).
+The fits are closed-form least squares on the host (numpy);
+:func:`fit_many_torch` fits every node of a large DAG at once on the card.
 """
 from __future__ import annotations
 
@@ -202,6 +203,34 @@ def fit_node(samples: InstanceSamples, gc_high: float = 0.1) -> NodeModel:
 def fit_workload(store: MetricsStore, gc_high: float = 0.1) -> dict[str, NodeModel]:
     """Fit models for every node present in the store (incl. stream manager)."""
     return {name: fit_node(store.pooled(name), gc_high=gc_high) for name in store.nodes()}
+
+
+def fit_many_torch(rate, y, device=None):
+    """Vectorized least-squares of y[i] ~ a*rate[i] + b over the leading axis.
+
+    rate, y: (nodes, samples), taken as float32.  Returns (slope, intercept,
+    r2) float32 tensors on ``device`` (``None``: the CUDA card); a node
+    whose rates (or values) do not vary gets slope 0 (or r2 1).
+    """
+    import torch
+
+    from ..device import resolve_device
+
+    dev = resolve_device(device)
+    rate = torch.as_tensor(rate, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(y, dtype=torch.float32, device=dev)
+    xm = rate.mean(dim=1, keepdim=True)
+    ym = y.mean(dim=1, keepdim=True)
+    xc = rate - xm
+    yc = y - ym
+    denom = (xc * xc).sum(dim=1)
+    slope = torch.where(denom > 1e-12, (xc * yc).sum(dim=1) / denom, 0.0)
+    intercept = ym[:, 0] - slope * xm[:, 0]
+    pred = slope[:, None] * rate + intercept[:, None]
+    ss_res = ((y - pred) ** 2).sum(dim=1)
+    ss_tot = (yc * yc).sum(dim=1)
+    r2 = torch.where(ss_tot > 1e-12, 1.0 - ss_res / ss_tot, 1.0)
+    return slope, intercept, r2
 
 
 def oracle_models(dag, sm_cost_per_ktuple: float) -> dict[str, NodeModel]:

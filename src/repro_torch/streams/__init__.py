@@ -1,9 +1,9 @@
-"""Stream-processing substrate on PyTorch: the workload DAGs, load sources,
-the batched discrete-time cluster simulator with its cache-first services
-(in-batch dedup, result caches, device-resident batches, lazy trajectory
-refetch), and the engine through which control layers evaluate
-configurations.  The reference package's executor (its operators and
-``ExecutorEvaluator``) is not ported yet."""
+"""Stream-processing substrate on PyTorch: operators, the workload DAGs,
+load sources, the batched discrete-time cluster simulator with its
+cache-first services (in-batch dedup, result caches, device-resident
+batches, lazy trajectory refetch), the real executor, and the engine
+through which control layers evaluate configurations without knowing which
+backend answers."""
 
 from .workloads import (
     WORKLOADS,
@@ -59,6 +59,7 @@ from .engine import (
     OVERLOAD_KTPS,
     ConfigEvaluator,
     EvalResult,
+    ExecutorEvaluator,
     PerCandidateLoads,
     SimulatorEvaluator,
     evaluate_grid_with,
@@ -69,7 +70,7 @@ from . import sources
 __all__ = [
     "BATCH_LADDER", "BUCKET_LADDER", "DEGREE_LADDER", "EDGE_LADDER",
     "OVERLOAD_KTPS", "SAMPLES_MODES", "SPARSE_DENSITY_THRESHOLD",
-    "ConfigEvaluator", "EvalResult", "PerCandidateLoads", "ResultCache",
+    "ConfigEvaluator", "EvalResult", "ExecutorEvaluator", "PerCandidateLoads", "ResultCache",
     "SimParams", "SimResult", "SimStructure", "SimulatorEvaluator",
     "TrajectoryUnavailable", "WORKLOADS", "adanalytics",
     "batch_bucket_size", "bucket_size", "build_structure", "cache_stats",

@@ -4,9 +4,10 @@ synthetic topologies that stress the batched evaluation engine.
 Ground-truth per-ktuple costs are chosen to land the same peak rates the
 paper measured on its 4-CPU-VM cluster (WordCount: R_w ≈ 839 ktps,
 R_c ≈ 658 ktps, SM ≈ 724 ktps traversals), so that Table 2 and the figures
-reproduce quantitatively, not just in shape.  In the reference package each
-paper node also carries its real operator body for the executor; this
-package has no operators yet, so every node's ``fn`` is ``None`` here.
+reproduce quantitatively, not just in shape.  Each paper node also carries
+its real operator body (:mod:`repro_torch.streams.operators`) so the
+executor can run the DAG on actual data and re-calibrate these costs on the
+device it runs on.
 
 The two additional workloads exercise topology classes the paper's three do
 not:
@@ -30,6 +31,7 @@ nodes as pass-through.
 from __future__ import annotations
 
 from ..core.dag import DagSpec, EdgeSpec, Grouping, NodeSpec
+from . import operators as ops
 
 # Peak rates implied: 1/cost. Keep in sync with benchmarks' expectations.
 R_W = 839.0   # word producer peak ktps
@@ -47,6 +49,7 @@ def wordcount() -> DagSpec:
         mem_mb_per_ktps=0.05,
         tuple_bytes=24.0,
         is_source=True,
+        fn=ops.make_word_producer(),
     )
     consumer = NodeSpec(
         "C",
@@ -55,6 +58,7 @@ def wordcount() -> DagSpec:
         mem_mb_base=160.0,
         mem_mb_per_ktps=0.4,  # hashmap grows with keyspace share (§4)
         tuple_bytes=32.0,
+        fn=ops.make_counting_consumer(),
     )
     return DagSpec(
         "wordcount",
@@ -76,26 +80,28 @@ def adanalytics() -> DagSpec:
             NodeSpec(
                 "ads", 1.0 / 900.0, gamma=1.0, io_fraction=0.55,
                 mem_mb_base=128.0, tuple_bytes=180.0, is_source=True,
+                fn=ops.make_ad_source(),
             ),
             NodeSpec(
                 "event_deserializer", 1.0 / 520.0, gamma=1.0,
-                mem_mb_base=96.0, tuple_bytes=120.0,
+                mem_mb_base=96.0, tuple_bytes=120.0, fn=ops.event_deserializer,
             ),
             NodeSpec(
                 "event_filter", 1.0 / 950.0, gamma=0.32,
-                mem_mb_base=64.0, tuple_bytes=96.0,
+                mem_mb_base=64.0, tuple_bytes=96.0, fn=ops.event_filter,
             ),
             NodeSpec(
                 "event_projection", 1.0 / 1200.0, gamma=1.0,
-                mem_mb_base=64.0, tuple_bytes=48.0,
+                mem_mb_base=64.0, tuple_bytes=48.0, fn=ops.event_projection,
             ),
             NodeSpec(
                 "redis_join", 1.0 / 600.0, gamma=1.0, io_fraction=0.35,
-                mem_mb_base=192.0, tuple_bytes=56.0,
+                mem_mb_base=192.0, tuple_bytes=56.0, fn=ops.make_redis_join(),
             ),
             NodeSpec(
                 "campaign_processor", 1.0 / 800.0, gamma=1.0,
                 mem_mb_base=160.0, mem_mb_per_ktps=0.3, tuple_bytes=40.0,
+                fn=ops.make_campaign_processor(),
             ),
         ),
         edges=(
@@ -123,30 +129,34 @@ def mobile_analytics() -> DagSpec:
             NodeSpec(
                 "kafka_in", 1.0 / 1100.0, gamma=1.0, io_fraction=0.6,
                 mem_mb_base=128.0, tuple_bytes=220.0, is_source=True,
+                fn=ops.make_mobile_source(),
             ),
             NodeSpec(
                 "log_parser", 1.0 / 450.0, gamma=1.0,
-                mem_mb_base=96.0, tuple_bytes=160.0,
+                mem_mb_base=96.0, tuple_bytes=160.0, fn=ops.log_parser,
             ),
             NodeSpec(
                 "session_tracker", 1.0 / 700.0, gamma=1.0,
                 mem_mb_base=256.0, mem_mb_per_ktps=0.8, tuple_bytes=96.0,
+                fn=ops.make_session_tracker(),
             ),
             NodeSpec(
                 "anomaly_detector", 1.0 / 850.0, gamma=0.12,
-                mem_mb_base=96.0, tuple_bytes=64.0,
+                mem_mb_base=96.0, tuple_bytes=64.0, fn=ops.anomaly_detector,
             ),
             NodeSpec(
                 "cell_kpi", 1.0 / 780.0, gamma=0.5,
                 mem_mb_base=128.0, mem_mb_per_ktps=0.2, tuple_bytes=48.0,
+                fn=ops.make_cell_kpi(),
             ),
             NodeSpec(
                 "geo_mapper", 1.0 / 1400.0, gamma=1.0,
-                mem_mb_base=64.0, tuple_bytes=72.0,
+                mem_mb_base=64.0, tuple_bytes=72.0, fn=ops.geo_mapper,
             ),
             NodeSpec(
                 "report_sink", 1.0 / 900.0, gamma=0.0,
                 mem_mb_base=128.0, mem_mb_per_ktps=0.2, tuple_bytes=32.0,
+                fn=ops.make_report_sink(),
             ),
             NodeSpec(
                 "kpi_store", 1.0 / 1000.0, gamma=0.0, io_fraction=0.4,

@@ -84,7 +84,9 @@ def test_port_sources_import_neither_jax_nor_reference():
     names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files[:-1]}
     assert {"fleet/cluster.py", "fleet/scheduler.py", "fleet/loop.py",
             "checkpoint/checkpointer.py", "checkpoint/control_state.py",
-            "runtime/fault.py"} <= names
+            "runtime/fault.py", "streams/operators.py", "streams/executor.py",
+            "streams/engine.py", "control/learning.py", "core/lp.py",
+            "core/node_model.py"} <= names
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -321,3 +323,45 @@ def test_port_fleet_runs_with_jax_and_reference_blocked():
     proc = _run_blocked(_BLOCKED_FLEET)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "scheduled" in proc.stdout
+
+
+_BLOCKED_EXECUTOR = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import torch
+from repro_torch.control import fold_executor_timings
+from repro_torch.core import round_robin_configuration
+from repro_torch.core.lp import linprog, torch_linprog
+from repro_torch.core.node_model import fit_many_torch
+from repro_torch.streams import ExecutorEvaluator, mobile_analytics, wordcount
+from repro_torch.streams.executor import run_dag
+report = run_dag(mobile_analytics(), n_batches=2, device="cpu")
+assert report.tuples_processed == 2 * 2048, report.tuples_processed
+assert report.outputs["report_sink"]["geo"].dtype == torch.int32
+ev = ExecutorEvaluator(n_batches=2, device="cpu")
+dag = wordcount()
+cfg = round_robin_configuration(dag, {"W": 1, "C": 1}, 2)
+assert ev.evaluate(cfg).achieved_ktps > 0
+cal, params = fold_executor_timings(dag, ev)
+assert params.sm_cost_per_ktuple > 0
+rng = np.random.default_rng(0)
+c, A = rng.normal(size=6), np.abs(rng.normal(size=(4, 6))) + 0.1
+b = rng.uniform(1.0, 3.0, size=(8, 4))
+x, fun, status = torch_linprog(c, A, b, np.zeros((0, 6)), np.zeros((8, 0)), device="cpu")
+assert (status == 0).all(), status
+assert abs(float(fun[0]) - linprog(c, A_ub=A, b_ub=b[0]).fun) < 1e-4
+slope, _, _ = fit_many_torch(rng.random((3, 16)), rng.random((3, 16)), device="cpu")
+assert slope.shape == (3,)
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("executed", report.tuples_processed, float(fun[0]))
+"""
+
+
+def test_port_executor_and_batched_lp_run_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_EXECUTOR)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "executed" in proc.stdout
