@@ -75,7 +75,10 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    versions at llama3-8b's and jamba's shapes (fp32 and bf16 RMSNorm, an
    odd width and an unaligned view; the fused norm bit for bit the norm of
    ``x + delta``; causal, windowed and non-causal attention, head_dim 128
-   and 120);
+   and 120), and flash at the shapes of phases 11 and 12: seamless's
+   encoder (512 frames, non-causal), its decoder's causal prefill and its
+   cross-attention (each prompt length against the 512 frames as keys),
+   and internvl2's causal prefill at 256 + each prompt length;
 5. runs a 2-layer llama3-8b at full width with the same seeded weights on
    the card and on the host, one prefill and 4 decode steps, and compares
    the logits;
@@ -96,6 +99,26 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    9,116,360,704 parameters) behind ``BatchedServer``, and holds the launch
    counts to 7 selective scans, 1 RMSNorm and 16 fused add-and-RMSNorms
    per forward and one flash launch per prefill;
+10. runs 2 encoder and 2 decoder layers of seamless-m4t-large-v2 at full
+   width on the card and on the host with seeded non-zero frame
+   embeddings, one prefill and 4 decode steps, and compares logits,
+   ``cross_kv`` and greedy tokens;
+11. serves phase 6's prompt lengths with seamless-m4t-large-v2 at full
+   width and depth (24 + 24 layers, 2,035,935,232 parameters) behind
+   ``BatchedServer`` (zero frames, as the server feeds), and holds the
+   launch counts to 24 encoder, 24 causal and 24 cross flash launches,
+   2 RMSNorm and 120 fused add-and-RMSNorm launches per prefill and 1 and
+   72 per decode step;
+12. serves the same prompts with 8 of internvl2-26b's 48 layers at full
+   width behind its 256 zero frontend tokens, with 8 causal flash
+   launches per prefill at 256 + the prompt's length;
+13. builds the LM bridge's workload model of each served model (2N FLOPs
+   and the fp32 parameter bytes over the slots per token) and prints its
+   predicted one-card decode rate beside the measured one; runs
+   ``allocate_chips`` at 1e4, 1e5 and 1e6 tok/s, ``ElasticController``
+   over ``examples/serve_lm.py``'s spike day, and ``FleetElasticController``
+   over the fleet demo's trio on a card ``SimulatorEvaluator`` for 6
+   steps, whose events must equal a ``FleetLoop``'s driven directly;
 
 and times each kernel, its plain version and, where there is one, the
 PyTorch call that computes the same function at the main paths' shapes,
@@ -104,8 +127,9 @@ norms at prefill shapes over input sets that miss L2, as in serving.  The
 three stream kernels' launches in phases 2-3 are counted by input shape, and
 each is timed at every one of those shapes (phase 3c's likewise, on their
 own); every kernel's launches x (time - bound) over its paths is printed,
-largest first.  After phases 6 and 9 the profiler counts the kernel
-launches of one decode forward.
+largest first.  After phases 6, 9, 11 and 12 the profiler counts the
+kernel launches of one decode forward; each serving phase logs its decode
+floor (the weights and caches a decode step reads, over 3.35 TB/s).
 Any failed phase raises and the script exits non-zero.  The last line is a
 JSON object with ``"ok": true`` and the device; the line before it lists
 each kernel with its launches on the main paths, its error against the
@@ -2042,6 +2066,8 @@ def phase_batched_lp(device, params, dim):
 # ------------------------------------------------------------ LM kernels
 
 LLAMA = dict(d=4096, H=32, KV=8, hd=128)
+SEAMLESS_PARAMS = 2_035_935_232     # seamless-m4t-large-v2, the reference's n_params()
+INTERNVL_LAYERS = 8                 # internvl2-26b's cut: 8 of its 48 layers, full width
 RMS_FP32_TOL = 1e-6                 # rtol and atol, kernel vs plain
 FLASH_TOL = 2e-5                    # rtol and atol, kernel vs plain
 LOGIT_RTOL, LOGIT_ATOL_REL = 1e-4, 1e-4   # card vs host logits
@@ -2129,34 +2155,39 @@ def check_add_rmsnorm(device, shapes) -> float:
     return worst
 
 
-def flash_inputs(device, S, H, KV, hd, seed):
+def flash_inputs(device, S, H, KV, hd, seed, Sk=None):
+    """Seeded q (1, S, H, hd) and k, v (1, Sk, KV, hd), Sk = S by default."""
     import torch
     g = torch.Generator(device=device).manual_seed(seed)
+    Sk = S if Sk is None else Sk
     return (torch.randn(1, S, H, hd, generator=g, device=device),
-            torch.randn(1, S, KV, hd, generator=g, device=device),
-            torch.randn(1, S, KV, hd, generator=g, device=device))
+            torch.randn(1, Sk, KV, hd, generator=g, device=device),
+            torch.randn(1, Sk, KV, hd, generator=g, device=device))
 
 
 def check_flash(device, cases) -> float:
     """The flash kernel against its plain version (``attention_reference``'s
     semantics: keys masked by the real length) within 2e-5; returns the
-    largest absolute difference."""
+    largest absolute difference.  A case is (S, H, KV, hd, causal, window)
+    or, with keys of their own length (non-causal), (..., Sk)."""
     import torch
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
     worst = 0.0
-    for S, H, KV, hd, causal, window in cases:
-        q, k, v = flash_inputs(device, S, H, KV, hd, seed=S * 7 + hd)
+    for S, H, KV, hd, causal, window, *rest in cases:
+        Sk = rest[0] if rest else S
+        q, k, v = flash_inputs(device, S, H, KV, hd, seed=S * 7 + hd + (Sk if rest else 0),
+                               Sk=Sk)
         scale = 1.0 / hd ** 0.5
         got = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
         want = flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale)
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
-            raise AssertionError(f"flash S={S} hd={hd}: non-finite output")
+            raise AssertionError(f"flash S={S} Sk={Sk} hd={hd}: non-finite output")
         torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
         err = float((got - want).abs().max())
         worst = max(worst, err)
-        log(f"  flash S={S} H={H} KV={KV} hd={hd} causal={causal} window={window}: "
+        log(f"  flash S={S} Sk={Sk} H={H} KV={KV} hd={hd} causal={causal} window={window}: "
             f"max|kernel-plain|={err:.3e}")
     return worst
 
@@ -2177,18 +2208,20 @@ def add_rmsnorm_bound(rows, d) -> tuple[float, str]:
     return _bytes_or_flops((4 * rows * d + d) * 4, rows * d * 5)
 
 
-def flash_bound(S, H, KV, hd) -> tuple[float, str]:
-    """Causal attention over S positions: S(S+1)/2 scored pairs per head,
-    each 2·hd flops for q·k, 2·hd for p·v and about 4 for the softmax; q, k,
-    v read once and the output written once.  Two ways to do the products:
-    fp32 on CUDA cores (all flops at 67 TFLOP/s), or 3xTF32 on the tensor
-    cores (three tf32 products per product at 495 TFLOP/s, the softmax on
-    CUDA cores); each is held against the bytes, and the bound is the
-    faster of the two."""
-    pairs = S * (S + 1) // 2
+def flash_bound(S, H, KV, hd, Sk=None, causal=True) -> tuple[float, str]:
+    """Attention of S queries: causal over S positions, S(S+1)/2 scored
+    pairs per head; non-causal over Sk keys (S by default), S·Sk pairs.
+    Each pair is 2·hd flops for q·k, 2·hd for p·v and about 4 for the
+    softmax; q and the output (S rows of H heads) and k and v (Sk rows of
+    KV heads) move once.  Two ways to do the products: fp32 on CUDA cores
+    (all flops at 67 TFLOP/s), or 3xTF32 on the tensor cores (three tf32
+    products per product at 495 TFLOP/s, the softmax on CUDA cores); each
+    is held against the bytes, and the bound is the faster of the two."""
+    Sk = S if Sk is None else Sk
+    pairs = S * (S + 1) // 2 if causal else S * Sk
     mm_flops = H * pairs * 4 * hd
     soft_flops = H * pairs * 4
-    nbytes = 4 * S * hd * (2 * H + 2 * KV)
+    nbytes = 4 * hd * (2 * S * H + 2 * Sk * KV)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_fp32 = (mm_flops + soft_flops) / FP32_FLOPS_PER_S
     t_tc = 3 * mm_flops / TF32_FLOPS_PER_S + soft_flops / FP32_FLOPS_PER_S
@@ -2271,32 +2304,37 @@ def time_add_rmsnorm(device, shape) -> dict:
                 bound_by=bound_by, pair_ms=pair_ms)
 
 
-def time_flash(device, S, H=LLAMA["H"], KV=LLAMA["KV"]) -> dict:
+def time_flash(device, S, H=LLAMA["H"], KV=LLAMA["KV"], hd=LLAMA["hd"], Sk=None,
+               causal=True) -> dict:
+    """The flash kernel, its plain version and SDPA at (S, H, KV, hd),
+    causal or over Sk keys, beside its bound."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
-    hd = LLAMA["hd"]
-    q, k, v = flash_inputs(device, S, H, KV, hd, seed=S + H)
+    q, k, v = flash_inputs(device, S, H, KV, hd, seed=S + H + (Sk or 0), Sk=Sk)
     scale = 1.0 / hd ** 0.5
-    ms, eager_ms = time_both(lambda: flash_attention(q, k, v, causal=True, scale=scale), iters=50)
-    out = flash_attention(q, k, v, causal=True, scale=scale)
+    ms, eager_ms = time_both(lambda: flash_attention(q, k, v, causal=causal, scale=scale),
+                             iters=50)
+    out = flash_attention(q, k, v, causal=causal, scale=scale)
     plain_ms, plain_eager = time_both(
-        lambda: flash_attention_reference(q, k, v, causal=True, scale=scale), iters=50)
+        lambda: flash_attention_reference(q, k, v, causal=causal, scale=scale), iters=50)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
                                                   enable_gqa=True)
     library_ms, library_eager = time_both(sdpa, iters=50)
     lib_err = float((sdpa().transpose(1, 2) - out).abs().max())
-    bound_ms, bound_by = flash_bound(S, H, KV, hd)
+    bound_ms, bound_by = flash_bound(S, H, KV, hd, Sk=Sk, causal=causal)
     # the two block layouts, forced, beside the one the wrapper picks
     layouts = []
     for heads in (1, 2):
         blocks = -(-S // 16) * KV * -(-(H // KV) // heads)
-        forced = graph_ms(lambda: flash_attention(q, k, v, causal=True, scale=scale,
+        forced = graph_ms(lambda: flash_attention(q, k, v, causal=causal, scale=scale,
                                                   heads_per_block=heads), iters=20)
         layouts.append(f"{heads} head(s)/block {blocks} blocks {forced:.5f} ms")
-    log(f"  flash S={S} H={H} KV={KV} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  "
+    shape = f"S={S}" + ("" if causal else f" Sk={Sk or S} non-causal")
+    log(f"  flash {shape} H={H} KV={KV} hd={hd} device (graph): kernel {ms:.5f} ms  "
+        f"plain {plain_ms:.5f} ms  "
         f"sdpa {library_ms:.5f} ms (max|sdpa-kernel|={lib_err:.2e})  bound {bound_ms:.6f} ms "
         f"({bound_by}); eager with launch cost: kernel {eager_ms:.5f}  plain {plain_eager:.5f}  "
         f"sdpa {library_eager:.5f} ms; forced: {', '.join(layouts)}")
@@ -2310,9 +2348,11 @@ def block_counts(cfg) -> dict:
 
 
 def norms_per_forward(cfg) -> int:
-    """RMSNorms of one forward: one before each block's mixer, one before
-    each MLP, and the final one."""
-    return cfg.n_layers * (2 if cfg.d_ff > 0 else 1) + 1
+    """RMSNorms of one decoder forward: one before each block's mixer, one
+    before each MLP, one before each cross-attention sub-block of an
+    encoder-decoder model, and the final one."""
+    per_block = (2 if cfg.d_ff > 0 else 1) + (1 if cfg.is_encdec else 0)
+    return cfg.n_layers * per_block + 1
 
 
 def expected_launches(cfg, forwards, prefills) -> dict:
@@ -2321,12 +2361,38 @@ def expected_launches(cfg, forwards, prefills) -> dict:
     other norm fused with the residual add before it, and one selective scan
     per Mamba block (the decode step runs the kernel with S = 1); one flash
     launch per attention block each prefill (decode attention is plain
-    torch)."""
+    torch).  An encoder-decoder model's prefill adds its encoder (E layers:
+    one ``rmsnorm``, 2E ``add_rmsnorm``, E non-causal flash launches) and
+    one non-causal flash launch per cross-attention sub-block (its decode
+    step reads the cached cross K/V with plain torch)."""
     n = block_counts(cfg)
-    return dict(rmsnorm=forwards,
-                add_rmsnorm=(norms_per_forward(cfg) - 1) * forwards,
-                flash_attention=n["attn"] * prefills,
+    E = cfg.enc_layers if cfg.is_encdec else 0
+    cross = cfg.n_layers if cfg.is_encdec else 0
+    return dict(rmsnorm=forwards + (prefills if E else 0),
+                add_rmsnorm=(norms_per_forward(cfg) - 1) * forwards + 2 * E * prefills,
+                flash_attention=(n["attn"] + cross + E) * prefills,
                 ssm_scan=n["mamba"] * forwards)
+
+
+def decode_floor(model, caches) -> tuple[float, int, int]:
+    """The least time of one decode forward: the bytes it must read once
+    over the card's memory rate.  Weights: every parameter a decode step
+    reads (not the encoder or ``frontend_proj``, which run at prefill; not
+    the cross-attention's ``wk``/``wv``, whose K/V are cached; not the
+    embedding table, of which it gathers one row a slot, unless it is also
+    the head); caches: every K/V, Mamba state and cross K/V tensor, which
+    decode attention and the scan read whole.  Returns (ms, weight bytes,
+    cache bytes)."""
+    def read(name):
+        if name.startswith(("encoder.", "frontend_proj")):
+            return False
+        if name.startswith("cross.") and name.endswith((".wk", ".wv")):
+            return False
+        return name != "embed" or not hasattr(model, "lm_head")
+
+    weights = sum(p.numel() * p.element_size() for n, p in model.named_parameters() if read(n))
+    cache = sum(t.numel() * t.element_size() for layer in caches.values() for t in layer.values())
+    return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights, cache
 
 
 def kernel_launches() -> dict:
@@ -2431,11 +2497,15 @@ def time_ssm_scan(device, B, S) -> dict:
 def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
     """The model ``cfg`` with the same seeded weights on the card and the
     host: one prefill and ``decode_steps`` decode steps on each (the host's
-    greedy tokens fed to both), logits and Mamba states compared within
-    rtol 1e-4, atol 1e-4·max|x|, and the greedy tokens equal."""
+    greedy tokens fed to both), logits, Mamba states and an encoder-decoder
+    model's ``cross_kv`` compared within rtol 1e-4, atol 1e-4·max|x|, and
+    the greedy tokens equal.  A model with a frontend gets seeded non-zero
+    frame embeddings (zeros, as the server feeds, would make the encoder's
+    output and every cross-attention zero)."""
     import numpy as np
     import torch
     from repro_torch.models import build_model
+    from repro_torch.models.frontends import frontend_embed_shape
 
     n_layers = cfg.n_layers
     t0 = time.perf_counter()
@@ -2446,6 +2516,12 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
         f"in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(seed)
     prompt = torch.as_tensor(rng.integers(4, cfg.vocab, size=(1, prompt_len)))
+    frames = None
+    if cfg.frontend is not None:
+        frames = torch.as_tensor(
+            rng.standard_normal(frontend_embed_shape(cfg, 1)).astype(np.float32))
+    # positions the prefill fills: a decoder-only frontend's tokens come first
+    filled = prompt_len + (cfg.frontend_tokens if frames is not None and not cfg.is_encdec else 0)
     zero_launches()
     worst = 0.0
 
@@ -2458,8 +2534,14 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
         return float((got - want).abs().max()), atol
 
     def compare(label, got, want):
+        """Logits over the real vocabulary within the tolerance (the padded
+        rows are masked to -1e9, which would set atol); the masked tail
+        bit for bit."""
         nonlocal worst
-        err, atol = close(label, got, want)
+        V = cfg.vocab
+        if not torch.equal(got[..., V:].cpu(), want[..., V:]):
+            raise AssertionError(f"{label}: the padded vocabulary's masked logits differ")
+        err, atol = close(label, got[..., :V], want[..., :V])
         worst = max(worst, err)
         token, card_token = int(want[0, -1].argmax()), int(got[0, -1].argmax())
         log(f"  {label}: max|card-host| {err:.3e} (atol {atol:.3e}), "
@@ -2470,18 +2552,24 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
 
     caches = {}
     for name, model in (("host", host), ("card", card)):
-        logits, c1 = model.forward_prefill(prompt.to(model.embed.device))
-        big = model.cache_struct(1, prompt_len + decode_steps + 1)
+        dev = model.embed.device
+        args = (prompt.to(dev),) if frames is None else (prompt.to(dev), frames.to(dev))
+        logits, c1 = model.forward_prefill(*args)
+        big = model.cache_struct(1, filled + decode_steps + 1)
         for key, layer in c1.items():
             for n, t in layer.items():
-                if n in ("k", "v"):
-                    big[key][n][:, :, :prompt_len] = t
+                if n in ("k", "v"):                      # K/V and cross K/V, padded
+                    big[key][n][:, :, :t.shape[2]] = t
                 else:                                    # a Mamba state, whole
                     big[key][n].copy_(t)
         caches[name] = (logits, big)
     token = compare("prefill", caches["card"][0], caches["host"][0])
+    for n, want in caches["host"][1].get("cross_kv", {}).items():
+        err, atol = close(f"cross_kv {n}", caches["card"][1]["cross_kv"][n], want)
+        log(f"  cross_kv {n} {tuple(want.shape)}: max|card-host| {err:.3e} (atol {atol:.3e}), "
+            f"max|x| {float(want.abs().max()):.3e}")
     for step in range(decode_steps):
-        pos = prompt_len + step
+        pos = filled + step
         tok = torch.tensor([[token]])
         hl, _ = host.forward_decode(tok, caches["host"][1], pos)
         cl, _ = card.forward_decode(tok.to(device), caches["card"][1], pos)
@@ -2503,7 +2591,9 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
 def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
     """``arch`` (a name or a config) behind ``BatchedServer`` on the card:
     seeded prompts of 32-192 tokens, greedy decoding, with the kernels'
-    launch counts held to :func:`expected_launches`."""
+    launch counts held to :func:`expected_launches`.  Returns the server,
+    the launches, the prompt lengths and the serving figures (median
+    decode tick beside its floor, tokens/s, TTFT, peak memory)."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2515,9 +2605,15 @@ def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
                            device=device)
     torch.cuda.synchronize()
     log(f"  built {server.cfg.name} ({server.model.n_params():,} params, "
-        f"{server.cfg.n_layers} layers) in {time.perf_counter() - t0:.1f} s; "
+        f"{server.cfg.n_layers} layers"
+        + (f" + {server.cfg.enc_layers} encoder layers" if server.cfg.is_encdec else "")
+        + f") in {time.perf_counter() - t0:.1f} s; "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card, "
         f"{before / 2**30:.2f} GiB of it allocated before the build")
+    floor_ms, floor_w, floor_c = decode_floor(server.model, server.caches)
+    log(f"  decode floor {floor_ms:.4f} ms: {floor_w:,} bytes of weights a decode step reads "
+        f"and {floor_c:,} bytes of caches ({slots} slots, max_ctx {max_ctx}) at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s")
     rng = np.random.default_rng(seed)
     lengths = rng.integers(32, 193, size=n_requests)
     requests = [Request(rid, rng.integers(4, server.cfg.vocab, size=int(n)).astype(np.int32), max_new)
@@ -2559,12 +2655,16 @@ def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
         f"({n_tokens / wall:.1f} tok/s), {server.decode_steps} decode steps")
     log(f"  time to first token ms: min {ttft[0]:.1f} median {float(np.median(ttft)):.1f} "
         f"max {ttft[-1]:.1f} (from submission; all {n_requests} submitted at once)")
-    log(f"  decode-only ticks: {len(decode_ms)}, median {float(np.median(decode_ms)):.3f} ms, "
-        f"min {min(decode_ms):.3f} ms")
+    tick = float(np.median(decode_ms))
+    log(f"  decode-only ticks: {len(decode_ms)}, median {tick:.3f} ms, "
+        f"min {min(decode_ms):.3f} ms (floor {floor_ms:.4f} ms)")
     log(f"  peak memory {peak / 2**30:.2f} GiB ({peak} bytes)")
     log(f"  launches: {json.dumps(launches)} (expected {json.dumps(want)})")
     log(f"  first request's tokens: {server.completed[0].tokens_out}")
-    return server, launches, [int(n) for n in lengths]
+    figures = dict(name=server.cfg.name, n_params=server.model.n_params(), slots=slots,
+                   decode_tick_ms=tick, decode_floor_ms=floor_ms, tok_s=n_tokens / wall,
+                   ttft_median_ms=float(np.median(ttft)), peak_bytes=peak, wall_s=wall)
+    return server, launches, [int(n) for n in lengths], figures
 
 
 def profile_serving(server, rng, n_requests, prompt_len, max_new):
@@ -2617,6 +2717,107 @@ def decode_forward_launches(server, rng, prompt_len, steps=2):
             f"{len(names) - len(kernels)} copies/memsets; rmsnorm.cu's: "
             + ", ".join(f"{n} x {name[:90]}" for name, n in sorted(norms.items())))
     server.drain()
+
+
+BRIDGE_TARGETS = (1e4, 1e5, 1e6)     # tok/s, as examples/serve_lm.py asks
+BRIDGE_FLEET_STEPS = 6
+
+
+def bridge_workload(fig):
+    """An ``LMWorkloadModel`` of one served model's decode step, built as
+    ``examples/serve_lm.py`` (l. 37-42) builds one: 2N FLOPs per token, the
+    parameter bytes (fp32 here) over the batch slots, and no collective on
+    one card."""
+    from repro_torch.core.lm_bridge import LMWorkloadModel, StageCost
+
+    N, slots = fig["n_params"], fig["slots"]
+    stage = StageCost("decode_step", flops_per_token=2.0 * N,
+                      hbm_bytes_per_token=4.0 * N / slots, coll_bytes_per_token=0.0)
+    return LMWorkloadModel(arch=fig["name"], shape="decode", stages=[stage], chips_measured=1)
+
+
+def phase_lm_bridge(device, params, served):
+    """Phase 13: the LM bridge on the card's own numbers.  For each served
+    model, the bridge's predicted decode tokens/s on one card (the port's
+    H100 constants) beside the rate measured in its serving phase, all
+    slots decoding each median decode tick (reported, not gated); then
+    ``allocate_chips`` at 1e4, 1e5 and 1e6 tok/s, ``ElasticController``
+    over ``examples/serve_lm.py``'s spike day (l. 47-52) on llama3-8b's
+    model, and ``FleetElasticController`` over the fleet demo's trio on a
+    card ``SimulatorEvaluator``, whose events must equal a ``FleetLoop``'s
+    driven directly with the same loads.  Returns the figures."""
+    from repro_torch.core.lm_bridge import HBM_BW, ICI_BW, PEAK_FLOPS, allocate_chips
+    from repro_torch.fleet import FleetLoop
+    from repro_torch.runtime import ElasticController, FleetElasticController
+    from repro_torch.streams import SimulatorEvaluator, sources
+
+    log(f"  lm_bridge constants: PEAK_FLOPS {PEAK_FLOPS:.4g} FLOP/s, HBM_BW {HBM_BW:.4g} B/s, "
+        f"ICI_BW (NVLink) {ICI_BW:.4g} B/s")
+    fig = dict(models={})
+    for served_fig in served:
+        wl = bridge_workload(served_fig)
+        slots = served_fig["slots"]
+        predicted = wl.tokens_per_second(slots, 1)
+        measured = slots / (served_fig["decode_tick_ms"] / 1e3)
+        fig["models"][served_fig["name"]] = dict(
+            predicted_tok_s=predicted, measured_decode_tok_s=measured,
+            served_tok_s=served_fig["tok_s"], error=predicted / measured - 1.0,
+            bottleneck=wl.bottleneck(),
+            chips={f"{t:.0e}": allocate_chips(wl, t, tokens_per_step=slots).chips
+                   for t in BRIDGE_TARGETS})
+        log(f"  {served_fig['name']} ({served_fig['n_params']:,} params, {slots} slots): "
+            f"predicted {predicted:.1f} tok/s on 1 card ({wl.bottleneck()}-bound, step "
+            f"{wl.step_seconds(slots, 1) * 1e3:.4f} ms), measured {measured:.1f} tok/s "
+            f"({slots} / median decode tick {served_fig['decode_tick_ms']:.3f} ms; "
+            f"{served_fig['tok_s']:.1f} tok/s over the serving wall), error "
+            f"{(predicted / measured - 1.0) * 100:+.1f}%")
+        for t in BRIDGE_TARGETS:
+            a = allocate_chips(wl, t, tokens_per_step=slots)
+            log(f"    allocate_chips {t:9.0f} tok/s -> {a.chips:6d} cards (predicted "
+                f"{a.predicted_tokens_per_s:.0f} tok/s, step {a.predicted_step_s * 1e3:.4f} ms, "
+                f"{a.bottleneck})")
+            if a.chips & (a.chips - 1) or not a.meets_target:
+                raise AssertionError(f"{served_fig['name']}: allocation {a}")
+
+    llama = next(f for f in served if f["name"] == "llama3-8b")
+    trace = sources.spike(96, base_ktps=30.0, spike_ratio=15.0, seed=3) * 1e3
+    ctl = ElasticController(bridge_workload(llama), tokens_per_step=llama["slots"],
+                            min_chips=8, max_chips=2048)
+    for load in trace:
+        ctl.observe(float(load))
+    log(f"  ElasticController over the spike day ({len(trace)} steps, {trace.min():.0f}-"
+        f"{trace.max():.0f} tok/s) on llama3-8b's card model: {len(ctl.events)} re-meshes")
+    for e in ctl.events:
+        log(f"    {e.load_tokens_per_s:10.0f} tok/s: {e.chips_before:5d} -> {e.chips_after:5d} "
+            f"cards ({e.reason})")
+    if not ctl.events or max(e.chips_after for e in ctl.events) <= 8:
+        raise AssertionError("the spike day re-meshed no card count up")
+    fig["remeshes"] = [(e.chips_before, e.chips_after) for e in ctl.events]
+
+    def evaluator():
+        return SimulatorEvaluator(params=params, duration_s=4.0, device=device)
+
+    tenants, traces, cluster = demo_fleet(params)
+    replans = []
+    fctl = FleetElasticController(tenants, cluster, evaluator(), on_reschedule=replans.append)
+    t0 = time.perf_counter()
+    plans = [fctl.observe(loads_at(traces, i)) for i in range(BRIDGE_FLEET_STEPS)]
+    wall = time.perf_counter() - t0
+    tenants, traces, cluster = demo_fleet(params)
+    loop = FleetLoop(tenants, cluster, evaluator())
+    for i in range(BRIDGE_FLEET_STEPS):
+        loop.step(loads_at(traces, i))
+    diff = first_difference(fctl.events, loop.events)
+    if diff:
+        raise AssertionError(f"FleetElasticController against FleetLoop: {diff}")
+    if [p is not None for p in plans] != [e.replanned for e in fctl.events] or \
+            replans != [e for e in fctl.events if e.replanned]:
+        raise AssertionError("FleetElasticController returned plans off its replans")
+    log(f"  FleetElasticController, the demo's trio, {BRIDGE_FLEET_STEPS} steps in {wall:.3f} s: "
+        f"{len(replans)} reschedules ({', '.join(e.cause for e in replans)}), moves "
+        f"{[e.moves for e in fctl.events]}; events equal a FleetLoop's driven directly")
+    fig["fleet"] = dict(steps=BRIDGE_FLEET_STEPS, reschedules=len(replans), wall_s=wall)
+    return fig
 
 
 def build_all(libraries) -> float:
@@ -2958,13 +3159,20 @@ def main() -> int:
     prompt_lengths = sorted({int(n) for n in serve_rng.integers(32, 193, size=8)})
     t0 = time.perf_counter()
     log("phase 4: rmsnorm, add_rmsnorm and flash_attention kernels vs plain at llama3-8b's "
-        "and jamba's shapes")
+        "and jamba's shapes, and flash at seamless's and internvl2's")
     d = LLAMA["d"]
     norm_shapes = ([(1, S, d) for S in prompt_lengths] + [(4, 1, d), (300, d)]
                    + [(1, max(prompt_lengths), 2 * d), (4, 1, 2 * d)])
     rms_err = check_rmsnorm(device, norm_shapes)
     add_err = check_add_rmsnorm(device, norm_shapes)
     H, KV, hd = LLAMA["H"], LLAMA["KV"], LLAMA["hd"]
+    # beside llama3-8b's and jamba's: seamless-m4t-large-v2's encoder over
+    # its 512 frames, its decoder's causal prefill and its cross-attention
+    # over the frames (keys of their own length), and internvl2-26b's
+    # causal prefill behind its 256 frontend tokens
+    seam, intern = get_config("seamless-m4t-large-v2"), get_config("internvl2-26b")
+    sH, sKV, shd, sT = seam.n_heads, seam.n_kv_heads, seam.head_dim, seam.frontend_tokens
+    iH, iKV, ihd, iT = intern.n_heads, intern.n_kv_heads, intern.head_dim, intern.frontend_tokens
     flash_err = check_flash(
         device,
         [(S, H, KV, hd, True, None) for S in (1, 7, 128, 130, 192)]
@@ -2973,7 +3181,11 @@ def main() -> int:
         + [(130, H, KV, hd, True, 32),
            (130, H, KV, hd, False, None),
            (7, H, KV, hd, False, None),
-           (130, 32, 8, 120, True, None)],
+           (130, 32, 8, 120, True, None)]
+        + [(sT, sH, sKV, shd, False, None)]
+        + [(S, sH, sKV, shd, True, None) for S in prompt_lengths]
+        + [(S, sH, sKV, shd, False, None, sT) for S in [1, 7] + prompt_lengths]
+        + [(iT + S, iH, iKV, ihd, True, None) for S in prompt_lengths],
     )
     timings["phase4"] = time.perf_counter() - t0
 
@@ -2986,8 +3198,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("phase 6: serve llama3-8b at full depth (BatchedServer, 4 slots, max_ctx 256)")
-    server, lm_launches, lengths = phase_serve(device, "llama3-8b", seed, n_requests=8, slots=4,
-                                               max_ctx=256, max_new=16)
+    server, lm_launches, lengths, lm_fig = phase_serve(device, "llama3-8b", seed, n_requests=8,
+                                                       slots=4, max_ctx=256, max_new=16)
     lm_ticks = server.decode_steps
     timings["phase6"] = time.perf_counter() - t0
     log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
@@ -3049,8 +3261,8 @@ def main() -> int:
         "(BatchedServer, 4 slots, max_ctx 256)")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    server, jamba_launches, _ = phase_serve(device, cut, seed, n_requests=8, slots=4,
-                                            max_ctx=256, max_new=16)
+    server, jamba_launches, _, jamba_fig = phase_serve(device, cut, seed, n_requests=8, slots=4,
+                                                       max_ctx=256, max_new=16)
     jamba_ticks = server.decode_steps
     timings["phase9"] = time.perf_counter() - t0
     log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
@@ -3066,6 +3278,99 @@ def main() -> int:
     t_scan = time_ssm_scan(device, 4, 1)
     timings["ssm_timing"] = time.perf_counter() - t0
     n_mamba, n_add9 = block_counts(cut)["mamba"], norms_per_forward(cut) - 1
+
+    t0 = time.perf_counter()
+    log("phase 10: card vs host, seamless-m4t-large-v2 at full width, 2 encoder and 2 decoder "
+        "layers, seeded non-zero frame embeddings")
+    seam_pair = dataclasses.replace(seam, n_layers=2, enc_layers=2,
+                                    name="seamless-m4t-large-v2/2+2-layers")
+    encdec_err = phase_card_vs_host(device, seam_pair, prompt_len=48, decode_steps=4, seed=seed)
+    torch.cuda.empty_cache()
+    timings["phase10"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 11: serve seamless-m4t-large-v2 at full width and depth (24 encoder and 24 "
+        "decoder layers; BatchedServer, 4 slots, max_ctx 256, zero frame embeddings)")
+    torch.cuda.reset_peak_memory_stats()
+    server, seam_launches, _, seam_fig = phase_serve(device, "seamless-m4t-large-v2", seed,
+                                                     n_requests=8, slots=4, max_ctx=256,
+                                                     max_new=16)
+    if server.model.n_params() != SEAMLESS_PARAMS:
+        raise AssertionError(f"seamless has {server.model.n_params():,} parameters")
+    seam_ticks = server.decode_steps
+    timings["phase11"] = time.perf_counter() - t0
+    log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
+    profile_serving(server, serve_rng, n_requests=4, prompt_len=128, max_new=16)
+    del server
+    torch.cuda.empty_cache()
+
+    # 8 of internvl2-26b's 48 layers at full width: all 48 (79.6 GB in
+    # fp32) do not fit beside the caches on one card
+    intern_cut = dataclasses.replace(intern, n_layers=INTERNVL_LAYERS,
+                                     name=f"internvl2-26b/{INTERNVL_LAYERS}-of-48-layers")
+    t0 = time.perf_counter()
+    log(f"phase 12: serve {INTERNVL_LAYERS} of internvl2-26b's 48 layers at full width behind "
+        f"its {iT} frontend tokens (BatchedServer, 4 slots, max_ctx 512, zero patch embeddings)")
+    torch.cuda.reset_peak_memory_stats()
+    server, intern_launches, _, intern_fig = phase_serve(device, intern_cut, seed, n_requests=8,
+                                                         slots=4, max_ctx=512, max_new=16)
+    intern_ticks = server.decode_steps
+    timings["phase12"] = time.perf_counter() - t0
+    log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
+    profile_serving(server, serve_rng, n_requests=4, prompt_len=128, max_new=16)
+    del server
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("phase 13: the LM bridge on the card's own numbers, then allocate_chips, "
+        "ElasticController over the spike day and FleetElasticController over the fleet demo")
+    bridge_fig = phase_lm_bridge(device, params, [lm_fig, jamba_fig, seam_fig, intern_fig])
+    timings["phase13"] = time.perf_counter() - t0
+    clear_resident_cache()
+    clear_structure_cache()
+    clear_result_caches()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log("timing flash_attention, rmsnorm and add_rmsnorm at phases 11 and 12's shapes "
+        "(device time from CUDA-graph replay; eager time from CUDA events)")
+    t_enc = time_flash(device, sT, H=sH, KV=sKV, hd=shd, causal=False)
+    seam_causal_at = {S: time_flash(device, S, H=sH, KV=sKV, hd=shd)
+                      for S in sorted(set(lengths))}
+    seam_cross_at = {S: time_flash(device, S, H=sH, KV=sKV, hd=shd, Sk=sT, causal=False)
+                     for S in sorted(set(lengths))}
+    intern_at = {S: time_flash(device, iT + S, H=iH, KV=iKV, hd=ihd)
+                 for S in sorted(set(lengths))}
+    norm_at = {}
+    for label, w, prefill_rows in (("seamless", seam.d_model, sT),
+                                   ("internvl2", intern.d_model, iT + max(lengths))):
+        norm_at[label] = dict(
+            rms=time_rmsnorm(device, (4, 1, w)), add=time_add_rmsnorm(device, (4, 1, w)),
+            rms_prefill=time_rmsnorm(device, (1, prefill_rows, w)),
+            add_prefill=time_add_rmsnorm(device, (1, prefill_rows, w)))
+    timings["lm_timing_11_12"] = time.perf_counter() - t0
+    L11, E11 = seam.n_layers, seam.enc_layers
+    excess["flash_attention, phase 11"] = excess_ms(
+        [(E11 * len(lengths), t_enc)] + [(L11, seam_causal_at[S]) for S in lengths]
+        + [(L11, seam_cross_at[S]) for S in lengths])
+    excess["flash_attention, phase 12"] = excess_ms(
+        [(INTERNVL_LAYERS, intern_at[S]) for S in lengths])
+    # norms: every prefill's timed at the longest prefill's rows (an upper
+    # estimate), every decode forward's at (4, 1, d)
+    n = len(lengths)
+    for phase, ticks, cfg_, t in (("phase 11", seam_ticks, seam, norm_at["seamless"]),
+                                  ("phase 12", intern_ticks, intern_cut, norm_at["internvl2"])):
+        pre = expected_launches(cfg_, forwards=n, prefills=n)
+        dec = expected_launches(cfg_, forwards=ticks, prefills=0)
+        excess[f"rmsnorm, {phase}"] = excess_ms(
+            [(pre["rmsnorm"], t["rms_prefill"]), (dec["rmsnorm"], t["rms"])])
+        excess[f"add_rmsnorm, {phase}"] = excess_ms(
+            [(pre["add_rmsnorm"], t["add_prefill"]), (dec["add_rmsnorm"], t["add"])])
+    log(f"flash at the seamless encoder (1, {sT}, {sH}, {shd}) non-causal: {json.dumps(t_enc)}")
+    log(f"flash at seamless cross-attention prefill S={max(lengths)}, Sk={sT}: "
+        f"{json.dumps(seam_cross_at[max(lengths)])}")
+    log(f"flash at internvl2's longest prefill S={iT + max(lengths)}: "
+        f"{json.dumps(intern_at[max(lengths)])}")
     excess["ssm_scan, phase 9 prefills"] = excess_ms([(n_mamba, scan_at[S]) for S in lengths])
     excess["ssm_scan, phase 9 decode"] = excess_ms([(n_mamba * jamba_ticks, t_scan)])
     excess["flash_attention, phase 9"] = excess_ms(
@@ -3081,9 +3386,16 @@ def main() -> int:
         log(f"  {ms:10.3f} ms  {label}")
     log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
     log(f"card vs host: max|logit difference| llama3-8b {logit_err:.3e}, "
-        f"jamba mamba+attn {hybrid_err:.3e}; bucket phase max|diff| "
+        f"jamba mamba+attn {hybrid_err:.3e}, seamless 2+2 layers {encdec_err:.3e}; "
+        f"bucket phase max|diff| "
         + ", ".join(f"{k} {m} {v:.3e}" for (k, m), v in bucket_diff.items()))
 
+    # the serving paths each kernel runs on: phases 6, 9, 11 and 12
+    serving = (lm_launches, jamba_launches, seam_launches, intern_launches)
+    serve_total = {k: sum(s[k] for s in serving) for k in lm_launches}
+    log("serving launches, phases 6 / 9 / 11 / 12: " + "; ".join(
+        f"{k} {' / '.join(str(s[k]) for s in serving)} = {serve_total[k]}" for k in serve_total))
+    log(f"lm bridge: {json.dumps(bridge_fig)}")
     kernels = [
         dict(name="stream_flow_ell", route="cuda",
              source="src/repro_torch/kernels/stream_flow/csrc/stream_flow.cu",
@@ -3101,17 +3413,17 @@ def main() -> int:
         dict(name="rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23",
-             launches=lm_launches["rmsnorm"], max_abs_err=rms_err, **t_rms),
+             launches=serve_total["rmsnorm"], max_abs_err=rms_err, **t_rms),
         dict(name="add_rmsnorm", route="cuda",
              source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
              replaces="src/repro/kernels/rmsnorm/rmsnorm.py:23 with the residual adds at "
                       "src/repro/models/transformer.py:122, :173",
-             launches=lm_launches["add_rmsnorm"], max_abs_err=add_err,
+             launches=serve_total["add_rmsnorm"], max_abs_err=add_err,
              **{k: t_add[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}),
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention/flash_attention.py:89",
-             launches=lm_launches["flash_attention"], max_abs_err=flash_err, **t_flash),
+             launches=serve_total["flash_attention"], max_abs_err=flash_err, **t_flash),
         dict(name="ssm_scan", route="cuda",
              source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan/ssm_scan.py:63",

@@ -16,7 +16,9 @@ live in :class:`~repro_torch.control.loop.ControlLoop`.
 * :class:`PredictivePolicy` — horizon planning: consume the loop's
   forecast window and deploy the cheapest configuration empirically
   feasible for the *whole* window, scored as one batched
-  candidates × horizon-rates sweep.
+  candidates × horizon-rates sweep;
+* :class:`ElasticLMPolicy` — the ``lm_bridge`` card planner: loads are
+  tokens/s, the provisioned capacity is cards.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 
 from ..core.allocator import allocate
 from ..core.dag import Configuration, ContainerDim, DagSpec
+from ..core.lm_bridge import LMAllocation, LMWorkloadModel, allocate_chips
 from ..core.node_model import NodeModel
 from ..core.reactive import _pack, speculative_step
 from .learning import ModelStore
@@ -355,4 +358,56 @@ class PredictivePolicy:
             },
             reason="horizon" if len(window_loads) > 1 else "allocate",
             measurement=row[0],        # scored at the current load
+        )
+
+
+class ElasticLMPolicy:
+    """The LM card planner as a policy: loads are tokens/s, provisioned
+    capacity is cards (the reference's TPU chips), and the closed-form
+    ``allocate_chips`` plays the allocator.  No evaluator: the learned
+    roofline model is the sensor."""
+
+    name = "elastic-lm"
+
+    def __init__(
+        self,
+        model: LMWorkloadModel,
+        tokens_per_step: int,
+        min_chips: int = 8,
+        max_chips: int = 4096,
+        overlap: float = 0.0,
+    ) -> None:
+        self.model = model
+        self.tokens_per_step = tokens_per_step
+        self.min_chips = min_chips
+        self.max_chips = max_chips
+        self.overlap = overlap
+
+    def plan(self, target: float, ctx: ControlContext) -> Action:
+        alloc = allocate_chips(
+            self.model,
+            target,
+            self.tokens_per_step,
+            overlap=self.overlap,
+            max_chips=self.max_chips,
+        )
+        chips = max(self.min_chips, min(alloc.chips, self.max_chips))
+        if chips != alloc.chips:
+            alloc = LMAllocation(
+                chips=chips,
+                predicted_tokens_per_s=self.model.tokens_per_second(
+                    self.tokens_per_step, chips, self.overlap
+                ),
+                predicted_step_s=self.model.step_seconds(
+                    self.tokens_per_step, chips, self.overlap
+                ),
+                bottleneck=alloc.bottleneck,
+                target_tokens_per_s=alloc.target_tokens_per_s,
+            )
+        return Action(
+            provisioned=float(chips),
+            predicted_capacity=alloc.predicted_tokens_per_s,
+            config=None,
+            detail=alloc,
+            reason="remesh",
         )

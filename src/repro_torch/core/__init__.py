@@ -3,7 +3,8 @@ data-flow solver, the balanced-container allocator, predict-back
 calibration, the declarative autoscaler and the Dhalion-style reactive
 scaler.  A self-contained copy of the reference package's core, with its
 batch paths in PyTorch on the card (``node_model.fit_many_torch``,
-``lp.torch_linprog``), less the LM bridge."""
+``lp.torch_linprog``).  The LM bridge (``core.lm_bridge``) is imported
+from its module, as in the reference."""
 
 from .dag import (
     Configuration,

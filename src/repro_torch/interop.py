@@ -72,8 +72,12 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.
     result unstacks them into per-period names, as
     :class:`repro_torch.models.Model` names its parameters:
     ``blocks.<i>.attn.wq`` for the ``("attn",)`` pattern, and with the block
-    key for longer ones (``blocks.<i>.b0_mamba.mamba.in_proj``).  Load it
-    with ``model.load_state_dict``.  mLSTM/sLSTM blocks are not ported and
+    key for longer ones (``blocks.<i>.b0_mamba.mamba.in_proj``).  An
+    encoder-decoder tree's encoder layers and per-period cross-attention
+    unstack the same way (``encoder.blocks.<i>.attn.wq``,
+    ``encoder.final_norm``, ``cross.<i>.norm``, ``cross.<i>.attn.wq``);
+    ``frontend_proj`` is carried as it is.  Load it with
+    ``model.load_state_dict``.  mLSTM/sLSTM blocks are not ported and
     raise.
     """
     kinds = {key.split("_", 1)[1] for key in tree["blocks"]}
@@ -83,20 +87,27 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.
     n_periods = cfg.n_periods()
     out: dict[str, torch.Tensor] = {}
 
-    def walk(node: Mapping, prefix: str, period: int | None) -> None:
+    def walk(node: Mapping, prefix: str, layer: int | None, n_layers: int = n_periods) -> None:
         for key, value in node.items():
             if isinstance(value, Mapping):
-                walk(value, f"{prefix}{key}.", period)
+                walk(value, f"{prefix}{key}.", layer, n_layers)
                 continue
             arr = np.asarray(value)
-            if period is not None:
-                if arr.shape[0] != n_periods:
-                    raise ValueError(f"{prefix}{key}: {arr.shape[0]} periods, config has {n_periods}")
-                arr = arr[period]
+            if layer is not None:
+                if arr.shape[0] != n_layers:
+                    raise ValueError(f"{prefix}{key}: {arr.shape[0]} layers, config has {n_layers}")
+                arr = arr[layer]
             out[f"{prefix}{key}"] = torch.from_numpy(np.array(arr, copy=True))
 
     for key, value in tree.items():
-        if key != "blocks":
+        if key == "encoder":
+            walk({"final_norm": value["final_norm"]}, "encoder.", None)
+            for i in range(cfg.enc_layers):
+                walk(value["blocks"]["b0_attn"], f"encoder.blocks.{i}.", i, cfg.enc_layers)
+        elif key == "cross":
+            for i in range(n_periods):
+                walk(value, f"cross.{i}.", i)
+        elif key != "blocks":
             walk({key: value}, "", None)
     blocks = period_tree(cfg, tree["blocks"])
     for i in range(n_periods):

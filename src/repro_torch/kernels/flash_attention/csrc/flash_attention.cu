@@ -13,9 +13,12 @@
 // causal and/or sliding-window masking (key t is seen by query s when
 // t <= s if causal, and t > s - window if a window is given), GQA with
 // kv head = h / (H / KV), softmax(scale * q.k) v in fp32, output in q's dtype.
-// Keys at index >= S are always masked: S is the real sequence length, never
+// Keys at index >= S_k are always masked: S_k is the real key length, never
 // a padded one (the reference wrapper passes the padded length, which lets
-// padded keys into non-causal rows).
+// padded keys into non-causal rows).  k and v may hold S_k != S keys in a
+// non-causal call without a window (the decoder's cross-attention over the
+// encoder's frames); causal and windowed calls take S_k = S, and the entry
+// point refuses anything else.
 //
 // What bounds it: at prefill lengths of a few hundred tokens the matrix
 // products, 2 hd flops per scored pair for q.k and 2 hd for p.v; on fp32
@@ -168,10 +171,10 @@ __device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cas
 template <typename T, bool kAsync, int kHeads>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q,   // (B, S, H, hd)
-    const T* __restrict__ k,   // (B, S, KV, hd)
-    const T* __restrict__ v,   // (B, S, KV, hd)
+    const T* __restrict__ k,   // (B, Sk, KV, hd)
+    const T* __restrict__ v,   // (B, Sk, KV, hd)
     T* __restrict__ out,       // (B, S, H, hd)
-    int S, int H, int KV, int hd, float scale, int causal, int window) {
+    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window) {
   extern __shared__ __align__(16) float smem[];
   constexpr int QP = kQKPitch, VP = kVPitch, OP = kPartPitch;
   constexpr int kSplits = kWarps / kHeads;   // warps per head, each 8 keys of every tile
@@ -199,8 +202,8 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   const int64_t q_step = static_cast<int64_t>(H) * hd;    // between positions
   const int64_t kv_step = static_cast<int64_t>(KV) * hd;
   const T* qb = q + (static_cast<int64_t>(b) * S * H + h) * hd;
-  const T* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * hd;
-  const T* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * hd;
+  const T* kb = k + (static_cast<int64_t>(b) * Sk * KV + kvh) * hd;
+  const T* vb = v + (static_cast<int64_t>(b) * Sk * KV + kvh) * hd;
   T* ob = out + (static_cast<int64_t>(b) * S * H + h) * hd;
 
   // Columns [hd, pitch) of every q, k and v row stay zero: no load writes
@@ -214,16 +217,16 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
   }
 
   // Keys this block's queries can see: from the window's lower edge (whole
-  // tiles) up to the last query when causal, else to the end.
+  // tiles) up to the last query when causal, else to the last key.
   const int q_last = min(q0 + kBQ, S) - 1;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin = k_begin / kBK * kBK;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? q_last + 1 : Sk;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
   auto load_kv = [&](int stage, int k0) {
-    load_rows<T, kAsync>(ks + stage * kBK * QP, QP, kb, kv_step, k0, kBK, S, hd, tid, kThreads);
-    load_rows<T, kAsync>(vs + stage * kBK * VP, VP, vb, kv_step, k0, kBK, S, hd, tid, kThreads);
+    load_rows<T, kAsync>(ks + stage * kBK * QP, QP, kb, kv_step, k0, kBK, Sk, hd, tid, kThreads);
+    load_rows<T, kAsync>(vs + stage * kBK * VP, VP, vb, kv_step, k0, kBK, Sk, hd, tid, kThreads);
   };
   // each head's four warps load its q rows
   load_rows<T, kAsync>(q_big + hs * kBQ * QP, QP, qb, q_step, q0, kBQ, S, hd,
@@ -313,7 +316,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
       for (int i = 0; i < 4; ++i) {
         const int qp = q0 + g + 8 * (i >> 1);
         const int key = k0 + split * 8 + 2 * t + (i & 1);
-        ok[i] = key < S && (!causal || key <= qp) && (window <= 0 || key > qp - window);
+        ok[i] = key < Sk && (!causal || key <= qp) && (window <= 0 || key > qp - window);
         p[i] = ok[i] ? (s_bb[i] + (s_sb[i] + s_bs[i])) * scale : kNegInf;
         row_max[i >> 1] = fmaxf(row_max[i >> 1], p[i]);
       }
@@ -447,7 +450,7 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 
 template <typename T, bool kAsync, int kHeads>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, int B, int S,
-                      int H, int KV, int hd, float scale, int causal, int window,
+                      int Sk, int H, int KV, int hd, float scale, int causal, int window,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(kHeads, kWarps / kHeads);
   if (smem > 48 * 1024) {
@@ -460,34 +463,36 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, in
   const dim3 grid((S + kBQ - 1) / kBQ, KV * pairs, B);
   flash_attention_kernel<T, kAsync, kHeads><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, H, KV, hd, scale, causal, window);
+      static_cast<T*>(out), S, Sk, H, KV, hd, scale, causal, window);
   return cudaGetLastError();
 }
 
 template <typename T, bool kAsync>
 cudaError_t launch_heads(const void* q, const void* k, const void* v, void* out, int B, int S,
-                         int H, int KV, int hd, float scale, int causal, int window,
+                         int Sk, int H, int KV, int hd, float scale, int causal, int window,
                          int heads, cudaStream_t stream) {
   if (heads == 1) {
-    return launch_as<T, kAsync, 1>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, stream);
+    return launch_as<T, kAsync, 1>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window,
+                                   stream);
   }
-  return launch_as<T, kAsync, 2>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, stream);
+  return launch_as<T, kAsync, 2>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window,
+                                 stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-                   int H, int KV, int hd, float scale, int causal, int window, int heads,
+                   int Sk, int H, int KV, int hd, float scale, int causal, int window, int heads,
                    cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     const bool async = hd % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0
         && reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
     if (async) {
-      return launch_heads<float, true>(q, k, v, out, B, S, H, KV, hd, scale, causal, window,
-                                       heads, stream);
+      return launch_heads<float, true>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal,
+                                       window, heads, stream);
     }
   }
-  return launch_heads<T, false>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, heads,
-                                stream);
+  return launch_heads<T, false>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window,
+                                heads, stream);
 }
 
 }  // namespace
@@ -510,28 +515,30 @@ extern "C" size_t flash_attention_smem_bytes(int hd) {
   return sizeof(float) * static_cast<size_t>(most);
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  window <= 0 means
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  Sk: keys in k and v,
+// S unless the call is non-causal without a window.  window <= 0 means
 // no window.  heads: query heads per block, 1 or 2
 // (flash_attention_heads_per_block picks it; the results are the same up
 // to the order of the key splits' merge).  Returns the CUDA error of the
 // launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
-                                      int B, int S, int H, int KV, int hd, float scale,
-                                      int causal, int window, int dtype, int heads,
-                                      void* stream) {
+                                      int B, int S, int Sk, int H, int KV, int hd,
+                                      float scale, int causal, int window, int dtype,
+                                      int heads, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (hd <= 0 || hd > kMaxHd || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535
-      || (heads != 1 && heads != 2)) {
+      || (heads != 1 && heads != 2) || Sk <= 0 || (Sk != S && (causal || window > 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return static_cast<int>(
-        launch<float>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, heads, s));
+        launch<float>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window, heads, s));
   }
   if (dtype == 1) {
     return static_cast<int>(
-        launch<__nv_bfloat16>(q, k, v, out, B, S, H, KV, hd, scale, causal, window, heads, s));
+        launch<__nv_bfloat16>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window, heads,
+                              s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

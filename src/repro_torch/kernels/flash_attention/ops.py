@@ -20,7 +20,7 @@ from pathlib import Path
 import torch
 
 from .._build import KernelLibrary
-from .ref import flash_attention_reference
+from .ref import check_key_length, flash_attention_reference
 
 #: Largest head_dim the kernel takes (a warp's accumulator is 16 x 128).
 MAX_HEAD_DIM = 128
@@ -33,7 +33,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 5 + [ctypes.c_float] + [i32] * 4 + [ptr]
+        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [ptr]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [i32]
@@ -49,14 +49,17 @@ LIBRARY = KernelLibrary(
 )
 
 
-def _check(q, k, v, window) -> None:
+def _check(q, k, v, causal, window) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, S, heads, head_dim)")
     B, S, H, hd = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     if KV == 0 or H % KV:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
-    for name, t, shape in (("k", k, (B, S, KV, hd)), ("v", v, (B, S, KV, hd))):
+    if Sk == 0:
+        raise ValueError("k and v hold no keys")
+    check_key_length(S, Sk, causal, window)
+    for name, t, shape in (("k", k, (B, Sk, KV, hd)), ("v", v, (B, Sk, KV, hd))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -84,9 +87,11 @@ def _sm_count(index: int) -> int:
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
                     scale: float | None = None,
                     heads_per_block: int | None = None) -> torch.Tensor:
-    """Attention in the model layout: q (B, S, H, hd), k and v (B, S, KV, hd)
-    with H a multiple of KV; returns (B, S, H, hd) in q's dtype.  ``scale``
-    defaults to ``hd ** -0.5``; the model passes ``1 / hd ** 0.5``.
+    """Attention in the model layout: q (B, S, H, hd), k and v (B, Sk, KV,
+    hd) with H a multiple of KV; returns (B, S, H, hd) in q's dtype.  Sk is
+    S in a causal or windowed call and may differ in a non-causal one (else
+    ``ValueError``).  ``scale`` defaults to ``hd ** -0.5``; the model passes
+    ``1 / hd ** 0.5``.
 
     The kernel takes one query head per block when that grid fits in one
     wave of one block per SM, else two (``flash_attention_heads_per_block``
@@ -99,9 +104,9 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         return flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    _check(q, k, v, window)
+    _check(q, k, v, causal, window)
     B, S, H, _ = q.shape
-    KV = k.shape[2]
+    Sk, KV = k.shape[1], k.shape[2]
     lib = LIBRARY.load()
     smem = lib.flash_attention_smem_bytes(hd)
     if smem > SMEM_LIMIT_BYTES:
@@ -120,7 +125,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, H, KV, hd, float(scale), int(causal),
+            B, S, Sk, H, KV, hd, float(scale), int(causal),
             0 if window is None else int(window), DTYPES[q.dtype], heads_per_block,
             torch.cuda.current_stream().cuda_stream,
         )

@@ -1,6 +1,9 @@
 """Plain PyTorch version of the flash-attention kernel: the contract of the
 reference package's ``kernels/flash_attention/ref.py::attention_reference``
-and ``ops.py::flash_attention_reference``."""
+and ``ops.py::flash_attention_reference``, with keys of a length of their
+own in non-causal calls (the decoder's cross-attention over the encoder's
+frames, which the reference computes with its plain ``_gqa_core`` and an
+all-ones mask)."""
 from __future__ import annotations
 
 import torch
@@ -8,27 +11,39 @@ import torch
 NEG_INF = -1e30
 
 
+def check_key_length(S: int, Sk: int, causal: bool, window: int | None) -> None:
+    """Keys of their own length (``Sk != S``) only in a non-causal call
+    without a window: the causal and window masks place query ``s`` at key
+    ``s``."""
+    if Sk != S and (causal or window is not None):
+        raise ValueError(
+            f"{Sk} keys for {S} queries: a causal or windowed call takes as many keys as queries")
+
+
 def attention_reference(
     q: torch.Tensor,                 # (B, H, S, hd)
-    k: torch.Tensor,                 # (B, KV, S, hd)
-    v: torch.Tensor,                 # (B, KV, S, hd)
+    k: torch.Tensor,                 # (B, KV, Sk, hd)
+    v: torch.Tensor,                 # (B, KV, Sk, hd)
     *,
     causal: bool = True,
     window: int | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Softmax attention over the whole sequence in fp32; query head ``h``
-    reads kv head ``h // (H // KV)``.  Output in ``q``'s dtype."""
+    """Softmax attention over all ``Sk`` keys in fp32; query head ``h``
+    reads kv head ``h // (H // KV)``.  ``Sk`` may differ from ``S`` only
+    when the call is non-causal without a window (else ``ValueError``).
+    Output in ``q``'s dtype."""
     B, H, S, hd = q.shape
-    KV = k.shape[1]
+    KV, Sk = k.shape[1], k.shape[2]
+    check_key_length(S, Sk, causal, window)
     G = H // KV
     if scale is None:
         scale = hd ** -0.5
     qg = q.reshape(B, KV, G, S, hd).float()
     s = torch.einsum("bkgqh,bkth->bkgqt", qg, k.float()) * scale
     qi = torch.arange(S, device=q.device)[:, None]
-    kj = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    kj = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kj <= qi
     if window is not None:
@@ -40,7 +55,8 @@ def attention_reference(
 
 
 def flash_attention_reference(q, k, v, causal=True, window=None, scale=None):
-    """:func:`attention_reference` in the model layout (B, S, H, hd)."""
+    """:func:`attention_reference` in the model layout: q (B, S, H, hd), k
+    and v (B, Sk, KV, hd)."""
     out = attention_reference(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window, scale=scale,

@@ -13,6 +13,11 @@ from the same weights:
   active slots' positions (the "conservative" shared position);
 - a prefill's K/V cache is padded with zeros to the slot's full length,
   and a Mamba block's state (``h`` and ``conv``) is copied whole;
+- a model with a frontend prefills behind a batch of zero frontend
+  embeddings (requests carry no frontend): an encoder-decoder model's
+  encoder then sees zeros, and its ``cross_kv`` is inserted into the slot
+  as the K/V caches are; a decoder-only model's prompt sits behind the
+  ``frontend_tokens`` positions, which its position counts;
 - every slot decodes on every tick, active or not, so an idle slot's Mamba
   state drifts until the next prefill into it overwrites it;
 - greedy decoding takes the first maximum;
@@ -33,6 +38,7 @@ from ..configs import get_config
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import build_model
+from ..models.frontends import frontend_embed_shape
 
 
 @dataclasses.dataclass
@@ -85,9 +91,18 @@ class BatchedServer:
     def _prefill_into_slot(self, slot: int, req: Request) -> None:
         S = len(req.prompt)
         tokens = torch.as_tensor(req.prompt[None, :].astype(np.int64), device=self.device)
-        logits, caches1 = self.model.forward_prefill(tokens)
+        if self.cfg.frontend is None:
+            logits, caches1 = self.model.forward_prefill(tokens)
+        else:
+            # the reference server's stand-in frontend: zero embeddings
+            frontend = torch.zeros(frontend_embed_shape(self.cfg, 1), dtype=torch.float32,
+                                   device=self.device)
+            logits, caches1 = self.model.forward_prefill(tokens, frontend)
+        offset = self.cfg.frontend_tokens if (
+            self.cfg.frontend is not None and not self.cfg.is_encdec) else 0
         # copy the single-row caches into this slot of the batched caches:
-        # K/V zero-padded to the slot's length, Mamba states whole
+        # K/V (and cross_kv) zero-padded to the slot's length, Mamba states
+        # whole
         for key, layer in caches1.items():
             for name, small in layer.items():
                 big = self.caches[key][name]              # (P, B, T, KV, hd) for K/V
@@ -96,14 +111,15 @@ class BatchedServer:
                     continue
                 T = small.shape[2]
                 if T > big.shape[2]:
-                    raise ValueError(f"a {S}-token prompt does not fit max_ctx {self.max_ctx}")
+                    raise ValueError(f"a {S}-token prompt behind {offset} frontend tokens "
+                                     f"does not fit max_ctx {self.max_ctx}")
                 big[:, slot].zero_()
                 big[:, slot, :T] = small[:, 0]
         next_tok = int(torch.argmax(logits[0, -1]))
         req.tokens_out.append(next_tok)
         req.first_token_s = time.perf_counter() - req.arrived
         self.slots[slot] = req
-        self.positions[slot] = S
+        self.positions[slot] = S + offset
         self.tokens[slot, 0] = next_tok
 
     # -- decode tick -----------------------------------------------------------

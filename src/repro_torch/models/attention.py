@@ -10,8 +10,14 @@ computes the same function as the reference's ``causal_mask`` +
 ``_gqa_core`` and its q-chunked variant.  Decode attention stays plain
 torch (:func:`_gqa_core`), as in the reference.
 
-MLA, cross-attention and sequence-sharded decode are later slices
-(ROADMAP queue 1, item 11).
+An encoder-decoder's cross-attention reads the encoder's K/V
+(:func:`encoder_kv`), which the reference computes with ``_gqa_core`` and
+an all-ones mask: at prefill the port runs the flash kernel non-causal with
+keys of their own length, at decode the same plain single-token core as
+:func:`gqa_decode`.
+
+MLA and sequence-sharded decode are later slices (ROADMAP queue 1, items
+3b and 3e).
 """
 from __future__ import annotations
 
@@ -26,7 +32,9 @@ from .common import ParamDef, apply_rope, softmax_fp32
 # ---------------------------------------------------------------------------
 
 
-def gqa_defs(cfg: ModelConfig, stack: int) -> dict:
+def gqa_defs(cfg: ModelConfig, stack: int, cross: bool = False) -> dict:
+    """Q/K/V/O projections of ``stack`` layers; a cross-attention layer
+    (``cross=True``) has the same shapes, as in the reference."""
     d, hd = cfg.d_model, cfg.head_dim
     H, KV = cfg.n_heads, cfg.n_kv_heads
     L = (stack,)
@@ -120,6 +128,38 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
     out = _gqa_core(q, cache["k"], cache["v"], mask, 1.0 / hd ** 0.5)
     out = out.reshape(B, 1, H * hd) @ p.wo
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention(p, x: torch.Tensor, enc_kv: dict, cfg: ModelConfig, *,
+                    decode: bool = False) -> torch.Tensor:
+    """Decoder cross-attention over precomputed encoder K/V: ``x`` (B, S, d)
+    attends to all T encoder frames of ``enc_kv["k"]``/``["v"]`` (B, T, KV,
+    hd), without RoPE.  A prefill runs the flash kernel non-causal with T
+    keys; a decode step (``decode=True``, S = 1) the plain core."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.head_dim
+    q = (x @ p.wq).reshape(B, S, H, hd)
+    k, v = enc_kv["k"], enc_kv["v"]
+    if decode:
+        mask = torch.ones((1, k.shape[1]), dtype=torch.bool, device=x.device)
+        out = _gqa_core(q, k, v, mask, 1.0 / hd ** 0.5)
+    else:
+        out = flash_attention(q, k, v, causal=False, scale=1.0 / hd ** 0.5)
+    return out.reshape(B, S, H * hd) @ p.wo
+
+
+def encoder_kv(p, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
+    """The cross-attention K/V of one decoder layer from the encoder's
+    output (B, T, d): ``{"k": (B, T, KV, hd), "v": ...}``."""
+    B, T, _ = enc_out.shape
+    KV, hd = cfg.n_kv_heads, cfg.head_dim
+    return {"k": (enc_out @ p.wk).reshape(B, T, KV, hd),
+            "v": (enc_out @ p.wv).reshape(B, T, KV, hd)}
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Decoder stack of attention and Mamba blocks, each with a dense SwiGLU
-MLP.
+MLP, and the bidirectional encoder stack of encoder-decoder models.
 
 Parameters are declared stacked along a leading period axis, as in the
 reference: a period is one repetition of ``cfg.pattern()`` (one layer for
@@ -7,8 +7,10 @@ reference: a period is one repetition of ``cfg.pattern()`` (one layer for
 packages count and initialise the same tree.  The port holds one
 :class:`ParamModule` per period in an ``nn.ModuleList`` and runs the periods
 and the blocks within each in Python loops where the reference scans;
-inference needs no remat.  mLSTM/sLSTM, MoE and encoder-decoder blocks are
-later slices (ROADMAP queue 1, item 11).
+inference needs no remat.  An encoder-decoder model adds the encoder (one
+module per layer) and, per decoder period, a cross-attention sub-block
+after the mixer, with its own norm.  mLSTM/sLSTM, MoE and MLA blocks are
+later slices (ROADMAP queue 1, items 3a, 3b and 3d).
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import ssm
-from .common import ParamDef, add_rms_norm, swiglu
+from ..kernels.flash_attention import flash_attention
+from .common import ParamDef, add_rms_norm, apply_rope, swiglu
 
 
 class ParamModule(nn.Module):
@@ -56,7 +59,7 @@ def _block_defs(cfg: ModelConfig, kind: str, stack: int) -> dict:
     if kind not in ("attn", "mamba") or cfg.attention != "gqa" or cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.name}: only GQA attention and Mamba blocks with a dense MLP "
-            "are ported (ROADMAP queue 1, item 11)"
+            "are ported (ROADMAP queue 1, items 3a, 3b and 3d)"
         )
     d = cfg.d_model
     norm = lambda: ParamDef((stack, d), ("layers", "embed_w"), init="ones")
@@ -81,6 +84,20 @@ def decoder_defs(cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.padded_vocab), ("embed_w", "vocab"))
     defs["blocks"] = {key: _block_defs(cfg, kind, stack) for key, kind in block_keys(cfg)}
+    if cfg.is_encdec:
+        E = cfg.enc_layers
+        enc_norm = lambda: ParamDef((E, d), ("layers", "embed_w"), init="ones")
+        defs["encoder"] = {
+            "blocks": {"b0_attn": {"norm1": enc_norm(), "attn": attn.gqa_defs(cfg, E),
+                                   "norm2": enc_norm(), "mlp": mlp_defs(cfg, E)}},
+            "final_norm": ParamDef((d,), ("embed_w",), init="ones"),
+        }
+        defs["cross"] = {
+            "norm": ParamDef((stack, d), ("layers", "embed_w"), init="ones"),
+            "attn": attn.gqa_defs(cfg, stack, cross=True),
+        }
+    if cfg.frontend is not None:
+        defs["frontend_proj"] = ParamDef((d, d), ("embed_w", None))
     return defs
 
 
@@ -101,13 +118,19 @@ def _ffn_half(bp: nn.Module, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig)
 
 
 def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor | None,
-                cfg: ModelConfig, mode: str, state: dict | None, positions):
+                cfg: ModelConfig, mode: str, state: dict | None, positions,
+                cross: tuple[nn.Module, dict] | None = None):
     """One block of ``kind`` ("attn" or "mamba") on the residual stream
     ``x + delta``: ``delta`` is the previous block's update, not yet added
     (None before the first block).  The add is fused into the block's first
     norm and the mixer's output into its second, so the block returns
     ``(x, delta, state)`` with its own update as the new ``delta``; the
     reference's stream after the block is ``x + delta``.
+
+    ``cross`` is an encoder-decoder period's cross-attention sub-block, its
+    parameters (``norm``, ``attn``) and the encoder's K/V: it runs after the
+    mixer, its norm taking the mixer's output as the residual add, and its
+    output goes on to the MLP's norm.
 
     ``mode`` is "prefill" (``positions`` (B, S); the returned state is the
     block's new cache or state, a Mamba block's from zero state as in the
@@ -129,6 +152,10 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
         y, new_state = ssm.mamba_block(bp.mamba, h, cfg)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
+    if cross is not None:
+        cp, kv = cross
+        x, hc = add_rms_norm(x, y, cp.norm, cfg.norm_eps)
+        y = attn.cross_attention(cp.attn, hc, kv, cfg, decode=mode == "decode")
     return (*_ffn_half(bp, x, y, cfg), new_state)
 
 
@@ -158,7 +185,9 @@ def period_block(period: nn.Module, cfg: ModelConfig, key: str) -> nn.Module:
 
 
 def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
-                      mode: str, caches: dict | None = None, positions=None):
+                      mode: str, caches: dict | None = None, positions=None,
+                      cross: nn.ModuleList | None = None,
+                      enc_out: torch.Tensor | None = None):
     """Returns (x, delta, caches): the residual stream after the stack is
     ``x + delta``, the last block's update left for the final norm to add.
     ``blocks`` holds one module per period.  Caches keep the reference's
@@ -166,17 +195,57 @@ def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     axis: ``{"b0_attn": {"k": (P, B, T, KV, hd), "v": ...}, "b1_mamba":
     {"h": (P, B, di, N), "conv": (P, B, d_conv-1, di)}}``.  Prefill stacks
     the periods' new caches; decode updates ``caches`` in place and returns
-    it."""
+    it.
+
+    An encoder-decoder model passes ``cross``, one cross-attention module
+    per period.  Its K/V per period, ``caches["cross_kv"]`` ``{"k": (P, B,
+    T, KV, hd), "v": ...}``, are built from the encoder's output
+    ``enc_out`` (B, T, d) at prefill and read from ``caches`` at decode."""
     keys = block_keys(cfg)
     new: dict[str, list[dict]] = {key: [] for key, _ in keys}
+    cross_kv = None
+    if cross is not None:
+        if enc_out is not None:
+            per = [attn.encoder_kv(c.attn, enc_out, cfg) for c in cross]
+            cross_kv = {n: torch.stack([kv[n] for kv in per]) for n in ("k", "v")}
+        elif caches is not None and "cross_kv" in caches:
+            cross_kv = caches["cross_kv"]
+        else:
+            raise ValueError("cross-attention needs the encoder's output or cached cross_kv")
     delta = None
     for i, period in enumerate(blocks):
+        cross_i = None if cross is None else (cross[i], {n: t[i] for n, t in cross_kv.items()})
         for key, kind in keys:
             state = None if caches is None else {n: c[i] for n, c in caches[key].items()}
             x, delta, ns = apply_block(period_block(period, cfg, key), kind, x, delta, cfg,
-                                       mode, state, positions)
+                                       mode, state, positions, cross_i)
             new[key].append(ns)
     if mode == "decode":
         return x, delta, caches
-    return x, delta, {key: {n: torch.stack([s[n] for s in per]) for n in per[0]}
-                      for key, per in new.items()}
+    out = {key: {n: torch.stack([s[n] for s in per]) for n in per[0]}
+           for key, per in new.items()}
+    if cross_kv is not None:
+        out["cross_kv"] = cross_kv
+    return x, delta, out
+
+
+def run_encoder_stack(encoder: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The bidirectional encoder of an encoder-decoder model over ``x`` (B,
+    T, d): per layer RoPE'd self-attention over all T frames (the flash
+    kernel, non-causal) and a SwiGLU MLP, each after its norm, then the
+    final norm.  ``encoder`` holds ``blocks`` (one module per layer:
+    ``norm1``, ``attn``, ``norm2``, ``mlp``) and ``final_norm``.  As in the
+    decoder stack, each residual add is fused into the norm after it."""
+    B, T, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    delta = None
+    for bp in encoder.blocks:
+        x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
+        q = apply_rope((h @ bp.attn.wq).reshape(B, T, H, hd), positions, cfg.rope_theta)
+        k = apply_rope((h @ bp.attn.wk).reshape(B, T, KV, hd), positions, cfg.rope_theta)
+        v = (h @ bp.attn.wv).reshape(B, T, KV, hd)
+        y = flash_attention(q, k, v, causal=False, scale=1.0 / hd ** 0.5)
+        x, h = add_rms_norm(x, y.reshape(B, T, H * hd) @ bp.attn.wo, bp.norm2, cfg.norm_eps)
+        delta = swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
+    return add_rms_norm(x, delta, encoder.final_norm, cfg.norm_eps)[1]

@@ -1,5 +1,7 @@
+from .elastic import ElasticController, ElasticEvent, FleetElasticController
 from .fault import FailurePlan, InjectedFailure, StragglerMonitor, run_with_restarts
 
 __all__ = [
-    "FailurePlan", "InjectedFailure", "StragglerMonitor", "run_with_restarts",
+    "ElasticController", "ElasticEvent", "FailurePlan", "FleetElasticController",
+    "InjectedFailure", "StragglerMonitor", "run_with_restarts",
 ]

@@ -630,6 +630,49 @@ def test_flash_kernel_at_one_and_two_heads_per_block(cuda, heads, S, H, KV, hd, 
     assert bool(((got.float() - want).abs() <= bound).all())
 
 
+@pytest.mark.parametrize("heads", [1, 2])
+@pytest.mark.parametrize("S,Sk,H,KV,hd", [
+    (1, 512, 16, 16, 64),       # seamless cross-attention, one query
+    (34, 512, 16, 16, 64),      # seamless cross-attention at a serving prompt
+    (168, 512, 16, 16, 64),
+    (130, 7, 6, 2, 64),         # fewer keys than queries, a ragged key tile
+    (45, 100, 3, 1, 120),       # odd group, head_dim 120
+])
+def test_flash_kernel_with_keys_of_their_own_length(cuda, heads, S, Sk, H, KV, hd):
+    """Non-causal calls whose k and v hold Sk != S keys (the decoder's
+    cross-attention over the encoder's frames) against the plain version,
+    fp32 and bf16 as the equal-length cases are held."""
+    g = torch.Generator(device=cuda).manual_seed(S * 7 + Sk)
+    q = torch.randn(2, S, H, hd, generator=g, device=cuda)
+    k = torch.randn(2, Sk, KV, hd, generator=g, device=cuda)
+    v = torch.randn(2, Sk, KV, hd, generator=g, device=cuda)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=False, heads_per_block=heads)
+    want = flash_attention_reference(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    bf = [t.to(torch.bfloat16) for t in (q, k, v)]
+    got = flash_attention(*bf, causal=False, heads_per_block=heads)
+    want = flash_attention_reference(*[t.float() for t in bf], causal=False)
+    torch.cuda.synchronize()
+    bound = 2e-5 + 2e-5 * want.abs() + _bf16_ulp(want)
+    assert bool(((got.float() - want).abs() <= bound).all())
+
+
+def test_flash_kernel_refuses_keys_of_their_own_length_when_causal_or_windowed(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(1, 16, 4, 16, generator=g, device=cuda)
+    k = torch.randn(1, 24, 2, 16, generator=g, device=cuda)
+    before = flash_attention.launches
+    for causal, window in ((True, None), (False, 8)):
+        with pytest.raises(ValueError, match="as many keys as queries"):
+            flash_attention(q, k, k, causal=causal, window=window)
+    with pytest.raises(ValueError, match="no keys"):
+        flash_attention(q, k[:, :0], k[:, :0], causal=False)
+    assert flash_attention.launches == before
+
+
 def test_flash_kernel_takes_unaligned_tensors(cuda):
     """A tensor that starts one element into its storage is contiguous but
     not 16-byte aligned: the kernel reads it element by element."""
@@ -826,3 +869,52 @@ def test_hybrid_model_on_card_runs_the_kernels_and_matches_the_host(cuda):
         w = caches["host"]["b0_mamba"][n]
         torch.testing.assert_close(caches["card"]["b0_mamba"][n].cpu(), w, rtol=1e-4,
                                    atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2@smoke", "internvl2-26b@smoke"])
+def test_frontend_models_on_card_run_the_kernels_and_match_the_host(cuda, arch):
+    """Seeded non-zero frames: per prefill, an encoder-decoder model runs
+    one flash launch per encoder layer (non-causal), per decoder layer
+    (causal) and per cross sub-block (non-causal, the frames as keys), and
+    its norms are 2 ``rmsnorm`` (encoder, decoder) and 2E + 3L
+    ``add_rmsnorm``; a decode step, 1 and 3L.  The decoder-only frontend
+    model runs L causal launches over frontend + prompt positions."""
+    cfg = get_config(arch)
+    host = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=cuda, seed=0)
+    card.load_state_dict(host.state_dict())
+    g = torch.Generator().manual_seed(3)
+    frames = torch.randn(1, cfg.frontend_tokens, cfg.d_model, generator=g)
+    tokens = torch.arange(4, 24).reshape(1, 20) % cfg.vocab
+    before = (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches)
+    got, gc = card.forward_prefill(tokens.to(cuda), frames.to(cuda))
+    want, hc = host.forward_prefill(tokens, frames)
+    torch.cuda.synchronize()
+    L, E = cfg.n_layers, cfg.enc_layers
+    if cfg.is_encdec:
+        expect = (2, 2 * E + 3 * L, E + 2 * L)
+    else:
+        expect = (1, 2 * L, L)
+    assert tuple(a - b for a, b in zip(
+        (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches), before)) == expect
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    for key in hc:
+        for n in ("k", "v"):
+            w = hc[key][n]
+            torch.testing.assert_close(gc[key][n].cpu(), w, rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()))
+    T = hc["b0_attn"]["k"].shape[2]
+    caches = {"card": card.cache_struct(1, T + 4), "host": host.cache_struct(1, T + 4)}
+    for name, c1 in (("card", gc), ("host", hc)):
+        for n in ("k", "v"):
+            caches[name]["b0_attn"][n][:, :, :T] = c1["b0_attn"][n]
+            if cfg.is_encdec:
+                caches[name]["cross_kv"][n].copy_(c1["cross_kv"][n])
+    before = (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches)
+    gd, _ = card.forward_decode(torch.tensor([[7]], device=cuda), caches["card"], T)
+    wd, _ = host.forward_decode(torch.tensor([[7]]), caches["host"], T)
+    torch.cuda.synchronize()
+    norms = 3 * L if cfg.is_encdec else 2 * L
+    assert (rmsnorm.launches - before[0], add_rmsnorm.launches - before[1],
+            flash_attention.launches - before[2]) == (1, norms, 0)
+    torch.testing.assert_close(gd.cpu(), wd, rtol=1e-4, atol=1e-4 * float(wd.abs().max()))

@@ -86,7 +86,10 @@ def test_port_sources_import_neither_jax_nor_reference():
             "checkpoint/checkpointer.py", "checkpoint/control_state.py",
             "runtime/fault.py", "streams/operators.py", "streams/executor.py",
             "streams/engine.py", "control/learning.py", "core/lp.py",
-            "core/node_model.py"} <= names
+            "core/node_model.py", "core/lm_bridge.py", "runtime/elastic.py",
+            "control/policies.py", "models/frontends.py", "models/attention.py",
+            "models/transformer.py", "models/model.py", "launch/serve.py",
+            "interop.py"} <= names
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -365,3 +368,40 @@ def test_port_executor_and_batched_lp_run_with_jax_and_reference_blocked():
     proc = _run_blocked(_BLOCKED_EXECUTOR)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "executed" in proc.stdout
+
+
+_BLOCKED_ENCDEC_AND_ELASTIC = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import repro_torch.core.lm_bridge
+import repro_torch.models.frontends
+import repro_torch.runtime.elastic
+from repro_torch.core.lm_bridge import LMWorkloadModel, StageCost
+from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.runtime import ElasticController
+server = BatchedServer("seamless-m4t-large-v2@smoke", batch_slots=2, max_ctx=64, device="cpu")
+server.submit(Request(0, np.arange(4, 13, dtype=np.int32), 4))
+server.submit(Request(1, np.arange(4, 21, dtype=np.int32), 3))
+server.submit(Request(2, np.arange(4, 30, dtype=np.int32), 2))
+server.drain()
+assert sorted(len(r.tokens_out) for r in server.completed) == [2, 3, 4], server.completed
+assert tuple(server.caches["cross_kv"]["k"].shape) == (2, 2, 16, 4, 16)
+stage = StageCost("decode_step", 2 * 8.0e9, 8.0e9 * 2 / 128, 2.5e6)
+ctl = ElasticController(LMWorkloadModel("llama3-8b", "decode_32k", [stage], 256),
+                        tokens_per_step=128, min_chips=8, max_chips=2048)
+for load in (3e4, 3e4, 4.5e5, 4.5e5, 3e4, 3e4):
+    ctl.observe(load)
+assert ctl.events and ctl.events[0].chips_after > 8, ctl.events
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("served", server.decode_steps, "remeshed", [e.chips_after for e in ctl.events])
+"""
+
+
+def test_port_serves_encoder_decoder_and_plans_cards_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_ENCDEC_AND_ELASTIC)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "served" in proc.stdout and "remeshed" in proc.stdout
