@@ -50,7 +50,7 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    from its checkpoint, whose events must equal the uninterrupted run's;
    N+1 on the demo cluster through a host failure with no guaranteed
    breach; and 999 tenants (333 copies of the trio at seeded rates) on
-   1,998 hosts for 4 steps with N+1 for the guaranteed tier, each step's
+   1,998 hosts for 2 steps with N+1 for the guaranteed tier, each step's
    measurement one call with one row per admitted tenant, 64 of its rows
    equal on the host (rel 1e-5) and uncached on the card (bit for bit).
    Its stream-kernel launches are counted by shape on recorders of their
@@ -78,7 +78,12 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    and 120), and flash at the shapes of phases 11 and 12: seamless's
    encoder (512 frames, non-causal), its decoder's causal prefill and its
    cross-attention (each prompt length against the 512 frames as keys),
-   and internvl2's causal prefill at 256 + each prompt length;
+   and internvl2's causal prefill at 256 + each prompt length; and the
+   MoE and MLA models' shapes: flash at olmoe's (16/16 heads), mixtral's
+   (32/8, window 4096) and minicpm3's prefills (40 heads, q and k at 96, v
+   at 64 zero-padded to 96: the padded columns exactly zero, the rest
+   attention with v at its own width), rmsnorm at MLA's latent widths 768
+   and 256, add_rmsnorm at d 2048 and 2560;
 5. runs a 2-layer llama3-8b at full width with the same seeded weights on
    the card and on the host, one prefill and 4 decode steps, and compares
    the logits;
@@ -112,9 +117,27 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
 12. serves the same prompts with 8 of internvl2-26b's 48 layers at full
    width behind its 256 zero frontend tokens, with 8 causal flash
    launches per prefill at 256 + the prompt's length;
-13. builds the LM bridge's workload model of each served model (2N FLOPs
-   and the fp32 parameter bytes over the slots per token) and prints its
-   predicted one-card decode rate beside the measured one; runs
+14. runs 2 layers at full width of olmoe-1b-7b, mixtral-8x7b and
+   minicpm3-4b on the card and on the host, one prefill and 4 decode steps
+   each, and compares logits, every cache (K/V, MLA's ``c_kv`` and
+   ``k_rope``) and greedy tokens; an MoE model's expert ids must be equal
+   wherever the host's router margin (the k-th minus the (k+1)-th
+   probability) is above 1e-5 (the tie rule: ``check_routing``);
+15. serves phase 6's prompt lengths with olmoe-1b-7b at full width and
+   depth (16 layers, 64 experts top-8, 6,919,096,320 parameters), with 16
+   flash launches per prefill and 1 RMSNorm and 32 fused add-and-RMSNorm
+   launches per forward, logging each prefill's dropped share;
+16. serves them with 8 of mixtral-8x7b's 32 layers at full width (8
+   experts top-2, window 4096; 11,872,309,248 parameters), 8 flash
+   launches per prefill;
+17. serves them with minicpm3-4b at full width and depth (62 MLA layers;
+   4,262,025,728 parameters), 62 flash launches per prefill and, per
+   forward, 1 + 2 x 62 RMSNorm launches (the latent norms) and 124 fused
+   add-and-RMSNorm launches;
+13. (run after 17) builds the LM bridge's workload model of each served
+   model (2N FLOPs and the fp32 parameter bytes over the slots per token)
+   and prints its predicted one-card decode rate beside the measured one
+   for phases 6, 9, 11, 12 and 15-17; runs
    ``allocate_chips`` at 1e4, 1e5 and 1e6 tok/s, ``ElasticController``
    over ``examples/serve_lm.py``'s spike day, and ``FleetElasticController``
    over the fleet demo's trio on a card ``SimulatorEvaluator`` for 6
@@ -127,8 +150,8 @@ norms at prefill shapes over input sets that miss L2, as in serving.  The
 three stream kernels' launches in phases 2-3 are counted by input shape, and
 each is timed at every one of those shapes (phase 3c's likewise, on their
 own); every kernel's launches x (time - bound) over its paths is printed,
-largest first.  After phases 6, 9, 11 and 12 the profiler counts the
-kernel launches of one decode forward; each serving phase logs its decode
+largest first.  After phases 6, 9, 11, 12 and 15-17 the profiler counts
+the kernel launches of one decode forward; each serving phase logs its decode
 floor (the weights and caches a decode step reads, over 3.35 TB/s).
 Any failed phase raises and the script exits non-zero.  The last line is a
 JSON object with ``"ok": true`` and the device; the line before it lists
@@ -139,6 +162,7 @@ Run from the root of the repository:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import json
@@ -1182,8 +1206,10 @@ DEMO_STEPS = 24
 #: phase 3d (c): copies of the demo's trio (999 tenants) and steps.  Eight
 #: steps took 566 s (``tools/fleet_probe.py``; NVIDIA H100 80GB HBM3, 700 W),
 #: almost all of it the scheduler's host-side allocation under the squeeze,
-#: so four run here.
-FLEET_COPIES, FLEET_STEPS = 333, 4
+#: and four took 367 s of a 917 s smoke run beside the MoE and MLA phases
+#: (the same card), so two run here: the bootstrap and the first guard
+#: replan.
+FLEET_COPIES, FLEET_STEPS = 333, 2
 
 
 def demo_fleet(params, copies=1, factors=None):
@@ -2068,6 +2094,12 @@ def phase_batched_lp(device, params, dim):
 LLAMA = dict(d=4096, H=32, KV=8, hd=128)
 SEAMLESS_PARAMS = 2_035_935_232     # seamless-m4t-large-v2, the reference's n_params()
 INTERNVL_LAYERS = 8                 # internvl2-26b's cut: 8 of its 48 layers, full width
+OLMOE_PARAMS = 6_919_096_320        # olmoe-1b-7b, the reference's n_params()
+MIXTRAL_LAYERS = 8                  # mixtral-8x7b's cut: 8 of its 32 layers, full width
+MIXTRAL_CUT_PARAMS = 11_872_309_248 # the cut's parameters, as the reference counts them
+MINICPM_PARAMS = 4_262_025_728      # minicpm3-4b, the reference's n_params()
+ROUTER_MARGIN = 1e-5                # expert ids gated where the k-th minus the (k+1)-th
+                                    # router probability is above this
 RMS_FP32_TOL = 1e-6                 # rtol and atol, kernel vs plain
 FLASH_TOL = 2e-5                    # rtol and atol, kernel vs plain
 LOGIT_RTOL, LOGIT_ATOL_REL = 1e-4, 1e-4   # card vs host logits
@@ -2192,6 +2224,50 @@ def check_flash(device, cases) -> float:
     return worst
 
 
+def mla_flash_inputs(device, S, H, qk, v_width, seed):
+    """MLA's prefill call: seeded q and k (1, S, H, qk) and v at its own
+    width, and v zero-padded to qk as the model passes it to the kernel."""
+    import torch.nn.functional as F
+    q, k, v = flash_inputs(device, S, H, H, qk, seed)
+    v = v[..., :v_width].contiguous()
+    return q, k, v, F.pad(v, (0, qk - v_width)).contiguous()
+
+
+def check_flash_mla(device, lengths, H, qk, v_width) -> float:
+    """The flash kernel at MLA's prefill (``mla_prefill``: H heads, q and k
+    ``[nope ‖ rope]`` at ``qk``, v zero-padded from ``v_width`` to ``qk``,
+    scale 1/sqrt(qk), causal) against its plain version on the padded
+    inputs within 2e-5; the padded output columns exactly zero, and the
+    rest within 2e-5 of attention with v at its own width.  Returns the
+    largest absolute difference from the plain version."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+
+    worst = 0.0
+    for S in lengths:
+        q, k, v, vpad = mla_flash_inputs(device, S, H, qk, v_width, seed=S * 7 + qk)
+        scale = 1.0 / qk ** 0.5
+        got = flash_attention(q, k, vpad, causal=True, scale=scale)
+        want = flash_attention_reference(q, k, vpad, causal=True, scale=scale)
+        scores = torch.einsum("bshd,bthd->bhst", q, k) * scale
+        mask = torch.ones(S, S, dtype=torch.bool, device=device).tril()
+        narrow = torch.einsum("bhst,bthd->bshd",
+                              torch.softmax(torch.where(mask, scores, -1e30), dim=-1), v)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"flash MLA S={S}: non-finite output")
+        torch.testing.assert_close(got, want, rtol=FLASH_TOL, atol=FLASH_TOL)
+        if not torch.equal(got[..., v_width:], torch.zeros_like(got[..., v_width:])):
+            raise AssertionError(f"flash MLA S={S}: padded output columns are not zero")
+        torch.testing.assert_close(got[..., :v_width], narrow, rtol=FLASH_TOL, atol=FLASH_TOL)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        log(f"  flash MLA S={S} H={H} qk={qk} v {v_width} padded to {qk}: "
+            f"max|kernel-plain|={err:.3e}, "
+            f"max|kernel-narrow v|={float((got[..., :v_width] - narrow).abs().max()):.3e}")
+    return worst
+
+
 def _bytes_or_flops(nbytes, flops) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -2208,20 +2284,24 @@ def add_rmsnorm_bound(rows, d) -> tuple[float, str]:
     return _bytes_or_flops((4 * rows * d + d) * 4, rows * d * 5)
 
 
-def flash_bound(S, H, KV, hd, Sk=None, causal=True) -> tuple[float, str]:
+def flash_bound(S, H, KV, hd, Sk=None, causal=True, v_width=None) -> tuple[float, str]:
     """Attention of S queries: causal over S positions, S(S+1)/2 scored
     pairs per head; non-causal over Sk keys (S by default), S·Sk pairs.
-    Each pair is 2·hd flops for q·k, 2·hd for p·v and about 4 for the
-    softmax; q and the output (S rows of H heads) and k and v (Sk rows of
-    KV heads) move once.  Two ways to do the products: fp32 on CUDA cores
+    Each pair is 2·hd flops for q·k, 2·dv for p·v and about 4 for the
+    softmax, dv being v's width (``v_width``, hd by default: MLA's v is
+    narrower than q and k, and the work counted is the function's, not
+    the zero-padded columns the kernel runs); q and k (hd wide) and v and
+    the output (dv wide) move once, q and the output S rows of H heads, k
+    and v Sk rows of KV heads.  Two ways to do the products: fp32 on CUDA cores
     (all flops at 67 TFLOP/s), or 3xTF32 on the tensor cores (three tf32
     products per product at 495 TFLOP/s, the softmax on CUDA cores); each
     is held against the bytes, and the bound is the faster of the two."""
     Sk = S if Sk is None else Sk
+    dv = hd if v_width is None else v_width
     pairs = S * (S + 1) // 2 if causal else S * Sk
-    mm_flops = H * pairs * 4 * hd
+    mm_flops = H * pairs * 2 * (hd + dv)
     soft_flops = H * pairs * 4
-    nbytes = 4 * hd * (2 * S * H + 2 * Sk * KV)
+    nbytes = 4 * (hd + dv) * (S * H + Sk * KV)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_fp32 = (mm_flops + soft_flops) / FP32_FLOPS_PER_S
     t_tc = 3 * mm_flops / TF32_FLOPS_PER_S + soft_flops / FP32_FLOPS_PER_S
@@ -2305,34 +2385,48 @@ def time_add_rmsnorm(device, shape) -> dict:
 
 
 def time_flash(device, S, H=LLAMA["H"], KV=LLAMA["KV"], hd=LLAMA["hd"], Sk=None,
-               causal=True) -> dict:
+               causal=True, window=None, v_width=None) -> dict:
     """The flash kernel, its plain version and SDPA at (S, H, KV, hd),
-    causal or over Sk keys, beside its bound."""
+    causal (within ``window``) or over Sk keys, beside its bound.  With
+    ``v_width`` (MLA's prefill) v is that wide and zero-padded to hd for
+    the kernel and its plain version, as the model passes it; SDPA takes v
+    at its own width, and the kernel's output is compared to it up to that
+    width.  SDPA takes no window: at S within the window it computes the
+    same function causal."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 
-    q, k, v = flash_inputs(device, S, H, KV, hd, seed=S + H + (Sk or 0), Sk=Sk)
+    if v_width is None:
+        q, k, v = flash_inputs(device, S, H, KV, hd, seed=S + H + (Sk or 0), Sk=Sk)
+        v_lib = v
+    else:
+        q, k, v_lib, v = mla_flash_inputs(device, S, H, hd, v_width, seed=S + H)
+    if window is not None and S > window:
+        raise ValueError(f"SDPA has no window: S={S} over the window {window}")
     scale = 1.0 / hd ** 0.5
-    ms, eager_ms = time_both(lambda: flash_attention(q, k, v, causal=causal, scale=scale),
-                             iters=50)
-    out = flash_attention(q, k, v, causal=causal, scale=scale)
+    kernel = lambda **kw: flash_attention(q, k, v, causal=causal, window=window, scale=scale,
+                                          **kw)
+    ms, eager_ms = time_both(kernel, iters=50)
+    out = kernel()[..., :v_lib.shape[-1]]
     plain_ms, plain_eager = time_both(
-        lambda: flash_attention_reference(q, k, v, causal=causal, scale=scale), iters=50)
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lambda: flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale),
+        iters=50)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v_lib))
     sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, scale=scale,
                                                   enable_gqa=True)
     library_ms, library_eager = time_both(sdpa, iters=50)
     lib_err = float((sdpa().transpose(1, 2) - out).abs().max())
-    bound_ms, bound_by = flash_bound(S, H, KV, hd, Sk=Sk, causal=causal)
+    bound_ms, bound_by = flash_bound(S, H, KV, hd, Sk=Sk, causal=causal, v_width=v_width)
     # the two block layouts, forced, beside the one the wrapper picks
     layouts = []
     for heads in (1, 2):
         blocks = -(-S // 16) * KV * -(-(H // KV) // heads)
-        forced = graph_ms(lambda: flash_attention(q, k, v, causal=causal, scale=scale,
-                                                  heads_per_block=heads), iters=20)
+        forced = graph_ms(lambda: kernel(heads_per_block=heads), iters=20)
         layouts.append(f"{heads} head(s)/block {blocks} blocks {forced:.5f} ms")
-    shape = f"S={S}" + ("" if causal else f" Sk={Sk or S} non-causal")
+    shape = (f"S={S}" + ("" if causal else f" Sk={Sk or S} non-causal")
+             + ("" if window is None else f" window={window}")
+             + ("" if v_width is None else f" v {v_width} padded to {hd}"))
     log(f"  flash {shape} H={H} KV={KV} hd={hd} device (graph): kernel {ms:.5f} ms  "
         f"plain {plain_ms:.5f} ms  "
         f"sdpa {library_ms:.5f} ms (max|sdpa-kernel|={lib_err:.2e})  bound {bound_ms:.6f} ms "
@@ -2347,12 +2441,32 @@ def block_counts(cfg) -> dict:
     return {kind: cfg.n_periods() * cfg.pattern().count(kind) for kind in ("attn", "mamba")}
 
 
+def moe_layers(cfg) -> int:
+    """Blocks whose feed-forward is an MoE layer (``idx % moe_every ==
+    moe_every - 1`` within the period) over the whole depth."""
+    per = sum(1 for i in range(len(cfg.pattern())) if i % cfg.moe_every == cfg.moe_every - 1)
+    return cfg.n_periods() * per if cfg.is_moe else 0
+
+
+def ffn_blocks(cfg) -> int:
+    """Blocks with a feed-forward half (a dense MLP or an MoE layer) over
+    the whole depth."""
+    return cfg.n_layers if cfg.d_ff > 0 else moe_layers(cfg)
+
+
+def latent_norms(cfg) -> int:
+    """MLA's latent norms of one forward: q's and kv's in every attention
+    block (``rmsnorm`` launches beside the residual stream's)."""
+    return 2 * block_counts(cfg)["attn"] if cfg.attention == "mla" else 0
+
+
 def norms_per_forward(cfg) -> int:
-    """RMSNorms of one decoder forward: one before each block's mixer, one
-    before each MLP, one before each cross-attention sub-block of an
-    encoder-decoder model, and the final one."""
-    per_block = (2 if cfg.d_ff > 0 else 1) + (1 if cfg.is_encdec else 0)
-    return cfg.n_layers * per_block + 1
+    """Residual-stream RMSNorms of one decoder forward: one before each
+    block's mixer, one before each feed-forward (dense or MoE), one before
+    each cross-attention sub-block of an encoder-decoder model, and the
+    final one."""
+    cross = cfg.n_layers if cfg.is_encdec else 0
+    return cfg.n_layers + ffn_blocks(cfg) + cross + 1
 
 
 def expected_launches(cfg, forwards, prefills) -> dict:
@@ -2364,11 +2478,13 @@ def expected_launches(cfg, forwards, prefills) -> dict:
     torch).  An encoder-decoder model's prefill adds its encoder (E layers:
     one ``rmsnorm``, 2E ``add_rmsnorm``, E non-causal flash launches) and
     one non-causal flash launch per cross-attention sub-block (its decode
-    step reads the cached cross K/V with plain torch)."""
+    step reads the cached cross K/V with plain torch).  An MLA model adds
+    its two latent norms per attention block to every forward's
+    ``rmsnorm`` launches."""
     n = block_counts(cfg)
     E = cfg.enc_layers if cfg.is_encdec else 0
     cross = cfg.n_layers if cfg.is_encdec else 0
-    return dict(rmsnorm=forwards + (prefills if E else 0),
+    return dict(rmsnorm=forwards * (1 + latent_norms(cfg)) + (prefills if E else 0),
                 add_rmsnorm=(norms_per_forward(cfg) - 1) * forwards + 2 * E * prefills,
                 flash_attention=(n["attn"] + cross + E) * prefills,
                 ssm_scan=n["mamba"] * forwards)
@@ -2494,16 +2610,91 @@ def time_ssm_scan(device, B, S) -> dict:
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+class RouterLog:
+    """While active, records every MoE layer's routing under the side named
+    by ``side`` ("host" or "card"): the expert ids (T, k) and the router's
+    margin, the k-th minus the (k+1)-th probability (T,), per token.  It
+    wraps the transformer's ``moe_ffn`` with a second call of the same
+    ``moe.route`` on the same input, so the layer's own computation is
+    untouched."""
+
+    def __init__(self):
+        self.calls = {"host": [], "card": []}
+        self.side = "host"
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe, transformer
+
+        inner = self._inner = transformer.moe_ffn
+
+        def recorded(p, x, cfg, need_aux=True):
+            B, S, d = x.shape
+            k = cfg.experts_per_token
+            _, probs, _, ids = moe.route(p, x.reshape(moe._moe_groups(cfg, B * S), -1, d), cfg)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            self.calls[self.side].append(
+                (ids.reshape(-1, k).cpu(), (top[..., k - 1] - top[..., k]).reshape(-1).cpu()))
+            return inner(p, x, cfg, need_aux)
+
+        transformer.moe_ffn = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe_ffn = self._inner
+
+
+def check_routing(label, host_calls, card_calls):
+    """The tie rule: layer by layer in the order the forwards ran, the card's
+    set of experts equals the host's at every token whose host margin is
+    above ``ROUTER_MARGIN``.  Their order within the top k is not compared:
+    a near-tie inside it swaps two choices with their gates, and a
+    choice's capacity position counts earlier tokens, not ranks, so the
+    dispatch and the output are the same.  At the first layer where ids differ, every differing
+    token must be within the margin (a near-tie flipped by float rounding),
+    else this raises; from there on the two runs route different tokens,
+    so nothing after it is compared.  Returns (tokens compared, smallest
+    margin, tokens within the margin, the flip as (layer, token, margin) or
+    None)."""
+    if len(host_calls) != len(card_calls):
+        raise AssertionError(f"{label}: {len(card_calls)} MoE calls on the card, "
+                             f"{len(host_calls)} on the host")
+    n, smallest, near = 0, float("inf"), 0
+    for layer, ((hid, hm), (cid, _)) in enumerate(zip(host_calls, card_calls)):
+        smallest = min(smallest, float(hm.min()))
+        near += int((hm <= ROUTER_MARGIN).sum())
+        differ = (hid.sort(dim=1).values != cid.sort(dim=1).values).any(dim=1)
+        if bool(differ.any()):
+            over = differ & (hm > ROUTER_MARGIN)
+            if bool(over.any()):
+                t = int(over.nonzero()[0])
+                raise AssertionError(
+                    f"{label}: MoE call {layer}, token {t}: experts {cid[t].tolist()} on the "
+                    f"card, {hid[t].tolist()} on the host at margin {float(hm[t]):.3e}")
+            t = int(differ.nonzero()[0])
+            return n, smallest, near, (layer, t, float(hm[t]))
+        n += hid.shape[0]
+    return n, smallest, near, None
+
+
 def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
     """The model ``cfg`` with the same seeded weights on the card and the
     host: one prefill and ``decode_steps`` decode steps on each (the host's
-    greedy tokens fed to both), logits, Mamba states and an encoder-decoder
-    model's ``cross_kv`` compared within rtol 1e-4, atol 1e-4·max|x|, and
-    the greedy tokens equal.  A model with a frontend gets seeded non-zero
-    frame embeddings (zeros, as the server feeds, would make the encoder's
-    output and every cross-attention zero)."""
+    greedy tokens fed to both), logits and every cache (K/V, MLA latents,
+    Mamba states, an encoder-decoder model's ``cross_kv``) compared within
+    rtol 1e-4, atol 1e-4·max|x|, and the greedy tokens equal.  A model
+    with a frontend gets seeded non-zero frame embeddings (zeros, as the
+    server feeds, would make the encoder's output and every cross-attention
+    zero).
+
+    An MoE model's routing is held to the tie rule (:func:`check_routing`)
+    after each forward, before its logits.  If a near-tie flips, that
+    forward's and later logits and the caches are logged, not gated: the
+    two runs then compute different (both valid) functions."""
     import numpy as np
     import torch
+    from repro_torch.launch.serve import SEQUENCE_CACHES
     from repro_torch.models import build_model
     from repro_torch.models.frontends import frontend_embed_shape
 
@@ -2524,13 +2715,15 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
     filled = prompt_len + (cfg.frontend_tokens if frames is not None and not cfg.is_encdec else 0)
     zero_launches()
     worst = 0.0
+    flipped = None
 
     def close(label, got, want):
         got = got.cpu()
         if not torch.isfinite(got).all():
             raise AssertionError(f"{label}: non-finite values on the card")
         atol = LOGIT_ATOL_REL * float(want.abs().max())
-        torch.testing.assert_close(got, want, rtol=LOGIT_RTOL, atol=atol)
+        if flipped is None:
+            torch.testing.assert_close(got, want, rtol=LOGIT_RTOL, atol=atol)
         return float((got - want).abs().max()), atol
 
     def compare(label, got, want):
@@ -2542,43 +2735,72 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
         if not torch.equal(got[..., V:].cpu(), want[..., V:]):
             raise AssertionError(f"{label}: the padded vocabulary's masked logits differ")
         err, atol = close(label, got[..., :V], want[..., :V])
-        worst = max(worst, err)
+        if flipped is None:
+            worst = max(worst, err)
         token, card_token = int(want[0, -1].argmax()), int(got[0, -1].argmax())
         log(f"  {label}: max|card-host| {err:.3e} (atol {atol:.3e}), "
-            f"argmax card {card_token} host {token}")
-        if card_token != token:
+            f"argmax card {card_token} host {token}"
+            + ("" if flipped is None else " (after a router tie flipped: not gated)"))
+        if card_token != token and flipped is None:
             raise AssertionError(f"{label}: greedy token {card_token} on the card, {token} on the host")
         return token
 
-    caches = {}
-    for name, model in (("host", host), ("card", card)):
-        dev = model.embed.device
-        args = (prompt.to(dev),) if frames is None else (prompt.to(dev), frames.to(dev))
-        logits, c1 = model.forward_prefill(*args)
-        big = model.cache_struct(1, filled + decode_steps + 1)
-        for key, layer in c1.items():
-            for n, t in layer.items():
-                if n in ("k", "v"):                      # K/V and cross K/V, padded
-                    big[key][n][:, :, :t.shape[2]] = t
-                else:                                    # a Mamba state, whole
-                    big[key][n].copy_(t)
-        caches[name] = (logits, big)
-    token = compare("prefill", caches["card"][0], caches["host"][0])
-    for n, want in caches["host"][1].get("cross_kv", {}).items():
-        err, atol = close(f"cross_kv {n}", caches["card"][1]["cross_kv"][n], want)
-        log(f"  cross_kv {n} {tuple(want.shape)}: max|card-host| {err:.3e} (atol {atol:.3e}), "
-            f"max|x| {float(want.abs().max()):.3e}")
-    for step in range(decode_steps):
-        pos = filled + step
-        tok = torch.tensor([[token]])
-        hl, _ = host.forward_decode(tok, caches["host"][1], pos)
-        cl, _ = card.forward_decode(tok.to(device), caches["card"][1], pos)
-        token = compare(f"decode {step}", cl, hl)
+    routed = {"tokens": 0, "smallest": float("inf"), "near": 0}
+
+    def routing(label, router, start):
+        """The tie rule over the MoE calls of one forward on each side."""
+        nonlocal flipped
+        if flipped is not None:
+            return
+        n, smallest, near, flip = check_routing(label, router.calls["host"][start[0]:],
+                                                router.calls["card"][start[1]:])
+        routed["tokens"] += n
+        routed["smallest"] = min(routed["smallest"], smallest)
+        routed["near"] += near
+        if flip is not None:
+            flipped = (label, *flip)
+            log(f"  {label}: a router tie flipped at MoE call {flip[0]}, token {flip[1]} "
+                f"(host margin {flip[2]:.3e} <= {ROUTER_MARGIN}); later outputs not gated")
+
+    with RouterLog() as router:                  # records nothing without MoE layers
+        caches = {}
+        for name, model in (("host", host), ("card", card)):
+            dev = model.embed.device
+            args = (prompt.to(dev),) if frames is None else (prompt.to(dev), frames.to(dev))
+            router.side = name
+            logits, c1 = model.forward_prefill(*args)
+            big = model.cache_struct(1, filled + decode_steps + 1)
+            for key, layer in c1.items():
+                for n, t in layer.items():
+                    if n in SEQUENCE_CACHES:             # K/V, cross K/V, MLA latents: padded
+                        big[key][n][:, :, :t.shape[2]] = t
+                    else:                                # a Mamba state, whole
+                        big[key][n].copy_(t)
+            caches[name] = (logits, big)
+        routing("prefill", router, (0, 0))
+        token = compare("prefill", caches["card"][0], caches["host"][0])
+        for n, want in caches["host"][1].get("cross_kv", {}).items():
+            err, atol = close(f"cross_kv {n}", caches["card"][1]["cross_kv"][n], want)
+            log(f"  cross_kv {n} {tuple(want.shape)}: max|card-host| {err:.3e} "
+                f"(atol {atol:.3e}), max|x| {float(want.abs().max()):.3e}")
+        for step in range(decode_steps):
+            pos = filled + step
+            tok = torch.tensor([[token]])
+            start = tuple(len(router.calls[side]) for side in ("host", "card"))
+            router.side = "host"
+            hl, _ = host.forward_decode(tok, caches["host"][1], pos)
+            router.side = "card"
+            cl, _ = card.forward_decode(tok.to(device), caches["card"][1], pos)
+            routing(f"decode {step}", router, start)
+            token = compare(f"decode {step}", cl, hl)
     for key, layer in caches["host"][1].items():
         for n, want in layer.items():
-            if n not in ("k", "v"):
-                err, atol = close(f"state {key}.{n}", caches["card"][1][key][n], want)
-                log(f"  state {key}.{n} after decode: max|card-host| {err:.3e} (atol {atol:.3e})")
+            err, atol = close(f"cache {key}.{n}", caches["card"][1][key][n], want)
+            log(f"  cache {key}.{n} after decode: max|card-host| {err:.3e} (atol {atol:.3e})")
+    if cfg.is_moe:
+        log(f"  routing: {routed['tokens']} token-layers compared, expert sets equal; smallest "
+            f"router margin {routed['smallest']:.3e}, {routed['near']} within {ROUTER_MARGIN}; "
+            + ("no tie flipped" if flipped is None else f"a tie flipped at {flipped}"))
     torch.cuda.synchronize()
     want = expected_launches(cfg, forwards=1 + decode_steps, prefills=1)   # card only
     got = kernel_launches()
@@ -2588,12 +2810,59 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
     return worst
 
 
+class MoEAuxLog:
+    """While active, sums every MoE layer's aux values (``lb_loss``,
+    ``z_loss``, ``dropped_frac``) into ``aux``: it wraps the transformer's
+    ``moe_ffn`` and asks it for the aux that the serving path skips."""
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+
+        inner = self._inner = transformer.moe_ffn
+        self.aux = {}
+
+        def recorded(p, x, cfg, need_aux=True):
+            y, aux = inner(p, x, cfg, need_aux=True)
+            for k, v in aux.items():
+                self.aux[k] = self.aux.get(k, 0.0) + float(v)
+            return y, aux if need_aux else None
+
+        transformer.moe_ffn = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe_ffn = self._inner
+
+
+def log_prefill_aux(server, requests) -> list[float]:
+    """Each request's prompt prefilled once more, outside the timed
+    serving run, with its MoE aux values logged as means over the MoE
+    layers; returns the dropped shares."""
+    import torch
+
+    layers = moe_layers(server.cfg)
+    dropped = []
+    for r in requests:
+        tokens = torch.as_tensor(r.prompt[None, :].astype("int64"), device=server.device)
+        with MoEAuxLog() as aux_log:
+            server.model.forward_prefill(tokens)
+        a = {k: v / layers for k, v in aux_log.aux.items()}
+        log(f"  prefill S={tokens.shape[1]}: dropped_frac {a['dropped_frac']:.4f} (mean of "
+            f"{layers} MoE layers), lb_loss {a['lb_loss']:.4f}, z_loss {a['z_loss']:.4f} "
+            f"(means; an untimed prefill of the prompt)")
+        dropped.append(a["dropped_frac"])
+    return dropped
+
+
 def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
     """``arch`` (a name or a config) behind ``BatchedServer`` on the card:
     seeded prompts of 32-192 tokens, greedy decoding, with the kernels'
     launch counts held to :func:`expected_launches`.  Returns the server,
     the launches, the prompt lengths and the serving figures (median
-    decode tick beside its floor, tokens/s, TTFT, peak memory)."""
+    decode tick beside its floor, tokens/s, TTFT, peak memory; an MoE
+    model's dropped shares, from its prompts prefilled once more after
+    the timed run)."""
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2664,6 +2933,8 @@ def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
     figures = dict(name=server.cfg.name, n_params=server.model.n_params(), slots=slots,
                    decode_tick_ms=tick, decode_floor_ms=floor_ms, tok_s=n_tokens / wall,
                    ttft_median_ms=float(np.median(ttft)), peak_bytes=peak, wall_s=wall)
+    if server.cfg.is_moe:
+        figures["dropped_frac"] = log_prefill_aux(server, requests)
     return server, launches, [int(n) for n in lengths], figures
 
 
@@ -2717,6 +2988,146 @@ def decode_forward_launches(server, rng, prompt_len, steps=2):
             f"{len(names) - len(kernels)} copies/memsets; rmsnorm.cu's: "
             + ", ".join(f"{n} x {name[:90]}" for name, n in sorted(norms.items())))
     server.drain()
+
+
+# ------------------------------------------------------------ MoE and MLA serving
+
+def moe_mla_configs():
+    """olmoe-1b-7b and minicpm3-4b whole, and mixtral-8x7b's 8-layer cut at
+    full width (all 32 layers, 187 GB in fp32, do not fit one card)."""
+    from repro_torch.configs import get_config
+    mixtral = get_config("mixtral-8x7b")
+    cut = dataclasses.replace(mixtral, n_layers=MIXTRAL_LAYERS,
+                              name=f"mixtral-8x7b/{MIXTRAL_LAYERS}-of-32-layers")
+    return get_config("olmoe-1b-7b"), cut, get_config("minicpm3-4b")
+
+
+def check_moe_mla_kernels(device, prompt_lengths) -> tuple[float, float, float]:
+    """Phase 4's checks at the MoE and MLA models' shapes: flash at
+    olmoe's prefills (16/16 heads, hd 128), mixtral's (32/8, window 4096)
+    and minicpm3's (40 heads, q/k 96, v 64 padded); rmsnorm at olmoe's and
+    minicpm3's d (2048, 2560: block 0's first norm) and MLA's latent
+    widths (768 and 256); add_rmsnorm at olmoe's and minicpm3's d;
+    prefill rows and batch-4 decode rows.  Mixtral's d is llama3-8b's
+    4096, checked at the same rows above.  Returns the
+    largest flash, rmsnorm and add_rmsnorm differences from the plain
+    versions."""
+    olmoe, mixtral, minicpm = moe_mla_configs()
+    m = minicpm.mla
+    flash_err = check_flash(
+        device,
+        [(S, olmoe.n_heads, olmoe.n_kv_heads, olmoe.head_dim, True, None)
+         for S in prompt_lengths]
+        + [(S, mixtral.n_heads, mixtral.n_kv_heads, mixtral.head_dim, True,
+            mixtral.sliding_window) for S in prompt_lengths])
+    flash_err = max(flash_err, check_flash_mla(
+        device, prompt_lengths, minicpm.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim,
+        m.v_head_dim))
+    widths = (olmoe.d_model, minicpm.d_model, m.q_lora_rank, m.kv_lora_rank)
+    rms_err = check_rmsnorm(device, [(1, S, w) for w in widths for S in prompt_lengths]
+                            + [(4, 1, w) for w in widths])
+    add_err = check_add_rmsnorm(device, [(1, S, w) for w in (olmoe.d_model, minicpm.d_model)
+                                         for S in prompt_lengths]
+                                + [(4, 1, olmoe.d_model), (4, 1, minicpm.d_model)])
+    return flash_err, rms_err, add_err
+
+
+def phases_moe_mla(device, seed, serve_rng, timings) -> dict:
+    """Phases 14-17.  14: card vs host, 2 layers at full width of each of
+    olmoe-1b-7b, mixtral-8x7b and minicpm3-4b (logits, every cache, greedy
+    tokens, routing under the tie rule).  15-17: olmoe whole, mixtral's
+    8-layer cut and minicpm3 whole behind ``BatchedServer`` (phase 6's
+    prompts, 4 slots, max_ctx 256), each with its launch counts asserted,
+    its parameter count held to the reference's and a profiled decode
+    forward after it.  Each model is freed before the next is built."""
+    import torch
+
+    olmoe, mixtral, minicpm = moe_mla_configs()
+    out = dict(card_vs_host={}, served={})
+    t0 = time.perf_counter()
+    log("phase 14: card vs host at full width, 2 layers each of olmoe-1b-7b, mixtral-8x7b and "
+        "minicpm3-4b, one prefill and 4 decode steps")
+    for cfg in (olmoe, mixtral, minicpm):
+        two = dataclasses.replace(cfg, n_layers=2, name=f"{cfg.name.split('/')[0]}/2-layers")
+        log(f" {two.name}")
+        out["card_vs_host"][cfg.name] = phase_card_vs_host(device, two, prompt_len=48,
+                                                           decode_steps=4, seed=seed)
+        torch.cuda.empty_cache()
+    timings["phase14"] = time.perf_counter() - t0
+
+    for phase, cfg, n_params, what in (
+            (15, olmoe, OLMOE_PARAMS, "olmoe-1b-7b at full width and depth (16 layers, 64 "
+                                      "experts top-8)"),
+            (16, mixtral, MIXTRAL_CUT_PARAMS, f"{MIXTRAL_LAYERS} of mixtral-8x7b's 32 layers at "
+                                              "full width (8 experts top-2, window 4096)"),
+            (17, minicpm, MINICPM_PARAMS, "minicpm3-4b at full width and depth (62 layers, MLA "
+                                          "ranks 768 and 256)")):
+        t0 = time.perf_counter()
+        log(f"phase {phase}: serve {what} (BatchedServer, 4 slots, max_ctx 256)")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        server, launches, lengths, fig = phase_serve(device, cfg, seed, n_requests=8, slots=4,
+                                                     max_ctx=256, max_new=16)
+        if server.model.n_params() != n_params:
+            raise AssertionError(f"{cfg.name} has {server.model.n_params():,} parameters, "
+                                 f"the reference counts {n_params:,}")
+        timings[f"phase{phase}"] = time.perf_counter() - t0
+        log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
+        profile_serving(server, serve_rng, n_requests=4, prompt_len=128, max_new=16)
+        out["served"][cfg.name] = dict(cfg=cfg, launches=launches, ticks=server.decode_steps,
+                                       lengths=lengths, fig=fig)
+        del server
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_moe_mla(device, lengths, served, excess) -> dict:
+    """Each new kernel shape of phases 15-17 timed with its plain version,
+    its library call and its bound (flash at each prompt length; the norms
+    at batch-4 decode rows and at the longest prefill's rows), and each
+    kernel's launches x (time - bound) on each of those paths added to
+    ``excess``.  A path's prefill norms are timed at the longest prompt's
+    rows, an upper estimate.  Returns the timings."""
+    olmoe, mixtral, minicpm = moe_mla_configs()
+    m = minicpm.mla
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    Ls = sorted(set(lengths))
+    flash_at = {
+        olmoe.name: {S: time_flash(device, S, H=olmoe.n_heads, KV=olmoe.n_kv_heads,
+                                   hd=olmoe.head_dim) for S in Ls},
+        mixtral.name: {S: time_flash(device, S, H=mixtral.n_heads, KV=mixtral.n_kv_heads,
+                                     hd=mixtral.head_dim, window=mixtral.sliding_window)
+                       for S in Ls},
+        minicpm.name: {S: time_flash(device, S, H=minicpm.n_heads, KV=minicpm.n_kv_heads, hd=qk,
+                                     v_width=m.v_head_dim) for S in Ls},
+    }
+    norms = {}
+    for w in sorted({c.d_model for c in (olmoe, mixtral, minicpm)} | {m.q_lora_rank,
+                                                                       m.kv_lora_rank}):
+        norms[w] = dict(rms=time_rmsnorm(device, (4, 1, w)),
+                        rms_prefill=time_rmsnorm(device, (1, max(lengths), w)))
+    for w in sorted({c.d_model for c in (olmoe, mixtral, minicpm)}):
+        norms[w].update(add=time_add_rmsnorm(device, (4, 1, w)),
+                        add_prefill=time_add_rmsnorm(device, (1, max(lengths), w)))
+    n = len(lengths)
+    for phase, cfg in ((15, olmoe), (16, mixtral), (17, minicpm)):
+        run = served[cfg.name]
+        attn = block_counts(cfg)["attn"]
+        excess[f"flash_attention, phase {phase}"] = excess_ms(
+            [(attn, flash_at[cfg.name][S]) for S in run["lengths"]])
+        t = norms[cfg.d_model]
+        forwards = n + run["ticks"]
+        rms = [(n, t["rms_prefill"]), (run["ticks"], t["rms"])]
+        if cfg.attention == "mla":
+            for w in (m.q_lora_rank, m.kv_lora_rank):
+                rms += [(n * attn, norms[w]["rms_prefill"]), (run["ticks"] * attn, norms[w]["rms"])]
+        excess[f"rmsnorm, phase {phase}"] = excess_ms(rms)
+        n_add = norms_per_forward(cfg) - 1
+        excess[f"add_rmsnorm, phase {phase}"] = excess_ms(
+            [(n_add * n, t["add_prefill"]), (n_add * run["ticks"], t["add"])])
+        log(f"phase {phase}: {forwards} forwards ({n} prefills); flash at the longest prefill "
+            f"S={max(lengths)}: {json.dumps(flash_at[cfg.name][max(lengths)])}")
+    return dict(flash=flash_at, norms=norms)
 
 
 BRIDGE_TARGETS = (1e4, 1e5, 1e6)     # tok/s, as examples/serve_lm.py asks
@@ -3159,7 +3570,8 @@ def main() -> int:
     prompt_lengths = sorted({int(n) for n in serve_rng.integers(32, 193, size=8)})
     t0 = time.perf_counter()
     log("phase 4: rmsnorm, add_rmsnorm and flash_attention kernels vs plain at llama3-8b's "
-        "and jamba's shapes, and flash at seamless's and internvl2's")
+        "and jamba's shapes, flash at seamless's and internvl2's, and all three at olmoe's, "
+        "mixtral's and minicpm3's")
     d = LLAMA["d"]
     norm_shapes = ([(1, S, d) for S in prompt_lengths] + [(4, 1, d), (300, d)]
                    + [(1, max(prompt_lengths), 2 * d), (4, 1, 2 * d)])
@@ -3187,6 +3599,9 @@ def main() -> int:
         + [(S, sH, sKV, shd, False, None, sT) for S in [1, 7] + prompt_lengths]
         + [(iT + S, iH, iKV, ihd, True, None) for S in prompt_lengths],
     )
+    moe_flash_err, moe_rms_err, moe_add_err = check_moe_mla_kernels(device, prompt_lengths)
+    flash_err, rms_err = max(flash_err, moe_flash_err), max(rms_err, moe_rms_err)
+    add_err = max(add_err, moe_add_err)
     timings["phase4"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3321,10 +3736,15 @@ def main() -> int:
     del server
     torch.cuda.empty_cache()
 
+    moe_mla = phases_moe_mla(device, seed, serve_rng, timings)
+    new_served = list(moe_mla["served"].values())
+
     t0 = time.perf_counter()
-    log("phase 13: the LM bridge on the card's own numbers, then allocate_chips, "
-        "ElasticController over the spike day and FleetElasticController over the fleet demo")
-    bridge_fig = phase_lm_bridge(device, params, [lm_fig, jamba_fig, seam_fig, intern_fig])
+    log("phase 13: the LM bridge on the card's own numbers (phases 6, 9, 11, 12 and 15-17), "
+        "then allocate_chips, ElasticController over the spike day and FleetElasticController "
+        "over the fleet demo")
+    bridge_fig = phase_lm_bridge(device, params, [lm_fig, jamba_fig, seam_fig, intern_fig]
+                                 + [run["fig"] for run in new_served])
     timings["phase13"] = time.perf_counter() - t0
     clear_resident_cache()
     clear_structure_cache()
@@ -3349,6 +3769,11 @@ def main() -> int:
             rms_prefill=time_rmsnorm(device, (1, prefill_rows, w)),
             add_prefill=time_add_rmsnorm(device, (1, prefill_rows, w)))
     timings["lm_timing_11_12"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("timing flash_attention, rmsnorm and add_rmsnorm at phases 15-17's shapes "
+        "(device time from CUDA-graph replay; eager time from CUDA events)")
+    time_moe_mla(device, lengths, moe_mla["served"], excess)
+    timings["lm_timing_15_17"] = time.perf_counter() - t0
     L11, E11 = seam.n_layers, seam.enc_layers
     excess["flash_attention, phase 11"] = excess_ms(
         [(E11 * len(lengths), t_enc)] + [(L11, seam_causal_at[S]) for S in lengths]
@@ -3386,14 +3811,17 @@ def main() -> int:
         log(f"  {ms:10.3f} ms  {label}")
     log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
     log(f"card vs host: max|logit difference| llama3-8b {logit_err:.3e}, "
-        f"jamba mamba+attn {hybrid_err:.3e}, seamless 2+2 layers {encdec_err:.3e}; "
+        f"jamba mamba+attn {hybrid_err:.3e}, seamless 2+2 layers {encdec_err:.3e}, "
+        + ", ".join(f"{k} 2 layers {v:.3e}" for k, v in moe_mla["card_vs_host"].items())
+        + "; "
         f"bucket phase max|diff| "
         + ", ".join(f"{k} {m} {v:.3e}" for (k, m), v in bucket_diff.items()))
 
-    # the serving paths each kernel runs on: phases 6, 9, 11 and 12
-    serving = (lm_launches, jamba_launches, seam_launches, intern_launches)
+    # the serving paths each kernel runs on: phases 6, 9, 11, 12 and 15-17
+    serving = (lm_launches, jamba_launches, seam_launches, intern_launches,
+               *(run["launches"] for run in new_served))
     serve_total = {k: sum(s[k] for s in serving) for k in lm_launches}
-    log("serving launches, phases 6 / 9 / 11 / 12: " + "; ".join(
+    log("serving launches, phases 6 / 9 / 11 / 12 / 15 / 16 / 17: " + "; ".join(
         f"{k} {' / '.join(str(s[k]) for s in serving)} = {serve_total[k]}" for k in serve_total))
     log(f"lm bridge: {json.dumps(bridge_fig)}")
     kernels = [

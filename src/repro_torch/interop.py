@@ -76,9 +76,11 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.
     encoder-decoder tree's encoder layers and per-period cross-attention
     unstack the same way (``encoder.blocks.<i>.attn.wq``,
     ``encoder.final_norm``, ``cross.<i>.norm``, ``cross.<i>.attn.wq``);
-    ``frontend_proj`` is carried as it is.  Load it with
-    ``model.load_state_dict``.  mLSTM/sLSTM blocks are not ported and
-    raise.
+    ``frontend_proj`` is carried as it is.  MoE leaves (``moe.router``,
+    ``moe.w1``/``w3``/``w2`` with their expert axis) and MLA leaves
+    (``attn.wq_down`` ... ``attn.wo``) unstack along the period axis like
+    any other.  Load it with ``model.load_state_dict``.  mLSTM/sLSTM blocks
+    are not ported and raise.
     """
     kinds = {key.split("_", 1)[1] for key in tree["blocks"]}
     if not kinds <= {"attn", "mamba"}:

@@ -11,8 +11,9 @@ from the same weights:
 
 - every active slot decodes at one shared position, the largest of the
   active slots' positions (the "conservative" shared position);
-- a prefill's K/V cache is padded with zeros to the slot's full length,
-  and a Mamba block's state (``h`` and ``conv``) is copied whole;
+- a prefill's K/V cache (an MLA block's ``c_kv`` and ``k_rope``) is
+  padded with zeros to the slot's full length, and a Mamba block's state
+  (``h`` and ``conv``) is copied whole;
 - a model with a frontend prefills behind a batch of zero frontend
   embeddings (requests carry no frontend): an encoder-decoder model's
   encoder then sees zeros, and its ``cross_kv`` is inserted into the slot
@@ -39,6 +40,12 @@ from ..configs.base import ModelConfig
 from ..device import resolve_device
 from ..models import build_model
 from ..models.frontends import frontend_embed_shape
+
+
+#: Cache entries with a sequence axis (axis 2 of the stacked cache), which
+#: a prefill fills only up to its length: GQA and cross-attention K/V, and
+#: MLA's latent and shared RoPE key.
+SEQUENCE_CACHES = ("k", "v", "c_kv", "k_rope")
 
 
 @dataclasses.dataclass
@@ -101,12 +108,12 @@ class BatchedServer:
         offset = self.cfg.frontend_tokens if (
             self.cfg.frontend is not None and not self.cfg.is_encdec) else 0
         # copy the single-row caches into this slot of the batched caches:
-        # K/V (and cross_kv) zero-padded to the slot's length, Mamba states
-        # whole
+        # K/V (cross_kv, MLA latents) zero-padded to the slot's length along
+        # axis 2, Mamba states whole
         for key, layer in caches1.items():
             for name, small in layer.items():
-                big = self.caches[key][name]              # (P, B, T, KV, hd) for K/V
-                if name not in ("k", "v"):
+                big = self.caches[key][name]              # (P, B, T, ...) for K/V
+                if name not in SEQUENCE_CACHES:
                     big[:, slot] = small[:, 0]
                     continue
                 T = small.shape[2]

@@ -1,5 +1,6 @@
-"""LM models on PyTorch: GQA attention (optionally windowed) with dense
-SwiGLU MLPs, served by :mod:`repro_torch.launch.serve`."""
+"""LM models on PyTorch: GQA (optionally windowed) or MLA attention and
+Mamba blocks, with dense SwiGLU MLPs or MoE feed-forwards, served by
+:mod:`repro_torch.launch.serve`."""
 
 from .model import Model, build_model
 

@@ -16,15 +16,24 @@ an all-ones mask: at prefill the port runs the flash kernel non-causal with
 keys of their own length, at decode the same plain single-token core as
 :func:`gqa_decode`.
 
-MLA and sequence-sharded decode are later slices (ROADMAP queue 1, items
-3b and 3e).
+Multi-head latent attention (MLA, minicpm3) keeps a compressed cache, the
+normed latent ``c_kv`` and one shared RoPE key per token.  Its prefill
+assembles per-head q and k as ``[nope ‖ rope]`` and runs the same flash
+kernel (v zero-padded to the q/k width, the output sliced back), its two
+latent norms run the RMSNorm kernel, and its decode attends to the
+compressed cache directly with ``wk_up`` absorbed into the query, in plain
+torch as in the reference.
+
+Sequence-sharded decode is a later slice (ROADMAP queue 1, item 3e).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
-from ..configs.base import ModelConfig
+from ..configs.base import MLAConfig, ModelConfig
 from ..kernels.flash_attention import flash_attention
+from ..kernels.rmsnorm import rmsnorm
 from .common import ParamDef, apply_rope, softmax_fp32
 
 # ---------------------------------------------------------------------------
@@ -44,6 +53,30 @@ def gqa_defs(cfg: ModelConfig, stack: int, cross: bool = False) -> dict:
         "wk": ParamDef(L + (d, KV * hd), lax_ + ("embed_w", "kv_w")),
         "wv": ParamDef(L + (d, KV * hd), lax_ + ("embed_w", "kv_w")),
         "wo": ParamDef(L + (H * hd, d), lax_ + ("heads_w", "embed_w")),
+    }
+
+
+def mla_defs(cfg: ModelConfig, stack: int) -> dict:
+    m = cfg.mla or MLAConfig()
+    d, H = cfg.d_model, cfg.n_heads
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    L = (stack,)
+    lax_ = ("layers",)
+    return {
+        "wq_down": ParamDef(L + (d, m.q_lora_rank), lax_ + ("embed_w", "rank")),
+        "q_norm": ParamDef(L + (m.q_lora_rank,), lax_ + (None,), init="ones"),
+        "wq_up": ParamDef(L + (m.q_lora_rank, H * qk), lax_ + ("rank", "heads_w")),
+        "wkv_down": ParamDef(
+            L + (d, m.kv_lora_rank + m.qk_rope_head_dim), lax_ + ("embed_w", None)
+        ),
+        "kv_norm": ParamDef(L + (m.kv_lora_rank,), lax_ + (None,), init="ones"),
+        "wk_up": ParamDef(
+            L + (m.kv_lora_rank, H * m.qk_nope_head_dim), lax_ + ("rank", "heads_w")
+        ),
+        "wv_up": ParamDef(
+            L + (m.kv_lora_rank, H * m.v_head_dim), lax_ + ("rank", "heads_w")
+        ),
+        "wo": ParamDef(L + (H * m.v_head_dim, d), lax_ + ("heads_w", "embed_w")),
     }
 
 
@@ -131,6 +164,93 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
 
 
 # ---------------------------------------------------------------------------
+# MLA (MiniCPM3 / DeepSeek-style latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """The query halves (B, S, H, nope) and (B, S, H, rope), RoPE'd, and
+    the cache entries: the normed latent ``c_kv`` (B, S, rank) and the
+    shared RoPE key ``k_rope`` (B, S, rope).  Both latent norms run the
+    RMSNorm kernel on the card."""
+    m = cfg.mla or MLAConfig()
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q = rmsnorm(x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
+    q = q.reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_rope = (x @ p.wkv_down).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv = rmsnorm(c_kv.contiguous(), p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+                make_cache: bool = False):
+    """Causal MLA over the whole sequence through the flash kernel: q and
+    k per head are ``[nope ‖ rope]`` (the rope key shared by every head),
+    scaled by ``1/sqrt(nope + rope)``.  The kernel takes one head width
+    for q, k and v, so the narrower side is zero-padded to the wider (v
+    from 64 to 96 at minicpm3's widths; zero columns add nothing to q·k
+    and give zero output columns) and the output is cut back to
+    ``v_head_dim``.  Returns (out, cache|None), the cache ``{"c_kv": (B, S,
+    rank), "k_rope": (B, S, rope)}``."""
+    m = cfg.mla or MLAConfig()
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
+    k_nope = (c_kv @ p.wk_up).reshape(B, S, H, m.qk_nope_head_dim)
+    v = (c_kv @ p.wv_up).reshape(B, S, H, m.v_head_dim)
+    qf = torch.cat([q_nope, q_rope], dim=-1)                           # (B, S, H, qk)
+    kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)],
+                   dim=-1)
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    width = max(qk, m.v_head_dim)
+    qf, kf, v = (F.pad(t, (0, width - t.shape[-1])) for t in (qf, kf, v))
+    out = flash_attention(qf.contiguous(), kf.contiguous(), v.contiguous(), causal=True,
+                          scale=1.0 / qk ** 0.5)
+    out = out[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim) @ p.wo
+    cache = {"c_kv": c_kv, "k_rope": k_rope} if make_cache else None
+    return out, cache
+
+
+def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
+    """Absorbed-matrix decode on the compressed cache ``{"c_kv": (B, T,
+    rank), "k_rope": (B, T, rope)}``: ``wk_up`` folded into the query, the
+    scores taken against ``c_kv`` and ``k_rope`` directly, positions after
+    ``pos`` masked at -1e30, an fp32 softmax, and ``wv_up`` applied to the
+    attended latent.  The new token's entries are written into ``cache``
+    in place at ``pos`` (clamped into the cache, as the reference's
+    ``dynamic_update_slice`` clamps)."""
+    m = cfg.mla or MLAConfig()
+    B, S, _ = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got {S}")
+    H = cfg.n_heads
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, posb)
+    ck, cr = cache["c_kv"], cache["k_rope"]
+    T = ck.shape[1]
+    slot = min(max(pos, 0), T - 1)
+    ck[:, slot] = c_kv_new[:, 0]
+    cr[:, slot] = k_rope_new[:, 0]
+    wk = p.wk_up.reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    q_eff = torch.einsum("bshd,rhd->bshr", q_nope, wk)
+    scale = 1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5
+    scores = (torch.einsum("bshr,btr->bhst", q_eff, ck)
+              + torch.einsum("bshd,btd->bhst", q_rope, cr)) * scale
+    valid = torch.arange(T, device=x.device) <= pos
+    scores = torch.where(valid[None, None, None], scores.to(torch.float32), -1e30)
+    pattn = softmax_fp32(scores)
+    ctx = torch.einsum("bhst,btr->bshr", pattn.to(ck.dtype), ck)       # (B, 1, H, rank)
+    wv = p.wv_up.reshape(m.kv_lora_rank, H, m.v_head_dim)
+    out = torch.einsum("bshr,rhd->bshd", ctx, wv)
+    out = out.reshape(B, 1, H * m.v_head_dim) @ p.wo
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
 # Cross-attention (encoder-decoder)
 # ---------------------------------------------------------------------------
 
@@ -170,7 +290,14 @@ def encoder_kv(p, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
 def make_cache_struct(cfg: ModelConfig, batch: int, ctx_len: int,
                       dtype: torch.dtype = torch.float32, device=None) -> dict:
     """Zero-filled KV cache for ONE attention layer; the model stacks these
-    along the layer axis."""
+    along the layer axis.  MLA keeps ``{"c_kv": (batch, ctx_len, rank),
+    "k_rope": (batch, ctx_len, rope)}``, GQA ``{"k", "v"}`` of (batch, T,
+    KV, hd), T the sliding window where it is shorter."""
+    if cfg.attention == "mla":
+        m = cfg.mla or MLAConfig()
+        shapes = {"c_kv": (batch, ctx_len, m.kv_lora_rank),
+                  "k_rope": (batch, ctx_len, m.qk_rope_head_dim)}
+        return {n: torch.zeros(s, dtype=dtype, device=device) for n, s in shapes.items()}
     T = min(ctx_len, cfg.sliding_window) if cfg.sliding_window else ctx_len
     shape = (batch, T, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),

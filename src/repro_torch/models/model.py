@@ -7,6 +7,9 @@ state dict names follow its parameter tree with the period axis unstacked:
 ``blocks.<i>.attn.wq`` ... ``blocks.<i>.mlp.w2`` for ``("attn",)`` models,
 and with the block key for longer patterns:
 ``blocks.<i>.b0_mamba.mamba.in_proj`` ... ``blocks.<i>.b3_attn.attn.wq``.
+An MoE layer holds ``moe.router`` and ``moe.w1``/``w3``/``w2`` (the expert
+axis first) where a dense one holds ``mlp``; an MLA layer ``attn.wq_down``,
+``attn.q_norm`` ... ``attn.wo``.
 An encoder-decoder model adds ``encoder.blocks.<i>.norm1`` ...
 ``encoder.blocks.<i>.mlp.w2``, ``encoder.final_norm`` and, per decoder
 period, ``cross.<i>.norm`` and ``cross.<i>.attn.wq`` ... ``.wo``; a model
@@ -33,18 +36,17 @@ from .transformer import (
 )
 
 #: What this slice of the port leaves out, with the ROADMAP item that
-#: brings it (queue 1, items 3a, 3b and 3d).
+#: brings it (queue 1, item 3d).
 _NOT_PORTED = (
-    (lambda c: c.attention == "mla", "MLA attention (ROADMAP queue 1, item 3b)"),
-    (lambda c: c.is_moe, "MoE feed-forward (ROADMAP queue 1, item 3a)"),
     (lambda c: not set(c.pattern()) <= {"attn", "mamba"},
      "mLSTM/sLSTM (xLSTM) blocks (ROADMAP queue 1, item 3d)"),
 )
 
 
 class Model(nn.Module):
-    """An LM of GQA attention and Mamba blocks with dense SwiGLU MLPs, in
-    periods of ``cfg.pattern()``: decoder-only, decoder-only behind a
+    """An LM of attention (GQA or MLA) and Mamba blocks, each with a dense
+    SwiGLU MLP or an MoE feed-forward, in periods of ``cfg.pattern()``:
+    decoder-only, decoder-only behind a
     modality frontend's tokens (``cfg.frontend``), or encoder-decoder
     (``cfg.is_encdec``: a bidirectional encoder over the frontend's frames,
     read by a cross-attention sub-block in every decoder period).
@@ -112,7 +114,11 @@ class Model(nn.Module):
         and raises without them: an encoder-decoder model encodes them and
         adds ``"cross_kv"`` ``{"k": (P, B, T, KV, hd), "v": ...}`` to the
         caches; a decoder-only one prepends them to the tokens, so its
-        caches and positions count T + S."""
+        caches and positions count T + S.
+
+        An MLA model's caches are ``{"c_kv": (P, B, S, rank), "k_rope":
+        (P, B, S, rope)}``.  The MoE layers' aux values are dropped, as the
+        reference's serving drops them."""
         cfg = self.cfg
         if (frontend is None) != (cfg.frontend is None):
             raise ValueError(f"{cfg.name}: frontend embeddings are "
@@ -130,9 +136,10 @@ class Model(nn.Module):
 
     def forward_decode(self, token: torch.Tensor, caches: dict, pos: int):
         """One decode step: ``token`` (B, 1) at the shared position ``pos``.
-        Writes the new K/V and Mamba states into ``caches`` in place and
-        returns (logits (B, 1, V), caches).  An encoder-decoder model's
-        cross-attention reads ``caches["cross_kv"]``."""
+        Writes the new K/V (or MLA latents) and Mamba states into ``caches``
+        in place and returns (logits (B, 1, V), caches).  An
+        encoder-decoder model's cross-attention reads
+        ``caches["cross_kv"]``."""
         x = self.embed[token]
         x, delta, caches = run_decoder_stack(self.blocks, x, self.cfg, "decode",
                                              caches=caches, positions=int(pos),
@@ -143,10 +150,11 @@ class Model(nn.Module):
     # -- caches ----------------------------------------------------------------
     def cache_struct(self, batch: int, ctx_len: int, dtype: torch.dtype | None = None) -> dict:
         """Zero decode caches, stacked along the period axis, on the model's
-        device: K/V caches for attention blocks, Mamba states (``h`` fp32,
-        ``conv`` in ``dtype``) for Mamba blocks, and for an encoder-decoder
-        model the cross-attention K/V ``"cross_kv"`` of shape (P, batch, T,
-        KV, hd), T the frontend's frames."""
+        device: K/V caches for GQA blocks, ``c_kv`` (P, batch, ctx_len,
+        rank) and ``k_rope`` (P, batch, ctx_len, rope) for MLA blocks, Mamba
+        states (``h`` fp32, ``conv`` in ``dtype``) for Mamba blocks, and for
+        an encoder-decoder model the cross-attention K/V ``"cross_kv"`` of
+        shape (P, batch, T, KV, hd), T the frontend's frames."""
         dtype = dtype or self.embed.dtype
         device = self.embed.device
         P = self.cfg.n_periods()

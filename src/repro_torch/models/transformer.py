@@ -1,5 +1,6 @@
-"""Decoder stack of attention and Mamba blocks, each with a dense SwiGLU
-MLP, and the bidirectional encoder stack of encoder-decoder models.
+"""Decoder stack of attention (GQA or MLA) and Mamba blocks, each with a
+dense SwiGLU MLP or a Mixture-of-Experts feed-forward, and the
+bidirectional encoder stack of encoder-decoder models.
 
 Parameters are declared stacked along a leading period axis, as in the
 reference: a period is one repetition of ``cfg.pattern()`` (one layer for
@@ -9,8 +10,10 @@ packages count and initialise the same tree.  The port holds one
 and the blocks within each in Python loops where the reference scans;
 inference needs no remat.  An encoder-decoder model adds the encoder (one
 module per layer) and, per decoder period, a cross-attention sub-block
-after the mixer, with its own norm.  mLSTM/sLSTM, MoE and MLA blocks are
-later slices (ROADMAP queue 1, items 3a, 3b and 3d).
+after the mixer, with its own norm.  A block's feed-forward is the MoE
+layer where the reference puts one (``idx % moe_every == moe_every - 1``
+within the period), else the dense MLP.  mLSTM/sLSTM blocks are a later
+slice (ROADMAP queue 1, item 3d).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from torch import nn
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import ssm
+from .moe import moe_defs, moe_ffn
 from ..kernels.flash_attention import flash_attention
 from .common import ParamDef, add_rms_norm, apply_rope, swiglu
 
@@ -55,20 +59,26 @@ def mlp_defs(cfg: ModelConfig, stack: int) -> dict:
     }
 
 
-def _block_defs(cfg: ModelConfig, kind: str, stack: int) -> dict:
-    if kind not in ("attn", "mamba") or cfg.attention != "gqa" or cfg.is_moe:
+def _block_defs(cfg: ModelConfig, kind: str, idx_in_period: int, stack: int) -> dict:
+    if kind in ("mlstm", "slstm"):
         raise NotImplementedError(
-            f"{cfg.name}: only GQA attention and Mamba blocks with a dense MLP "
-            "are ported (ROADMAP queue 1, items 3a, 3b and 3d)"
+            f"{cfg.name}: mLSTM/sLSTM (xLSTM) blocks are not ported yet "
+            "(ROADMAP queue 1, item 3d)"
         )
+    if kind not in ("attn", "mamba"):
+        raise ValueError(f"unknown block kind {kind!r}")
     d = cfg.d_model
     norm = lambda: ParamDef((stack, d), ("layers", "embed_w"), init="ones")
     defs: dict = {"norm1": norm()}
     if kind == "attn":
-        defs["attn"] = attn.gqa_defs(cfg, stack)
+        defs["attn"] = (attn.mla_defs(cfg, stack) if cfg.attention == "mla"
+                        else attn.gqa_defs(cfg, stack))
     else:
         defs["mamba"] = ssm.mamba_defs(cfg, stack)
-    if cfg.d_ff > 0:
+    if cfg.is_moe and idx_in_period % cfg.moe_every == cfg.moe_every - 1:
+        defs["norm2"] = norm()
+        defs["moe"] = moe_defs(cfg, stack)
+    elif cfg.d_ff > 0:
         defs["norm2"] = norm()
         defs["mlp"] = mlp_defs(cfg, stack)
     return defs
@@ -83,7 +93,8 @@ def decoder_defs(cfg: ModelConfig) -> dict:
     }
     if not cfg.tie_embeddings:
         defs["lm_head"] = ParamDef((d, cfg.padded_vocab), ("embed_w", "vocab"))
-    defs["blocks"] = {key: _block_defs(cfg, kind, stack) for key, kind in block_keys(cfg)}
+    defs["blocks"] = {key: _block_defs(cfg, kind, i, stack)
+                      for i, (key, kind) in enumerate(block_keys(cfg))}
     if cfg.is_encdec:
         E = cfg.enc_layers
         enc_norm = lambda: ParamDef((E, d), ("layers", "embed_w"), init="ones")
@@ -107,10 +118,15 @@ def decoder_defs(cfg: ModelConfig) -> dict:
 
 
 def _ffn_half(bp: nn.Module, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig):
-    """The MLP half after a mixer whose output is ``y``: returns ``(x + y,
-    mlp(rmsnorm(x + y)))``, the MLP's output being the residual update
-    still to add.  A block without an MLP returns ``(x, y)``: ``y`` is
-    added by the next norm."""
+    """The feed-forward half after a mixer whose output is ``y``: returns
+    ``(x + y, ffn(rmsnorm(x + y)))``, the feed-forward's output being the
+    residual update still to add; ``ffn`` is the MoE layer or the dense
+    MLP.  A block with neither returns ``(x, y)``: ``y`` is added by the
+    next norm.  The MoE layer's aux values are not computed: serving
+    drops them, as the reference's does."""
+    if hasattr(bp, "moe"):
+        x, h = add_rms_norm(x, y, bp.norm2, cfg.norm_eps)
+        return x, moe_ffn(bp.moe, h, cfg, need_aux=False)[0]
     if hasattr(bp, "mlp"):
         x, h = add_rms_norm(x, y, bp.norm2, cfg.norm_eps)
         return x, swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
@@ -139,10 +155,13 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
     x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
+    mla = cfg.attention == "mla"
     if kind == "attn" and mode == "decode":
-        y, new_state = attn.gqa_decode(bp.attn, h, cfg, state, positions)
+        decode = attn.mla_decode if mla else attn.gqa_decode
+        y, new_state = decode(bp.attn, h, cfg, state, positions)
     elif kind == "attn":
-        y, new_state = attn.gqa_prefill(bp.attn, h, cfg, positions, make_cache=True)
+        prefill = attn.mla_prefill if mla else attn.gqa_prefill
+        y, new_state = prefill(bp.attn, h, cfg, positions, make_cache=True)
     elif kind == "mamba" and mode == "decode":
         y, ns = ssm.mamba_decode(bp.mamba, h, cfg, state)
         for name, t in ns.items():
@@ -193,7 +212,8 @@ def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     ``blocks`` holds one module per period.  Caches keep the reference's
     layout, one entry per block of the period stacked along the period
     axis: ``{"b0_attn": {"k": (P, B, T, KV, hd), "v": ...}, "b1_mamba":
-    {"h": (P, B, di, N), "conv": (P, B, d_conv-1, di)}}``.  Prefill stacks
+    {"h": (P, B, di, N), "conv": (P, B, d_conv-1, di)}}``, an MLA block's
+    ``{"c_kv": (P, B, T, rank), "k_rope": (P, B, T, rope)}``.  Prefill stacks
     the periods' new caches; decode updates ``caches`` in place and returns
     it.
 

@@ -36,6 +36,7 @@ from repro_torch.kernels.stream_flow import (
     stream_flow_ell,
     stream_flow_ell_reference,
 )
+from repro_torch.launch.serve import SEQUENCE_CACHES
 from repro_torch.models import build_model
 from repro_torch.streams import (
     SimParams,
@@ -727,6 +728,75 @@ def test_model_on_card_runs_the_kernels_and_matches_the_host(cuda, arch):
     assert (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches) == (
         before[0] + 1, before[1] + 2 * L, before[2] + L)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("S", [1, 34, 168])
+def test_flash_kernel_at_mla_widths_with_padded_v(cuda, S):
+    """minicpm3's prefill: 40 heads, q and k ``[nope ‖ rope]`` at 96, v at 64
+    zero-padded to 96, scale 1/sqrt(96), causal.  The kernel is within 2e-5
+    of its plain version on the padded inputs, its padded output columns
+    are exactly zero, and the first 64 columns are attention with v at its
+    own width."""
+    H, qk, vd = 40, 96, 64
+    q, k, v = _qkv(cuda, S, H, H, qk, seed=S + 96)
+    v = v[..., :vd]
+    vpad = torch.nn.functional.pad(v, (0, qk - vd)).contiguous()
+    scale = 1.0 / qk ** 0.5
+    got = flash_attention(q, k, vpad, causal=True, scale=scale)
+    want = flash_attention_reference(q, k, vpad, causal=True, scale=scale)
+    scores = torch.einsum("bshd,bthd->bhst", q, k) * scale
+    mask = torch.ones(S, S, dtype=torch.bool, device=cuda).tril()
+    narrow = torch.einsum("bhst,bthd->bshd",
+                          torch.softmax(torch.where(mask, scores, -1e30), dim=-1), v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    assert torch.equal(got[..., vd:], torch.zeros_like(got[..., vd:]))
+    torch.testing.assert_close(got[..., :vd], narrow, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b@smoke", "mixtral-8x7b@smoke", "minicpm3-4b@smoke",
+                                  "jamba-1.5-large-398b@smoke"])
+def test_moe_and_mla_models_on_card_run_the_kernels_and_match_the_host(cuda, arch):
+    """Per forward: 1 + 2·(MLA layers) ``rmsnorm`` (the embedding's norm and
+    MLA's two latent norms a layer), 2L ``add_rmsnorm`` (an MoE layer's norm
+    fused as a dense MLP's is); per prefill one flash launch per attention
+    block.  Logits within rtol 1e-4, atol 1e-4·max of the host's, prefill
+    and one decode step."""
+    cfg = get_config(arch)
+    host = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=cuda, seed=0)
+    card.load_state_dict(host.state_dict())
+    tokens = torch.arange(4, 44).reshape(1, 40) % cfg.vocab
+    L = cfg.n_layers
+    attn = cfg.n_periods() * cfg.pattern().count("attn")
+    mla = attn if cfg.attention == "mla" else 0
+    before = (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches)
+    got, gc = card.forward_prefill(tokens.to(cuda))
+    want, hc = host.forward_prefill(tokens)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(
+        (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches), before)) == (
+        1 + 2 * mla, 2 * L, attn)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    caches = {"card": card.cache_struct(1, 48), "host": host.cache_struct(1, 48)}
+    for name, c1 in (("card", gc), ("host", hc)):
+        for key, layer in c1.items():
+            for n, t in layer.items():
+                if n in SEQUENCE_CACHES:
+                    caches[name][key][n][:, :, :t.shape[2]] = t
+                else:
+                    caches[name][key][n].copy_(t)
+    before = (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches)
+    gd, _ = card.forward_decode(torch.tensor([[7]], device=cuda), caches["card"], 40)
+    wd, _ = host.forward_decode(torch.tensor([[7]]), caches["host"], 40)
+    torch.cuda.synchronize()
+    assert (rmsnorm.launches - before[0], add_rmsnorm.launches - before[1],
+            flash_attention.launches - before[2]) == (1 + 2 * mla, 2 * L, 0)
+    torch.testing.assert_close(gd.cpu(), wd, rtol=1e-4, atol=1e-4 * float(wd.abs().max()))
+    for key, layer in caches["host"].items():
+        for n, w in layer.items():
+            torch.testing.assert_close(caches["card"][key][n].cpu(), w, rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()))
 
 
 # ----------------------------------------------------------------- ssm scan

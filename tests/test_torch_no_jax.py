@@ -88,8 +88,8 @@ def test_port_sources_import_neither_jax_nor_reference():
             "streams/engine.py", "control/learning.py", "core/lp.py",
             "core/node_model.py", "core/lm_bridge.py", "runtime/elastic.py",
             "control/policies.py", "models/frontends.py", "models/attention.py",
-            "models/transformer.py", "models/model.py", "launch/serve.py",
-            "interop.py"} <= names
+            "models/transformer.py", "models/model.py", "models/moe.py",
+            "launch/serve.py", "interop.py"} <= names
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
         for f in files
@@ -399,6 +399,55 @@ loaded = [m for m, mod in sys.modules.items()
 assert not loaded, loaded
 print("served", server.decode_steps, "remeshed", [e.chips_after for e in ctl.events])
 """
+
+
+_BLOCKED_MOE_MLA = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import numpy as np
+import torch
+import repro_torch.models.moe
+from repro_torch.configs import get_config
+from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.models import build_model
+for arch in ("olmoe-1b-7b@smoke", "minicpm3-4b@smoke"):
+    server = BatchedServer(arch, batch_slots=2, max_ctx=64, device="cpu")
+    server.submit(Request(0, np.arange(4, 13, dtype=np.int32), 4))
+    server.submit(Request(1, np.arange(4, 21, dtype=np.int32), 3))
+    server.drain()
+    assert sorted(len(r.tokens_out) for r in server.completed) == [3, 4], server.completed
+model = build_model(get_config("jamba-1.5-large-398b@smoke"), device="cpu")
+logits, _ = model.forward_prefill(torch.arange(4, 20).reshape(1, 16))
+assert logits.shape[:2] == (1, 1) and bool(torch.isfinite(logits).all()), logits.shape
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("served", sorted(server.caches["b0_attn"]))
+"""
+
+
+def test_port_serves_moe_and_mla_with_jax_and_reference_blocked():
+    proc = _run_blocked(_BLOCKED_MOE_MLA)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "served ['c_kv', 'k_rope']" in proc.stdout
+
+
+def test_moe_and_mla_models_count_only_kernel_launches():
+    """The MLA latent norms and the MoE layer's norm take the plain
+    versions on CPU tensors, which are not launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
+    from repro_torch.models import build_model
+
+    for arch in ("olmoe-1b-7b@smoke", "minicpm3-4b@smoke"):
+        model = build_model(get_config(arch), device="cpu")
+        before = (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches)
+        logits, _ = model.forward_prefill(torch.arange(4, 12).reshape(1, 8))
+        logits2, _ = model.forward_decode(torch.tensor([[5]]), model.cache_struct(1, 16), 8)
+        assert torch.isfinite(logits).all() and torch.isfinite(logits2).all()
+        assert (rmsnorm.launches, add_rmsnorm.launches, flash_attention.launches) == before
 
 
 def test_port_serves_encoder_decoder_and_plans_cards_with_jax_and_reference_blocked():

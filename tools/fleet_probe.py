@@ -4,7 +4,7 @@ count, on the card, with the stream kernels' launches counted by shape and
 each shape checked and timed afterwards.
 
 ``chip_smoke.py`` runs the scaled fleet at 333 copies of the demo's trio
-for 4 steps; this probe runs it longer or at other sizes (each step logs
+for 2 steps; this probe runs it longer or at other sizes (each step logs
 the scheduler's phase timings, the rows scored and the launch shapes).
 Needs a CUDA card and builds the stream-flow library from the checkout.
 
