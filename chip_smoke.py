@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Builds the four CUDA kernel libraries from ``src/repro_torch/kernels/*/csrc``
+Builds the five CUDA kernel libraries from ``src/repro_torch/kernels/*/csrc``
 into ``build/kernels/``, with an empty kernel of its own beside them (one
 ``nvcc`` per source, all at once), then:
 
@@ -83,7 +83,11 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    (32/8, window 4096) and minicpm3's prefills (40 heads, q and k at 96, v
    at 64 zero-padded to 96: the padded columns exactly zero, the rest
    attention with v at its own width), rmsnorm at MLA's latent widths 768
-   and 256, add_rmsnorm at d 2048 and 2560;
+   and 256, add_rmsnorm at d 2048 and 2560; xlstm-1.3b's: rmsnorm at d 2048
+   and mLSTM's inner 2732 (serving's and training's rows), add_rmsnorm at
+   2048, and both RMSNorm backward kernels (the norm alone, and after the
+   residual add) against autograd through the plain versions at training's
+   shapes, serving's, one bf16 case and an odd width;
 5. runs a 2-layer llama3-8b at full width with the same seeded weights on
    the card and on the host, one prefill and 4 decode steps, and compares
    the logits;
@@ -134,10 +138,29 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    4,262,025,728 parameters), 62 flash launches per prefill and, per
    forward, 1 + 2 x 62 RMSNorm launches (the latent norms) and 124 fused
    add-and-RMSNorm launches;
-13. (run after 17) builds the LM bridge's workload model of each served
+18. (run after 17) runs one full-width period of xlstm-1.3b (8 layers: 7
+   mLSTM, 1 sLSTM; 395,082,532 parameters) on the card and on the host, a
+   48-token and a 256-token prefill (two mLSTM chunks) with 4 decode steps
+   each, and compares logits, every state (``C``, ``n``; ``h``, ``c``,
+   ``n``, ``m``) and greedy tokens;
+19. serves phase 6's prompt lengths with xlstm-1.3b at full width and depth
+   (48 layers, 1,340,259,032 parameters), 49 RMSNorm and 48 fused
+   add-and-RMSNorm launches per forward, no flash, no scan;
+20. (a) one training forward and backward of that period on the card and
+   on the host from the same weights and one synthetic batch (2 x 256):
+   the loss within rel 1e-5 and every gradient within 1e-4 of its leaf's
+   largest host entry, the backward through both backward kernels; (b)
+   trains xlstm-1.3b whole on the card for 8 steps (4 x 256 tokens a
+   step) with finite losses and gradient norms and the norms' forward and
+   backward launches per step held to 49 and 48 each, then the same run
+   checkpointed every 4 steps under ``build/``, crashed after step 5 and
+   restarted under ``run_with_restarts``, its losses equal to the
+   uninterrupted run's within rel 1e-5; (c) requires training a 2-layer
+   llama3-8b on the card to raise, citing ROADMAP (flash has no backward);
+13. (run after 20) builds the LM bridge's workload model of each served
    model (2N FLOPs and the fp32 parameter bytes over the slots per token)
    and prints its predicted one-card decode rate beside the measured one
-   for phases 6, 9, 11, 12 and 15-17; runs
+   for phases 6, 9, 11, 12, 15-17 and 19; runs
    ``allocate_chips`` at 1e4, 1e5 and 1e6 tok/s, ``ElasticController``
    over ``examples/serve_lm.py``'s spike day, and ``FleetElasticController``
    over the fleet demo's trio on a card ``SimulatorEvaluator`` for 6
@@ -150,7 +173,7 @@ norms at prefill shapes over input sets that miss L2, as in serving.  The
 three stream kernels' launches in phases 2-3 are counted by input shape, and
 each is timed at every one of those shapes (phase 3c's likewise, on their
 own); every kernel's launches x (time - bound) over its paths is printed,
-largest first.  After phases 6, 9, 11, 12 and 15-17 the profiler counts
+largest first.  After phases 6, 9, 11, 12, 15-17 and 19 the profiler counts
 the kernel launches of one decode forward; each serving phase logs its decode
 floor (the weights and caches a decode step reads, over 3.35 TB/s).
 Any failed phase raises and the script exits non-zero.  The last line is a
@@ -158,6 +181,8 @@ JSON object with ``"ok": true`` and the device; the line before it lists
 each kernel with its launches on the main paths, its error against the
 plain version, its times and its bound.
 
+Needs one CUDA card and about 45 GB of free disk under ``build/`` (phase
+20 (b)'s two checkpoints of about 21.4 GB, removed when the phase ends).
 Run from the root of the repository:  python3 chip_smoke.py
 """
 from __future__ import annotations
@@ -2438,7 +2463,16 @@ def time_flash(device, S, H=LLAMA["H"], KV=LLAMA["KV"], hd=LLAMA["hd"], Sk=None,
 
 def block_counts(cfg) -> dict:
     """Blocks of each kind over the whole depth."""
-    return {kind: cfg.n_periods() * cfg.pattern().count(kind) for kind in ("attn", "mamba")}
+    return {kind: cfg.n_periods() * cfg.pattern().count(kind)
+            for kind in ("attn", "mamba", "mlstm", "slstm")}
+
+
+def inner_norms(cfg) -> int:
+    """xLSTM blocks' own norms of one forward: mLSTM's over its inner
+    width, sLSTM's after its recurrence (``rmsnorm`` launches beside the
+    residual stream's)."""
+    n = block_counts(cfg)
+    return n["mlstm"] + n["slstm"]
 
 
 def moe_layers(cfg) -> int:
@@ -2480,14 +2514,16 @@ def expected_launches(cfg, forwards, prefills) -> dict:
     one non-causal flash launch per cross-attention sub-block (its decode
     step reads the cached cross K/V with plain torch).  An MLA model adds
     its two latent norms per attention block to every forward's
-    ``rmsnorm`` launches."""
+    ``rmsnorm`` launches, an xLSTM model its blocks' inner norms.  Serving
+    launches no backward kernel."""
     n = block_counts(cfg)
     E = cfg.enc_layers if cfg.is_encdec else 0
     cross = cfg.n_layers if cfg.is_encdec else 0
-    return dict(rmsnorm=forwards * (1 + latent_norms(cfg)) + (prefills if E else 0),
+    return dict(rmsnorm=forwards * (1 + latent_norms(cfg) + inner_norms(cfg))
+                + (prefills if E else 0),
                 add_rmsnorm=(norms_per_forward(cfg) - 1) * forwards + 2 * E * prefills,
                 flash_attention=(n["attn"] + cross + E) * prefills,
-                ssm_scan=n["mamba"] * forwards)
+                ssm_scan=n["mamba"] * forwards, rmsnorm_backward=0, add_rmsnorm_backward=0)
 
 
 def decode_floor(model, caches) -> tuple[float, int, int]:
@@ -2511,19 +2547,25 @@ def decode_floor(model, caches) -> tuple[float, int, int]:
     return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights, cache
 
 
-def kernel_launches() -> dict:
+def model_kernels() -> dict:
+    """The LM kernels' wrappers by name, forward and backward."""
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
+    from repro_torch.kernels.rmsnorm import (
+        add_rmsnorm, add_rmsnorm_backward, rmsnorm, rmsnorm_backward,
+    )
     from repro_torch.kernels.ssm_scan import ssm_scan
-    return dict(rmsnorm=rmsnorm.launches, add_rmsnorm=add_rmsnorm.launches,
-                flash_attention=flash_attention.launches, ssm_scan=ssm_scan.launches)
+    return dict(rmsnorm=rmsnorm, add_rmsnorm=add_rmsnorm, flash_attention=flash_attention,
+                ssm_scan=ssm_scan, rmsnorm_backward=rmsnorm_backward,
+                add_rmsnorm_backward=add_rmsnorm_backward)
+
+
+def kernel_launches() -> dict:
+    return {name: fn.launches for name, fn in model_kernels().items()}
 
 
 def zero_launches() -> None:
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rmsnorm import add_rmsnorm, rmsnorm
-    from repro_torch.kernels.ssm_scan import ssm_scan
-    rmsnorm.launches = add_rmsnorm.launches = flash_attention.launches = ssm_scan.launches = 0
+    for fn in model_kernels().values():
+        fn.launches = 0
 
 
 # ------------------------------------------------------------ selective scan
@@ -2865,7 +2907,6 @@ def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
     the timed run)."""
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import BatchedServer, Request
 
     t0 = time.perf_counter()
@@ -2894,11 +2935,11 @@ def phase_serve(device, arch, seed, n_requests, slots, max_ctx, max_new):
         server.submit(r)
     decode_ms = []
     while server.queue or any(s is not None for s in server.slots):
-        prefills = flash_attention.launches
+        queued = len(server.queue)
         t = time.perf_counter()
         server.step()
         torch.cuda.synchronize()
-        if flash_attention.launches == prefills:      # a tick with no admission
+        if len(server.queue) == queued:              # a tick with no admission
             decode_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3130,6 +3171,472 @@ def time_moe_mla(device, lengths, served, excess) -> dict:
     return dict(flash=flash_at, norms=norms)
 
 
+# ------------------------------------------------------------ xLSTM serving and training
+
+XLSTM_PARAMS = 1_340_259_032        # xlstm-1.3b, the reference's n_params()
+XLSTM_PERIOD_PARAMS = 395_082_532   # one period (8 layers: 7 mLSTM, 1 sLSTM) at full width
+XLSTM_PERIOD = 8
+BWD_FP32_TOL = 1e-5                 # backward kernel vs autograd through the plain versions
+TRAIN_LOSS_RTOL = 1e-5              # card vs host loss, and a restart vs the uninterrupted run
+TRAIN_GRAD_ATOL_REL = 1e-4          # card vs host gradient, of its leaf's largest host entry
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_FAIL_AFTER = 8, 4, 256, 4, 5
+GRAD_BATCH, GRAD_SEQ = 2, 256       # phase 20 (a)'s one batch
+
+
+def xlstm_configs():
+    """xlstm-1.3b whole and its one-period cut at full width."""
+    from repro_torch.configs import get_config
+    full = get_config("xlstm-1.3b")
+    return full, dataclasses.replace(full, n_layers=XLSTM_PERIOD,
+                                     name=f"xlstm-1.3b/{XLSTM_PERIOD}-layers")
+
+
+def grads_through_plain(fn, inputs, grads):
+    """Autograd's gradients of ``fn`` (a plain version) at ``inputs``, given
+    the gradients of its outputs (None for an output left unused)."""
+    import torch
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+    return torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs])
+
+
+def check_backward(name, got, want, norm_part=None) -> float:
+    """fp32 within rtol and atol·max of 1e-5; bf16 within one bf16 ulp
+    plus atol 1e-5·max (dx's two terms are fp32 and can nearly cancel, so
+    their rounding can move the bf16 rounding of a small result by more
+    than its ulp), plus one ulp of the norm's rounded part in the fused
+    form (both sides round it before adding the residual gradient).
+    Returns the largest absolute difference."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite gradient")
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=BWD_FP32_TOL,
+                                   atol=BWD_FP32_TOL * float(want.abs().max()))
+    else:
+        tol = (bf16_ulp(want) + BWD_FP32_TOL * float(want.float().abs().max())
+               + (0 if norm_part is None else bf16_ulp(norm_part)))
+        if not bool((err <= tol).all()):
+            raise AssertionError(f"{name}: off by more than the bf16 tolerance")
+    return float(err.max())
+
+
+def check_norm_backwards(device, shapes) -> tuple[float, float]:
+    """Both backward kernels against autograd through their plain versions
+    at ``shapes`` in fp32, and at the first shape in bf16 and an odd width
+    (4, 1, 2049) in fp32: dx (for the fused form, of x and delta alike)
+    and dgain, each twice, the second run bit for bit the first (no
+    atomics).  Returns the largest fp32 differences of the two kernels."""
+    import torch
+    from repro_torch.kernels.rmsnorm import (
+        add_rmsnorm_backward, add_rmsnorm_reference, rmsnorm_backward, rmsnorm_backward_reference,
+        rmsnorm_reference,
+    )
+
+    g = torch.Generator(device=device).manual_seed(26)
+    cases = [(tuple(sh), torch.float32) for sh in shapes]
+    cases += [(tuple(shapes[0]), torch.bfloat16), ((4, 1, 2049), torch.float32)]
+    worst = {"rmsnorm_backward": 0.0, "add_rmsnorm_backward": 0.0}
+    for shape, dtype in cases:
+        x, delta, dy, ds = (torch.randn(shape, generator=g, device=device).to(dtype)
+                            for _ in range(4))
+        gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=device)
+        label = f"{shape} {str(dtype)[6:]}"
+        dx, dgain = rmsnorm_backward(x, dy, gain, 1e-5)
+        again = rmsnorm_backward(x, dy, gain, 1e-5)
+        want_dx, want_dg = grads_through_plain(lambda x, g_: rmsnorm_reference(x, g_, 1e-5),
+                                               (x, gain), (dy,))
+        torch.cuda.synchronize()
+        e = check_backward(f"rmsnorm_backward {label} dx", dx, want_dx)
+        e_g = check_backward(f"rmsnorm_backward {label} dgain", dgain, want_dg)
+        if not (torch.equal(again[0], dx) and torch.equal(again[1], dgain)):
+            raise AssertionError(f"rmsnorm_backward {label}: a second run differs")
+        s = x + delta
+        fx, fgain = add_rmsnorm_backward(s, ds, dy, gain, 1e-5)
+        want_x, want_d, want_fg = grads_through_plain(
+            lambda x, d, g_: add_rmsnorm_reference(x, d, g_, 1e-5), (x, delta, gain), (ds, dy))
+        part = rmsnorm_backward_reference(s, dy, gain, 1e-5)[0]
+        torch.cuda.synchronize()
+        f = check_backward(f"add_rmsnorm_backward {label} dx", fx, want_x, part)
+        check_backward(f"add_rmsnorm_backward {label} ddelta", fx, want_d, part)
+        f_g = check_backward(f"add_rmsnorm_backward {label} dgain", fgain, want_fg)
+        if dtype == torch.float32:
+            worst["rmsnorm_backward"] = max(worst["rmsnorm_backward"], e, e_g)
+            worst["add_rmsnorm_backward"] = max(worst["add_rmsnorm_backward"], f, f_g)
+        log(f"  backward {label}: rmsnorm max|kernel-autograd| dx {e:.3e} dgain {e_g:.3e}; "
+            f"add_rmsnorm dx {f:.3e} dgain {f_g:.3e}; second runs bit-equal")
+    return worst["rmsnorm_backward"], worst["add_rmsnorm_backward"]
+
+
+def norm_backward_bound(rows, d, fused) -> tuple[float, str]:
+    """fp32: x, dy (and the residual gradient, fused) read and dx written
+    once, the gain read and its gradient written once; about 8 flops per
+    element (two row sums, dx, the gain's partial)."""
+    return _bytes_or_flops(((4 if fused else 3) * rows * d + 2 * d) * 4, rows * d * 8)
+
+
+def time_norm_backward(device, shape, fused) -> dict:
+    """A backward kernel, its plain version and, as the library yardstick,
+    autograd's backward of ``F.rms_norm`` (fused: of ``x + delta`` then
+    ``F.rms_norm``): the forward and backward captured together, less the
+    forward alone, since a graph cannot replay a backward whose forward
+    ran outside it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.rmsnorm import (
+        add_rmsnorm_backward, add_rmsnorm_backward_reference, rmsnorm_backward,
+        rmsnorm_backward_reference,
+    )
+
+    g = torch.Generator(device=device).manual_seed(27)
+    d = shape[-1]
+    rows = math.prod(shape[:-1])
+    gain = 1.0 + 0.1 * torch.randn(d, generator=g, device=device)
+    n_in = 3 if fused else 2
+    sets = input_ring(lambda i: tuple(torch.randn(shape, generator=g, device=device)
+                                      for _ in range(n_in)), (n_in + 1) * rows * d * 4)
+    if fused:
+        kernel = lambda s, dh, ds: add_rmsnorm_backward(s, ds, dh, gain, 1e-5)
+        plain = lambda s, dh, ds: add_rmsnorm_backward_reference(s, ds, dh, gain, 1e-5)
+    else:
+        kernel = lambda x, dy: rmsnorm_backward(x, dy, gain, 1e-5)
+        plain = lambda x, dy: rmsnorm_backward_reference(x, dy, gain, 1e-5)
+    ms, eager_ms = time_both(cycling(kernel, sets), iters=100)
+    plain_ms, _ = time_both(cycling(plain, sets), iters=100)
+    lib_sets = [tuple(t.clone().requires_grad_(True) for t in st[:1]) + st[1:] for st in sets]
+    w = gain.clone().requires_grad_(True)
+
+    def forward(x, *rest):
+        xin = x + rest[1] if fused else x
+        return F.rms_norm(xin, (d,), w, 1e-5)
+
+    def both(x, dy, *rest):
+        return torch.autograd.grad(forward(x, dy, *rest), (x, w), dy)
+
+    fwd_bwd = graph_ms(cycling(both, lib_sets), iters=50)
+    fwd = graph_ms(cycling(lambda *a: forward(*a).detach(), lib_sets), iters=50)
+    bound_ms, bound_by = norm_backward_bound(rows, d, fused)
+    name = "add_rmsnorm_backward" if fused else "rmsnorm_backward"
+    log(f"  {name} {tuple(shape)} device (graph, {len(sets)} input sets in turn): kernel "
+        f"{ms:.5f} ms  plain {plain_ms:.5f} ms  autograd of "
+        f"{'x + delta, ' if fused else ''}F.rms_norm {fwd_bwd - fwd:.5f} ms (forward and "
+        f"backward {fwd_bwd:.5f} less forward {fwd:.5f})  bound {bound_ms:.6f} ms "
+        f"({bound_by}); eager kernel with launch cost {eager_ms:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=fwd_bwd - fwd, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def host_batch(cfg, batch, seq, seed):
+    """One ``SyntheticLMStream`` batch as int64 host tensors."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    b = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                                     seed=seed)).batch_at(0)
+    return {k: torch.as_tensor(v).long() for k, v in b.items()}
+
+
+def phase_train_card_vs_host(device, cfg, seed) -> dict:
+    """Phase 20 (a): one training forward and backward of ``cfg`` on the card
+    and on the host from the same seeded weights and one synthetic batch:
+    the loss within rel 1e-5, every gradient within 1e-4 of its leaf's
+    largest host entry, and the card's launches (forward and backward
+    norms, nothing else).  Returns the largest differences."""
+    import torch
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    host = build_model(cfg, device="cpu", seed=seed)
+    card = build_model(cfg, device=device, seed=seed)
+    card.load_state_dict(host.state_dict())
+    batch = host_batch(cfg, GRAD_BATCH, GRAD_SEQ, seed)
+    log(f"  built {cfg.name} on host and card ({host.n_params():,} params) in "
+        f"{time.perf_counter() - t0:.1f} s; batch {GRAD_BATCH} x {GRAD_SEQ}")
+    losses = {}
+    zero_launches()
+    for name, model in (("host", host), ("card", card)):
+        t0 = time.perf_counter()
+        model.trainable()
+        loss, _ = model.loss_fn({k: v.to(model.embed.device) for k, v in batch.items()})
+        loss.backward()
+        losses[name] = float(loss.detach())
+        log(f"  {name}: loss {losses[name]:.7f}, forward and backward "
+            f"{time.perf_counter() - t0:.2f} s")
+    torch.cuda.synchronize()
+    rel = abs(losses["card"] - losses["host"]) / abs(losses["host"])
+    if not math.isfinite(losses["card"]) or rel > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"loss card {losses['card']} host {losses['host']} (rel {rel:.3e})")
+    host_p = dict(host.named_parameters())
+    worst, worst_name = 0.0, ""
+    for n, p in card.named_parameters():
+        want = host_p[n].grad
+        got = p.grad.cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"d{n}: non-finite on the card")
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if err > TRAIN_GRAD_ATOL_REL * scale:
+            raise AssertionError(f"d{n}: max|card-host| {err:.3e} over "
+                                 f"{TRAIN_GRAD_ATOL_REL} x {scale:.3e}")
+        if scale and err / scale > worst:
+            worst, worst_name = err / scale, n
+    n = block_counts(cfg)
+    per = dict(rmsnorm=1 + inner_norms(cfg), add_rmsnorm=norms_per_forward(cfg) - 1)
+    want = dict(per, flash_attention=0, ssm_scan=0, rmsnorm_backward=per["rmsnorm"],
+                add_rmsnorm_backward=per["add_rmsnorm"])
+    got = kernel_launches()
+    if got != want:
+        raise AssertionError(f"training launches {got}, expected {want}")
+    log(f"  loss card {losses['card']:.7f} host {losses['host']:.7f} (rel {rel:.3e}); every "
+        f"gradient within {TRAIN_GRAD_ATOL_REL} of its leaf's largest host entry, largest "
+        f"share {worst:.3e} (d{worst_name}); {n['mlstm']} mLSTM + {n['slstm']} sLSTM blocks; "
+        f"card launches {json.dumps(got)}")
+    del host, card
+    return dict(loss_rel=rel, grad_rel=worst)
+
+
+def phase_train(device, seed) -> dict:
+    """Phase 20 (b): xlstm-1.3b whole trained on the card for 8 steps (batch
+    4 x 256 positions), uninterrupted, with every loss and gradient norm
+    finite and the launches per step held to the norms' forward and
+    backward counts; then the same run with checkpoints every 4 steps under
+    ``build/``, crashed after step 5 and restarted under
+    ``run_with_restarts``, whose losses must equal the uninterrupted run's
+    to rel 1e-5.  The step times are ``train()``'s own, passed to its
+    ``on_step``.  The restarted run needs about 45 GB of free disk under
+    ``build/`` for two checkpoints, removed afterwards.  Returns the
+    figures."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.train import TrainConfig, train
+    from repro_torch.runtime import FailurePlan, run_with_restarts
+
+    full, _ = xlstm_configs()
+    base = dict(arch=full.name, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                ckpt_every=TRAIN_CKPT_EVERY, seed=seed, log_every=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    t0 = time.perf_counter()
+    steps = []
+
+    def record(step, loss, metrics, dt):
+        steps.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
+                          lr=float(metrics["lr"]), ms=dt * 1e3))
+
+    out = train(TrainConfig(**base), on_step=record, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    del out["params"]
+    torch.cuda.empty_cache()
+    losses = out["losses"]
+    for i, st in enumerate(steps):
+        log(f"  step {i}: loss {st['loss']:.6f}  grad_norm {st['grad_norm']:.6f}  "
+            f"lr {st['lr']:.3e}  {st['ms']:.1f} ms")
+    if len(losses) != TRAIN_STEPS or not all(
+            math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]) for st in steps):
+        raise AssertionError(f"losses or gradient norms not finite: {steps}")
+    n_rms = 1 + inner_norms(full)
+    n_add = norms_per_forward(full) - 1
+    want = dict(rmsnorm=n_rms * TRAIN_STEPS, add_rmsnorm=n_add * TRAIN_STEPS, flash_attention=0,
+                ssm_scan=0, rmsnorm_backward=n_rms * TRAIN_STEPS,
+                add_rmsnorm_backward=n_add * TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    step_ms = sorted(st["ms"] for st in steps)
+    log(f"  uninterrupted: {TRAIN_STEPS} steps in {wall:.1f} s (build included); step median "
+        f"{float(np.median(step_ms)):.1f} ms, min {step_ms[0]:.1f} ms; peak memory "
+        f"{peak / 2**30:.2f} GiB ({peak} bytes); launches {json.dumps(launches)} "
+        f"({n_rms} rmsnorm, {n_add} add_rmsnorm and as many backward launches each a step)")
+
+    ckpt_dir = os.path.join(ROOT, "build", "phase20_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    restarted: dict[int, float] = {}
+    starts = []
+    plan = FailurePlan(fail_after_steps=(TRAIN_FAIL_AFTER,))
+    t0 = time.perf_counter()
+
+    def run(attempt: int) -> int:
+        gc.collect()                  # the crashed attempt's state, before the next builds
+        torch.cuda.empty_cache()
+        res = train(TrainConfig(**base, ckpt_dir=ckpt_dir), failure_plan=plan,
+                    on_step=lambda step, loss, m, dt: restarted.__setitem__(step, loss),
+                    device=device)
+        starts.append(res["start_step"])
+        return res["start_step"]
+
+    try:
+        _, restarts = run_with_restarts(run)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    restart_wall = time.perf_counter() - t0
+    if restarts != 1 or starts != [TRAIN_CKPT_EVERY] or sorted(restarted) != list(
+            range(TRAIN_STEPS)):
+        raise AssertionError(f"restarts {restarts}, starts {starts}, steps {sorted(restarted)}")
+    worst = max(abs(restarted[s] - losses[s]) / abs(losses[s]) for s in range(TRAIN_STEPS))
+    bitwise = all(restarted[s] == losses[s] for s in range(TRAIN_STEPS))
+    if worst > TRAIN_LOSS_RTOL:
+        raise AssertionError(f"restarted losses {restarted} against {losses}: rel {worst:.3e}")
+    log(f"  restarted after step {TRAIN_FAIL_AFTER} from step {starts[0]}'s checkpoint: "
+        f"{restarts} restart, {restart_wall:.1f} s with checkpoints; losses equal the "
+        f"uninterrupted run's within rel {worst:.3e} ("
+        + ("bit for bit" if bitwise else "not bit for bit") + ")")
+    log(f"  loss curve: {[round(v, 6) for v in losses]}")
+    return dict(losses=losses, step_ms=float(np.median(step_ms)), peak_bytes=peak,
+                launches=launches, restart_rel=worst, bitwise=bitwise, wall_s=wall,
+                restart_wall_s=restart_wall)
+
+
+def phase_train_guard(device) -> None:
+    """Phase 20 (c): training llama3-8b (2 layers) on the card must raise
+    citing ROADMAP: ``build_state`` before building anything, and
+    ``make_step`` for a model built on the card."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainConfig, build_state, make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+
+    for what, call in (
+            ("build_state", lambda: build_state(TrainConfig(arch="llama3-8b", n_layers=2),
+                                                device=device)),
+            ("make_step", lambda: make_step(build_model(
+                dataclasses.replace(get_config("llama3-8b"), n_layers=2), device=device),
+                AdamWConfig()))):
+        try:
+            call()
+        except NotImplementedError as e:
+            if "ROADMAP" not in str(e):
+                raise AssertionError(f"{what}: the guard's message cites no ROADMAP item: {e}")
+            log(f"  {what} for a 2-layer llama3-8b raised: {e}")
+        else:
+            raise AssertionError(f"{what} trained llama3-8b on the card")
+        torch.cuda.empty_cache()
+
+
+def phases_xlstm(device, seed, serve_rng, timings) -> dict:
+    """Phases 18-20: card = host at one full-width xlstm-1.3b period; the
+    whole model served; the whole model trained, restarted, and the
+    guard.  Returns the figures."""
+    import torch
+
+    full, cut = xlstm_configs()
+    out = {}
+    t0 = time.perf_counter()
+    log(f"phase 18: card vs host, one full-width period of xlstm-1.3b ({XLSTM_PERIOD} layers: 7 "
+        "mLSTM, 1 sLSTM), a 48-token and a 256-token prefill (two mLSTM chunks), 4 decode "
+        "steps each")
+    out["card_vs_host"] = {S: phase_card_vs_host(device, cut, prompt_len=S, decode_steps=4,
+                                                 seed=seed) for S in (48, 256)}
+    torch.cuda.empty_cache()
+    timings["phase18"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 19: serve xlstm-1.3b at full width and depth (48 layers; BatchedServer, 4 slots, "
+        "max_ctx 256)")
+    torch.cuda.reset_peak_memory_stats()
+    server, launches, lengths, fig = phase_serve(device, full, seed, n_requests=8, slots=4,
+                                                 max_ctx=256, max_new=16)
+    if server.model.n_params() != XLSTM_PARAMS:
+        raise AssertionError(f"xlstm-1.3b has {server.model.n_params():,} parameters")
+    timings["phase19"] = time.perf_counter() - t0
+    log("profile: where serving time goes (4 requests x 16 tokens, 128-token prompts)")
+    profile_serving(server, serve_rng, n_requests=4, prompt_len=128, max_new=16)
+    out["served"] = dict(cfg=full, launches=launches, ticks=server.decode_steps,
+                         lengths=lengths, fig=fig)
+    del server
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    log(f"phase 20 (a): card vs host training gradients, one full-width period of xlstm-1.3b "
+        f"({XLSTM_PERIOD_PARAMS:,} params), one synthetic batch of {GRAD_BATCH} x {GRAD_SEQ}")
+    out["train_card_vs_host"] = phase_train_card_vs_host(device, cut, seed)
+    torch.cuda.empty_cache()
+    timings["phase20a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(f"phase 20 (b): train xlstm-1.3b whole on the card, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, then again checkpointed every {TRAIN_CKPT_EVERY} steps, "
+        f"crashed after step {TRAIN_FAIL_AFTER} and restarted")
+    out["train"] = phase_train(device, seed)
+    timings["phase20b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("phase 20 (c): the card-training guard on llama3-8b (flash has no backward yet)")
+    phase_train_guard(device)
+    timings["phase20c"] = time.perf_counter() - t0
+    return out
+
+
+def check_xlstm_kernels(device, prompt_lengths) -> tuple[float, float, float, float]:
+    """Phase 4's checks at xlstm-1.3b's shapes: rmsnorm at d 2048 and
+    mLSTM's inner 2732 at serving's decode and prefill rows (phase 18's
+    256-token prefill too) and training's (4 x 256 and 2 x 256 rows);
+    add_rmsnorm at d 2048 (olmoe's d, whose serving rows phase 4 checks
+    already) at training's rows; both backward kernels against autograd
+    through their plain versions (:func:`check_norm_backwards`).  Returns
+    the largest rmsnorm, add_rmsnorm and backward differences."""
+    xd, xdi = 2048, 2732
+    train_shapes = [(TRAIN_BATCH, TRAIN_SEQ, xd), (TRAIN_BATCH, TRAIN_SEQ, xdi),
+                    (GRAD_BATCH, GRAD_SEQ, xd), (GRAD_BATCH, GRAD_SEQ, xdi)]
+    rms_err = check_rmsnorm(device, [(1, S, w) for w in (xd, xdi) for S in prompt_lengths + [256]]
+                            + [(4, 1, xd), (4, 1, xdi)] + train_shapes)
+    add_err = check_add_rmsnorm(device, [(1, 256, xd)] + train_shapes[::2])
+    rms_bwd_err, add_bwd_err = check_norm_backwards(device, train_shapes
+                                                    + [(4, 1, xd), (1, 168, xdi)])
+    return rms_err, add_err, rms_bwd_err, add_bwd_err
+
+
+def time_xlstm(device, lengths, xlstm, excess) -> tuple[dict, dict]:
+    """The norms at phase 19's shapes (d 2048 and 2732, decode rows and the
+    longest prefill's) and phase 20's training shape, and both backward
+    kernels there, each with its plain version, library call and bound;
+    each kernel's launches x (time - bound) on phases 19 and 20 added to
+    ``excess`` (prefills timed at the longest prompt's rows, an upper
+    estimate).  Returns the backward kernels' timings at (4, 256, 2048)."""
+    xd, xdi = 2048, 2732
+    run = xlstm["served"]
+    cfg = run["cfg"]
+    norms = {w: dict(rms=time_rmsnorm(device, (4, 1, w)),
+                     rms_prefill=time_rmsnorm(device, (1, max(lengths), w)))
+             for w in (xd, xdi)}
+    norms[xd].update(add=time_add_rmsnorm(device, (4, 1, xd)),
+                     add_prefill=time_add_rmsnorm(device, (1, max(lengths), xd)))
+    shape, inner = (TRAIN_BATCH, TRAIN_SEQ, xd), (TRAIN_BATCH, TRAIN_SEQ, xdi)
+    rms_bwd = time_norm_backward(device, shape, fused=False)
+    rms_bwd_inner = time_norm_backward(device, inner, fused=False)
+    add_bwd = time_norm_backward(device, shape, fused=True)
+    rms_train, rms_train_inner = time_rmsnorm(device, shape), time_rmsnorm(device, inner)
+    add_train = time_add_rmsnorm(device, shape)
+    # phase 19: every forward's block-0 norm and sLSTM inner norms at d, the
+    # mLSTM inner norms at 2732
+    n, ticks = len(lengths), run["ticks"]
+    nb = block_counts(cfg)
+    rms = []
+    for w, per in ((xd, 1 + nb["slstm"]), (xdi, nb["mlstm"])):
+        rms += [(per * n, norms[w]["rms_prefill"]), (per * ticks, norms[w]["rms"])]
+    excess["rmsnorm, phase 19"] = excess_ms(rms)
+    n_add = norms_per_forward(cfg) - 1
+    excess["add_rmsnorm, phase 19"] = excess_ms(
+        [(n_add * n, norms[xd]["add_prefill"]), (n_add * ticks, norms[xd]["add"])])
+    # phase 20 (b): the uninterrupted run's launches at the training shapes
+    tl = xlstm["train"]["launches"]
+    per_d, per_i = (1 + nb["slstm"]) * TRAIN_STEPS, nb["mlstm"] * TRAIN_STEPS
+    excess["rmsnorm, phase 20"] = excess_ms([(per_d, rms_train), (per_i, rms_train_inner)])
+    excess["add_rmsnorm, phase 20"] = excess_ms([(tl["add_rmsnorm"], add_train)])
+    excess["rmsnorm_backward, phase 20"] = excess_ms([(per_d, rms_bwd), (per_i, rms_bwd_inner)])
+    excess["add_rmsnorm_backward, phase 20"] = excess_ms([(tl["add_rmsnorm_backward"], add_bwd)])
+    log(f"phase 20 training launches: {json.dumps(tl)}; rmsnorm_backward at {shape}: "
+        f"{json.dumps(rms_bwd)}; at {inner}: {json.dumps(rms_bwd_inner)}; "
+        f"add_rmsnorm_backward at {shape}: {json.dumps(add_bwd)}")
+    return rms_bwd, add_bwd
+
+
 BRIDGE_TARGETS = (1e4, 1e5, 1e6)     # tok/s, as examples/serve_lm.py asks
 BRIDGE_FLEET_STEPS = 6
 
@@ -3287,9 +3794,10 @@ def main() -> int:
     timings = {}
 
     empty = empty_library()
-    timings["build"] = build_all([build.LIBRARY, rmsnorm_ops.LIBRARY, flash_ops.LIBRARY,
+    timings["build"] = build_all([build.LIBRARY, rmsnorm_ops.LIBRARY,
+                                  rmsnorm_ops.BACKWARD_LIBRARY, flash_ops.LIBRARY,
                                   ssm_ops.LIBRARY, empty])
-    log(f"build: {timings['build']:.1f} s for 4 libraries and the empty kernel")
+    log(f"build: {timings['build']:.1f} s for 5 libraries and the empty kernel")
 
     t0 = time.perf_counter()
     log("phase 1: kernel vs plain")
@@ -3602,6 +4110,8 @@ def main() -> int:
     moe_flash_err, moe_rms_err, moe_add_err = check_moe_mla_kernels(device, prompt_lengths)
     flash_err, rms_err = max(flash_err, moe_flash_err), max(rms_err, moe_rms_err)
     add_err = max(add_err, moe_add_err)
+    x_rms_err, x_add_err, rms_bwd_err, add_bwd_err = check_xlstm_kernels(device, prompt_lengths)
+    rms_err, add_err = max(rms_err, x_rms_err), max(add_err, x_add_err)
     timings["phase4"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -3737,10 +4247,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     moe_mla = phases_moe_mla(device, seed, serve_rng, timings)
-    new_served = list(moe_mla["served"].values())
+    xlstm = phases_xlstm(device, seed, serve_rng, timings)
+    new_served = list(moe_mla["served"].values()) + [xlstm["served"]]
 
     t0 = time.perf_counter()
-    log("phase 13: the LM bridge on the card's own numbers (phases 6, 9, 11, 12 and 15-17), "
+    log("phase 13: the LM bridge on the card's own numbers (phases 6, 9, 11, 12, 15-17 and 19), "
         "then allocate_chips, ElasticController over the spike day and FleetElasticController "
         "over the fleet demo")
     bridge_fig = phase_lm_bridge(device, params, [lm_fig, jamba_fig, seam_fig, intern_fig]
@@ -3774,6 +4285,12 @@ def main() -> int:
         "(device time from CUDA-graph replay; eager time from CUDA events)")
     time_moe_mla(device, lengths, moe_mla["served"], excess)
     timings["lm_timing_15_17"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log("timing rmsnorm and add_rmsnorm at phase 19's shapes and both backward kernels at "
+        "phase 20's (device time from CUDA-graph replay; eager time from CUDA events)")
+    t_rms_bwd, t_add_bwd = time_xlstm(device, lengths, xlstm, excess)
+    tl = xlstm["train"]["launches"]
+    timings["lm_timing_19_20"] = time.perf_counter() - t0
     L11, E11 = seam.n_layers, seam.enc_layers
     excess["flash_attention, phase 11"] = excess_ms(
         [(E11 * len(lengths), t_enc)] + [(L11, seam_causal_at[S]) for S in lengths]
@@ -3813,15 +4330,18 @@ def main() -> int:
     log(f"card vs host: max|logit difference| llama3-8b {logit_err:.3e}, "
         f"jamba mamba+attn {hybrid_err:.3e}, seamless 2+2 layers {encdec_err:.3e}, "
         + ", ".join(f"{k} 2 layers {v:.3e}" for k, v in moe_mla["card_vs_host"].items())
-        + "; "
+        + ", " + ", ".join(f"xlstm-1.3b period S={S} {v:.3e}"
+                           for S, v in xlstm["card_vs_host"].items())
+        + f"; training loss rel {xlstm['train_card_vs_host']['loss_rel']:.3e}, gradients "
+        f"{xlstm['train_card_vs_host']['grad_rel']:.3e} of their leaves' largest; "
         f"bucket phase max|diff| "
         + ", ".join(f"{k} {m} {v:.3e}" for (k, m), v in bucket_diff.items()))
 
-    # the serving paths each kernel runs on: phases 6, 9, 11, 12 and 15-17
+    # the serving paths each kernel runs on: phases 6, 9, 11, 12, 15-17 and 19
     serving = (lm_launches, jamba_launches, seam_launches, intern_launches,
                *(run["launches"] for run in new_served))
     serve_total = {k: sum(s[k] for s in serving) for k in lm_launches}
-    log("serving launches, phases 6 / 9 / 11 / 12 / 15 / 16 / 17: " + "; ".join(
+    log("serving launches, phases 6 / 9 / 11 / 12 / 15 / 16 / 17 / 19: " + "; ".join(
         f"{k} {' / '.join(str(s[k]) for s in serving)} = {serve_total[k]}" for k in serve_total))
     log(f"lm bridge: {json.dumps(bridge_fig)}")
     kernels = [
@@ -3856,6 +4376,17 @@ def main() -> int:
              source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan.cu",
              replaces="src/repro/kernels/ssm_scan/ssm_scan.py:63",
              launches=jamba_launches["ssm_scan"], max_abs_err=scan_err, **t_scan),
+        dict(name="rmsnorm_backward", route="cuda",
+             source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+             replaces="src/repro/models/common.py:154 (rms_norm under jax.grad; no Pallas "
+                      "backward)",
+             launches=tl["rmsnorm_backward"], max_abs_err=rms_bwd_err, **t_rms_bwd),
+        dict(name="add_rmsnorm_backward", route="cuda",
+             source="src/repro_torch/kernels/rmsnorm/csrc/rmsnorm_bwd.cu",
+             replaces="src/repro/models/common.py:154 with the residual adds at "
+                      "src/repro/models/transformer.py:122, :173 (under jax.grad; no Pallas "
+                      "backward)",
+             launches=tl["add_rmsnorm_backward"], max_abs_err=add_bwd_err, **t_add_bwd),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ import torch
 from .configs.base import ModelConfig
 from .core.node_model import LinearFit, NodeModel, ResourceClass
 from .kernels.stream_flow.ops import index_dtype
-from .models.transformer import period_tree
+from .models.transformer import BLOCK_KINDS, period_tree
 
 
 def node_models_from_state(states: Mapping[str, Mapping]) -> dict[str, NodeModel]:
@@ -77,15 +77,17 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.
     unstack the same way (``encoder.blocks.<i>.attn.wq``,
     ``encoder.final_norm``, ``cross.<i>.norm``, ``cross.<i>.attn.wq``);
     ``frontend_proj`` is carried as it is.  MoE leaves (``moe.router``,
-    ``moe.w1``/``w3``/``w2`` with their expert axis) and MLA leaves
-    (``attn.wq_down`` ... ``attn.wo``) unstack along the period axis like
-    any other.  Load it with ``model.load_state_dict``.  mLSTM/sLSTM blocks
-    are not ported and raise.
+    ``moe.w1``/``w3``/``w2`` with their expert axis), MLA leaves
+    (``attn.wq_down`` ... ``attn.wo``) and xLSTM leaves
+    (``mlstm.up`` ... ``mlstm.down``, ``slstm.w_gates`` ... ``slstm.ff_down``)
+    unstack along the period axis like any other.  Load it with
+    ``model.load_state_dict``.  A block kind the port does not know raises
+    ``ValueError``, and so does a leaf whose period count is not the
+    config's.
     """
     kinds = {key.split("_", 1)[1] for key in tree["blocks"]}
-    if not kinds <= {"attn", "mamba"}:
-        raise NotImplementedError(
-            f"{cfg.name}: only attention and Mamba blocks are ported, not {sorted(kinds)}")
+    if not kinds <= set(BLOCK_KINDS):
+        raise ValueError(f"{cfg.name}: unknown block kinds {sorted(kinds - set(BLOCK_KINDS))}")
     n_periods = cfg.n_periods()
     out: dict[str, torch.Tensor] = {}
 

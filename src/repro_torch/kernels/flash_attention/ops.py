@@ -93,6 +93,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     ``ValueError``).  ``scale`` defaults to ``hd ** -0.5``; the model passes
     ``1 / hd ** 0.5``.
 
+    Not differentiable on the card: a CUDA call under grad mode with an
+    input that requires grad raises ``NotImplementedError`` rather than
+    return an output without a gradient.  On the CPU the plain version is
+    differentiable.
+
     The kernel takes one query head per block when that grid fits in one
     wave of one block per SM, else two (``flash_attention_heads_per_block``
     in the CUDA source).  ``heads_per_block`` forces it, for tests and timing
@@ -104,6 +109,10 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         return flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel on the card yet (ROADMAP queue 1, item 3e (i)): "
+            "call it under torch.no_grad() or on CPU tensors")
     _check(q, k, v, causal, window)
     B, S, H, _ = q.shape
     Sk, KV = k.shape[1], k.shape[2]

@@ -1,6 +1,13 @@
-"""RMSNorm, alone and fused with the residual add before it: CUDA kernel
-and plain versions."""
-from .ops import add_rmsnorm, rmsnorm
-from .ref import add_rmsnorm_reference, rmsnorm_reference
+"""RMSNorm, alone and fused with the residual add before it, and the
+backward of both: CUDA kernels and plain versions."""
+from .ops import add_rmsnorm, add_rmsnorm_backward, rmsnorm, rmsnorm_backward
+from .ref import (
+    add_rmsnorm_backward_reference,
+    add_rmsnorm_reference,
+    rmsnorm_backward_reference,
+    rmsnorm_reference,
+)
 
-__all__ = ["add_rmsnorm", "add_rmsnorm_reference", "rmsnorm", "rmsnorm_reference"]
+__all__ = ["add_rmsnorm", "add_rmsnorm_backward", "add_rmsnorm_backward_reference",
+           "add_rmsnorm_reference", "rmsnorm", "rmsnorm_backward",
+           "rmsnorm_backward_reference", "rmsnorm_reference"]

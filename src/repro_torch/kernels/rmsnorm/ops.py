@@ -10,6 +10,14 @@ The kernel replaces the reference package's Pallas TPU kernel
 takes the residual add before the norm.  The note at the top of the CUDA
 source states what bounds it and the fixed summation order that makes
 ``add_rmsnorm(x, delta)``'s norm bit for bit ``rmsnorm(x + delta)``.
+
+Gradients.  On the card, under grad mode with an input that requires
+grad, both go through a ``torch.autograd.Function`` whose forward is the
+same kernel and whose backward is the hand-written backward kernel
+(``csrc/rmsnorm_bwd.cu``), called through :func:`rmsnorm_backward` and
+:func:`add_rmsnorm_backward`; without grad they launch the forward alone,
+as serving does.  On the CPU the plain versions are differentiable as
+they are.
 """
 from __future__ import annotations
 
@@ -19,7 +27,12 @@ from pathlib import Path
 import torch
 
 from .._build import KernelLibrary
-from .ref import add_rmsnorm_reference, rmsnorm_reference
+from .ref import (
+    add_rmsnorm_backward_reference,
+    add_rmsnorm_reference,
+    rmsnorm_backward_reference,
+    rmsnorm_reference,
+)
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -28,7 +41,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.rmsnorm_launch.restype = ctypes.c_int
 
 
-LIBRARY = KernelLibrary("rmsnorm", Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu", _bind)
+def _bind_backward(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.rmsnorm_bwd_blocks.argtypes = [i32]
+    lib.rmsnorm_bwd_blocks.restype = i32
+    lib.rmsnorm_bwd_launch.argtypes = [ptr] * 7 + [i32, i32, ctypes.c_float, i32, ptr]
+    lib.rmsnorm_bwd_launch.restype = ctypes.c_int
+
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+LIBRARY = KernelLibrary("rmsnorm", _CSRC / "rmsnorm.cu", _bind)
+BACKWARD_LIBRARY = KernelLibrary("rmsnorm_bwd", _CSRC / "rmsnorm_bwd.cu", _bind_backward)
 
 #: Input types the kernel takes, with the code its C entry point expects.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -78,18 +101,75 @@ def _launch(x, delta, gain, s, h, rows: int, eps: float) -> None:
         raise RuntimeError(f"rmsnorm launch failed: CUDA error {rc}")
 
 
+def _forward(x, delta, gain, eps: float):
+    """``(s, h)`` from one forward launch (``s`` is None without
+    ``delta``); counts nothing."""
+    rows = _check(x, gain, delta)
+    g = gain.to(torch.float32).contiguous()
+    s = None if delta is None else torch.empty_like(x)
+    h = torch.empty_like(x)
+    if rows:
+        _launch(x, delta, g, s, h, rows, eps)
+    return s, h
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+class _RMSNormFunction(torch.autograd.Function):
+    """:func:`rmsnorm` on the card under grad: the forward kernel, then
+    :func:`rmsnorm_backward`'s kernel."""
+
+    @staticmethod
+    def forward(ctx, x, gain, eps):
+        _, h = _forward(x, None, gain, eps)
+        rmsnorm.launches += bool(h.numel())
+        ctx.save_for_backward(x, gain)
+        ctx.eps = eps
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        x, gain = ctx.saved_tensors
+        dx, dgain = rmsnorm_backward(x, dh, gain, ctx.eps)
+        return dx, dgain, None
+
+
+class _AddRMSNormFunction(torch.autograd.Function):
+    """:func:`add_rmsnorm` on the card under grad: the fused forward
+    kernel, then :func:`add_rmsnorm_backward`'s kernel.  The residual sum
+    ``s`` is saved for the backward (the norm's input)."""
+
+    @staticmethod
+    def forward(ctx, x, delta, gain, eps):
+        ctx.set_materialize_grads(False)
+        s, h = _forward(x, delta, gain, eps)
+        add_rmsnorm.launches += bool(h.numel())
+        ctx.save_for_backward(s, gain)
+        ctx.eps = eps
+        return s, h
+
+    @staticmethod
+    def backward(ctx, ds, dh):
+        s, gain = ctx.saved_tensors
+        if dh is None:               # the norm's output was not used
+            dx = torch.zeros_like(s) if ds is None else ds
+            return dx, dx, torch.zeros_like(gain), None
+        dx, dgain = add_rmsnorm_backward(s, ds, dh, gain, ctx.eps)
+        return dx, dx, dgain, None
+
+
 def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm of ``x`` over its last axis with per-feature ``gain``; the
-    output has ``x``'s shape and dtype."""
+    output has ``x``'s shape and dtype.  Differentiable on both devices."""
     if x.device.type == "cpu":
         return rmsnorm_reference(x, gain, eps)
-    rows = _check(x, gain, None)
-    g = gain.to(torch.float32).contiguous()
-    out = torch.empty_like(x)
-    if rows == 0:
-        return out
-    _launch(x, None, g, None, out, rows, eps)
-    rmsnorm.launches += 1
+    if _needs_grad(x, gain):
+        return _RMSNormFunction.apply(x, gain, eps)
+    _, out = _forward(x, None, gain, eps)
+    if out.numel():
+        rmsnorm.launches += 1
     return out
 
 
@@ -98,21 +178,84 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor | None, gain: torch.Tensor,
     """``(s, h)``: the residual sum ``s = x + delta`` (rounded to ``x``'s
     dtype, as ``x + delta`` rounds) and its RMSNorm ``h = rmsnorm(s, gain,
     eps)``, from one launch.  With ``delta`` None, ``s`` is ``x`` itself and
-    ``h`` comes from :func:`rmsnorm`."""
+    ``h`` comes from :func:`rmsnorm`.  Differentiable on both devices."""
     if delta is None:
         return x, rmsnorm(x, gain, eps)
     if x.device.type == "cpu":
         return add_rmsnorm_reference(x, delta, gain, eps)
-    rows = _check(x, gain, delta)
-    g = gain.to(torch.float32).contiguous()
-    s, h = torch.empty_like(x), torch.empty_like(x)
-    if rows == 0:
-        return s, h
-    _launch(x, delta, g, s, h, rows, eps)
-    add_rmsnorm.launches += 1
+    if _needs_grad(x, delta, gain):
+        return _AddRMSNormFunction.apply(x, delta, gain, eps)
+    s, h = _forward(x, delta, gain, eps)
+    if h.numel():
+        add_rmsnorm.launches += 1
     return s, h
+
+
+def _check_backward(x, dy, dres, gain) -> int:
+    rows = _check(x, gain, dres)
+    if dy.device != x.device or dy.dtype != x.dtype or dy.shape != x.shape:
+        raise ValueError(f"dy must match x ({x.device}, {x.dtype}, {tuple(x.shape)}), got "
+                         f"{dy.device}, {dy.dtype}, {tuple(dy.shape)}")
+    return rows
+
+
+def _backward(x, dy, dres, gain, eps: float):
+    """(dx, dgain) from the backward kernel's two passes; counts nothing."""
+    dy = dy.contiguous()
+    dres = None if dres is None else dres.contiguous()
+    rows = _check_backward(x, dy, dres, gain)
+    d = x.shape[-1]
+    dx = torch.empty_like(x)
+    dgain = torch.zeros(d, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dgain.to(gain.dtype)
+    lib = BACKWARD_LIBRARY.load()
+    partial = torch.empty((lib.rmsnorm_bwd_blocks(rows), d), dtype=torch.float32,
+                          device=x.device)
+    g = gain.to(torch.float32).contiguous()
+    index = x.get_device()
+    with torch.cuda.device(index):
+        rc = lib.rmsnorm_bwd_launch(
+            x.data_ptr(), dy.data_ptr(), None if dres is None else dres.data_ptr(),
+            g.data_ptr(), dx.data_ptr(), partial.data_ptr(), dgain.data_ptr(), rows, d,
+            float(eps), DTYPES[x.dtype], torch._C._cuda_getCurrentRawStream(index))
+    if rc != 0:
+        raise RuntimeError(f"rmsnorm backward launch failed: CUDA error {rc}")
+    return dx, dgain.to(gain.dtype)
+
+
+def rmsnorm_backward(x: torch.Tensor, dy: torch.Tensor, gain: torch.Tensor,
+                     eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients ``(dx, dgain)`` of ``h = rmsnorm(x, gain, eps)`` given
+    ``dy = dL/dh`` (``dx`` in ``x``'s dtype, ``dgain`` in ``gain``'s): the
+    backward kernel on CUDA tensors, its plain version
+    (:func:`~.ref.rmsnorm_backward_reference`) on CPU tensors."""
+    if x.device.type == "cpu":
+        return rmsnorm_backward_reference(x, dy, gain, eps)
+    out = _backward(x, dy, None, gain, eps)
+    if x.numel():
+        rmsnorm_backward.launches += 1
+    return out
+
+
+def add_rmsnorm_backward(s: torch.Tensor, ds: torch.Tensor | None, dh: torch.Tensor,
+                         gain: torch.Tensor, eps: float = 1e-5
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of :func:`add_rmsnorm` from its residual sum ``s`` and
+    the gradients ``ds`` (of ``s``, or None) and ``dh`` (of the norm):
+    ``(dx, dgain)``, ``dx`` being the gradient of ``x`` and of ``delta``
+    alike.  The backward kernel with the residual gradient added in, on
+    CUDA tensors; its plain version on CPU tensors."""
+    if s.device.type == "cpu":
+        return add_rmsnorm_backward_reference(s, ds, dh, gain, eps)
+    out = _backward(s, dh, ds, gain, eps)
+    if s.numel():
+        add_rmsnorm_backward.launches += 1
+    return out
 
 
 #: Kernel launches since the count was last set to 0.
 rmsnorm.launches = 0
 add_rmsnorm.launches = 0
+rmsnorm_backward.launches = 0
+add_rmsnorm_backward.launches = 0

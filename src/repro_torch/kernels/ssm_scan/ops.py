@@ -75,11 +75,20 @@ def ssm_scan(dt, x, bmat, cmat, a, h0):
     """The selective scan of ``x`` with step sizes ``dt`` (B, S, D), input
     and output projections ``bmat`` and ``cmat`` (B, S, N), decay ``a``
     (D, N, negative) and initial state ``h0`` (B, D, N).  Returns
-    (y (B, S, D), hT (B, D, N)), both fp32."""
+    (y (B, S, D), hT (B, D, N)), both fp32.
+
+    Not differentiable on the card: a CUDA call under grad mode with an
+    input that requires grad raises ``NotImplementedError`` rather than
+    return outputs without gradients.  On the CPU the plain version is
+    differentiable."""
     if dt.device.type == "cpu":
         return ssm_scan_reference(dt, x, bmat, cmat, a, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"ssm_scan runs on cuda or cpu, not {dt.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, x, bmat, cmat, a, h0)):
+        raise NotImplementedError(
+            "ssm_scan has no backward kernel on the card yet (ROADMAP queue 1, item 3e (i)): "
+            "call it under torch.no_grad() or on CPU tensors")
     _check(dt, x, bmat, cmat, a, h0)
     B, S, D = dt.shape
     N = a.shape[1]

@@ -1,1 +1,2 @@
-"""Entry points that drive the port's models: the batched LM server."""
+"""Entry points that drive the port's models: the batched LM server and the
+training loop."""

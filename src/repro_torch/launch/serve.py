@@ -12,15 +12,18 @@ from the same weights:
 - every active slot decodes at one shared position, the largest of the
   active slots' positions (the "conservative" shared position);
 - a prefill's K/V cache (an MLA block's ``c_kv`` and ``k_rope``) is
-  padded with zeros to the slot's full length, and a Mamba block's state
-  (``h`` and ``conv``) is copied whole;
+  padded with zeros to the slot's full length, and a recurrent block's
+  state (Mamba's ``h`` and ``conv``, mLSTM's ``C`` and ``n``, sLSTM's
+  ``h``, ``c``, ``n`` and ``m``) is copied whole;
 - a model with a frontend prefills behind a batch of zero frontend
   embeddings (requests carry no frontend): an encoder-decoder model's
   encoder then sees zeros, and its ``cross_kv`` is inserted into the slot
   as the K/V caches are; a decoder-only model's prompt sits behind the
   ``frontend_tokens`` positions, which its position counts;
-- every slot decodes on every tick, active or not, so an idle slot's Mamba
-  state drifts until the next prefill into it overwrites it;
+- every slot decodes on every tick, active or not, so an idle slot's
+  recurrent state drifts until the next prefill into it overwrites it
+  (from the start state ``cache_struct`` gives: zeros, an sLSTM's ``m``
+  at -1e30);
 - greedy decoding takes the first maximum;
 - a request completes after ``max_new_tokens`` tokens or when its position
   reaches ``max_ctx - 1``.
@@ -44,7 +47,9 @@ from ..models.frontends import frontend_embed_shape
 
 #: Cache entries with a sequence axis (axis 2 of the stacked cache), which
 #: a prefill fills only up to its length: GQA and cross-attention K/V, and
-#: MLA's latent and shared RoPE key.
+#: MLA's latent and shared RoPE key.  Every other entry is a recurrent
+#: state, copied whole (Mamba's ``h``, ``conv``; mLSTM's ``C``, ``n``;
+#: sLSTM's ``h``, ``c``, ``n``, ``m``).
 SEQUENCE_CACHES = ("k", "v", "c_kv", "k_rope")
 
 
@@ -109,7 +114,7 @@ class BatchedServer:
             self.cfg.frontend is not None and not self.cfg.is_encdec) else 0
         # copy the single-row caches into this slot of the batched caches:
         # K/V (cross_kv, MLA latents) zero-padded to the slot's length along
-        # axis 2, Mamba states whole
+        # axis 2, recurrent states whole
         for key, layer in caches1.items():
             for name, small in layer.items():
                 big = self.caches[key][name]              # (P, B, T, ...) for K/V

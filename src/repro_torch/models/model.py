@@ -1,5 +1,6 @@
 """The Model: parameters built from the reference's parameter tables,
-prefill and decode forward passes, and decode caches.
+train, prefill and decode forward passes, the training loss, and decode
+caches.
 
 Weights keep the reference's (in, out) orientation (``x @ w``), and the
 state dict names follow its parameter tree with the period axis unstacked:
@@ -9,7 +10,8 @@ and with the block key for longer patterns:
 ``blocks.<i>.b0_mamba.mamba.in_proj`` ... ``blocks.<i>.b3_attn.attn.wq``.
 An MoE layer holds ``moe.router`` and ``moe.w1``/``w3``/``w2`` (the expert
 axis first) where a dense one holds ``mlp``; an MLA layer ``attn.wq_down``,
-``attn.q_norm`` ... ``attn.wo``.
+``attn.q_norm`` ... ``attn.wo``; xLSTM blocks hold
+``blocks.<i>.b0_mlstm.mlstm.up`` ... and ``blocks.<i>.b7_slstm.slstm.w_gates`` ...
 An encoder-decoder model adds ``encoder.blocks.<i>.norm1`` ...
 ``encoder.blocks.<i>.mlp.w2``, ``encoder.final_norm`` and, per decoder
 period, ``cross.<i>.norm`` and ``cross.<i>.attn.wq`` ... ``.wo``; a model
@@ -25,7 +27,7 @@ from ..device import resolve_device
 from .attention import make_cache_struct
 from .common import add_rms_norm, count_params, init_params
 from .frontends import apply_frontend_proj
-from .ssm import mamba_state_struct
+from .ssm import mamba_state_struct, mlstm_state_struct, slstm_state_struct
 from .transformer import (
     ParamModule,
     block_keys,
@@ -35,17 +37,14 @@ from .transformer import (
     run_encoder_stack,
 )
 
-#: What this slice of the port leaves out, with the ROADMAP item that
-#: brings it (queue 1, item 3d).
-_NOT_PORTED = (
-    (lambda c: not set(c.pattern()) <= {"attn", "mamba"},
-     "mLSTM/sLSTM (xLSTM) blocks (ROADMAP queue 1, item 3d)"),
-)
+#: Weights of the MoE aux losses in the training loss, as the reference's.
+LB_LOSS_WEIGHT, Z_LOSS_WEIGHT = 0.01, 0.001
 
 
 class Model(nn.Module):
     """An LM of attention (GQA or MLA) and Mamba blocks, each with a dense
-    SwiGLU MLP or an MoE feed-forward, in periods of ``cfg.pattern()``:
+    SwiGLU MLP or an MoE feed-forward, and of mLSTM and sLSTM blocks, in
+    periods of ``cfg.pattern()``:
     decoder-only, decoder-only behind a
     modality frontend's tokens (``cfg.frontend``), or encoder-decoder
     (``cfg.is_encdec``: a bidirectional encoder over the frontend's frames,
@@ -54,7 +53,9 @@ class Model(nn.Module):
     ``params`` is the reference-shaped tree of tensors (block leaves stacked
     along the period axis), as :func:`~.common.init_params` makes it; each
     period's parameters are views of the stacked tensors, so building the
-    model copies nothing.
+    model copies nothing.  The parameters are built without gradients,
+    for serving; :meth:`trainable` turns them on in place.  Serving runs
+    under ``torch.no_grad()`` either way.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict):
@@ -82,6 +83,15 @@ class Model(nn.Module):
     def n_params(self) -> int:
         return count_params(decoder_defs(self.cfg))
 
+    def trainable(self) -> "Model":
+        """Turns gradients on for every parameter, in place: each stays the
+        view of its stacked tensor that it was built as, so training keeps
+        serving's memory, and an optimizer writing into the parameters
+        writes into those tensors."""
+        for p in self.parameters():
+            p.requires_grad_(True)
+        return self
+
     # -- embedding / head ----------------------------------------------------
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         w = self.lm_head if hasattr(self, "lm_head") else self.embed.T
@@ -102,7 +112,64 @@ class Model(nn.Module):
         B, S, _ = x.shape
         return x, torch.arange(S, device=x.device).expand(B, S)
 
+    def _check_frontend(self, frontend) -> None:
+        if (frontend is None) != (self.cfg.frontend is None):
+            raise ValueError(f"{self.cfg.name}: frontend embeddings are "
+                             f"{'required' if frontend is None else 'not taken'}")
+
+    def _encode(self, frontend: torch.Tensor | None):
+        """The encoder's output over the frontend's frames for an
+        encoder-decoder model, else None."""
+        if not self.cfg.is_encdec:
+            return None
+        enc_in = apply_frontend_proj(self.frontend_proj, frontend.to(self.embed.dtype))
+        return run_encoder_stack(self.encoder, enc_in, self.cfg)
+
     # -- forward passes ------------------------------------------------------
+    def forward_train(self, tokens: torch.Tensor, frontend: torch.Tensor | None = None):
+        """Causal forward over every position, with no caches built (the
+        reference's ``forward_train``).  Returns (logits (B, S', V), aux):
+        S' counts a decoder-only model's frontend tokens too, and ``aux``
+        holds the MoE layers' ``lb_loss``, ``z_loss`` and ``dropped_frac``,
+        summed over the layers (empty without MoE)."""
+        cfg = self.cfg
+        self._check_frontend(frontend)
+        enc_out = self._encode(frontend)
+        x, positions = self._assemble_inputs(tokens, frontend)
+        aux: dict = {}
+        x, delta, _ = run_decoder_stack(self.blocks, x, cfg, "train", positions=positions,
+                                        cross=self.cross, enc_out=enc_out, aux=aux)
+        _, h = add_rms_norm(x, delta, self.final_norm, cfg.norm_eps)
+        return self._head(h), aux
+
+    def loss_fn(self, batch: dict):
+        """Cross-entropy in fp32 over ``batch`` (``tokens``, ``labels``
+        (B, S) and, for a model with a frontend, ``frontend``) of the
+        logits at position t against ``labels[:, t + 1]``, plus 0.01 ×
+        ``lb_loss`` and 0.001 × ``z_loss`` for an MoE model.  A
+        decoder-only model with a frontend takes the loss over the text
+        positions only.  Returns (loss, metrics): ``ce`` and the aux
+        values.
+
+        This is the reference's ``loss_fn`` as it stands.  Its labels
+        shift once more on top of ``repro_torch.data.SyntheticLMStream``'s, whose
+        ``labels`` are already the tokens shifted by one, so with that
+        stream the objective is the token two positions ahead (ROADMAP
+        queue 3, note n)."""
+        cfg = self.cfg
+        logits, aux = self.forward_train(batch["tokens"], batch.get("frontend"))
+        if cfg.frontend is not None and not cfg.is_encdec:
+            logits = logits[:, cfg.frontend_tokens:, :]
+        logits = logits[:, :-1, :].float()
+        targets = batch["labels"][:, 1:].long()
+        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        ce = (torch.logsumexp(logits, dim=-1) - gold).mean()
+        loss = ce
+        if "lb_loss" in aux:
+            loss = loss + LB_LOSS_WEIGHT * aux["lb_loss"] + Z_LOSS_WEIGHT * aux["z_loss"]
+        return loss, {"ce": ce, **aux}
+
+    @torch.no_grad()
     def forward_prefill(self, tokens: torch.Tensor, frontend: torch.Tensor | None = None):
         """Causal forward over ``tokens`` (B, S) that also builds the decode
         caches.  Returns the last position's logits (B, 1, V) and the caches,
@@ -117,16 +184,12 @@ class Model(nn.Module):
         caches and positions count T + S.
 
         An MLA model's caches are ``{"c_kv": (P, B, S, rank), "k_rope":
-        (P, B, S, rope)}``.  The MoE layers' aux values are dropped, as the
-        reference's serving drops them."""
+        (P, B, S, rope)}``; xLSTM blocks' are their states (``{"C", "n"}``,
+        ``{"h", "c", "n", "m"}``).  The MoE layers' aux values are dropped,
+        as the reference's serving drops them."""
         cfg = self.cfg
-        if (frontend is None) != (cfg.frontend is None):
-            raise ValueError(f"{cfg.name}: frontend embeddings are "
-                             f"{'required' if frontend is None else 'not taken'}")
-        enc_out = None
-        if cfg.is_encdec:
-            enc_in = apply_frontend_proj(self.frontend_proj, frontend.to(self.embed.dtype))
-            enc_out = run_encoder_stack(self.encoder, enc_in, cfg)
+        self._check_frontend(frontend)
+        enc_out = self._encode(frontend)
         x, positions = self._assemble_inputs(tokens, frontend)
         x, delta, caches = run_decoder_stack(self.blocks, x, cfg, "prefill",
                                              positions=positions, cross=self.cross,
@@ -134,9 +197,10 @@ class Model(nn.Module):
         _, h = add_rms_norm(x, delta, self.final_norm, cfg.norm_eps)
         return self._head(h[:, -1:, :]), caches
 
+    @torch.no_grad()
     def forward_decode(self, token: torch.Tensor, caches: dict, pos: int):
         """One decode step: ``token`` (B, 1) at the shared position ``pos``.
-        Writes the new K/V (or MLA latents) and Mamba states into ``caches``
+        Writes the new K/V (or MLA latents) and recurrent states into ``caches``
         in place and returns (logits (B, 1, V), caches).  An
         encoder-decoder model's cross-attention reads
         ``caches["cross_kv"]``."""
@@ -149,11 +213,14 @@ class Model(nn.Module):
 
     # -- caches ----------------------------------------------------------------
     def cache_struct(self, batch: int, ctx_len: int, dtype: torch.dtype | None = None) -> dict:
-        """Zero decode caches, stacked along the period axis, on the model's
-        device: K/V caches for GQA blocks, ``c_kv`` (P, batch, ctx_len,
-        rank) and ``k_rope`` (P, batch, ctx_len, rope) for MLA blocks, Mamba
-        states (``h`` fp32, ``conv`` in ``dtype``) for Mamba blocks, and for
-        an encoder-decoder model the cross-attention K/V ``"cross_kv"`` of
+        """Start decode caches, stacked along the period axis, on the
+        model's device: zero K/V caches for GQA blocks, ``c_kv`` (P, batch,
+        ctx_len, rank) and ``k_rope`` (P, batch, ctx_len, rope) for MLA
+        blocks, zero Mamba states (``h`` fp32, ``conv`` in ``dtype``), mLSTM
+        states (``C``, ``n``, fp32 zeros) and sLSTM states (``h``, ``c``,
+        ``n`` zeros and the stabiliser ``m`` at -1e30, fp32, as the
+        reference's ``cache_struct(abstract=False)``), and for an
+        encoder-decoder model the cross-attention K/V ``"cross_kv"`` of
         shape (P, batch, T, KV, hd), T the frontend's frames."""
         dtype = dtype or self.embed.dtype
         device = self.embed.device
@@ -162,9 +229,13 @@ class Model(nn.Module):
         for key, kind in block_keys(self.cfg):
             if kind == "attn":
                 one = make_cache_struct(self.cfg, batch, ctx_len, dtype, device)
-            else:
+            elif kind == "mamba":
                 one = mamba_state_struct(self.cfg, batch, dtype, device)
-            caches[key] = {n: t.new_zeros((P, *t.shape)) for n, t in one.items()}
+            elif kind == "mlstm":
+                one = mlstm_state_struct(self.cfg, batch, device)
+            else:
+                one = slstm_state_struct(self.cfg, batch, device)
+            caches[key] = {n: t.expand(P, *t.shape).clone() for n, t in one.items()}
         if self.cfg.is_encdec:
             shape = (P, batch, self.cfg.frontend_tokens, self.cfg.n_kv_heads, self.cfg.head_dim)
             caches["cross_kv"] = {n: torch.zeros(shape, dtype=dtype, device=device)
@@ -180,11 +251,7 @@ def build_model(cfg: ModelConfig, *, device=None, dtype: torch.dtype = torch.flo
                 seed: int = 0) -> Model:
     """A :class:`Model` for ``cfg`` on ``device`` (``None`` means the CUDA
     card), its weights drawn from a ``torch.Generator`` on that device
-    seeded with ``seed``.  Raises ``NotImplementedError`` for the
-    architecture features this slice of the port leaves out."""
-    for test, what in _NOT_PORTED:
-        if test(cfg):
-            raise NotImplementedError(f"{cfg.name}: {what} is not ported yet")
+    seeded with ``seed``."""
     device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     return Model(cfg, init_params(decoder_defs(cfg), generator, dtype, device))

@@ -1,4 +1,5 @@
-"""Mamba blocks: the selective-scan state-space layer of hybrid models.
+"""Recurrent blocks: Mamba (the selective-scan state-space layer of hybrid
+models) and xLSTM's mLSTM (matrix memory) and sLSTM (scalar memory).
 
 The reference package computes the prefill scan with its own chunked
 associative scan (``lax.scan`` over chunks, ``associative_scan`` inside
@@ -8,7 +9,12 @@ prefill runs :func:`repro_torch.kernels.ssm_scan.ssm_scan` over the whole
 sequence, and every decode step runs it with S = 1 from the carried state,
 which is exactly the reference's single-step update before the D term.
 
-mLSTM and sLSTM (xlstm) are a later slice (ROADMAP queue 1, item 11a).
+mLSTM and sLSTM are eager torch in fp32, as the reference computes them in
+plain jnp (``models/ssm.py:145-380``): mLSTM's prefill is the chunked
+gated linear attention, a Python loop over chunks carrying ``C`` and
+``n``; sLSTM's is a loop over tokens.  Their norms go through the RMSNorm
+kernel on the card.  Each block returns its new state, and decode steps
+take one token from the carried state.
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig, SSMConfig
+from ..kernels.rmsnorm import rmsnorm
 from ..kernels.ssm_scan import ssm_scan
 from .common import ParamDef
 
@@ -56,20 +63,22 @@ def _scan_and_gate(p, x_conv: torch.Tensor, z: torch.Tensor, s: SSMConfig,
     return y.to(x_conv.dtype), hT
 
 
-def mamba_block(p, x: torch.Tensor, cfg: ModelConfig):
+def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None):
     """Prefill path.  x: (B, S, d); ``p`` holds :func:`mamba_defs`' leaves
-    as attributes.  The conv window and the scan start from zeros, as the
-    reference's prefill does.  Returns (out (B, S, d), {"h": (B, di, N)
+    as attributes.  The conv window and the scan start from ``state``
+    (``{"h", "conv"}`` as returned here), or from zeros as the reference's
+    prefill does when it is None.  Returns (out (B, S, d), {"h": (B, di, N)
     fp32, "conv": (B, d_conv-1, di)})."""
     s = cfg.ssm or SSMConfig()
     B, S, d = x.shape
     di = s.expand * d
     xs, z = (x @ p.in_proj).split(di, dim=-1)
-    prev = x.new_zeros((B, s.d_conv - 1, di))
+    prev = state["conv"] if state is not None else x.new_zeros((B, s.d_conv - 1, di))
     xp = torch.cat([prev, xs], dim=1)
     # depthwise causal conv of width d_conv, summed in the reference's order
     x_conv = F.silu(sum(xp[:, i : i + S] * p.conv_w[i] for i in range(s.d_conv)))
-    h0 = torch.zeros((B, di, s.d_state), dtype=torch.float32, device=x.device)
+    h0 = (state["h"] if state is not None
+          else torch.zeros((B, di, s.d_state), dtype=torch.float32, device=x.device))
     y, hT = _scan_and_gate(p, x_conv, z, s, h0)
     conv = xp[:, -(s.d_conv - 1):] if s.d_conv > 1 else prev
     return y @ p.out_proj, {"h": hT, "conv": conv}
@@ -100,3 +109,239 @@ def mamba_state_struct(cfg: ModelConfig, batch: int, dtype: torch.dtype = torch.
     di = s.expand * cfg.d_model
     return {"h": torch.zeros((batch, di, s.d_state), dtype=torch.float32, device=device),
             "conv": torch.zeros((batch, s.d_conv - 1, di), dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: mLSTM (matrix memory, chunked linear attention form)
+# ---------------------------------------------------------------------------
+
+
+def mlstm_inner_dim(cfg: ModelConfig) -> int:
+    """Projection width rounded up to a multiple of n_heads."""
+    s = cfg.ssm or SSMConfig()
+    di = int(s.mlstm_proj_factor * cfg.d_model)
+    nh = cfg.n_heads
+    return ((di + nh - 1) // nh) * nh
+
+
+def mlstm_defs(cfg: ModelConfig, stack: int) -> dict:
+    d = cfg.d_model
+    di = mlstm_inner_dim(cfg)
+    nh = cfg.n_heads
+    dh = di // nh
+    L = (stack,)
+    lax_ = ("layers",)
+    return {
+        "up": ParamDef(L + (d, 2 * di), lax_ + ("embed_w", "inner")),
+        # block-diagonal per-head q/k/v (xLSTM qkv_proj_blocksize)
+        "wq": ParamDef(L + (nh, dh, dh), lax_ + ("heads", None, None)),
+        "wk": ParamDef(L + (nh, dh, dh), lax_ + ("heads", None, None)),
+        "wv": ParamDef(L + (nh, dh, dh), lax_ + ("heads", None, None)),
+        "w_i": ParamDef(L + (di, nh), lax_ + ("inner", "heads"), scale=0.1),
+        "w_f": ParamDef(L + (di, nh), lax_ + ("inner", "heads"), scale=0.1),
+        "b_f": ParamDef(L + (nh,), lax_ + ("heads",), init="ones"),
+        "norm": ParamDef(L + (di,), lax_ + ("inner",), init="ones"),
+        "down": ParamDef(L + (di, d), lax_ + ("inner", "embed_w")),
+    }
+
+
+def _mlstm_chunk(q, k, v, logf, logi, C0, n0):
+    """One chunk of gated linear attention (mLSTM parallel form).
+
+    q, k, v: (B, H, Lc, dh); logf, logi: (B, H, Lc); C0: (B, H, dh, dh);
+    n0: (B, H, dh).  Returns (h (B, H, Lc, dh), C1, n1)."""
+    Lc = q.shape[2]
+    scale = q.shape[-1] ** -0.5
+    cum = torch.cumsum(logf, dim=-1)                       # inclusive cumsum
+    total = cum[..., -1:]
+    # intra-chunk decay: D[i, j] = exp(cum_i - cum_j) * exp(logi_j), j <= i
+    dm = cum[..., :, None] - cum[..., None, :] + logi[..., None, :]
+    tri = torch.ones((Lc, Lc), dtype=torch.bool, device=q.device).tril()
+    dm = torch.where(tri, dm, -torch.inf)
+    sg = torch.einsum("bhid,bhjd->bhij", q, k) * scale * torch.exp(dm)
+    intra = torch.einsum("bhij,bhjd->bhid", sg, v)
+    # inter-chunk: the carried state's part (q scaled as in the decode step)
+    qdec = q * scale * torch.exp(cum)[..., None]
+    num = intra + torch.einsum("bhid,bhde->bhie", qdec, C0)
+    # normaliser: q·n_t = the row sum of sg plus the carried part
+    den = torch.abs(sg.sum(-1, keepdim=True)
+                    + torch.einsum("bhid,bhd->bhi", qdec, n0)[..., None])
+    h = num / torch.clamp_min(den, 1.0)
+    # the state handed to the next chunk
+    kdec = k * torch.exp(total - cum + logi)[..., None]
+    C1 = torch.exp(total)[..., None] * C0 + torch.einsum("bhjd,bhje->bhde", kdec, v)
+    n1 = torch.exp(total) * n0 + kdec.sum(2)
+    return h, C1, n1
+
+
+def _mlstm_qkv_gates(p, u: torch.Tensor, cfg: ModelConfig):
+    """q, k, v (B, H, S, dh) through the per-head block-diagonal maps and
+    the gates' logs logi, logf (B, H, S), all fp32, from u (B, S, di)."""
+    B, S, di = u.shape
+    nh = cfg.n_heads
+    uh = u.reshape(B, S, nh, di // nh).transpose(1, 2)               # (B, H, S, dh)
+    q, k, v = (torch.einsum("bhsd,hde->bhse", uh, w).float() for w in (p.wq, p.wk, p.wv))
+    logi = (u @ p.w_i).transpose(1, 2).float()
+    logf = F.logsigmoid((u @ p.w_f + p.b_f).transpose(1, 2)).float()
+    return q, k, v, logi, logf
+
+
+def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None):
+    """Prefill path.  x: (B, S, d); ``p`` holds :func:`mlstm_defs`' leaves
+    as attributes.  The sequence runs in chunks of ``min(chunk, S)``
+    tokens, or as one chunk when that does not divide S, as in the
+    reference, carrying ``C`` and ``n`` from ``state`` (zeros when None).
+    Returns (out (B, S, d), {"C": (B, H, dh, dh), "n": (B, H, dh)}), fp32
+    states."""
+    s = cfg.ssm or SSMConfig()
+    B, S, d = x.shape
+    di = mlstm_inner_dim(cfg)
+    nh = cfg.n_heads
+    dh = di // nh
+    u, z = (x @ p.up).split(di, dim=-1)
+    q, k, v, logi, logf = _mlstm_qkv_gates(p, u, cfg)
+    if state is None:
+        C = torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=x.device)
+        n = torch.zeros((B, nh, dh), dtype=torch.float32, device=x.device)
+    else:
+        C, n = state["C"], state["n"]
+    Lc = min(s.chunk, S)
+    if S % Lc != 0:
+        Lc = S                     # one chunk, as the reference falls back
+    hs = []
+    for c0 in range(0, S, Lc):
+        c = slice(c0, c0 + Lc)
+        h, C, n = _mlstm_chunk(q[:, :, c], k[:, :, c], v[:, :, c], logf[..., c], logi[..., c],
+                               C, n)
+        hs.append(h)
+    h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, di)
+    h = rmsnorm(h.to(x.dtype).contiguous(), p.norm, cfg.norm_eps)
+    return (h * F.silu(z)) @ p.down, {"C": C, "n": n}
+
+
+def mlstm_decode(p, x: torch.Tensor, cfg: ModelConfig, state: dict):
+    """One token per row.  x: (B, 1, d); ``state`` as :func:`mlstm_block`
+    returns it.  Returns (out (B, 1, d), new state); ``state`` is not
+    written."""
+    B, S, d = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got {S}")
+    di = mlstm_inner_dim(cfg)
+    dh = di // cfg.n_heads
+    u, z = (x @ p.up).split(di, dim=-1)
+    q, k, v, logi, logf = (t[:, :, 0] for t in _mlstm_qkv_gates(p, u, cfg))
+    f = torch.exp(logf)[..., None]                                   # (B, H, 1)
+    i = torch.exp(logi)[..., None]
+    C = f[..., None] * state["C"] + i[..., None] * torch.einsum("bhd,bhe->bhde", k, v)
+    n = f * state["n"] + i * k
+    qs = q * dh ** -0.5
+    num = torch.einsum("bhd,bhde->bhe", qs, C)
+    den = torch.abs(torch.einsum("bhd,bhd->bh", qs, n))[..., None]
+    h = (num / torch.clamp_min(den, 1.0)).reshape(B, 1, di).to(x.dtype)
+    h = rmsnorm(h, p.norm, cfg.norm_eps)
+    return (h * F.silu(z)) @ p.down, {"C": C, "n": n}
+
+
+def mlstm_state_struct(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """Zero state of ONE mLSTM layer: ``C`` (batch, H, dh, dh) and ``n``
+    (batch, H, dh), fp32."""
+    nh = cfg.n_heads
+    dh = mlstm_inner_dim(cfg) // nh
+    return {"C": torch.zeros((batch, nh, dh, dh), dtype=torch.float32, device=device),
+            "n": torch.zeros((batch, nh, dh), dtype=torch.float32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# xLSTM: sLSTM (scalar memory, sequential exponential-gated recurrence)
+# ---------------------------------------------------------------------------
+
+#: The sLSTM stabiliser's start, as the reference's ``slstm_block`` and
+#: ``slstm_state_struct`` set it: the first step's input gate then takes
+#: the whole stabiliser (``m_new = log_i``) and the forget gate nothing.
+SLSTM_M0 = -1e30
+
+
+def slstm_defs(cfg: ModelConfig, stack: int) -> dict:
+    s = cfg.ssm or SSMConfig()
+    d = cfg.d_model
+    nh = cfg.n_heads
+    dh = d // nh
+    ffd = int(s.slstm_ff_factor * d)
+    L = (stack,)
+    lax_ = ("layers",)
+    return {
+        "w_gates": ParamDef(L + (d, 4 * d), lax_ + ("embed_w", "inner")),
+        "r_gates": ParamDef(L + (nh, dh, 4 * dh), lax_ + ("heads", None, None), scale=0.5),
+        "b_gates": ParamDef(L + (4 * d,), lax_ + ("inner",), init="zeros"),
+        "norm": ParamDef(L + (d,), lax_ + ("embed_w",), init="ones"),
+        "ff_up": ParamDef(L + (d, ffd), lax_ + ("embed_w", "ff")),
+        "ff_down": ParamDef(L + (ffd, d), lax_ + ("ff", "embed_w")),
+    }
+
+
+def _slstm_step(p, cfg: ModelConfig, carry, wx_t: torch.Tensor):
+    """One timestep of stabilised exponential-gated sLSTM.  carry: (h, c,
+    n, m), each (B, d) with the heads folded; wx_t: (B, 4d)."""
+    h, c, n, m = carry
+    nh = cfg.n_heads
+    d = h.shape[-1]
+    dh = d // nh
+    rec = torch.einsum("bhd,hde->bhe", h.reshape(-1, nh, dh), p.r_gates)  # (B, H, 4dh)
+    # regroup the heads' (i, f, z, o) blocks to (B, 4d)
+    rec = rec.reshape(-1, nh, 4, dh).transpose(1, 2).reshape(-1, 4 * d)
+    zi, zf, zz, zo = (wx_t + rec + p.b_gates).chunk(4, dim=-1)
+    log_f = F.logsigmoid(zf)
+    m_new = torch.maximum(log_f + m, zi)
+    i_t = torch.exp(zi - m_new)
+    f_t = torch.exp(log_f + m - m_new)
+    c_new = f_t * c + i_t * torch.tanh(zz)
+    n_new = f_t * n + i_t
+    h_new = torch.sigmoid(zo) * c_new / torch.clamp_min(torch.abs(n_new), 1.0)
+    return h_new, c_new, n_new, m_new
+
+
+def _slstm_out(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The norm and the tanh-approximate GELU feed-forward after the
+    recurrence (the reference's ``jax.nn.gelu`` defaults to the tanh form)."""
+    h = rmsnorm(h.contiguous(), p.norm, cfg.norm_eps)
+    return F.gelu(h @ p.ff_up, approximate="tanh") @ p.ff_down
+
+
+def slstm_block(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None):
+    """Prefill path: the recurrence token by token from ``state`` (zeros,
+    ``m`` at :data:`SLSTM_M0`, when None).  x: (B, S, d).  Returns (out
+    (B, S, d), {"h", "c", "n", "m"}: (B, d) fp32 each)."""
+    B, S, d = x.shape
+    wx = (x @ p.w_gates).float()                                       # (B, S, 4d)
+    if state is None:
+        zero = torch.zeros((B, d), dtype=torch.float32, device=x.device)
+        carry = (zero, zero, zero, torch.full_like(zero, SLSTM_M0))
+    else:
+        carry = (state["h"], state["c"], state["n"], state["m"])
+    hs = []
+    for t in range(S):
+        carry = _slstm_step(p, cfg, carry, wx[:, t])
+        hs.append(carry[0])
+    h = torch.stack(hs, dim=1).to(x.dtype)
+    return _slstm_out(p, h, cfg), dict(zip(("h", "c", "n", "m"), carry))
+
+
+def slstm_decode(p, x: torch.Tensor, cfg: ModelConfig, state: dict):
+    """One token per row.  x: (B, 1, d).  Returns (out (B, 1, d), new
+    state); ``state`` is not written."""
+    B, S, d = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got {S}")
+    wx = (x @ p.w_gates).float()[:, 0]
+    carry = _slstm_step(p, cfg, (state["h"], state["c"], state["n"], state["m"]), wx)
+    return _slstm_out(p, carry[0][:, None].to(x.dtype), cfg), dict(zip(("h", "c", "n", "m"),
+                                                                        carry))
+
+
+def slstm_state_struct(cfg: ModelConfig, batch: int, device=None) -> dict:
+    """Start state of ONE sLSTM layer: ``h``, ``c``, ``n`` zeros and ``m``
+    at :data:`SLSTM_M0`, each (batch, d) fp32, as the reference's
+    ``slstm_state_struct(abstract=False)``."""
+    zero = torch.zeros((batch, cfg.d_model), dtype=torch.float32, device=device)
+    return {"h": zero, "c": zero.clone(), "n": zero.clone(),
+            "m": torch.full_like(zero, SLSTM_M0)}

@@ -1,6 +1,7 @@
 """Decoder stack of attention (GQA or MLA) and Mamba blocks, each with a
-dense SwiGLU MLP or a Mixture-of-Experts feed-forward, and the
-bidirectional encoder stack of encoder-decoder models.
+dense SwiGLU MLP or a Mixture-of-Experts feed-forward, and of xLSTM's
+self-contained mLSTM and sLSTM blocks; and the bidirectional encoder stack
+of encoder-decoder models.
 
 Parameters are declared stacked along a leading period axis, as in the
 reference: a period is one repetition of ``cfg.pattern()`` (one layer for
@@ -8,12 +9,14 @@ reference: a period is one repetition of ``cfg.pattern()`` (one layer for
 packages count and initialise the same tree.  The port holds one
 :class:`ParamModule` per period in an ``nn.ModuleList`` and runs the periods
 and the blocks within each in Python loops where the reference scans;
-inference needs no remat.  An encoder-decoder model adds the encoder (one
+training keeps every activation (no remat: the reference's
+``jax.checkpoint`` changes memory, not numbers).  An encoder-decoder model
+adds the encoder (one
 module per layer) and, per decoder period, a cross-attention sub-block
 after the mixer, with its own norm.  A block's feed-forward is the MoE
 layer where the reference puts one (``idx % moe_every == moe_every - 1``
-within the period), else the dense MLP.  mLSTM/sLSTM blocks are a later
-slice (ROADMAP queue 1, item 3d).
+within the period), else the dense MLP.  mLSTM and sLSTM blocks have no
+feed-forward half: their output is the residual update.
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ from .common import ParamDef, add_rms_norm, apply_rope, swiglu
 class ParamModule(nn.Module):
     """A module whose parameters and submodules carry the names of one node
     of the reference's parameter tree.  The tensors are wrapped as they are
-    (views included, so a layer can be a slice of a stacked tensor) and need
-    no gradient: the port only serves."""
+    (views included, so a layer can be a slice of a stacked tensor) and are
+    built without gradients for serving; training turns them on in place
+    (:meth:`repro_torch.models.Model.trainable`)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -59,13 +63,13 @@ def mlp_defs(cfg: ModelConfig, stack: int) -> dict:
     }
 
 
+#: Block kinds and their parameter tables; mLSTM and sLSTM blocks are
+#: self-contained (a gated output, no feed-forward half).
+BLOCK_KINDS = ("attn", "mamba", "mlstm", "slstm")
+
+
 def _block_defs(cfg: ModelConfig, kind: str, idx_in_period: int, stack: int) -> dict:
-    if kind in ("mlstm", "slstm"):
-        raise NotImplementedError(
-            f"{cfg.name}: mLSTM/sLSTM (xLSTM) blocks are not ported yet "
-            "(ROADMAP queue 1, item 3d)"
-        )
-    if kind not in ("attn", "mamba"):
+    if kind not in BLOCK_KINDS:
         raise ValueError(f"unknown block kind {kind!r}")
     d = cfg.d_model
     norm = lambda: ParamDef((stack, d), ("layers", "embed_w"), init="ones")
@@ -73,8 +77,11 @@ def _block_defs(cfg: ModelConfig, kind: str, idx_in_period: int, stack: int) -> 
     if kind == "attn":
         defs["attn"] = (attn.mla_defs(cfg, stack) if cfg.attention == "mla"
                         else attn.gqa_defs(cfg, stack))
-    else:
+    elif kind == "mamba":
         defs["mamba"] = ssm.mamba_defs(cfg, stack)
+    else:
+        defs[kind] = (ssm.mlstm_defs if kind == "mlstm" else ssm.slstm_defs)(cfg, stack)
+        return defs
     if cfg.is_moe and idx_in_period % cfg.moe_every == cfg.moe_every - 1:
         defs["norm2"] = norm()
         defs["moe"] = moe_defs(cfg, stack)
@@ -117,16 +124,21 @@ def decoder_defs(cfg: ModelConfig) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _ffn_half(bp: nn.Module, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig):
+def _ffn_half(bp: nn.Module, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig,
+              aux: dict | None = None):
     """The feed-forward half after a mixer whose output is ``y``: returns
     ``(x + y, ffn(rmsnorm(x + y)))``, the feed-forward's output being the
     residual update still to add; ``ffn`` is the MoE layer or the dense
     MLP.  A block with neither returns ``(x, y)``: ``y`` is added by the
-    next norm.  The MoE layer's aux values are not computed: serving
-    drops them, as the reference's does."""
+    next norm.  The MoE layer's aux values are computed and summed into
+    ``aux`` only when it is given (training); serving drops them, as the
+    reference's does."""
     if hasattr(bp, "moe"):
         x, h = add_rms_norm(x, y, bp.norm2, cfg.norm_eps)
-        return x, moe_ffn(bp.moe, h, cfg, need_aux=False)[0]
+        y, layer_aux = moe_ffn(bp.moe, h, cfg, need_aux=aux is not None)
+        for k, v in (layer_aux or {}).items():
+            aux[k] = aux[k] + v if k in aux else v
+        return x, y
     if hasattr(bp, "mlp"):
         x, h = add_rms_norm(x, y, bp.norm2, cfg.norm_eps)
         return x, swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
@@ -135,8 +147,8 @@ def _ffn_half(bp: nn.Module, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig)
 
 def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor | None,
                 cfg: ModelConfig, mode: str, state: dict | None, positions,
-                cross: tuple[nn.Module, dict] | None = None):
-    """One block of ``kind`` ("attn" or "mamba") on the residual stream
+                cross: tuple[nn.Module, dict] | None = None, aux: dict | None = None):
+    """One block of ``kind`` (one of :data:`BLOCK_KINDS`) on the residual stream
     ``x + delta``: ``delta`` is the previous block's update, not yet added
     (None before the first block).  The add is fused into the block's first
     norm and the mixer's output into its second, so the block returns
@@ -149,11 +161,13 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
     output goes on to the MLP's norm.
 
     ``mode`` is "prefill" (``positions`` (B, S); the returned state is the
-    block's new cache or state, a Mamba block's from zero state as in the
-    reference) or "decode" (``positions`` is the shared int position;
+    block's new cache or state, a recurrent block's from its start state
+    as in the reference), "train" (prefill without building caches: the
+    returned state is None, and the MoE layer's aux values are summed into
+    ``aux``) or "decode" (``positions`` is the shared int position;
     ``state`` is the block's cache or state, updated in place)."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be 'prefill' or 'decode', got {mode!r}")
+    if mode not in ("prefill", "train", "decode"):
+        raise ValueError(f"mode must be 'prefill', 'train' or 'decode', got {mode!r}")
     x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
     mla = cfg.attention == "mla"
     if kind == "attn" and mode == "decode":
@@ -161,21 +175,33 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
         y, new_state = decode(bp.attn, h, cfg, state, positions)
     elif kind == "attn":
         prefill = attn.mla_prefill if mla else attn.gqa_prefill
-        y, new_state = prefill(bp.attn, h, cfg, positions, make_cache=True)
-    elif kind == "mamba" and mode == "decode":
-        y, ns = ssm.mamba_decode(bp.mamba, h, cfg, state)
-        for name, t in ns.items():
-            state[name].copy_(t)
-        new_state = state
-    elif kind == "mamba":
-        y, new_state = ssm.mamba_block(bp.mamba, h, cfg)
+        y, new_state = prefill(bp.attn, h, cfg, positions, make_cache=mode == "prefill")
+    elif kind in _RECURRENT:
+        block, decode = _RECURRENT[kind]
+        if mode == "decode":
+            y, ns = decode(getattr(bp, kind), h, cfg, state)
+            for name, t in ns.items():
+                state[name].copy_(t)
+            new_state = state
+        else:
+            y, new_state = block(getattr(bp, kind), h, cfg)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
+    if mode == "train":
+        new_state = None
     if cross is not None:
         cp, kv = cross
         x, hc = add_rms_norm(x, y, cp.norm, cfg.norm_eps)
         y = attn.cross_attention(cp.attn, hc, kv, cfg, decode=mode == "decode")
-    return (*_ffn_half(bp, x, y, cfg), new_state)
+    return (*_ffn_half(bp, x, y, cfg, aux if mode == "train" else None), new_state)
+
+
+#: The recurrent block kinds' prefill and decode functions.
+_RECURRENT = {
+    "mamba": (ssm.mamba_block, ssm.mamba_decode),
+    "mlstm": (ssm.mlstm_block, ssm.mlstm_decode),
+    "slstm": (ssm.slstm_block, ssm.slstm_decode),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -206,16 +232,18 @@ def period_block(period: nn.Module, cfg: ModelConfig, key: str) -> nn.Module:
 def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                       mode: str, caches: dict | None = None, positions=None,
                       cross: nn.ModuleList | None = None,
-                      enc_out: torch.Tensor | None = None):
+                      enc_out: torch.Tensor | None = None, aux: dict | None = None):
     """Returns (x, delta, caches): the residual stream after the stack is
     ``x + delta``, the last block's update left for the final norm to add.
     ``blocks`` holds one module per period.  Caches keep the reference's
     layout, one entry per block of the period stacked along the period
     axis: ``{"b0_attn": {"k": (P, B, T, KV, hd), "v": ...}, "b1_mamba":
     {"h": (P, B, di, N), "conv": (P, B, d_conv-1, di)}}``, an MLA block's
-    ``{"c_kv": (P, B, T, rank), "k_rope": (P, B, T, rope)}``.  Prefill stacks
-    the periods' new caches; decode updates ``caches`` in place and returns
-    it.
+    ``{"c_kv": (P, B, T, rank), "k_rope": (P, B, T, rope)}``, an mLSTM
+    block's ``{"C": (P, B, H, dh, dh), "n": (P, B, H, dh)}``, an sLSTM
+    block's ``{"h", "c", "n", "m"}`` (P, B, d).  Prefill stacks the
+    periods' new caches; decode updates ``caches`` in place and returns
+    it; "train" returns None and sums the MoE aux values into ``aux``.
 
     An encoder-decoder model passes ``cross``, one cross-attention module
     per period.  Its K/V per period, ``caches["cross_kv"]`` ``{"k": (P, B,
@@ -238,10 +266,12 @@ def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
         for key, kind in keys:
             state = None if caches is None else {n: c[i] for n, c in caches[key].items()}
             x, delta, ns = apply_block(period_block(period, cfg, key), kind, x, delta, cfg,
-                                       mode, state, positions, cross_i)
+                                       mode, state, positions, cross_i, aux)
             new[key].append(ns)
     if mode == "decode":
         return x, delta, caches
+    if mode == "train":
+        return x, delta, None
     out = {key: {n: torch.stack([s[n] for s in per]) for n in per[0]}
            for key, per in new.items()}
     if cross_kv is not None:

@@ -2,7 +2,8 @@
 version, the simulator's ticks running through the stream kernels (bit for
 bit the same at any bucket), and
 the models' prefill and decode running through the RMSNorm, flash and
-selective-scan kernels.
+selective-scan kernels, the RMSNorm backward kernels, and training on the
+card where every kernel the forward launches has a backward.
 
 This file imports no JAX, so it runs on a machine that has only the port's
 dependencies.  Every test carries the ``cuda`` marker and skips where
@@ -21,8 +22,12 @@ from repro_torch.interop import stage_padded
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
 from repro_torch.kernels.rmsnorm import (
     add_rmsnorm,
+    add_rmsnorm_backward,
+    add_rmsnorm_backward_reference,
     add_rmsnorm_reference,
     rmsnorm,
+    rmsnorm_backward,
+    rmsnorm_backward_reference,
     rmsnorm_reference,
 )
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_reference
@@ -988,3 +993,175 @@ def test_frontend_models_on_card_run_the_kernels_and_match_the_host(cuda, arch):
     assert (rmsnorm.launches - before[0], add_rmsnorm.launches - before[1],
             flash_attention.launches - before[2]) == (1, norms, 0)
     torch.testing.assert_close(gd.cpu(), wd, rtol=1e-4, atol=1e-4 * float(wd.abs().max()))
+
+
+# ------------------------------------------------------------------ backward
+# The RMSNorm backward kernels against autograd through the plain forward
+# versions: fp32 dx rtol 1e-5, atol 1e-5·max (the row's two sums run in
+# another order), bf16 dx within one bf16 ulp plus the fp32 atol (plus one
+# ulp of the norm's part in the fused form, see _assert_backward_close),
+# dgain (fp32) rtol 1e-5,
+# atol 1e-5·max; and bit for bit the same on a second run (no atomics).
+
+BACKWARD_SHAPES = [(4, 1, 2048), (1, 168, 2048), (4, 1, 2732), (1, 256, 2732), (1024, 2048),
+                   (7, 130), (3, 4097)]
+
+
+def _grads_through_plain(fn, inputs, grads):
+    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*leaves)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, g) for o, g in zip(outs, grads) if g is not None]
+    return torch.autograd.grad([o for o, _ in pairs], leaves, [g for _, g in pairs])
+
+
+def _assert_backward_close(got, want, norm_part=None):
+    """fp32 within rtol 1e-5, atol 1e-5·max; bf16 within one ulp of the
+    result plus atol 1e-5·max (dx's two fp32 terms can nearly cancel, and
+    their rounding then moves the bf16 rounding of a small result by more
+    than its ulp), and for the fused form one more ulp of the norm's
+    rounded part ``norm_part``: both sides round that part to bf16 before
+    adding the residual gradient, and where the two nearly cancel, one ulp
+    of the part is many of the sum."""
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    else:
+        tol = (_bf16_ulp(want) + 1e-5 * float(want.float().abs().max())
+               + (0 if norm_part is None else _bf16_ulp(norm_part)))
+        assert bool(((got.float() - want.float()).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_backward_kernel_matches_autograd(cuda, shape, dtype):
+    x, dy, gain = _add_norm_inputs(cuda, shape, dtype, seed=40)
+    before = rmsnorm_backward.launches
+    dx, dgain = rmsnorm_backward(x, dy, gain, 1e-5)
+    torch.cuda.synchronize()
+    assert rmsnorm_backward.launches == before + 1
+    want_dx, want_dg = _grads_through_plain(lambda x, g: rmsnorm_reference(x, g, 1e-5),
+                                            (x, gain), (dy,))
+    assert dx.dtype == dtype and dgain.dtype == gain.dtype
+    _assert_backward_close(dx, want_dx)
+    torch.testing.assert_close(dgain, want_dg, rtol=1e-5, atol=1e-5 * float(want_dg.abs().max()))
+    again = rmsnorm_backward(x, dy, gain, 1e-5)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dgain)
+    plain = rmsnorm_backward_reference(x, dy, gain, 1e-5)
+    _assert_backward_close(dx, plain[0])
+
+
+@pytest.mark.parametrize("shape", BACKWARD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_ds", [True, False])
+def test_add_rmsnorm_backward_kernel_matches_autograd(cuda, shape, dtype, with_ds):
+    x, delta, gain = _add_norm_inputs(cuda, shape, dtype, seed=41)
+    g = torch.Generator(device=cuda).manual_seed(42)
+    dh = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    ds = torch.randn(shape, generator=g, device=cuda).to(dtype) if with_ds else None
+    s = x + delta
+    before = add_rmsnorm_backward.launches
+    dx, dgain = add_rmsnorm_backward(s, ds, dh, gain, 1e-5)
+    torch.cuda.synchronize()
+    assert add_rmsnorm_backward.launches == before + 1
+    want_dx, want_dd, want_dg = _grads_through_plain(
+        lambda x, d, g: add_rmsnorm_reference(x, d, g, 1e-5), (x, delta, gain), (ds, dh))
+    norm_part = rmsnorm_backward_reference(s, dh, gain, 1e-5)[0]
+    _assert_backward_close(dx, want_dx, norm_part)
+    _assert_backward_close(dx, want_dd, norm_part)
+    torch.testing.assert_close(dgain, want_dg, rtol=1e-5, atol=1e-5 * float(want_dg.abs().max()))
+    again = add_rmsnorm_backward(s, ds, dh, gain, 1e-5)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dgain)
+
+
+def test_norm_wrappers_under_grad_run_both_kernels(cuda):
+    """Under grad mode a CUDA input that requires grad leaves the wrappers
+    with a ``grad_fn``, and ``backward`` runs the backward kernels; the
+    gradients are autograd's through the plain versions.  Without grad
+    they launch the forward alone."""
+    x, delta, gain = _add_norm_inputs(cuda, (2, 9, 2048), torch.float32, seed=43)
+    x, delta, gain = (t.requires_grad_(True) for t in (x, delta, gain))
+    counts = lambda: (rmsnorm.launches, add_rmsnorm.launches, rmsnorm_backward.launches,
+                      add_rmsnorm_backward.launches)
+    before = counts()
+    s, h = add_rmsnorm(x, delta, gain, 1e-5)
+    out = rmsnorm(h, gain, 1e-5)
+    assert s.grad_fn is not None and h.grad_fn is not None and out.grad_fn is not None
+    ((out * out).sum() + s.sum()).backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (1, 1, 1, 1)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, delta, gain)]
+    s2, h2 = add_rmsnorm_reference(*leaves, 1e-5)
+    out2 = rmsnorm_reference(h2, leaves[2], 1e-5)
+    ((out2 * out2).sum() + s2.sum()).backward()
+    for got, want in zip((x.grad, delta.grad, gain.grad), (t.grad for t in leaves)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * float(want.abs().max()))
+    with torch.no_grad():
+        before = counts()
+        s, h = add_rmsnorm(x, delta, gain, 1e-5)
+        assert s.grad_fn is None and h.grad_fn is None
+        assert tuple(a - b for a, b in zip(counts(), before)) == (0, 1, 0, 0)
+
+
+def test_flash_and_scan_raise_rather_than_drop_a_gradient(cuda):
+    q = torch.randn(1, 8, 4, 64, device=cuda, requires_grad=True)
+    k = torch.randn(1, 8, 4, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 3e \(i\)"):
+        flash_attention(q, k, k, causal=True)
+    with torch.no_grad():
+        assert flash_attention(q, k, k, causal=True).shape == q.shape
+    B, S, D, N = 1, 5, 32, 16
+    dt = torch.rand(B, S, D, device=cuda, requires_grad=True)
+    x = torch.randn(B, S, D, device=cuda)
+    bm, cm = torch.randn(B, S, N, device=cuda), torch.randn(B, S, N, device=cuda)
+    a, h0 = -torch.rand(D, N, device=cuda), torch.zeros(B, D, N, device=cuda)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 3e \(i\)"):
+        ssm_scan(dt, x, bm, cm, a, h0)
+    with torch.no_grad():
+        y, hT = ssm_scan(dt, x, bm, cm, a, h0)
+    assert y.shape == (B, S, D)
+
+
+def test_xlstm_model_on_card_serves_and_trains_as_the_host(cuda):
+    """xlstm-1.3b@smoke on card and host from the same weights: prefill
+    logits and every state (rtol 1e-4, atol 1e-4·max), the launch counts
+    per forward (1 + L ``rmsnorm``: block 0's first norm and each block's
+    inner norm; L ``add_rmsnorm``), then
+    one training step's loss (rel 1e-5) and every gradient (within 1e-4 of
+    its leaf's largest host entry), the backward running the norm
+    kernels."""
+    from repro_torch.launch.train import check_trainable
+
+    cfg = get_config("xlstm-1.3b@smoke")
+    check_trainable(cfg, "cuda")
+    host = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=cuda, seed=0)
+    card.load_state_dict(host.state_dict())
+    tokens = torch.arange(4, 68).reshape(2, 32) % cfg.vocab
+    before = (rmsnorm.launches, add_rmsnorm.launches)
+    got, gc = card.forward_prefill(tokens.to(cuda))
+    want, hc = host.forward_prefill(tokens)
+    torch.cuda.synchronize()
+    L = cfg.n_layers
+    assert (rmsnorm.launches - before[0], add_rmsnorm.launches - before[1]) == (1 + L, L)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+    for key in hc:
+        for n, w in hc[key].items():
+            torch.testing.assert_close(gc[key][n].cpu(), w, rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()))
+    batch = {"tokens": tokens, "labels": (tokens + 1) % cfg.vocab}
+    losses = {}
+    for name, model in (("host", host.trainable()), ("card", card.trainable())):
+        dev = model.embed.device
+        loss, _ = model.loss_fn({k: v.to(dev) for k, v in batch.items()})
+        before = (rmsnorm_backward.launches, add_rmsnorm_backward.launches)
+        loss.backward()
+        losses[name] = float(loss.detach())
+    torch.cuda.synchronize()
+    assert (rmsnorm_backward.launches - before[0],
+            add_rmsnorm_backward.launches - before[1]) == (1 + L, L)
+    assert losses["card"] == pytest.approx(losses["host"], rel=1e-5)
+    hp = dict(host.named_parameters())
+    for n, p in card.named_parameters():
+        w = hp[n].grad
+        torch.testing.assert_close(p.grad.cpu(), w, rtol=0.0, atol=1e-4 * float(w.abs().max()),
+                                   msg=lambda m: f"d{n}: {m}")

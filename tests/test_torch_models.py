@@ -134,13 +134,20 @@ def test_state_dict_names_unstack_the_layer_axis():
 @pytest.mark.parametrize("arch", ["mixtral-8x7b@smoke", "jamba-1.5-large-398b@smoke",
                                   "minicpm3-4b@smoke"])
 def test_build_model_raises_for_what_this_slice_leaves_out(arch):
-    """MoE and MLA are ported, so these three configs now build (their
-    parity with the reference is in ``test_torch_moe_mla_models.py``).
-    What the port still leaves out is the xLSTM block: each config with
-    its pattern made mLSTM must raise, citing the ROADMAP item."""
-    cfg = dataclasses.replace(get_config(arch), block_pattern=("mlstm",))
+    """Every block kind is ported, so these three configs build (their
+    serving parity with the reference is in ``test_torch_moe_mla_models.py``)
+    and train on the CPU.  What the port still leaves out is training them
+    on the card: each launches the flash kernel (jamba the selective scan
+    too), whose backward is not written yet, so the card-training guard
+    must raise, citing the ROADMAP item."""
+    from repro_torch.launch.train import check_trainable
+
+    cfg = get_config(arch)
+    assert build_model(cfg, device="cpu").n_params() == jax_build_model(
+        jax_get_config(arch)).n_params()
+    check_trainable(cfg, "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="cpu")
+        check_trainable(cfg, "cuda")
 
 
 def test_configs_resolve_the_same_in_both_packages():
@@ -237,9 +244,23 @@ def test_hybrid_state_dict_names_carry_the_block_key():
 
 
 def test_state_dict_from_an_xlstm_tree_raises():
+    """The xLSTM tree round-trips: its mLSTM and sLSTM leaves unstack along
+    the period axis like any other, under the names the port's model
+    holds, and equal the reference's.  A tree whose period count is not
+    the config's still raises."""
+    cfg = get_config("xlstm-1.3b@smoke")
     jm = jax_build_model(jax_get_config("xlstm-1.3b@smoke"))
     params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.PRNGKey(0)))
-    with pytest.raises(NotImplementedError, match="mlstm|slstm"):
-        model_params_from_numpy(params, get_config("xlstm-1.3b@smoke"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(get_config("xlstm-1.3b@smoke"), device="cpu")
+    sd = model_params_from_numpy(params, cfg)
+    tm = build_model(cfg, device="cpu")
+    assert set(sd) == set(tm.state_dict())
+    tm.load_state_dict(sd)
+    for key, kind in (("b0_mlstm", "mlstm"), ("b1_slstm", "slstm")):
+        for name, leaf in params["blocks"][key][kind].items():
+            for i in range(cfg.n_periods()):
+                got = tm.state_dict()[f"blocks.{i}.{key}.{kind}.{name}"]
+                assert np.array_equal(got.numpy(), leaf[i]), (key, name, i)
+    assert np.array_equal(tm.state_dict()["embed"].numpy(), params["embed"])
+    two = dataclasses.replace(cfg, n_layers=2 * cfg.n_layers)
+    with pytest.raises(ValueError, match="layers"):
+        model_params_from_numpy(params, two)

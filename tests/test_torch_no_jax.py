@@ -454,3 +454,67 @@ def test_port_serves_encoder_decoder_and_plans_cards_with_jax_and_reference_bloc
     proc = _run_blocked(_BLOCKED_ENCDEC_AND_ELASTIC)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "served" in proc.stdout and "remeshed" in proc.stdout
+
+
+_BLOCKED_TRAIN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import tempfile
+import numpy as np
+import repro_torch.optim
+import repro_torch.data
+import repro_torch.launch.train as train_mod
+from repro_torch.launch.serve import BatchedServer, Request
+from repro_torch.runtime import FailurePlan, run_with_restarts
+base = dict(arch="xlstm-1.3b@smoke", steps=6, seq_len=16, global_batch=2, ckpt_every=2,
+            log_every=0)
+ref = train_mod.train(train_mod.TrainConfig(**base), device="cpu")
+assert np.isfinite(ref["losses"]).all(), ref["losses"]
+plan = FailurePlan(fail_after_steps=(3,))
+seen = {}
+with tempfile.TemporaryDirectory() as d:
+    def run(attempt):
+        return train_mod.train(train_mod.TrainConfig(**base, ckpt_dir=d), failure_plan=plan,
+                               on_step=lambda s, l, m, dt: seen.__setitem__(s, l),
+                               device="cpu")["start_step"]
+    start, restarts = run_with_restarts(run)
+assert (start, restarts) == (4, 1), (start, restarts)
+assert [seen[s] for s in range(6)] == ref["losses"], (seen, ref["losses"])
+server = BatchedServer("xlstm-1.3b@smoke", batch_slots=2, max_ctx=32, device="cpu")
+server.submit(Request(0, np.arange(4, 13, dtype=np.int32), 4))
+server.submit(Request(1, np.arange(4, 21, dtype=np.int32), 3))
+server.submit(Request(2, np.arange(4, 30, dtype=np.int32), 2))
+server.drain()
+assert sorted(len(r.tokens_out) for r in server.completed) == [2, 3, 4], server.completed
+loaded = [m for m, mod in sys.modules.items()
+          if mod is not None and (m.split(".")[0] in ("jax", "jaxlib", "repro"))]
+assert not loaded, loaded
+print("trained", ref["losses"][-1], "served", server.decode_steps)
+"""
+
+
+def test_port_trains_and_serves_xlstm_with_jax_and_reference_blocked():
+    """``optim``, ``data`` and ``launch.train`` import with ``jax`` and
+    ``repro`` blocked: xlstm-1.3b@smoke trains on the CPU, restarts from a
+    checkpoint with the same losses, and serves."""
+    proc = _run_blocked(_BLOCKED_TRAIN)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "trained" in proc.stdout and "served" in proc.stdout
+
+
+def test_training_entry_points_default_to_the_card():
+    """``build_state``, ``train`` and the backward library follow the
+    device rule: no device means the card, which raises without one, and
+    the backward kernel builds beside the forward."""
+    from repro_torch.kernels.rmsnorm.ops import BACKWARD_LIBRARY, LIBRARY
+    from repro_torch.launch.train import TrainConfig, build_state, train
+
+    assert BACKWARD_LIBRARY.library_path().parent == LIBRARY.library_path().parent
+    assert BACKWARD_LIBRARY.library_path().name.startswith("rmsnorm_bwd-")
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    tc = TrainConfig(arch="xlstm-1.3b@smoke", steps=1)
+    for fn in (build_state, train):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fn(tc)
