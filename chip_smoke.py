@@ -87,7 +87,9 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    and mLSTM's inner 2732 (serving's and training's rows), add_rmsnorm at
    2048, and both RMSNorm backward kernels (the norm alone, and after the
    residual add) against autograd through the plain versions at training's
-   shapes, serving's, one bf16 case and an odd width;
+   shapes, serving's, one bf16 case and an odd width, and at a few rows of
+   every width their register path takes (256, 768, 1024, 2560, 3840,
+   4096, 6144 and 8192 in fp32, 8192 in bf16);
 5. runs a 2-layer llama3-8b at full width with the same seeded weights on
    the card and on the host, one prefill and 4 decode steps, and compares
    the logits;
@@ -3177,6 +3179,10 @@ XLSTM_PARAMS = 1_340_259_032        # xlstm-1.3b, the reference's n_params()
 XLSTM_PERIOD_PARAMS = 395_082_532   # one period (8 layers: 7 mLSTM, 1 sLSTM) at full width
 XLSTM_PERIOD = 8
 BWD_FP32_TOL = 1e-5                 # backward kernel vs autograd through the plain versions
+# Widths the backward kernels' register path takes besides xlstm-1.3b's
+# 2048 and 2732: MLA's latents, olmoe's and minicpm3's d, and the widths the
+# next training slices normalise.
+BACKWARD_REGISTER_WIDTHS = (256, 768, 1024, 2560, 3840, 4096, 6144, 8192)
 TRAIN_LOSS_RTOL = 1e-5              # card vs host loss, and a restart vs the uninterrupted run
 TRAIN_GRAD_ATOL_REL = 1e-4          # card vs host gradient, of its leaf's largest host entry
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_FAIL_AFTER = 8, 4, 256, 4, 5
@@ -3226,10 +3232,12 @@ def check_backward(name, got, want, norm_part=None) -> float:
 
 def check_norm_backwards(device, shapes) -> tuple[float, float]:
     """Both backward kernels against autograd through their plain versions
-    at ``shapes`` in fp32, and at the first shape in bf16 and an odd width
-    (4, 1, 2049) in fp32: dx (for the fused form, of x and delta alike)
-    and dgain, each twice, the second run bit for bit the first (no
-    atomics).  Returns the largest fp32 differences of the two kernels."""
+    at ``shapes`` in fp32, at the first shape in bf16, at an odd width (4,
+    1, 2049) in fp32, and at 2-4 rows of each width of
+    ``BACKWARD_REGISTER_WIDTHS`` in fp32 and (2, 8192) in bf16: dx (for the
+    fused form, of x and delta alike) and dgain, each twice, the second run
+    bit for bit the first (no atomics).  Returns the largest fp32
+    differences of the two kernels."""
     import torch
     from repro_torch.kernels.rmsnorm import (
         add_rmsnorm_backward, add_rmsnorm_reference, rmsnorm_backward, rmsnorm_backward_reference,
@@ -3239,6 +3247,8 @@ def check_norm_backwards(device, shapes) -> tuple[float, float]:
     g = torch.Generator(device=device).manual_seed(26)
     cases = [(tuple(sh), torch.float32) for sh in shapes]
     cases += [(tuple(shapes[0]), torch.bfloat16), ((4, 1, 2049), torch.float32)]
+    cases += [((2 + i % 3, w), torch.float32) for i, w in enumerate(BACKWARD_REGISTER_WIDTHS)]
+    cases += [((2, 8192), torch.bfloat16)]
     worst = {"rmsnorm_backward": 0.0, "add_rmsnorm_backward": 0.0}
     for shape, dtype in cases:
         x, delta, dy, ds = (torch.randn(shape, generator=g, device=device).to(dtype)

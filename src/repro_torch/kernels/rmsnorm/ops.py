@@ -43,8 +43,8 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 def _bind_backward(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.rmsnorm_bwd_blocks.argtypes = [i32]
-    lib.rmsnorm_bwd_blocks.restype = i32
+    lib.rmsnorm_bwd_scratch.argtypes = [i32, i32]
+    lib.rmsnorm_bwd_scratch.restype = ctypes.c_longlong
     lib.rmsnorm_bwd_launch.argtypes = [ptr] * 7 + [i32, i32, ctypes.c_float, i32, ptr]
     lib.rmsnorm_bwd_launch.restype = ctypes.c_int
 
@@ -84,28 +84,38 @@ def _check(x: torch.Tensor, gain: torch.Tensor, delta: torch.Tensor | None) -> i
     return rows
 
 
+def _on_card(entry, args, index: int) -> int:
+    """``entry(*args, stream)`` with the current stream of card ``index`` as
+    a raw handle; the card is made current only when it is not already."""
+    if index == torch.cuda.current_device():
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+    with torch.cuda.device(index):
+        return entry(*args, torch._C._cuda_getCurrentRawStream(index))
+
+
 def _launch(x, delta, gain, s, h, rows: int, eps: float) -> None:
-    """One launch on the current stream of ``x``'s card, as a raw handle;
-    the card is made current only when it is not already."""
-    lib = LIBRARY.load()
+    """One launch on the current stream of ``x``'s card."""
     args = (x.data_ptr(), None if delta is None else delta.data_ptr(), gain.data_ptr(),
             None if s is None else s.data_ptr(), h.data_ptr(), rows, x.shape[-1], float(eps),
             DTYPES[x.dtype])
-    index = x.get_device()
-    if index == torch.cuda.current_device():
-        rc = lib.rmsnorm_launch(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        with torch.cuda.device(index):
-            rc = lib.rmsnorm_launch(*args, torch._C._cuda_getCurrentRawStream(index))
+    rc = _on_card(LIBRARY.load().rmsnorm_launch, args, x.get_device())
     if rc != 0:
         raise RuntimeError(f"rmsnorm launch failed: CUDA error {rc}")
+
+
+def _gain32(gain: torch.Tensor) -> torch.Tensor:
+    """The gain as the kernels take it: contiguous fp32, copied only when
+    it is not already."""
+    if gain.dtype == torch.float32 and gain.is_contiguous():
+        return gain
+    return gain.to(torch.float32).contiguous()
 
 
 def _forward(x, delta, gain, eps: float):
     """``(s, h)`` from one forward launch (``s`` is None without
     ``delta``); counts nothing."""
     rows = _check(x, gain, delta)
-    g = gain.to(torch.float32).contiguous()
+    g = _gain32(gain)
     s = None if delta is None else torch.empty_like(x)
     h = torch.empty_like(x)
     if rows:
@@ -200,25 +210,23 @@ def _check_backward(x, dy, dres, gain) -> int:
 
 
 def _backward(x, dy, dres, gain, eps: float):
-    """(dx, dgain) from the backward kernel's two passes; counts nothing."""
+    """(dx, dgain) from the backward kernel's two launches, the rows pass
+    and the finish; counts nothing."""
     dy = dy.contiguous()
     dres = None if dres is None else dres.contiguous()
     rows = _check_backward(x, dy, dres, gain)
     d = x.shape[-1]
     dx = torch.empty_like(x)
-    dgain = torch.zeros(d, dtype=torch.float32, device=x.device)
     if rows == 0:
-        return dx, dgain.to(gain.dtype)
+        return dx, torch.zeros(d, dtype=gain.dtype, device=x.device)
     lib = BACKWARD_LIBRARY.load()
-    partial = torch.empty((lib.rmsnorm_bwd_blocks(rows), d), dtype=torch.float32,
-                          device=x.device)
-    g = gain.to(torch.float32).contiguous()
-    index = x.get_device()
-    with torch.cuda.device(index):
-        rc = lib.rmsnorm_bwd_launch(
-            x.data_ptr(), dy.data_ptr(), None if dres is None else dres.data_ptr(),
-            g.data_ptr(), dx.data_ptr(), partial.data_ptr(), dgain.data_ptr(), rows, d,
-            float(eps), DTYPES[x.dtype], torch._C._cuda_getCurrentRawStream(index))
+    scratch = torch.empty(lib.rmsnorm_bwd_scratch(rows, d), dtype=torch.float32, device=x.device)
+    dgain = torch.empty(d, dtype=torch.float32, device=x.device)
+    g = _gain32(gain)
+    args = (x.data_ptr(), dy.data_ptr(), None if dres is None else dres.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), scratch.data_ptr(), dgain.data_ptr(), rows, d, float(eps),
+            DTYPES[x.dtype])
+    rc = _on_card(lib.rmsnorm_bwd_launch, args, x.get_device())
     if rc != 0:
         raise RuntimeError(f"rmsnorm backward launch failed: CUDA error {rc}")
     return dx, dgain.to(gain.dtype)

@@ -1002,9 +1002,15 @@ def test_frontend_models_on_card_run_the_kernels_and_match_the_host(cuda, arch):
 # ulp of the norm's part in the fused form, see _assert_backward_close),
 # dgain (fp32) rtol 1e-5,
 # atol 1e-5·max; and bit for bit the same on a second run (no atomics).
+# The shapes run every register-path instantiation (one or two vectors a
+# thread, 16-byte vectors and bf16's 8-byte ones at 2732) and the generic
+# path (odd widths), at row counts of one CTA a row (1, 7, 133), several
+# rows a CTA (1,001: the last CTA's run shorter) and more rows than CTAs.
 
 BACKWARD_SHAPES = [(4, 1, 2048), (1, 168, 2048), (4, 1, 2732), (1, 256, 2732), (1024, 2048),
-                   (7, 130), (3, 4097)]
+                   (7, 130), (3, 4097), (3, 256), (2, 768), (4, 1024), (2, 2560), (3, 3840),
+                   (2, 4096), (3, 6144), (2, 8192), (1, 2048), (7, 2732), (133, 2048),
+                   (1001, 2732), (600, 8192), (4, 2049)]
 
 
 def _grads_through_plain(fn, inputs, grads):
@@ -1071,6 +1077,69 @@ def test_add_rmsnorm_backward_kernel_matches_autograd(cuda, shape, dtype, with_d
     torch.testing.assert_close(dgain, want_dg, rtol=1e-5, atol=1e-5 * float(want_dg.abs().max()))
     again = add_rmsnorm_backward(s, ds, dh, gain, 1e-5)
     assert torch.equal(again[0], dx) and torch.equal(again[1], dgain)
+
+
+def _shifted(t):
+    """``t``'s values in a view one element into a buffer: contiguous, but
+    off every vector alignment."""
+    if t is None:
+        return None
+    view = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("shape", [(3, 2048), (2, 2732), (5, 8192), (2, 4097)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fused", [False, True])
+def test_norm_backward_unaligned_view_gives_the_aligned_bits(cuda, shape, dtype, fused):
+    """An unaligned view takes the generic path, which keeps the register
+    path's grouping and summation order: the same bits as an aligned
+    copy, both within the gates of autograd through the plain versions."""
+    g = torch.Generator(device=cuda).manual_seed(44 + shape[-1])
+    x, dy, ds = (torch.randn(shape, generator=g, device=cuda).to(dtype) for _ in range(3))
+    ds = ds if fused else None
+    gain = 1.0 + 0.1 * torch.randn(shape[-1], generator=g, device=cuda)
+    run = ((lambda x, dy, ds: add_rmsnorm_backward(x, ds, dy, gain, 1e-5)) if fused
+           else (lambda x, dy, ds: rmsnorm_backward(x, dy, gain, 1e-5)))
+    dx, dgain = run(x, dy, ds)
+    sx, sdy, sds = _shifted(x), _shifted(dy), _shifted(ds)
+    assert sx.data_ptr() % 16 != 0
+    ux, ugain = run(sx, sdy, sds)
+    torch.cuda.synchronize()
+    assert torch.equal(ux, dx) and torch.equal(ugain, dgain)
+    want_dx, want_dg = rmsnorm_backward_reference(x, dy, gain, 1e-5, dres=ds)
+    part = rmsnorm_backward_reference(x, dy, gain, 1e-5)[0] if fused else None
+    _assert_backward_close(ux, want_dx, part)
+    torch.testing.assert_close(ugain, want_dg, rtol=1e-5, atol=1e-5 * float(want_dg.abs().max()))
+
+
+@pytest.mark.parametrize("shape,path", [
+    ((1024, 2048), "regs<float, 4, 1,"), ((4, 2732), "regs<float, 4, 1,"),
+    ((4, 8192), "regs<float, 4, 2,"), ((4, 6144), "regs<float, 4, 2,"),
+    ((4, 2049), "any<float,"),
+])
+@pytest.mark.parametrize("fused", [False, True])
+def test_norm_backward_runs_two_kernels_and_no_memset(cuda, shape, path, fused):
+    """One call of each backward wrapper runs two CUDA kernels, the rows
+    pass on the path its width takes and the finish, and no memset or
+    copy, by the profiler's device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    x, dy, gain = _add_norm_inputs(cuda, shape, torch.float32, seed=45)
+    ds = torch.randn_like(x) if fused else None
+    run = ((lambda: add_rmsnorm_backward(x, ds, dy, gain, 1e-5)) if fused
+           else (lambda: rmsnorm_backward(x, dy, gain, 1e-5)))
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 2, names
+    assert any(f"rmsnorm_bwd_{path}" in n and f"{str(fused).lower()}>" in n for n in names), names
+    assert any("rmsnorm_bwd_finish" in n for n in names), names
 
 
 def test_norm_wrappers_under_grad_run_both_kernels(cuda):
