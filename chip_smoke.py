@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch port (``src/repro_torch``).
 
-Builds the five CUDA kernel libraries from ``src/repro_torch/kernels/*/csrc``
+Builds the seven CUDA kernel libraries from ``src/repro_torch/kernels/*/csrc``
 into ``build/kernels/``, with an empty kernel of its own beside them (one
 ``nvcc`` per source, all at once), then:
 
@@ -28,7 +28,7 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
 3c. submits phase 3's candidates, duplicates mixed in, through
    ``SimulatorEvaluator`` on the sparse tick and requires its dedup, result
    cache, resident batches and trajectory refetch to be bit for bit the
-   uncached path; then drives a 48-step diurnal day of ``deep_pipeline``
+   uncached path; then drives a 24-step diurnal day of ``deep_pipeline``
    (6,700 ktps base, about 20,000 at the peak) through ``ControlLoop`` with
    ``HybridPolicy`` and with a learning ``PredictivePolicy`` on that
    evaluator, and requires every step to deploy a configuration and the
@@ -50,7 +50,7 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    from its checkpoint, whose events must equal the uninterrupted run's;
    N+1 on the demo cluster through a host failure with no guaranteed
    breach; and 999 tenants (333 copies of the trio at seeded rates) on
-   1,998 hosts for 2 steps with N+1 for the guaranteed tier, each step's
+   1,998 hosts for 1 step with N+1 for the guaranteed tier, each step's
    measurement one call with one row per admitted tenant, 64 of its rows
    equal on the host (rel 1e-5) and uncached on the card (bit for bit).
    Its stream-kernel launches are counted by shape on recorders of their
@@ -152,14 +152,35 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    on the host from the same weights and one synthetic batch (2 x 256):
    the loss within rel 1e-5 and every gradient within 1e-4 of its leaf's
    largest host entry, the backward through both backward kernels; (b)
-   trains xlstm-1.3b whole on the card for 8 steps (4 x 256 tokens a
+   trains xlstm-1.3b whole on the card for 6 steps (4 x 256 tokens a
    step) with finite losses and gradient norms and the norms' forward and
    backward launches per step held to 49 and 48 each, then the same run
    checkpointed every 4 steps under ``build/``, crashed after step 5 and
    restarted under ``run_with_restarts``, its losses equal to the
-   uninterrupted run's within rel 1e-5; (c) requires training a 2-layer
-   llama3-8b on the card to raise, citing ROADMAP (flash has no backward);
-13. (run after 20) builds the LM bridge's workload model of each served
+   uninterrupted run's within rel 1e-5; (c) requires the card-training
+   guard to refuse, with ``ValueError`` and before anything is built,
+   256-wide attention heads (a 2-layer llama3-8b at d_model 8192, an MLA
+   head of 160) and a 32-wide SSM state, and every registered
+   architecture to pass it;
+21. (run after 20) holds the flash-attention and selective-scan backward
+   kernels to their plain versions (each gradient within 1e-4 of its
+   largest entry, bf16 plus one ulp of it; a second launch bit for bit the
+   first) at the training shapes below, a window narrower than S,
+   seamless's cross-attention (S 168, Sk 512), MLA's padded v (40 heads,
+   width 96), a masked channel tail and bf16, and times each beside its
+   plain version, its bound and (flash) autograd's backward of SDPA; (a)
+   one training forward and backward card vs host from the same weights
+   of stablelm-1.6b cut to 2 layers (2 x 256) and, right after phase 8 on
+   its two models, of the jamba pair (1 x 128): the loss within rel 1e-5,
+   every gradient within 1e-4 of its leaf's largest host entry; (b) trains
+   stablelm-1.6b whole (1,644,267,520 parameters) through ``train()`` for
+   4 steps of 4 x 256, twice, and (c) the jamba pair (2,869,829,632
+   parameters) through
+   ``build_model``, ``init_opt_state`` and ``make_step`` likewise: finite
+   losses and gradient norms, the second run bit for bit the first, and
+   per step one backward launch for each forward launch of the norms,
+   flash (24 a step for stablelm) and the scan;
+13. (run after 21) builds the LM bridge's workload model of each served
    model (2N FLOPs and the fp32 parameter bytes over the slots per token)
    and prints its predicted one-card decode rate beside the measured one
    for phases 6, 9, 11, 12, 15-17 and 19; runs
@@ -185,12 +206,14 @@ plain version, its times and its bound.
 
 Needs one CUDA card and about 45 GB of free disk under ``build/`` (phase
 20 (b)'s two checkpoints of about 21.4 GB, removed when the phase ends).
+Phase 21 (c) holds about 57.4 GB of training state on the card.
 Run from the root of the repository:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import itertools
 import json
 import math
@@ -1230,13 +1253,15 @@ def phase_learning(device, params, dim, launch_fns, steps=24, drift=2.5):
 # ------------------------------------------------------------------- fleet
 
 DEMO_STEPS = 24
+#: Phase 3c (b)'s diurnal day of deep_pipeline (one Holt-Winters season).
+CONTROL_DAY_STEPS = 24
 #: phase 3d (c): copies of the demo's trio (999 tenants) and steps.  Eight
 #: steps took 566 s (``tools/fleet_probe.py``; NVIDIA H100 80GB HBM3, 700 W),
 #: almost all of it the scheduler's host-side allocation under the squeeze,
 #: and four took 367 s of a 917 s smoke run beside the MoE and MLA phases
 #: (the same card), so two run here: the bootstrap and the first guard
 #: replan.
-FLEET_COPIES, FLEET_STEPS = 333, 2
+FLEET_COPIES, FLEET_STEPS = 333, 1
 
 
 def demo_fleet(params, copies=1, factors=None):
@@ -2525,7 +2550,8 @@ def expected_launches(cfg, forwards, prefills) -> dict:
                 + (prefills if E else 0),
                 add_rmsnorm=(norms_per_forward(cfg) - 1) * forwards + 2 * E * prefills,
                 flash_attention=(n["attn"] + cross + E) * prefills,
-                ssm_scan=n["mamba"] * forwards, rmsnorm_backward=0, add_rmsnorm_backward=0)
+                ssm_scan=n["mamba"] * forwards, rmsnorm_backward=0, add_rmsnorm_backward=0,
+                flash_attention_backward=0, ssm_scan_backward=0)
 
 
 def decode_floor(model, caches) -> tuple[float, int, int]:
@@ -2551,14 +2577,16 @@ def decode_floor(model, caches) -> tuple[float, int, int]:
 
 def model_kernels() -> dict:
     """The LM kernels' wrappers by name, forward and backward."""
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_backward
     from repro_torch.kernels.rmsnorm import (
         add_rmsnorm, add_rmsnorm_backward, rmsnorm, rmsnorm_backward,
     )
-    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_backward
     return dict(rmsnorm=rmsnorm, add_rmsnorm=add_rmsnorm, flash_attention=flash_attention,
                 ssm_scan=ssm_scan, rmsnorm_backward=rmsnorm_backward,
-                add_rmsnorm_backward=add_rmsnorm_backward)
+                add_rmsnorm_backward=add_rmsnorm_backward,
+                flash_attention_backward=flash_attention_backward,
+                ssm_scan_backward=ssm_scan_backward)
 
 
 def kernel_launches() -> dict:
@@ -2722,7 +2750,7 @@ def check_routing(label, host_calls, card_calls):
     return n, smallest, near, None
 
 
-def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
+def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed, keep=None):
     """The model ``cfg`` with the same seeded weights on the card and the
     host: one prefill and ``decode_steps`` decode steps on each (the host's
     greedy tokens fed to both), logits and every cache (K/V, MLA latents,
@@ -2735,7 +2763,10 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
     An MoE model's routing is held to the tie rule (:func:`check_routing`)
     after each forward, before its logits.  If a near-tie flips, that
     forward's and later logits and the caches are logged, not gated: the
-    two runs then compute different (both valid) functions."""
+    two runs then compute different (both valid) functions.
+
+    With ``keep`` (a dict) the two models are left in it as "host" and
+    "card" for a later phase instead of being freed."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import SEQUENCE_CACHES
@@ -2850,6 +2881,8 @@ def phase_card_vs_host(device, cfg, prompt_len, decode_steps, seed):
     got = kernel_launches()
     if got != want:
         raise AssertionError(f"card launches {got}, expected {want}")
+    if keep is not None:
+        keep.update(host=host, card=card)
     del host, card, caches
     return worst
 
@@ -3185,7 +3218,7 @@ BWD_FP32_TOL = 1e-5                 # backward kernel vs autograd through the pl
 BACKWARD_REGISTER_WIDTHS = (256, 768, 1024, 2560, 3840, 4096, 6144, 8192)
 TRAIN_LOSS_RTOL = 1e-5              # card vs host loss, and a restart vs the uninterrupted run
 TRAIN_GRAD_ATOL_REL = 1e-4          # card vs host gradient, of its leaf's largest host entry
-TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_FAIL_AFTER = 8, 4, 256, 4, 5
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_FAIL_AFTER = 6, 4, 256, 4, 5
 GRAD_BATCH, GRAD_SEQ = 2, 256       # phase 20 (a)'s one batch
 
 
@@ -3348,22 +3381,29 @@ def host_batch(cfg, batch, seq, seed):
     return {k: torch.as_tensor(v).long() for k, v in b.items()}
 
 
-def phase_train_card_vs_host(device, cfg, seed) -> dict:
-    """Phase 20 (a): one training forward and backward of ``cfg`` on the card
-    and on the host from the same seeded weights and one synthetic batch:
-    the loss within rel 1e-5, every gradient within 1e-4 of its leaf's
-    largest host entry, and the card's launches (forward and backward
-    norms, nothing else).  Returns the largest differences."""
+def phase_train_card_vs_host(device, cfg, seed, batch_size=GRAD_BATCH, seq=GRAD_SEQ,
+                             models=None) -> dict:
+    """Phases 20 (a) and 21 (a): one training forward and backward of
+    ``cfg`` on the card and on the host from the same seeded weights and
+    one synthetic batch (``batch_size`` x ``seq``): the loss within rel
+    1e-5, every gradient within 1e-4 of its leaf's largest host entry, and
+    the card's launches (each forward kernel's and one backward launch for
+    each).  ``models`` ({"host", "card"}, built from ``seed`` with the
+    card's weights loaded from the host's) are used instead of building
+    them.  Returns the largest differences."""
     import torch
     from repro_torch.models import build_model
 
     t0 = time.perf_counter()
-    host = build_model(cfg, device="cpu", seed=seed)
-    card = build_model(cfg, device=device, seed=seed)
-    card.load_state_dict(host.state_dict())
-    batch = host_batch(cfg, GRAD_BATCH, GRAD_SEQ, seed)
+    if models is None:
+        host = build_model(cfg, device="cpu", seed=seed)
+        card = build_model(cfg, device=device, seed=seed)
+        card.load_state_dict(host.state_dict())
+    else:
+        host, card = models["host"], models["card"]
+    batch = host_batch(cfg, batch_size, seq, seed)
     log(f"  built {cfg.name} on host and card ({host.n_params():,} params) in "
-        f"{time.perf_counter() - t0:.1f} s; batch {GRAD_BATCH} x {GRAD_SEQ}")
+        f"{time.perf_counter() - t0:.1f} s; batch {batch_size} x {seq}")
     losses = {}
     zero_launches()
     for name, model in (("host", host), ("card", card)):
@@ -3392,23 +3432,21 @@ def phase_train_card_vs_host(device, cfg, seed) -> dict:
                                  f"{TRAIN_GRAD_ATOL_REL} x {scale:.3e}")
         if scale and err / scale > worst:
             worst, worst_name = err / scale, n
-    n = block_counts(cfg)
-    per = dict(rmsnorm=1 + inner_norms(cfg), add_rmsnorm=norms_per_forward(cfg) - 1)
-    want = dict(per, flash_attention=0, ssm_scan=0, rmsnorm_backward=per["rmsnorm"],
-                add_rmsnorm_backward=per["add_rmsnorm"])
+    n = {kind: c for kind, c in block_counts(cfg).items() if c}
+    want = training_launches(cfg, 1)
     got = kernel_launches()
     if got != want:
         raise AssertionError(f"training launches {got}, expected {want}")
     log(f"  loss card {losses['card']:.7f} host {losses['host']:.7f} (rel {rel:.3e}); every "
         f"gradient within {TRAIN_GRAD_ATOL_REL} of its leaf's largest host entry, largest "
-        f"share {worst:.3e} (d{worst_name}); {n['mlstm']} mLSTM + {n['slstm']} sLSTM blocks; "
+        f"share {worst:.3e} (d{worst_name}); blocks {json.dumps(n)}; "
         f"card launches {json.dumps(got)}")
     del host, card
     return dict(loss_rel=rel, grad_rel=worst)
 
 
 def phase_train(device, seed) -> dict:
-    """Phase 20 (b): xlstm-1.3b whole trained on the card for 8 steps (batch
+    """Phase 20 (b): xlstm-1.3b whole trained on the card for 6 steps (batch
     4 x 256 positions), uninterrupted, with every loss and gradient norm
     finite and the launches per step held to the norms' forward and
     backward counts; then the same run with checkpoints every 4 steps under
@@ -3455,9 +3493,7 @@ def phase_train(device, seed) -> dict:
         raise AssertionError(f"losses or gradient norms not finite: {steps}")
     n_rms = 1 + inner_norms(full)
     n_add = norms_per_forward(full) - 1
-    want = dict(rmsnorm=n_rms * TRAIN_STEPS, add_rmsnorm=n_add * TRAIN_STEPS, flash_attention=0,
-                ssm_scan=0, rmsnorm_backward=n_rms * TRAIN_STEPS,
-                add_rmsnorm_backward=n_add * TRAIN_STEPS)
+    want = training_launches(full, TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     step_ms = sorted(st["ms"] for st in steps)
@@ -3505,30 +3541,55 @@ def phase_train(device, seed) -> dict:
 
 
 def phase_train_guard(device) -> None:
-    """Phase 20 (c): training llama3-8b (2 layers) on the card must raise
-    citing ROADMAP: ``build_state`` before building anything, and
-    ``make_step`` for a model built on the card."""
+    """Phase 20 (c): the card-training guard refuses, with ``ValueError``
+    naming the limit and before anything is built, what the kernels do not
+    take: ``build_state`` for a 2-layer llama3-8b at d_model 8192 (head
+    width 256), ``make_step`` for a model whose config has a 256-wide head,
+    an MLA head of max(qk, v) = 160 or a 32-wide SSM state; the card's
+    allocated memory does not move.  Every registered architecture passes
+    it."""
+    import types
+
     import torch
-    from repro_torch.configs import get_config
-    from repro_torch.launch.train import TrainConfig, build_state, make_step
-    from repro_torch.models import build_model
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.configs.base import MLAConfig, SSMConfig
+    from repro_torch.launch.train import TrainConfig, build_state, check_trainable, make_step
     from repro_torch.optim import AdamWConfig
 
-    for what, call in (
-            ("build_state", lambda: build_state(TrainConfig(arch="llama3-8b", n_layers=2),
-                                                device=device)),
-            ("make_step", lambda: make_step(build_model(
-                dataclasses.replace(get_config("llama3-8b"), n_layers=2), device=device),
-                AdamWConfig()))):
+    def on_card(cfg):
+        return types.SimpleNamespace(cfg=cfg, embed=types.SimpleNamespace(device=device))
+
+    llama, jamba, mla = (get_config(a) for a in ("llama3-8b", "jamba-1.5-large-398b",
+                                                 "minicpm3-4b"))
+    cases = (
+        ("build_state, llama3-8b at d_model 8192", "128",
+         lambda: build_state(TrainConfig(arch="llama3-8b", n_layers=2, d_model=8192),
+                             device=device)),
+        ("make_step, head_dim 256", "128",
+         lambda: make_step(on_card(dataclasses.replace(llama, head_dim=256)), AdamWConfig())),
+        ("make_step, MLA qk 128 + 32", "128",
+         lambda: make_step(on_card(dataclasses.replace(
+             mla, mla=MLAConfig(qk_nope_head_dim=128, qk_rope_head_dim=32))), AdamWConfig())),
+        ("make_step, d_state 32", "16",
+         lambda: make_step(on_card(dataclasses.replace(jamba, ssm=SSMConfig(d_state=32))),
+                           AdamWConfig())),
+    )
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for what, limit, call in cases:
         try:
             call()
-        except NotImplementedError as e:
-            if "ROADMAP" not in str(e):
-                raise AssertionError(f"{what}: the guard's message cites no ROADMAP item: {e}")
-            log(f"  {what} for a 2-layer llama3-8b raised: {e}")
+        except ValueError as e:
+            if limit not in str(e):
+                raise AssertionError(f"{what}: the guard's message names no limit {limit}: {e}")
+            log(f"  {what} raised: {e}")
         else:
-            raise AssertionError(f"{what} trained llama3-8b on the card")
-        torch.cuda.empty_cache()
+            raise AssertionError(f"{what}: the guard let it through")
+    if torch.cuda.memory_allocated() != before:
+        raise AssertionError("the guard built something on the card before it raised")
+    for arch in list_archs():
+        check_trainable(get_config(arch), "cuda")
+    log(f"  every registered architecture passes the guard on the card ({len(list_archs())})")
 
 
 def phases_xlstm(device, seed, serve_rng, timings) -> dict:
@@ -3577,7 +3638,7 @@ def phases_xlstm(device, seed, serve_rng, timings) -> dict:
     out["train"] = phase_train(device, seed)
     timings["phase20b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    log("phase 20 (c): the card-training guard on llama3-8b (flash has no backward yet)")
+    log("phase 20 (c): the card-training guard refuses the widths the kernels do not take")
     phase_train_guard(device)
     timings["phase20c"] = time.perf_counter() - t0
     return out
@@ -3645,6 +3706,439 @@ def time_xlstm(device, lengths, xlstm, excess) -> tuple[dict, dict]:
         f"{json.dumps(rms_bwd)}; at {inner}: {json.dumps(rms_bwd_inner)}; "
         f"add_rmsnorm_backward at {shape}: {json.dumps(add_bwd)}")
     return rms_bwd, add_bwd
+
+
+# ------------------------------------- phase 21: attention and Mamba training
+
+# n_params(), as both packages count them (the configs' param_count(),
+# 1,644,167,168 and 2,869,772,288, leaves out the norms' gains)
+STABLELM_PARAMS = 1_644_267_520     # stablelm-1.6b
+JAMBA_PAIR_PARAMS = 2_869_829_632   # jamba-1.5-large's Mamba + attention pair, dense MLPs
+STABLELM_CUT_LAYERS = 2             # 21 (a): stablelm-1.6b cut to 2 layers at full width
+PAIR_GRAD_BATCH, PAIR_GRAD_SEQ = 1, 128   # 21 (a): the host runs the sequential plain scan
+TRAIN21_STEPS, TRAIN21_BATCH, TRAIN21_SEQ = 4, 4, 256
+TRAIN21_PEAK_LIMIT = 75 * 2**30     # 21 (c)'s peak device memory at 4 x 256 stays under this
+BWD_ATOL_REL = 1e-4                 # flash and scan backward kernels vs plain, per gradient
+
+
+def jamba_pair_config():
+    """Phase 8's pair: one Mamba and one attention block of jamba-1.5-large
+    at full width, dense MLPs (built with replace, never registered)."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("jamba-1.5-large-398b"), n_experts=0,
+                               experts_per_token=0, n_layers=2, block_pattern=("mamba", "attn"),
+                               name="jamba-1.5-large-398b/mamba+attn-dense")
+
+
+def stablelm_config():
+    """stablelm-1.6b, ``TrainConfig``'s own family, whole."""
+    from repro_torch.configs import get_config
+    return get_config("stablelm-1.6b")
+
+
+def training_launches(cfg, steps) -> dict:
+    """Kernel launches of ``steps`` training forwards and backwards: each
+    forward's as a prefill launches them, and one backward launch for each
+    forward launch of the norms, flash and the scan."""
+    fwd = expected_launches(cfg, forwards=steps, prefills=steps)
+    return dict(fwd, rmsnorm_backward=fwd["rmsnorm"], add_rmsnorm_backward=fwd["add_rmsnorm"],
+                flash_attention_backward=fwd["flash_attention"],
+                ssm_scan_backward=fwd["ssm_scan"])
+
+
+def check_grads(label, got, want, names) -> float:
+    """Each gradient within 1e-4 of the plain version's largest entry of
+    that gradient (bf16: plus one bf16 ulp of it).  Returns the largest
+    absolute difference."""
+    import torch
+    worst = 0.0
+    for g, w, name in zip(got, want, names):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{label} {name}: {g.dtype} {tuple(g.shape)}, plain "
+                                 f"{w.dtype} {tuple(w.shape)}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{label} {name}: non-finite gradient")
+        top = w.float().abs().max()
+        tol = BWD_ATOL_REL * float(top)
+        if g.dtype == torch.bfloat16:
+            tol += float(bf16_ulp(top))
+        err = float((g.float() - w.float()).abs().max())
+        if err > tol:
+            raise AssertionError(f"{label} {name}: max|kernel-plain| {err:.3e} over {tol:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def flash_backward_inputs(device, B, S, Sk, H, KV, hd, dtype, seed, v_width=None):
+    """Seeded q, k, v (v zero past ``v_width``: MLA's padded v) and the
+    output's gradient, in ``dtype``."""
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=device)
+    q, k, v, dout = r(B, S, H, hd), r(B, Sk, KV, hd), r(B, Sk, KV, hd), r(B, S, H, hd)
+    if v_width is not None:
+        v[..., v_width:] = 0.0
+    return tuple(t.to(dtype) for t in (q, k, v, dout))
+
+
+def check_flash_backward(device, cases) -> float:
+    """The flash backward kernel against its plain version, each case
+    (label, B, S, Sk, H, KV, hd, causal, window, v_width, dtype); a second
+    launch bit for bit the first, and the forward under grad (through the
+    autograd Function) bit for bit serving's.  Returns the largest fp32
+    difference."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_backward_reference,
+    )
+
+    worst = 0.0
+    for label, B, S, Sk, H, KV, hd, causal, window, v_width, dtype in cases:
+        q, k, v, dout = flash_backward_inputs(device, B, S, Sk, H, KV, hd, dtype,
+                                              seed=S + Sk + H + hd, v_width=v_width)
+        kw = dict(causal=causal, window=window, scale=1.0 / hd ** 0.5)
+        with torch.no_grad():
+            out = flash_attention(q, k, v, **kw)
+        trained = flash_attention(*(t.clone().requires_grad_(True) for t in (q, k, v)), **kw)
+        got = flash_attention_backward(q, k, v, out, dout, **kw)
+        again = flash_attention_backward(q, k, v, out, dout, **kw)
+        want = flash_attention_backward_reference(q, k, v, out, dout, **kw)
+        torch.cuda.synchronize()
+        name = (f"flash_attention_backward {label} ({B}, {S}, {H}, {hd}) Sk={Sk} KV={KV} "
+                f"causal={causal} window={window} {str(dtype)[6:]}")
+        if trained.grad_fn is None or not torch.equal(trained.detach(), out):
+            raise AssertionError(f"{name}: the forward under grad is not serving's, bit for bit")
+        err = check_grads(name, got, want, ("dq", "dk", "dv"))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: a second launch differs")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        log(f"  {name}: max|kernel-plain| {err:.3e}; second launch bit-equal; the forward "
+            f"under grad bit for bit serving's")
+    return worst
+
+
+def check_scan_backward(device, cases) -> float:
+    """The selective-scan backward kernel against its plain version, each
+    case (label, B, S, D, N, dtype, with_dhT) on :func:`scan_inputs` (B and C
+    strided, as the block passes them); a second launch bit for bit the
+    first, and the forward under grad bit for bit serving's.  Returns the
+    largest fp32 difference."""
+    import torch
+    from repro_torch.kernels.ssm_scan import (
+        ssm_scan, ssm_scan_backward, ssm_scan_backward_reference,
+    )
+
+    worst = 0.0
+    for label, B, S, D, N, dtype, with_dhT in cases:
+        args = scan_inputs(device, B, S, D, N, dtype, seed=S * 3 + D + N)
+        g = torch.Generator(device=device).manual_seed(S + D)
+        dy = torch.randn(B, S, D, generator=g, device=device)
+        dhT = torch.randn(B, D, N, generator=g, device=device) if with_dhT else None
+        with torch.no_grad():
+            served = ssm_scan(*args)
+        trained = ssm_scan(args[0].clone().requires_grad_(True), *args[1:])
+        got = ssm_scan_backward(*args, dy, dhT)
+        again = ssm_scan_backward(*args, dy, dhT)
+        want = ssm_scan_backward_reference(*args, dy, dhT)
+        torch.cuda.synchronize()
+        name = f"ssm_scan_backward {label} ({B}, {S}, {D}, {N}) {str(dtype)[6:]} dhT={with_dhT}"
+        if trained[0].grad_fn is None or not all(
+                torch.equal(a.detach(), b) for a, b in zip(trained, served)):
+            raise AssertionError(f"{name}: the forward under grad is not serving's, bit for bit")
+        err = check_grads(name, got, want, ("ddt", "dx", "dB", "dC", "dA", "dh0"))
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}: a second launch differs")
+        if dtype == torch.float32:
+            worst = max(worst, err)
+        log(f"  {name}: max|kernel-plain| {err:.3e}; second launch bit-equal; the forward "
+            f"under grad bit for bit serving's")
+    return worst
+
+
+def visible_pairs(S, Sk, causal, window) -> int:
+    """Query-key pairs the masks let through."""
+    if not causal and window is None:
+        return S * Sk
+    return sum(min(s + 1, Sk) - (0 if window is None else max(0, s - window + 1))
+               for s in range(S))
+
+
+def flash_backward_bound(B, S, Sk, H, KV, hd, causal, window) -> tuple[float, str]:
+    """fp32: q, out, dout read and dq written (S rows of H heads), k and v
+    read and dk, dv written (Sk rows of KV heads), each once; five products
+    of 2·hd flops per visible pair (q·k, dout·v, dq, dk, dv; the softmax's
+    few flops aside) on the fp32 CUDA cores the kernel uses."""
+    nbytes = 4 * B * hd * (4 * S * H + 4 * Sk * KV)
+    flops = B * H * visible_pairs(S, Sk, causal, window) * 5 * 2 * hd
+    return _bytes_or_flops(nbytes, flops)
+
+
+def time_flash_backward(device, B, S, H, KV, hd, causal=True, window=None) -> dict:
+    """The flash backward kernel (its two launches), its plain version and,
+    as the library yardstick, autograd's backward of
+    ``F.scaled_dot_product_attention`` on the same inputs (forward and
+    backward captured together, less the forward alone), beside its
+    bound."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_backward, flash_attention_backward_reference,
+    )
+
+    q, k, v, dout = flash_backward_inputs(device, B, S, S, H, KV, hd, torch.float32, seed=S + H)
+    kw = dict(causal=causal, window=window, scale=1.0 / hd ** 0.5)
+    with torch.no_grad():
+        out = flash_attention(q, k, v, **kw)
+    ms, eager_ms = time_both(lambda: flash_attention_backward(q, k, v, out, dout, **kw), iters=20)
+    plain_ms = graph_ms(lambda: flash_attention_backward_reference(q, k, v, out, dout, **kw),
+                        iters=5, replays=2)
+    if window is not None and S > window:
+        raise ValueError(f"SDPA has no window: S={S} over the window {window}")
+    leaves = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in (q, k, v)]
+    dout_t = dout.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal, scale=kw["scale"],
+                                              enable_gqa=True)
+
+    fwd_bwd = graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, dout_t), iters=10)
+    fwd = graph_ms(lambda: sdpa().detach(), iters=10)
+    bound_ms, bound_by = flash_backward_bound(B, S, S, H, KV, hd, causal, window)
+    log(f"  flash_attention_backward ({B}, {S}, {H}, {hd}) KV={KV} causal={causal} "
+        f"window={window} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  autograd "
+        f"of SDPA {fwd_bwd - fwd:.5f} ms (forward and backward {fwd_bwd:.5f} less forward "
+        f"{fwd:.5f})  bound {bound_ms:.6f} ms ({bound_by}); eager kernel with launch cost "
+        f"{eager_ms:.5f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=fwd_bwd - fwd, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def scan_backward_bound(B, S, D, N) -> tuple[float, str, float]:
+    """fp32: dt, x and dy read and ddt, dx written (B·S·D each), B and C
+    read and dB, dC written (B·S·N each), A read and dA written (D·N), h0
+    read and dh0 written (B·D·N), each once; per (b, t, channel, state)
+    about 20 fp32 operations (the state recomputed: dt·A, exp, a·h, dx·B,
+    +; its gradient: dy·C and +, dy·h, g·dx, g·B and +, g·h·a, e·dt and +,
+    e·A and +, g·a), and the expf on the SFUs beside.  Returns (bound ms,
+    what bounds it, the expf time in ms)."""
+    nbytes = 4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N + 2 * B * D * N)
+    flops = B * S * D * (20 * N + 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    sfu_ms = B * S * D * N / SFU_PER_S * 1e3
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", sfu_ms
+
+
+def time_scan_backward(device, B, S) -> dict:
+    """The selective-scan backward kernel (the scan and the finish) and its
+    plain version at jamba's widths, beside its bound; no PyTorch call
+    computes a selective scan or its backward."""
+    import torch
+    from repro_torch.kernels.ssm_scan import ssm_scan_backward, ssm_scan_backward_reference
+
+    D, N = JAMBA["D"], JAMBA["N"]
+    args = scan_inputs(device, B, S, D, N, torch.float32, seed=B * 7 + S)
+    dy = torch.randn(B, S, D, generator=torch.Generator(device=device).manual_seed(S),
+                     device=device)
+    ms, eager_ms = time_both(lambda: ssm_scan_backward(*args, dy, None), iters=10)
+    plain_ms = graph_ms(lambda: ssm_scan_backward_reference(*args, dy, None), iters=1,
+                        replays=2)
+    bound_ms, bound_by, sfu_ms = scan_backward_bound(B, S, D, N)
+    log(f"  ssm_scan_backward ({B}, {S}, {D}, {N}) device (graph): kernel {ms:.5f} ms  plain "
+        f"{plain_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}; one expf a state on the SFUs "
+        f"{sfu_ms:.6f} ms); eager kernel with launch cost {eager_ms:.5f} ms; no PyTorch call "
+        f"computes a selective scan's backward")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def phase_backward_kernels(device) -> dict:
+    """Phase 21 (kernels): both backward kernels against their plain
+    versions at every training shape of (a)-(c) and the small cases (a
+    window narrower than S, seamless's cross-attention, MLA's padded v, a
+    masked channel tail, bf16), then each timed at (b)'s and (c)'s
+    training shape.  Returns the largest differences and the timings."""
+    import torch
+
+    stable, pair = stablelm_config(), jamba_pair_config()
+    sH, sKV, shd = stable.n_heads, stable.n_kv_heads, stable.head_dim
+    jH, jKV, jhd = pair.n_heads, pair.n_kv_heads, pair.head_dim
+    f32, bf16 = torch.float32, torch.bfloat16
+    flash_err = check_flash_backward(device, [
+        ("21 (b)", TRAIN21_BATCH, TRAIN21_SEQ, TRAIN21_SEQ, sH, sKV, shd, True, None, None, f32),
+        ("21 (a)", GRAD_BATCH, GRAD_SEQ, GRAD_SEQ, sH, sKV, shd, True, None, None, f32),
+        ("21 (c)", TRAIN21_BATCH, TRAIN21_SEQ, TRAIN21_SEQ, jH, jKV, jhd, True, None, None, f32),
+        ("21 (a) pair", PAIR_GRAD_BATCH, PAIR_GRAD_SEQ, PAIR_GRAD_SEQ, jH, jKV, jhd, True, None,
+         None, f32),
+        ("window", 2, 256, 256, 32, 8, 128, True, 64, None, f32),
+        ("seamless cross", 1, 168, 512, 16, 16, 64, False, None, None, f32),
+        ("MLA", 1, 168, 168, 40, 40, 96, True, None, 64, f32),
+        ("21 (b) bf16", TRAIN21_BATCH, TRAIN21_SEQ, TRAIN21_SEQ, sH, sKV, shd, True, None, None,
+         bf16),
+    ])
+    D, N = JAMBA["D"], JAMBA["N"]
+    scan_err = check_scan_backward(device, [
+        ("21 (c)", TRAIN21_BATCH, TRAIN21_SEQ, D, N, f32, False),
+        ("21 (a)", PAIR_GRAD_BATCH, PAIR_GRAD_SEQ, D, N, f32, False),
+        ("channel tail, dhT", 2, 100, D - 24, N, f32, True),
+        ("bf16", 1, TRAIN21_SEQ, D, N, bf16, True),
+    ])
+    flash_t = time_flash_backward(device, TRAIN21_BATCH, TRAIN21_SEQ, sH, sKV, shd)
+    flash_pair_t = time_flash_backward(device, TRAIN21_BATCH, TRAIN21_SEQ, jH, jKV, jhd)
+    scan_t = time_scan_backward(device, TRAIN21_BATCH, TRAIN21_SEQ)
+    torch.cuda.empty_cache()
+    return dict(flash_err=flash_err, scan_err=scan_err, flash=flash_t, flash_pair=flash_pair_t,
+                scan=scan_t)
+
+
+def train_steps(device, cfg, seed, steps, batch, seq) -> dict:
+    """``train()``'s loop, without checkpoints, for a config that is not a
+    registered arch: ``build_model`` made trainable, ``init_opt_state`` and
+    ``make_step`` with ``TrainConfig``'s default AdamW, and ``steps`` steps
+    of the synthetic corpus.  Returns the losses, gradient norms, step
+    times, launches, peak memory and parameter count."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import TrainConfig, make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_opt_state
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    opt_cfg = TrainConfig().opt
+    model = build_model(cfg, device=device, seed=seed).trainable()
+    params = dict(model.named_parameters())
+    n_params = model.n_params()
+    opt_state = init_opt_state(opt_cfg, params)
+    step_fn = make_step(model, opt_cfg)
+    stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch,
+                                          seed=seed))
+    losses, norms, ms = [], [], []
+    for step in range(steps):
+        b = {k: torch.as_tensor(v, device=device).long() for k, v in stream.batch_at(step).items()}
+        t0 = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, b)
+        losses.append(float(metrics["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(metrics["grad_norm"]))
+    torch.cuda.synchronize()
+    out = dict(losses=losses, grad_norms=norms, step_ms=ms, launches=kernel_launches(),
+               peak_bytes=torch.cuda.max_memory_allocated(), n_params=n_params)
+    del model, params, opt_state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_repeated_training(label, cfg, runs, steps) -> None:
+    """Both runs: every loss and gradient norm finite, the launches those
+    of ``steps`` training steps; the second run's losses and gradient norms
+    bit for bit the first's."""
+    want = training_launches(cfg, steps)
+    for i, run in enumerate(runs):
+        if not all(math.isfinite(v) for v in run["losses"] + run["grad_norms"]):
+            raise AssertionError(f"{label} run {i}: non-finite loss or gradient norm: {run}")
+        if run["launches"] != want:
+            raise AssertionError(f"{label} run {i}: launches {run['launches']}, expected {want}")
+    if runs[1]["losses"] != runs[0]["losses"] or runs[1]["grad_norms"] != runs[0]["grad_norms"]:
+        raise AssertionError(f"{label}: the second run's losses {runs[1]['losses']} or gradient "
+                             f"norms differ from the first's {runs[0]['losses']}")
+    for i, run in enumerate(runs):
+        step_ms = sorted(run["step_ms"])
+        log(f"  {label} run {i}: losses {run['losses']}, grad norms {run['grad_norms']}, step "
+            f"ms {[round(t, 1) for t in run['step_ms']]} (median "
+            f"{step_ms[len(step_ms) // 2]:.1f}), peak memory {run['peak_bytes'] / 2**30:.2f} GiB "
+            f"({run['peak_bytes']} bytes)")
+    log(f"  {label}: second run bit for bit the first (losses and gradient norms); launches "
+        f"{json.dumps(runs[0]['launches'])} ({json.dumps(training_launches(cfg, 1))} a step)")
+
+
+def phase_train_stablelm(device, seed) -> list:
+    """Phase 21 (b): stablelm-1.6b whole trained on the card through
+    ``train()``, 4 steps of 4 x 256, twice."""
+    import torch
+    from repro_torch.launch.train import TrainConfig, train
+
+    cfg = stablelm_config()
+    runs = []
+    for _ in range(2):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        steps = []
+        out = train(TrainConfig(arch=cfg.name, seq_len=TRAIN21_SEQ, global_batch=TRAIN21_BATCH,
+                                steps=TRAIN21_STEPS, seed=seed, log_every=0),
+                    on_step=lambda step, loss, m, dt: steps.append(
+                        (loss, float(m["grad_norm"]), dt * 1e3)),
+                    device=device)
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in out["params"].values())
+        runs.append(dict(losses=[s[0] for s in steps], grad_norms=[s[1] for s in steps],
+                         step_ms=[s[2] for s in steps], launches=kernel_launches(),
+                         peak_bytes=torch.cuda.max_memory_allocated(), n_params=n_params))
+        del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    if runs[0]["n_params"] != STABLELM_PARAMS:
+        raise AssertionError(f"stablelm-1.6b has {runs[0]['n_params']:,} parameters")
+    check_repeated_training("stablelm-1.6b", cfg, runs, TRAIN21_STEPS)
+    return runs
+
+
+def phase_train_jamba_pair(device, seed) -> list:
+    """Phase 21 (c): the jamba pair at full width trained on the card, 4
+    steps of 4 x 256, twice, its peak memory under 75 GiB."""
+    cfg = jamba_pair_config()
+    runs = [train_steps(device, cfg, seed, TRAIN21_STEPS, TRAIN21_BATCH, TRAIN21_SEQ)
+            for _ in range(2)]
+    if runs[0]["n_params"] != JAMBA_PAIR_PARAMS:
+        raise AssertionError(f"the jamba pair has {runs[0]['n_params']:,} parameters")
+    if max(run["peak_bytes"] for run in runs) > TRAIN21_PEAK_LIMIT:
+        raise AssertionError(f"the jamba pair's peak passes {TRAIN21_PEAK_LIMIT / 2**30:.0f} GiB")
+    check_repeated_training(cfg.name, cfg, runs, TRAIN21_STEPS)
+    return runs
+
+
+def phases_train_attention_mamba(device, seed, timings, pair_grads) -> dict:
+    """Phase 21: the flash and scan backward kernels against their plain
+    versions and timed; card = host training gradients at full width of
+    stablelm-1.6b cut to 2 layers (the jamba pair's, ``pair_grads``, ran
+    on phase 8's models); stablelm-1.6b whole and the jamba pair trained on
+    the card, each twice, bit for bit."""
+    import torch
+
+    out = {}
+    t0 = time.perf_counter()
+    log("phase 21 (kernels): flash_attention_backward and ssm_scan_backward against their plain "
+        "versions at the training shapes and small cases, then timed (device time from "
+        "CUDA-graph replay)")
+    out["kernels"] = phase_backward_kernels(device)
+    timings["phase21_kernels"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(stablelm_config(), n_layers=STABLELM_CUT_LAYERS,
+                              name=f"stablelm-1.6b/{STABLELM_CUT_LAYERS}-layers")
+    log(f"phase 21 (a): card vs host training gradients, {cut.name} at full width "
+        f"({GRAD_BATCH} x {GRAD_SEQ}; the jamba pair's ran after phase 8)")
+    out["grads"] = {cut.name: phase_train_card_vs_host(device, cut, seed, GRAD_BATCH, GRAD_SEQ),
+                    "jamba pair": pair_grads}
+    torch.cuda.empty_cache()
+    timings["phase21a"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"phase 21 (b): train stablelm-1.6b whole on the card through train(), {TRAIN21_STEPS} "
+        f"steps of {TRAIN21_BATCH} x {TRAIN21_SEQ}, twice")
+    out["stablelm"] = phase_train_stablelm(device, seed)
+    timings["phase21b"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log(f"phase 21 (c): train {jamba_pair_config().name} ({JAMBA_PAIR_PARAMS:,} params) on the "
+        f"card, {TRAIN21_STEPS} steps, twice")
+    out["pair"] = phase_train_jamba_pair(device, seed)
+    timings["phase21c"] = time.perf_counter() - t0
+    return out
 
 
 BRIDGE_TARGETS = (1e4, 1e5, 1e6)     # tok/s, as examples/serve_lm.py asks
@@ -3806,8 +4300,9 @@ def main() -> int:
     empty = empty_library()
     timings["build"] = build_all([build.LIBRARY, rmsnorm_ops.LIBRARY,
                                   rmsnorm_ops.BACKWARD_LIBRARY, flash_ops.LIBRARY,
-                                  ssm_ops.LIBRARY, empty])
-    log(f"build: {timings['build']:.1f} s for 5 libraries and the empty kernel")
+                                  flash_ops.BACKWARD_LIBRARY, ssm_ops.LIBRARY,
+                                  ssm_ops.BACKWARD_LIBRARY, empty])
+    log(f"build: {timings['build']:.1f} s for 7 libraries and the empty kernel")
 
     t0 = time.perf_counter()
     log("phase 1: kernel vs plain")
@@ -3891,7 +4386,7 @@ def main() -> int:
         evaluator = phase_engine(device, params, candidates, duration_s=2.0)
         timings["phase3c_engine"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        day = make_trace("diurnal", 48, base_ktps=6700.0, seed=3)
+        day = make_trace("diurnal", CONTROL_DAY_STEPS, base_ktps=6700.0, seed=3)
         log(f"phase 3c (b): a diurnal day of deep_pipeline ({len(day)} steps, "
             f"{day.min():.0f}-{day.max():.0f} ktps) through ControlLoop, HybridPolicy and "
             f"PredictivePolicy (Holt-Winters, season 24, horizon 4) on that evaluator")
@@ -4186,10 +4681,19 @@ def main() -> int:
                               name="jamba-1.5-large-398b/1-period-dense")
     t0 = time.perf_counter()
     log("phase 8: card vs host, jamba-1.5-large at full width, one Mamba and one attention block")
-    pair = dataclasses.replace(cut, n_layers=2, block_pattern=("mamba", "attn"),
-                               name="jamba-1.5-large-398b/mamba+attn-dense")
-    hybrid_err = phase_card_vs_host(device, pair, prompt_len=48, decode_steps=4, seed=seed)
+    pair, pair_models = jamba_pair_config(), {}
+    hybrid_err = phase_card_vs_host(device, pair, prompt_len=48, decode_steps=4, seed=seed,
+                                    keep=pair_models)
     timings["phase8"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    log(f"phase 21 (a), on phase 8's models: card vs host training gradients, {pair.name} "
+        f"({PAIR_GRAD_BATCH} x {PAIR_GRAD_SEQ})")
+    pair_grads = phase_train_card_vs_host(device, pair, seed, PAIR_GRAD_BATCH, PAIR_GRAD_SEQ,
+                                          models=pair_models)
+    pair_models.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    timings["phase21a_pair"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     log("phase 9: serve one full-width period of jamba-1.5-large with dense MLPs "
@@ -4259,6 +4763,7 @@ def main() -> int:
     moe_mla = phases_moe_mla(device, seed, serve_rng, timings)
     xlstm = phases_xlstm(device, seed, serve_rng, timings)
     new_served = list(moe_mla["served"].values()) + [xlstm["served"]]
+    trained = phases_train_attention_mamba(device, seed, timings, pair_grads)
 
     t0 = time.perf_counter()
     log("phase 13: the LM bridge on the card's own numbers (phases 6, 9, 11, 12, 15-17 and 19), "
@@ -4332,6 +4837,14 @@ def main() -> int:
     excess["add_rmsnorm, phase 9"] = excess_ms(
         [(n_add9, add_at[(S, 2 * d)]) for S in lengths] + [(n_add9 * jamba_ticks, t_add_wide)])
     log(f"ssm_scan at the longest prefill (1, {max(lengths)}, {D}, {N}): {json.dumps(t_scan_prefill)}")
+    bwd = trained["kernels"]
+    stable_run, pair_run = trained["stablelm"][0], trained["pair"][0]
+    excess["flash_attention_backward, phase 21 (b)"] = excess_ms(
+        [(stable_run["launches"]["flash_attention_backward"], bwd["flash"])])
+    excess["flash_attention_backward, phase 21 (c)"] = excess_ms(
+        [(pair_run["launches"]["flash_attention_backward"], bwd["flash_pair"])])
+    excess["ssm_scan_backward, phase 21 (c)"] = excess_ms(
+        [(pair_run["launches"]["ssm_scan_backward"], bwd["scan"])])
     log(f"launches x (time - bound) by kernel and path, largest first (empty kernel "
         f"{empty_ms:.5f} ms per launch):")
     for label, ms in sorted(excess.items(), key=lambda kv: -kv[1]):
@@ -4344,6 +4857,9 @@ def main() -> int:
                            for S, v in xlstm["card_vs_host"].items())
         + f"; training loss rel {xlstm['train_card_vs_host']['loss_rel']:.3e}, gradients "
         f"{xlstm['train_card_vs_host']['grad_rel']:.3e} of their leaves' largest; "
+        + "; ".join(f"{name} training loss rel {g['loss_rel']:.3e}, gradients "
+                    f"{g['grad_rel']:.3e}" for name, g in trained["grads"].items())
+        + "; "
         f"bucket phase max|diff| "
         + ", ".join(f"{k} {m} {v:.3e}" for (k, m), v in bucket_diff.items()))
 
@@ -4397,6 +4913,19 @@ def main() -> int:
                       "src/repro/models/transformer.py:122, :173 (under jax.grad; no Pallas "
                       "backward)",
              launches=tl["add_rmsnorm_backward"], max_abs_err=add_bwd_err, **t_add_bwd),
+        dict(name="flash_attention_backward", route="cuda",
+             source="src/repro_torch/kernels/flash_attention/csrc/flash_attention_bwd.cu",
+             replaces="src/repro/models/attention.py:94 (the attention core under jax.grad; "
+                      "no Pallas backward of src/repro/kernels/flash_attention/"
+                      "flash_attention.py:89)",
+             launches=stable_run["launches"]["flash_attention_backward"],
+             max_abs_err=bwd["flash_err"], **bwd["flash"]),
+        dict(name="ssm_scan_backward", route="cuda",
+             source="src/repro_torch/kernels/ssm_scan/csrc/ssm_scan_bwd.cu",
+             replaces="src/repro/models/ssm.py:43 (_mamba_inner's scan under jax.grad; no "
+                      "Pallas backward of src/repro/kernels/ssm_scan/ssm_scan.py:63)",
+             launches=pair_run["launches"]["ssm_scan_backward"],
+             max_abs_err=bwd["scan_err"], **bwd["scan"]),
     ]
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

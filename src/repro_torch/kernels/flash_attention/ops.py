@@ -1,5 +1,5 @@
 """Flash attention as the model's prefill calls it, in the model layout
-(B, S, H, hd).
+(B, S, H, hd), and its backward.
 
 :func:`flash_attention` runs the hand-written CUDA kernel
 (``csrc/flash_attention.cu``) on CUDA tensors and its plain PyTorch version
@@ -10,6 +10,14 @@ reads the model layout directly, so no transpose or padding happens here.
 The kernel replaces the reference package's Pallas TPU kernel
 ``kernels/flash_attention/flash_attention.py:_flash_kernel``; see the note
 at the top of the CUDA source for what bounds it.
+
+Gradients.  On the card, under grad mode with an input that requires
+grad, :func:`flash_attention` goes through a ``torch.autograd.Function``
+whose forward is the same kernel and whose backward is the hand-written
+backward kernel (``csrc/flash_attention_bwd.cu``), called through
+:func:`flash_attention_backward`; without grad it launches the forward
+alone, as serving does.  On the CPU the plain version is differentiable
+as it is.
 """
 from __future__ import annotations
 
@@ -20,7 +28,11 @@ from pathlib import Path
 import torch
 
 from .._build import KernelLibrary
-from .ref import check_key_length, flash_attention_reference
+from .ref import (
+    check_key_length,
+    flash_attention_backward_reference,
+    flash_attention_reference,
+)
 
 #: Largest head_dim the kernel takes (a warp's accumulator is 16 x 128).
 MAX_HEAD_DIM = 128
@@ -42,11 +54,20 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_heads_per_block.restype = i32
 
 
-LIBRARY = KernelLibrary(
-    "flash_attention",
-    Path(__file__).resolve().parent / "csrc" / "flash_attention.cu",
-    _bind,
-)
+def _bind_backward(lib: ctypes.CDLL) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_launch.argtypes = (
+        [ptr] * 10 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
+    )
+    lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_smem_bytes.argtypes = [i32]
+    lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
+
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+LIBRARY = KernelLibrary("flash_attention", _CSRC / "flash_attention.cu", _bind)
+BACKWARD_LIBRARY = KernelLibrary("flash_attention_bwd", _CSRC / "flash_attention_bwd.cu",
+                                 _bind_backward)
 
 
 def _check(q, k, v, causal, window) -> None:
@@ -84,37 +105,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
-                    scale: float | None = None,
-                    heads_per_block: int | None = None) -> torch.Tensor:
-    """Attention in the model layout: q (B, S, H, hd), k and v (B, Sk, KV,
-    hd) with H a multiple of KV; returns (B, S, H, hd) in q's dtype.  Sk is
-    S in a causal or windowed call and may differ in a non-causal one (else
-    ``ValueError``).  ``scale`` defaults to ``hd ** -0.5``; the model passes
-    ``1 / hd ** 0.5``.
-
-    Not differentiable on the card: a CUDA call under grad mode with an
-    input that requires grad raises ``NotImplementedError`` rather than
-    return an output without a gradient.  On the CPU the plain version is
-    differentiable.
-
-    The kernel takes one query head per block when that grid fits in one
-    wave of one block per SM, else two (``flash_attention_heads_per_block``
-    in the CUDA source).  ``heads_per_block`` forces it, for tests and timing
-    only."""
-    hd = q.shape[-1]
-    if scale is None:
-        scale = hd ** -0.5
-    if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention has no backward kernel on the card yet (ROADMAP queue 1, item 3e (i)): "
-            "call it under torch.no_grad() or on CPU tensors")
+def _forward(q, k, v, causal, window, scale, heads_per_block) -> torch.Tensor:
+    """One forward launch on CUDA tensors; counts nothing."""
     _check(q, k, v, causal, window)
-    B, S, H, _ = q.shape
+    B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     lib = LIBRARY.load()
     smem = lib.flash_attention_smem_bytes(hd)
@@ -140,9 +134,109 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
-    flash_attention.launches += 1
     return out
+
+
+class _FlashAttentionFunction(torch.autograd.Function):
+    """:func:`flash_attention` on the card under grad: the forward kernel,
+    then :func:`flash_attention_backward`'s kernels.  The output is saved
+    for the backward (its ``D = Σ dout·out`` per row)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, heads_per_block):
+        out = _forward(q, k, v, causal, window, scale, heads_per_block)
+        flash_attention.launches += bool(out.numel())
+        ctx.save_for_backward(q, k, v, out)
+        ctx.options = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale = ctx.options
+        dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=causal, window=window,
+                                              scale=scale)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    scale: float | None = None,
+                    heads_per_block: int | None = None) -> torch.Tensor:
+    """Attention in the model layout: q (B, S, H, hd), k and v (B, Sk, KV,
+    hd) with H a multiple of KV; returns (B, S, H, hd) in q's dtype.  Sk is
+    S in a causal or windowed call and may differ in a non-causal one (else
+    ``ValueError``).  ``scale`` defaults to ``hd ** -0.5``; the model passes
+    ``1 / hd ** 0.5``.  Differentiable on both devices: on the card under
+    grad the backward kernel computes the gradients.
+
+    The kernel takes one query head per block when that grid fits in one
+    wave of one block per SM, else two (``flash_attention_heads_per_block``
+    in the CUDA source).  ``heads_per_block`` forces it, for tests and timing
+    only."""
+    hd = q.shape[-1]
+    if scale is None:
+        scale = hd ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttentionFunction.apply(q, k, v, causal, window, scale, heads_per_block)
+    out = _forward(q, k, v, causal, window, scale, heads_per_block)
+    if out.numel():
+        flash_attention.launches += 1
+    return out
+
+
+def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
+                             window: int | None = None, scale: float | None = None):
+    """The gradients ``(dq, dk, dv)`` of ``out = flash_attention(q, k, v,
+    causal=..., window=..., scale=...)`` given ``dout = dL/dout``, each in
+    its input's dtype: the backward kernel's two launches (dq with each
+    row's statistics, then dk and dv) on CUDA tensors, its plain version
+    (:func:`~.ref.flash_attention_backward_reference`) on CPU tensors."""
+    hd = q.shape[-1]
+    if scale is None:
+        scale = hd ** -0.5
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, out, dout, causal=causal,
+                                                  window=window, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_backward runs on cuda or cpu, not {q.device}")
+    _check(q, k, v, causal, window)
+    dout = dout.contiguous()
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must match q ({q.dtype}, {tuple(q.shape)}, {q.device}), "
+                             f"got {t.dtype}, {tuple(t.shape)}, {t.device}")
+    if not out.is_contiguous():
+        raise ValueError("out must be contiguous")
+    B, S, H, _ = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    lib = BACKWARD_LIBRARY.load()
+    smem = lib.flash_attention_bwd_smem_bytes(hd)
+    if smem > SMEM_LIMIT_BYTES:
+        raise ValueError(f"head_dim {hd} needs {smem} bytes of shared memory in the backward, "
+                         f"over the {SMEM_LIMIT_BYTES}-byte limit")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            B, S, Sk, H, KV, hd, float(scale), int(causal),
+            0 if window is None else int(window), DTYPES[q.dtype],
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward launch failed: CUDA error {rc}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
 
 
 #: Kernel launches since the count was last set to 0.
 flash_attention.launches = 0
+flash_attention_backward.launches = 0

@@ -3,7 +3,8 @@ reference package's ``kernels/flash_attention/ref.py::attention_reference``
 and ``ops.py::flash_attention_reference``, with keys of a length of their
 own in non-causal calls (the decoder's cross-attention over the encoder's
 frames, which the reference computes with its plain ``_gqa_core`` and an
-all-ones mask)."""
+all-ones mask), and the plain backward that the backward kernel
+implements."""
 from __future__ import annotations
 
 import torch
@@ -18,6 +19,19 @@ def check_key_length(S: int, Sk: int, causal: bool, window: int | None) -> None:
     if Sk != S and (causal or window is not None):
         raise ValueError(
             f"{Sk} keys for {S} queries: a causal or windowed call takes as many keys as queries")
+
+
+def attention_mask(S: int, Sk: int, causal: bool, window: int | None, device) -> torch.Tensor:
+    """(S, Sk) bool: key ``t`` is seen by query ``s`` when ``t <= s`` if
+    causal and ``t > s - window`` if a window is given."""
+    qi = torch.arange(S, device=device)[:, None]
+    kj = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kj <= qi
+    if window is not None:
+        mask &= kj > qi - window
+    return mask
 
 
 def attention_reference(
@@ -41,14 +55,7 @@ def attention_reference(
         scale = hd ** -0.5
     qg = q.reshape(B, KV, G, S, hd).float()
     s = torch.einsum("bkgqh,bkth->bkgqt", qg, k.float()) * scale
-    qi = torch.arange(S, device=q.device)[:, None]
-    kj = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((S, Sk), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kj <= qi
-    if window is not None:
-        mask &= kj > qi - window
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(attention_mask(S, Sk, causal, window, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqt,bkth->bkgqh", p, v.float())
     return o.reshape(B, H, S, hd).to(q.dtype)
@@ -62,3 +69,34 @@ def flash_attention_reference(q, k, v, causal=True, window=None, scale=None):
         causal=causal, window=window, scale=scale,
     )
     return out.transpose(1, 2)
+
+
+def flash_attention_backward_reference(q, k, v, out, dout, causal=True, window=None, scale=None):
+    """The gradients ``(dq, dk, dv)`` of :func:`flash_attention_reference`
+    in the model layout, given its output ``out`` and the output's gradient
+    ``dout``, written out as the backward kernel computes them (no
+    autograd), in fp32: each query row's log-sum-exp ``lse`` of its
+    visible scaled scores, ``P = exp(scale·q·kᵀ − lse)`` (0 where masked),
+    ``D = Σ dout·out`` per row, ``dS = P ⊙ (dout·vᵀ − D)``, ``dq = scale·dS·k``,
+    ``dk = scale·dSᵀ·q`` and ``dv = Pᵀ·dout``, dk and dv summed over each kv
+    head's G query heads.  Gradients in the inputs' dtypes."""
+    B, S, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    check_key_length(S, Sk, causal, window)
+    G = H // KV
+    if scale is None:
+        scale = hd ** -0.5
+    grouped = lambda t: t.float().transpose(1, 2).reshape(B, KV, G, S, t.shape[-1])
+    qg, og, dog = grouped(q), grouped(out), grouped(dout)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)        # (B, KV, Sk, hd)
+    mask = attention_mask(S, Sk, causal, window, q.device)
+    s = torch.where(mask, torch.einsum("bkgqh,bkth->bkgqt", qg, kf) * scale, NEG_INF)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    delta = (dog * og).sum(-1, keepdim=True)
+    ds = p * (torch.einsum("bkgqh,bkth->bkgqt", dog, vf) - delta)
+    dq = torch.einsum("bkgqt,bkth->bkgqh", ds, kf) * scale
+    dk = torch.einsum("bkgqt,bkgqh->bkth", ds, qg) * scale
+    dv = torch.einsum("bkgqt,bkgqh->bkth", p, dog)
+    dq = dq.reshape(B, H, S, hd).transpose(1, 2)
+    return dq.to(q.dtype), dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype)

@@ -1,5 +1,5 @@
-"""Mamba selective scan: CUDA kernel and plain version."""
-from .ops import ssm_scan
-from .ref import ssm_scan_reference
+"""Mamba selective scan and its backward: CUDA kernels and plain versions."""
+from .ops import ssm_scan, ssm_scan_backward
+from .ref import ssm_scan_backward_reference, ssm_scan_reference
 
-__all__ = ["ssm_scan", "ssm_scan_reference"]
+__all__ = ["ssm_scan", "ssm_scan_backward", "ssm_scan_backward_reference", "ssm_scan_reference"]

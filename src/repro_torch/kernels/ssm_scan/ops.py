@@ -1,4 +1,4 @@
-"""The selective scan as the Mamba block calls it.
+"""The selective scan as the Mamba block calls it, and its backward.
 
 :func:`ssm_scan` runs the hand-written CUDA kernel (``csrc/ssm_scan.cu``)
 on CUDA tensors and its plain PyTorch version
@@ -15,6 +15,13 @@ output, so the wrapper passes their batch and step strides to the kernel
 instead of copying them; only a last-axis stride other than 1 makes it
 call ``.contiguous()`` first.  ``dt`` and ``x`` are made contiguous (the
 block's are already), and ``a`` and ``h0`` are converted to contiguous fp32.
+
+Gradients.  On the card, under grad mode with an input that requires
+grad, :func:`ssm_scan` goes through a ``torch.autograd.Function`` whose
+forward is the same kernel and whose backward is the hand-written
+backward kernel (``csrc/ssm_scan_bwd.cu``), called through
+:func:`ssm_scan_backward`; without grad it launches the forward alone, as
+serving does.  On the CPU the plain version is differentiable as it is.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from pathlib import Path
 import torch
 
 from .._build import KernelLibrary
-from .ref import ssm_scan_reference
+from .ref import ssm_scan_backward_reference, ssm_scan_reference
 
 #: Largest state width N the kernel takes (four lanes per channel keep N / 4
 #: states each in registers).
@@ -41,7 +48,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.ssm_scan_launch.restype = ctypes.c_int
 
 
-LIBRARY = KernelLibrary("ssm_scan", Path(__file__).resolve().parent / "csrc" / "ssm_scan.cu", _bind)
+def _bind_backward(lib: ctypes.CDLL) -> None:
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ssm_scan_bwd_workspace.argtypes = [i32] * 4
+    lib.ssm_scan_bwd_workspace.restype = i64
+    lib.ssm_scan_bwd_launch.argtypes = [ptr] * 15 + [i32] * 4 + [i64] * 4 + [i32, ptr]
+    lib.ssm_scan_bwd_launch.restype = ctypes.c_int
+
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+LIBRARY = KernelLibrary("ssm_scan", _CSRC / "ssm_scan.cu", _bind)
+BACKWARD_LIBRARY = KernelLibrary("ssm_scan_bwd", _CSRC / "ssm_scan_bwd.cu", _bind_backward)
 
 
 def _check(dt, x, bmat, cmat, a, h0) -> None:
@@ -71,32 +88,21 @@ def _check(dt, x, bmat, cmat, a, h0) -> None:
         raise ValueError("S or D too large for the kernel's int32 counts")
 
 
-def ssm_scan(dt, x, bmat, cmat, a, h0):
-    """The selective scan of ``x`` with step sizes ``dt`` (B, S, D), input
-    and output projections ``bmat`` and ``cmat`` (B, S, N), decay ``a``
-    (D, N, negative) and initial state ``h0`` (B, D, N).  Returns
-    (y (B, S, D), hT (B, D, N)), both fp32.
+def _operands(dt, x, bmat, cmat, a, h0):
+    """The inputs as the kernels take them: dt and x contiguous, B and C
+    with a last stride of 1, a and h0 contiguous fp32."""
+    bmat = bmat if bmat.stride(-1) == 1 else bmat.contiguous()
+    cmat = cmat if cmat.stride(-1) == 1 else cmat.contiguous()
+    return (dt.contiguous(), x.contiguous(), bmat, cmat, a.to(torch.float32).contiguous(),
+            h0.to(torch.float32).contiguous())
 
-    Not differentiable on the card: a CUDA call under grad mode with an
-    input that requires grad raises ``NotImplementedError`` rather than
-    return outputs without gradients.  On the CPU the plain version is
-    differentiable."""
-    if dt.device.type == "cpu":
-        return ssm_scan_reference(dt, x, bmat, cmat, a, h0)
-    if dt.device.type != "cuda":
-        raise ValueError(f"ssm_scan runs on cuda or cpu, not {dt.device}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, x, bmat, cmat, a, h0)):
-        raise NotImplementedError(
-            "ssm_scan has no backward kernel on the card yet (ROADMAP queue 1, item 3e (i)): "
-            "call it under torch.no_grad() or on CPU tensors")
+
+def _forward(dt, x, bmat, cmat, a, h0):
+    """(y, hT) from one forward launch on CUDA tensors; counts nothing."""
     _check(dt, x, bmat, cmat, a, h0)
     B, S, D = dt.shape
     N = a.shape[1]
-    dt, x = dt.contiguous(), x.contiguous()
-    bmat = bmat if bmat.stride(-1) == 1 else bmat.contiguous()
-    cmat = cmat if cmat.stride(-1) == 1 else cmat.contiguous()
-    a = a.to(torch.float32).contiguous()
-    h0 = h0.to(torch.float32).contiguous()
+    dt, x, bmat, cmat, a, h0 = _operands(dt, x, bmat, cmat, a, h0)
     y = torch.empty((B, S, D), dtype=torch.float32, device=dt.device)
     hT = torch.empty((B, D, N), dtype=torch.float32, device=dt.device)
     if B == 0 or D == 0:
@@ -111,9 +117,95 @@ def ssm_scan(dt, x, bmat, cmat, a, h0):
         )
     if rc != 0:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {rc}")
-    ssm_scan.launches += 1
     return y, hT
+
+
+class _SSMScanFunction(torch.autograd.Function):
+    """:func:`ssm_scan` on the card under grad: the forward kernel, then
+    :func:`ssm_scan_backward`'s kernels, which recompute the states from
+    the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, dt, x, bmat, cmat, a, h0):
+        ctx.set_materialize_grads(False)
+        y, hT = _forward(dt, x, bmat, cmat, a, h0)
+        ssm_scan.launches += bool(dt.shape[0] and dt.shape[2])
+        ctx.save_for_backward(dt, x, bmat, cmat, a, h0)
+        return y, hT
+
+    @staticmethod
+    def backward(ctx, dy, dhT):
+        dt, x, bmat, cmat, a, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
+        return ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT)
+
+
+def ssm_scan(dt, x, bmat, cmat, a, h0):
+    """The selective scan of ``x`` with step sizes ``dt`` (B, S, D), input
+    and output projections ``bmat`` and ``cmat`` (B, S, N), decay ``a``
+    (D, N, negative) and initial state ``h0`` (B, D, N).  Returns
+    (y (B, S, D), hT (B, D, N)), both fp32.  Differentiable on both
+    devices: on the card under grad the backward kernel computes the
+    gradients."""
+    if dt.device.type == "cpu":
+        return ssm_scan_reference(dt, x, bmat, cmat, a, h0)
+    if dt.device.type != "cuda":
+        raise ValueError(f"ssm_scan runs on cuda or cpu, not {dt.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, x, bmat, cmat, a, h0)):
+        return _SSMScanFunction.apply(dt, x, bmat, cmat, a, h0)
+    y, hT = _forward(dt, x, bmat, cmat, a, h0)
+    if dt.shape[0] and dt.shape[2]:
+        ssm_scan.launches += 1
+    return y, hT
+
+
+def ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT=None):
+    """The gradients ``(ddt, dx, dB, dC, dA, dh0)`` of ``(y, hT) =
+    ssm_scan(dt, x, bmat, cmat, a, h0)`` given ``dy = dL/dy`` (B, S, D)
+    and ``dhT = dL/dhT`` (B, D, N, or None), each in its input's dtype: the
+    backward kernel's two launches (the scan backward, then the fixed-order
+    finish of the sums over channels and batch rows) on CUDA tensors, its
+    plain version (:func:`~.ref.ssm_scan_backward_reference`) on CPU
+    tensors."""
+    if dt.device.type == "cpu":
+        return ssm_scan_backward_reference(dt, x, bmat, cmat, a, h0, dy, dhT)
+    if dt.device.type != "cuda":
+        raise ValueError(f"ssm_scan_backward runs on cuda or cpu, not {dt.device}")
+    _check(dt, x, bmat, cmat, a, h0)
+    B, S, D = dt.shape
+    N = a.shape[1]
+    for name, t, shape in (("dy", dy, (B, S, D)), ("dhT", dhT, (B, D, N))):
+        if t is not None and (tuple(t.shape) != shape or t.device != dt.device):
+            raise ValueError(f"{name} must be {shape} on {dt.device}, "
+                             f"got {tuple(t.shape)} on {t.device}")
+    dtp, xp, bp, cp, a32, h32 = _operands(dt, x, bmat, cmat, a, h0)
+    dy = dy.to(torch.float32).contiguous()
+    dhT = None if dhT is None else dhT.to(torch.float32).contiguous()
+    ddt, dx = torch.empty_like(dtp), torch.empty_like(xp)
+    db = torch.empty((B, S, N), dtype=dt.dtype, device=dt.device)
+    dc = torch.empty_like(db)
+    da = torch.empty((D, N), dtype=torch.float32, device=dt.device)
+    dh0 = torch.empty((B, D, N), dtype=torch.float32, device=dt.device)
+    if B == 0 or D == 0:
+        return ddt, dx, db.zero_(), dc.zero_(), da.zero_().to(a.dtype), dh0.to(h0.dtype)
+    lib = BACKWARD_LIBRARY.load()
+    work = torch.empty(lib.ssm_scan_bwd_workspace(B, S, D, N), dtype=torch.float32,
+                       device=dt.device)
+    with torch.cuda.device(dt.device):
+        rc = lib.ssm_scan_bwd_launch(
+            dtp.data_ptr(), xp.data_ptr(), bp.data_ptr(), cp.data_ptr(), a32.data_ptr(),
+            h32.data_ptr(), dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
+            ddt.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+            dh0.data_ptr(), work.data_ptr(), B, S, D, N, bp.stride(0), bp.stride(1),
+            cp.stride(0), cp.stride(1), DTYPES[dt.dtype], torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"ssm_scan backward launch failed: CUDA error {rc}")
+    ssm_scan_backward.launches += 1
+    return ddt, dx, db, dc, da.to(a.dtype), dh0.to(h0.dtype)
 
 
 #: Kernel launches since the count was last set to 0.
 ssm_scan.launches = 0
+ssm_scan_backward.launches = 0

@@ -29,10 +29,11 @@ Four departures:
   the failed run in the same directory.
 
 The step runs on one device; the reference's sharded step bundles
-(``launch/steps.py``) are ROADMAP queue 1, item 3e (ii).  On the card the
-forward's kernels need backward kernels: the RMSNorm ones exist, flash
-attention's and the selective scan's do not yet, so :func:`check_trainable`
-refuses models that would launch those.
+(``launch/steps.py``) are ROADMAP queue 1, item 3e (ii).  On the card
+every kernel the forward launches has a backward kernel (the RMSNorm
+pair, flash attention, the selective scan), so every registered
+architecture trains there; :func:`check_trainable` refuses, before
+anything is built, only the widths those kernels do not take.
 """
 from __future__ import annotations
 
@@ -45,9 +46,11 @@ import torch
 
 from ..checkpoint.checkpointer import Checkpointer
 from ..configs import get_config
-from ..configs.base import ModelConfig
+from ..configs.base import MLAConfig, ModelConfig, SSMConfig
 from ..data.pipeline import DataConfig, SyntheticLMStream
 from ..device import resolve_device
+from ..kernels.flash_attention.ops import MAX_HEAD_DIM
+from ..kernels.ssm_scan.ops import MAX_STATE
 from ..models import Model, build_model
 from ..models.frontends import frontend_embed_shape
 from ..optim.optimizer import AdamWConfig, adamw_update, init_opt_state
@@ -74,23 +77,31 @@ class TrainConfig:
 
 
 def check_trainable(cfg: ModelConfig, device_type: str) -> None:
-    """Raises ``NotImplementedError`` if training ``cfg`` on a device of
-    type ``device_type`` would launch a kernel with no backward: on
-    "cuda", flash attention (any attention block, an encoder,
-    cross-attention) and the selective scan (any Mamba block).  Training
-    on the CPU runs the plain versions, which autograd differentiates."""
+    """Raises ``ValueError`` if training ``cfg`` on a device of type
+    ``device_type`` would hand a kernel a width it does not take: on
+    "cuda", an attention head over flash attention's 128 columns (MLA's
+    kernel width is ``max(qk_nope + qk_rope, v)``) or an SSM state over the
+    selective scan's 16.  Training on the CPU runs the plain versions,
+    which take any width."""
     if device_type != "cuda":
         return
     pattern = cfg.pattern()
-    missing = []
     if "attn" in pattern or cfg.is_encdec:
-        missing.append("flash_attention")
+        if cfg.attention == "mla":
+            m = cfg.mla or MLAConfig()
+            width = max(m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim)
+        else:
+            width = cfg.head_dim
+        if width > MAX_HEAD_DIM:
+            raise ValueError(
+                f"{cfg.name}: attention head width {width} is over the flash kernels' "
+                f"{MAX_HEAD_DIM}; train it with device='cpu'")
     if "mamba" in pattern:
-        missing.append("ssm_scan")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: training on the card needs the backward of {' and '.join(missing)}, "
-            "not written yet (ROADMAP queue 1, item 3e (i)); train it with device='cpu'")
+        state = (cfg.ssm or SSMConfig()).d_state
+        if state > MAX_STATE:
+            raise ValueError(
+                f"{cfg.name}: SSM state width {state} is over the selective-scan kernels' "
+                f"{MAX_STATE}; train it with device='cpu'")
 
 
 def model_config(tc: TrainConfig) -> ModelConfig:

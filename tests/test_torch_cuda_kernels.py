@@ -2,8 +2,8 @@
 version, the simulator's ticks running through the stream kernels (bit for
 bit the same at any bucket), and
 the models' prefill and decode running through the RMSNorm, flash and
-selective-scan kernels, the RMSNorm backward kernels, and training on the
-card where every kernel the forward launches has a backward.
+selective-scan kernels, the backward kernels of RMSNorm, flash attention
+and the selective scan, and training on the card.
 
 This file imports no JAX, so it runs on a machine that has only the port's
 dependencies.  Every test carries the ``cuda`` marker and skips where
@@ -19,7 +19,12 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config
 from repro_torch.core import ContainerDim, round_robin_configuration
 from repro_torch.interop import stage_padded
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_reference
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_backward_reference,
+    flash_attention_reference,
+)
 from repro_torch.kernels.rmsnorm import (
     add_rmsnorm,
     add_rmsnorm_backward,
@@ -30,7 +35,12 @@ from repro_torch.kernels.rmsnorm import (
     rmsnorm_backward_reference,
     rmsnorm_reference,
 )
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_reference
+from repro_torch.kernels.ssm_scan import (
+    ssm_scan,
+    ssm_scan_backward,
+    ssm_scan_backward_reference,
+    ssm_scan_reference,
+)
 from repro_torch.kernels.stream_flow import (
     container_members,
     container_sum,
@@ -1172,22 +1182,37 @@ def test_norm_wrappers_under_grad_run_both_kernels(cuda):
 
 
 def test_flash_and_scan_raise_rather_than_drop_a_gradient(cuda):
+    """Under grad a CUDA input that requires grad leaves flash attention
+    and the selective scan with a ``grad_fn``, and ``backward`` runs each
+    backward kernel once: gradients arrive, none is dropped.  Without grad
+    they launch the forward alone."""
     q = torch.randn(1, 8, 4, 64, device=cuda, requires_grad=True)
     k = torch.randn(1, 8, 4, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 3e \(i\)"):
-        flash_attention(q, k, k, causal=True)
+    before = (flash_attention.launches, flash_attention_backward.launches)
+    out = flash_attention(q, k, k, causal=True)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention_backward.launches - before[1]) == (1, 1)
+    assert q.grad is not None and q.grad.shape == q.shape and torch.isfinite(q.grad).all()
     with torch.no_grad():
-        assert flash_attention(q, k, k, causal=True).shape == q.shape
+        assert flash_attention(q, k, k, causal=True).grad_fn is None
     B, S, D, N = 1, 5, 32, 16
     dt = torch.rand(B, S, D, device=cuda, requires_grad=True)
     x = torch.randn(B, S, D, device=cuda)
     bm, cm = torch.randn(B, S, N, device=cuda), torch.randn(B, S, N, device=cuda)
     a, h0 = -torch.rand(D, N, device=cuda), torch.zeros(B, D, N, device=cuda)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 3e \(i\)"):
-        ssm_scan(dt, x, bm, cm, a, h0)
+    before = (ssm_scan.launches, ssm_scan_backward.launches)
+    y, hT = ssm_scan(dt, x, bm, cm, a, h0)
+    assert y.grad_fn is not None and hT.grad_fn is not None
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert (ssm_scan.launches - before[0], ssm_scan_backward.launches - before[1]) == (1, 1)
+    assert dt.grad is not None and dt.grad.shape == dt.shape and torch.isfinite(dt.grad).all()
     with torch.no_grad():
         y, hT = ssm_scan(dt, x, bm, cm, a, h0)
-    assert y.shape == (B, S, D)
+    assert y.shape == (B, S, D) and y.grad_fn is None
 
 
 def test_xlstm_model_on_card_serves_and_trains_as_the_host(cuda):
@@ -1234,3 +1259,187 @@ def test_xlstm_model_on_card_serves_and_trains_as_the_host(cuda):
         w = hp[n].grad
         torch.testing.assert_close(p.grad.cpu(), w, rtol=0.0, atol=1e-4 * float(w.abs().max()),
                                    msg=lambda m: f"d{n}: {m}")
+
+
+# ------------------------------------------------- flash and scan backward
+# Each backward kernel against its plain version (the contract the CPU
+# tests hold to jax.vjp of the reference's oracles): fp32 within 1e-4 of
+# each gradient's largest entry (the kernels' sums run in other orders
+# than the plain version's einsums over up to 512 keys or 16,384
+# channels), bf16 within one bf16 ulp of that entry plus the same; a
+# second launch bit for bit the first (no atomics).
+
+BWD_ATOL_REL = 1e-4
+
+
+def _bf16_ulp_of_max(want):
+    a = want.float().abs().max().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return float(torch.exp2(torch.floor(torch.log2(a)) - 7))
+
+
+def _grads_close(got, want, names):
+    for g, w, name in zip(got, want, names):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert torch.isfinite(g).all(), name
+        scale = float(w.float().abs().max())
+        tol = BWD_ATOL_REL * scale + (_bf16_ulp_of_max(w) if g.dtype == torch.bfloat16 else 0.0)
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol, f"{name}: max|kernel-plain| {err:.3e} over {tol:.3e}"
+
+
+def _flash_bwd_inputs(cuda, B, S, Sk, H, KV, hd, dtype, seed, v_width=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=cuda)
+    q, k, v = r(B, S, H, hd), r(B, Sk, KV, hd), r(B, Sk, KV, hd)
+    if v_width is not None:    # MLA: v zero-padded from its own width
+        v[..., v_width:] = 0.0
+    return q.to(dtype), k.to(dtype), v.to(dtype), r(B, S, H, hd).to(dtype)
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KV,hd,causal,window,v_width,dtype", [
+    (4, 256, 256, 32, 32, 64, True, None, None, torch.float32),    # stablelm-1.6b training
+    (1, 256, 256, 64, 8, 128, True, None, None, torch.float32),    # jamba's attention, GQA 8
+    (2, 130, 130, 8, 2, 128, True, 32, None, torch.float32),       # a window narrower than S
+    (1, 168, 512, 16, 16, 64, False, None, None, torch.float32),   # seamless's cross-attention
+    (1, 512, 512, 16, 16, 64, False, None, None, torch.float32),   # seamless's encoder
+    (1, 75, 75, 40, 40, 96, True, None, 64, torch.float32),        # MLA: qk 96, v padded
+    (2, 37, 37, 6, 3, 40, True, None, None, torch.float32),        # odd S and head_dim
+    (2, 1, 9, 4, 2, 64, False, None, None, torch.float32),         # S = 1 over 9 keys
+    (2, 256, 256, 32, 32, 64, True, None, None, torch.bfloat16),
+    (1, 130, 130, 64, 8, 128, True, 48, None, torch.bfloat16),
+])
+def test_flash_backward_kernel_matches_plain_version(cuda, B, S, Sk, H, KV, hd, causal, window,
+                                                     v_width, dtype):
+    q, k, v, dout = _flash_bwd_inputs(cuda, B, S, Sk, H, KV, hd, dtype, seed=S + H + hd,
+                                      v_width=v_width)
+    scale = 1.0 / hd ** 0.5
+    out = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, dout, causal=causal, window=window, scale=scale)
+    want = flash_attention_backward_reference(q, k, v, out, dout, causal=causal, window=window,
+                                              scale=scale)
+    again = flash_attention_backward(q, k, v, out, dout, causal=causal, window=window,
+                                     scale=scale)
+    torch.cuda.synchronize()
+    assert flash_attention_backward.launches == before + 2
+    _grads_close(got, want, ("dq", "dk", "dv"))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+def test_flash_backward_under_grad_is_autograd_through_the_plain_version(cuda):
+    """Through the autograd Function the forward is serving's, bit for bit,
+    and the gradients are autograd's through the plain forward (within
+    1e-4 of each gradient's largest entry)."""
+    q, k, v, dout = _flash_bwd_inputs(cuda, 2, 67, 67, 8, 2, 64, torch.float32, seed=5)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True, window=40)
+    with torch.no_grad():
+        assert torch.equal(out, flash_attention(q, k, v, causal=True, window=40))
+    out.backward(dout)
+    plain = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    flash_attention_reference(*plain, causal=True, window=40).backward(dout)
+    _grads_close([t.grad for t in leaves], [t.grad for t in plain], ("dq", "dk", "dv"))
+
+
+@pytest.mark.parametrize("B,S,D,N,dtype,strided,with_dhT", [
+    (4, 256, 16384, 16, torch.float32, True, False),   # jamba's training shape
+    (1, 128, 16384, 16, torch.float32, True, True),
+    (2, 100, 50, 16, torch.float32, True, True),       # a masked channel tail, S % 32 != 0
+    (3, 33, 200, 8, torch.float32, False, True),
+    (2, 64, 40, 4, torch.float32, False, False),
+    (2, 45, 70, 7, torch.float32, True, True),          # N not a power of two
+    (1, 1, 96, 16, torch.float32, True, True),          # S = 1
+    (2, 130, 1024, 16, torch.bfloat16, True, True),
+])
+def test_ssm_scan_backward_kernel_matches_plain_version(cuda, B, S, D, N, dtype, strided,
+                                                        with_dhT):
+    args = _scan_inputs(cuda, B, S, D, N, dtype=dtype, seed=S + D + N, strided=strided)
+    g = torch.Generator(device=cuda).manual_seed(B + S)
+    dy = torch.randn(B, S, D, generator=g, device=cuda)
+    dhT = torch.randn(B, D, N, generator=g, device=cuda) if with_dhT else None
+    before = ssm_scan_backward.launches
+    got = ssm_scan_backward(*args, dy, dhT)
+    want = ssm_scan_backward_reference(*args, dy, dhT)
+    again = ssm_scan_backward(*args, dy, dhT)
+    torch.cuda.synchronize()
+    assert ssm_scan_backward.launches == before + 2
+    _grads_close(got, want, ("ddt", "dx", "dB", "dC", "dA", "dh0"))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_ssm_scan_under_grad_is_autograd_through_the_plain_version(cuda):
+    """Through the autograd Function y and hT are serving's, bit for bit,
+    and the gradients of every input are autograd's through the plain
+    forward (within 1e-4 of each gradient's largest entry)."""
+    args = _scan_inputs(cuda, 2, 70, 96, 16, seed=11, strided=True)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    dy, dhT = torch.randn(2, 70, 96, generator=g, device=cuda), torch.randn(2, 96, 16,
+                                                                              generator=g,
+                                                                              device=cuda)
+    leaves = [t.detach().clone().requires_grad_(True) for t in args]
+    y, hT = ssm_scan(*leaves)
+    with torch.no_grad():
+        assert all(torch.equal(a, b) for a, b in zip((y, hT), ssm_scan(*args)))
+    torch.autograd.backward((y, hT), (dy, dhT))
+    plain = [t.detach().clone().requires_grad_(True) for t in args]
+    torch.autograd.backward(ssm_scan_reference(*plain), (dy, dhT))
+    _grads_close([t.grad for t in leaves], [t.grad for t in plain],
+                 ("ddt", "dx", "dB", "dC", "dA", "dh0"))
+
+
+def test_ssm_scan_backward_takes_unaligned_projections(cuda):
+    """B and C as views one element into a buffer (no 16-byte alignment,
+    a step stride of 2N + 1) give the bits of contiguous copies."""
+    B, S, D, N = 2, 70, 96, 16
+    dt, x, _, _, a, h0 = _scan_inputs(cuda, B, S, D, N, seed=9)
+    g = torch.Generator(device=cuda).manual_seed(10)
+    buf = torch.randn(B, S, 2 * N + 1, generator=g, device=cuda)
+    bm, cm = buf[..., 1:N + 1], buf[..., N + 1:]
+    assert bm.data_ptr() % 16 != 0
+    dy = torch.randn(B, S, D, generator=g, device=cuda)
+    got = ssm_scan_backward(dt, x, bm, cm, a, h0, dy, None)
+    want = ssm_scan_backward(dt, x, bm.contiguous(), cm.contiguous(), a, h0, dy, None)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+
+
+@pytest.mark.parametrize("arch", ["stablelm-1.6b@smoke", "jamba-1.5-large-398b@smoke",
+                                  "minicpm3-4b@smoke", "seamless-m4t-large-v2@smoke"])
+def test_attention_and_mamba_models_train_on_card_as_the_host(cuda, arch):
+    """One training forward and backward at @smoke widths on card and host
+    from the same weights: loss within rel 1e-5, every gradient within 1e-4
+    of its leaf's largest host entry, the backward through the flash and
+    scan backward kernels (one launch per forward launch)."""
+    import dataclasses
+
+    from repro_torch.launch.train import check_trainable, frontend_noise
+
+    cfg = get_config(arch)
+    if cfg.is_moe:
+        cfg = dataclasses.replace(cfg, n_experts=0, experts_per_token=0)
+    check_trainable(cfg, "cuda")
+    host = build_model(cfg, device="cpu", seed=0)
+    card = build_model(cfg, device=cuda, seed=0)
+    card.load_state_dict(host.state_dict())
+    tokens = torch.arange(4, 68).reshape(2, 32) % cfg.vocab
+    batch = {"tokens": tokens, "labels": (tokens + 1) % cfg.vocab}
+    if cfg.frontend is not None:
+        batch["frontend"] = frontend_noise(cfg, 2, 0, "cpu")
+    losses = {}
+    for name, model in (("host", host.trainable()), ("card", card.trainable())):
+        before = (flash_attention.launches, flash_attention_backward.launches,
+                  ssm_scan.launches, ssm_scan_backward.launches)
+        loss, _ = model.loss_fn({k: v.to(model.embed.device) for k, v in batch.items()})
+        loss.backward()
+        losses[name] = float(loss.detach())
+        after = (flash_attention.launches, flash_attention_backward.launches,
+                 ssm_scan.launches, ssm_scan_backward.launches)
+    torch.cuda.synchronize()
+    n = [a - b for a, b in zip(after, before)]
+    assert n[0] == n[1] and n[2] == n[3] and n[0] + n[2] > 0, n
+    assert losses["card"] == pytest.approx(losses["host"], rel=1e-5)
+    hp = dict(host.named_parameters())
+    for name, p in card.named_parameters():
+        w = hp[name].grad
+        torch.testing.assert_close(p.grad.cpu(), w, rtol=0.0, atol=1e-4 * float(w.abs().max()),
+                                   msg=lambda m: f"d{name}: {m}")

@@ -134,20 +134,24 @@ def test_state_dict_names_unstack_the_layer_axis():
 @pytest.mark.parametrize("arch", ["mixtral-8x7b@smoke", "jamba-1.5-large-398b@smoke",
                                   "minicpm3-4b@smoke"])
 def test_build_model_raises_for_what_this_slice_leaves_out(arch):
-    """Every block kind is ported, so these three configs build (their
-    serving parity with the reference is in ``test_torch_moe_mla_models.py``)
-    and train on the CPU.  What the port still leaves out is training them
-    on the card: each launches the flash kernel (jamba the selective scan
-    too), whose backward is not written yet, so the card-training guard
-    must raise, citing the ROADMAP item."""
+    """Every block kind is ported, so these three configs build with the
+    reference's parameter count (their serving parity is in
+    ``test_torch_moe_mla_models.py``) and, since the flash and scan
+    backward kernels exist, pass the card-training guard.  What the guard
+    still refuses on the card is a width the kernels do not take: a copy
+    with 256-wide heads (MLA: a 256-wide nope part) raises ``ValueError``."""
+    from repro_torch.configs.base import MLAConfig
     from repro_torch.launch.train import check_trainable
 
     cfg = get_config(arch)
     assert build_model(cfg, device="cpu").n_params() == jax_build_model(
         jax_get_config(arch)).n_params()
     check_trainable(cfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_trainable(cfg, "cuda")
+    check_trainable(cfg, "cuda")
+    wide = (dataclasses.replace(cfg, mla=MLAConfig(qk_nope_head_dim=256))
+            if cfg.attention == "mla" else dataclasses.replace(cfg, head_dim=256))
+    with pytest.raises(ValueError, match="over the flash kernels' 128"):
+        check_trainable(wide, "cuda")
 
 
 def test_configs_resolve_the_same_in_both_packages():

@@ -11,6 +11,7 @@ other orders); the three steps' losses rel 1e-5 and final weights within
 (gradients of two autodiff systems, then Adam's per-element normalised
 step, see the test); the restart rel 1e-5, the reference's own
 tolerance for the same test (``tests/test_fault_tolerance.py``)."""
+import dataclasses
 import time
 import types
 
@@ -31,6 +32,7 @@ from repro.optim import adamw_update as jax_adamw_update
 from repro.optim import cosine_lr as jax_cosine_lr
 from repro.optim import init_opt_state as jax_init_opt_state
 from repro_torch.configs import get_config, list_archs
+from repro_torch.configs.base import MLAConfig, SSMConfig
 from repro_torch.data import DataConfig, HashTokenizer, PrefetchIterator, SyntheticLMStream
 from repro_torch.interop import model_params_from_numpy
 from repro_torch.launch.train import (
@@ -283,36 +285,49 @@ def test_frontend_archs_train_with_generated_frontend_embeddings():
 
 @pytest.mark.parametrize("arch", list_archs())
 def test_check_trainable_refuses_kernels_without_a_backward_on_the_card(arch):
-    """On "cuda", every model that would launch flash attention or the
-    selective scan raises citing the ROADMAP item; xLSTM passes; on the
-    CPU everything passes."""
+    """Every kernel the forward launches has a backward on the card, so
+    each architecture, whole and @smoke, passes the guard on "cuda" and on
+    "cpu".  What the guard still refuses on "cuda" is a width the kernels
+    do not take, with ``ValueError`` naming the limit: a copy with
+    head_dim 256 (MLA: a 256-wide nope part) if it has attention, and a
+    copy with d_state 32 if it has Mamba blocks; the CPU takes both."""
     for name in (arch, arch + "@smoke"):
         cfg = get_config(name)
         check_trainable(cfg, "cpu")
+        check_trainable(cfg, "cuda")
         pattern = set(cfg.pattern())
-        if pattern <= {"mlstm", "slstm"} and not cfg.is_encdec:
-            check_trainable(cfg, "cuda")
-        else:
-            with pytest.raises(NotImplementedError, match=r"ROADMAP queue 1, item 3e \(i\)"):
-                check_trainable(cfg, "cuda")
+        if "attn" in pattern or cfg.is_encdec:
+            wide = (dataclasses.replace(cfg, mla=MLAConfig(qk_nope_head_dim=256))
+                    if cfg.attention == "mla" else dataclasses.replace(cfg, head_dim=256))
+            check_trainable(wide, "cpu")
+            with pytest.raises(ValueError, match="128"):
+                check_trainable(wide, "cuda")
+        if "mamba" in pattern:
+            wide = dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm or SSMConfig(),
+                                                                    d_state=32))
+            check_trainable(wide, "cpu")
+            with pytest.raises(ValueError, match="16"):
+                check_trainable(wide, "cuda")
 
 
 def test_build_state_and_make_step_call_the_guard(monkeypatch):
-    """``build_state`` checks before building anything (a llama3-8b of any
-    size raises for the card before a device is touched), and
-    ``make_step`` checks the model it is given."""
+    """``build_state`` checks before building anything (a llama3-8b whose
+    d_model override makes its heads 256 wide raises for the card before a
+    model is built), and ``make_step`` checks the model it is given."""
     import repro_torch.launch.train as train_mod
 
     seen = []
     monkeypatch.setattr(train_mod, "resolve_device",
                         lambda device: seen.append(device) or torch.device("cuda"))
     monkeypatch.setattr(train_mod, "build_model", lambda *a, **k: pytest.fail("built"))
-    with pytest.raises(NotImplementedError, match="flash_attention"):
-        build_state(TrainConfig(arch="llama3-8b", n_layers=2))
+    with pytest.raises(ValueError, match="head width 256"):
+        build_state(TrainConfig(arch="llama3-8b", n_layers=2, d_model=8192))
     assert seen == [None]
-    on_card = types.SimpleNamespace(cfg=get_config("jamba-1.5-large-398b@smoke"),
-                                    embed=types.SimpleNamespace(device=torch.device("cuda")))
-    with pytest.raises(NotImplementedError, match="ssm_scan"):
+    cfg = get_config("jamba-1.5-large-398b@smoke")
+    on_card = types.SimpleNamespace(
+        cfg=dataclasses.replace(cfg, ssm=dataclasses.replace(cfg.ssm, d_state=32)),
+        embed=types.SimpleNamespace(device=torch.device("cuda")))
+    with pytest.raises(ValueError, match="SSM state width 32"):
         make_step(on_card, AdamWConfig())
 
 
