@@ -167,8 +167,13 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    largest entry, bf16 plus one ulp of it; a second launch bit for bit the
    first) at the training shapes below, a window narrower than S,
    seamless's cross-attention (S 168, Sk 512), MLA's padded v (40 heads,
-   width 96), a masked channel tail and bf16, and times each beside its
-   plain version, its bound and (flash) autograd's backward of SDPA; (a)
+   width 96), a masked channel tail and bf16, each both as training runs
+   it (from the forward's row statistics or range-start states, the
+   forward that writes them bit for bit serving's) and without them (the
+   wrapper runs that forward first; the same bits), and times each as training
+   runs it beside its plain version, its bound (flash: the faster of fp32
+   and 3xTF32 products, against the bytes) and (flash) autograd's
+   backward of SDPA; (a)
    one training forward and backward card vs host from the same weights
    of stablelm-1.6b cut to 2 layers (2 x 256) and, right after phase 8 on
    its two models, of the jamba pair (1 x 128): the loss within rel 1e-5,
@@ -3783,13 +3788,15 @@ def flash_backward_inputs(device, B, S, Sk, H, KV, hd, dtype, seed, v_width=None
 
 def check_flash_backward(device, cases) -> float:
     """The flash backward kernel against its plain version, each case
-    (label, B, S, Sk, H, KV, hd, causal, window, v_width, dtype); a second
-    launch bit for bit the first, and the forward under grad (through the
-    autograd Function) bit for bit serving's.  Returns the largest fp32
-    difference."""
+    (label, B, S, Sk, H, KV, hd, causal, window, v_width, dtype), both as
+    training runs it (from the forward's row statistics) and recomputing
+    them; a second launch bit for bit the first, and the forward under grad
+    (through the autograd Function, and with the statistics) bit for bit
+    serving's.  Returns the largest fp32 difference."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_with_lse,
     )
 
     worst = 0.0
@@ -3800,21 +3807,31 @@ def check_flash_backward(device, cases) -> float:
         with torch.no_grad():
             out = flash_attention(q, k, v, **kw)
         trained = flash_attention(*(t.clone().requires_grad_(True) for t in (q, k, v)), **kw)
-        got = flash_attention_backward(q, k, v, out, dout, **kw)
-        again = flash_attention_backward(q, k, v, out, dout, **kw)
+        with torch.no_grad():
+            out_lse, lse = flash_attention_with_lse(q, k, v, **kw)
+        got = flash_attention_backward(q, k, v, out, dout, lse=lse, **kw)
+        again = flash_attention_backward(q, k, v, out, dout, lse=lse, **kw)
+        alone = flash_attention_backward(q, k, v, out, dout, **kw)
         want = flash_attention_backward_reference(q, k, v, out, dout, **kw)
         torch.cuda.synchronize()
         name = (f"flash_attention_backward {label} ({B}, {S}, {H}, {hd}) Sk={Sk} KV={KV} "
                 f"causal={causal} window={window} {str(dtype)[6:]}")
         if trained.grad_fn is None or not torch.equal(trained.detach(), out):
             raise AssertionError(f"{name}: the forward under grad is not serving's, bit for bit")
+        if not torch.equal(out_lse, out):
+            raise AssertionError(f"{name}: the forward with statistics is not serving's, bit "
+                                 f"for bit")
         err = check_grads(name, got, want, ("dq", "dk", "dv"))
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{name}: a second launch differs")
+        if not all(torch.equal(a, b) for a, b in zip(got, alone)):
+            raise AssertionError(f"{name}: the wrapper without the statistics (the forward run "
+                                 f"for them first) differs")
         if dtype == torch.float32:
             worst = max(worst, err)
-        log(f"  {name}: max|kernel-plain| {err:.3e}; second launch bit-equal; the forward "
-            f"under grad bit for bit serving's")
+        log(f"  {name}: max|kernel-plain| {err:.3e}; a second launch and the wrapper without "
+            f"the statistics bit-equal; the forward under grad and with statistics bit for bit "
+            f"serving's")
     return worst
 
 
@@ -3826,7 +3843,7 @@ def check_scan_backward(device, cases) -> float:
     largest fp32 difference."""
     import torch
     from repro_torch.kernels.ssm_scan import (
-        ssm_scan, ssm_scan_backward, ssm_scan_backward_reference,
+        ssm_scan, ssm_scan_backward, ssm_scan_backward_reference, ssm_scan_with_checkpoints,
     )
 
     worst = 0.0
@@ -3838,21 +3855,30 @@ def check_scan_backward(device, cases) -> float:
         with torch.no_grad():
             served = ssm_scan(*args)
         trained = ssm_scan(args[0].clone().requires_grad_(True), *args[1:])
-        got = ssm_scan_backward(*args, dy, dhT)
-        again = ssm_scan_backward(*args, dy, dhT)
+        with torch.no_grad():
+            *with_states, ckpt = ssm_scan_with_checkpoints(*args)
+        got = ssm_scan_backward(*args, dy, dhT, ckpt=ckpt)
+        again = ssm_scan_backward(*args, dy, dhT, ckpt=ckpt)
+        alone = ssm_scan_backward(*args, dy, dhT)
         want = ssm_scan_backward_reference(*args, dy, dhT)
         torch.cuda.synchronize()
         name = f"ssm_scan_backward {label} ({B}, {S}, {D}, {N}) {str(dtype)[6:]} dhT={with_dhT}"
         if trained[0].grad_fn is None or not all(
                 torch.equal(a.detach(), b) for a, b in zip(trained, served)):
             raise AssertionError(f"{name}: the forward under grad is not serving's, bit for bit")
+        if not all(torch.equal(a, b) for a, b in zip(with_states, served)):
+            raise AssertionError(f"{name}: the forward with states is not serving's, bit for bit")
         err = check_grads(name, got, want, ("ddt", "dx", "dB", "dC", "dA", "dh0"))
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{name}: a second launch differs")
+        if not all(torch.equal(a, b) for a, b in zip(got, alone)):
+            raise AssertionError(f"{name}: the wrapper without the states (the forward run for "
+                                 f"them first) differs")
         if dtype == torch.float32:
             worst = max(worst, err)
-        log(f"  {name}: max|kernel-plain| {err:.3e}; second launch bit-equal; the forward "
-            f"under grad bit for bit serving's")
+        log(f"  {name}: max|kernel-plain| {err:.3e}; a second launch and the wrapper without "
+            f"the states bit-equal; the forward under grad and with states bit for bit "
+            f"serving's")
     return worst
 
 
@@ -3864,33 +3890,54 @@ def visible_pairs(S, Sk, causal, window) -> int:
                for s in range(S))
 
 
-def flash_backward_bound(B, S, Sk, H, KV, hd, causal, window) -> tuple[float, str]:
+def flash_backward_bound(B, S, Sk, H, KV, hd, causal, window) -> tuple[float, str, str]:
     """fp32: q, out, dout read and dq written (S rows of H heads), k and v
     read and dk, dv written (Sk rows of KV heads), each once; five products
-    of 2·hd flops per visible pair (q·k, dout·v, dq, dk, dv; the softmax's
-    few flops aside) on the fp32 CUDA cores the kernel uses."""
-    nbytes = 4 * B * hd * (4 * S * H + 4 * Sk * KV)
-    flops = B * H * visible_pairs(S, Sk, causal, window) * 5 * 2 * hd
-    return _bytes_or_flops(nbytes, flops)
+    of 2·hd flops per visible pair (q·k, dout·v, dq, dk, dv) and about 4
+    for the softmax and dS.  Two ways to do the products, as
+    :func:`flash_bound` counts them: fp32 on CUDA cores (all flops at 67
+    TFLOP/s), or 3xTF32 on the tensor cores (three tf32 products per
+    product at 495 TFLOP/s, the softmax on CUDA cores); the faster of the
+    two is held against the bytes.  Returns (bound ms, "bytes" or
+    "operations", which way of doing the products is the faster: "fp32" or
+    "3xTF32")."""
+    pairs = B * H * visible_pairs(S, Sk, causal, window)
+    mm_flops = pairs * 5 * 2 * hd
+    soft_flops = pairs * 4
+    t_bytes = 4 * B * hd * (4 * S * H + 4 * Sk * KV) / HBM_BYTES_PER_S
+    t_fp32 = (mm_flops + soft_flops) / FP32_FLOPS_PER_S
+    t_tc = 3 * mm_flops / TF32_FLOPS_PER_S + soft_flops / FP32_FLOPS_PER_S
+    t_ops = min(t_fp32, t_tc)
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            "fp32" if t_fp32 <= t_tc else "3xTF32")
 
 
 def time_flash_backward(device, B, S, H, KV, hd, causal=True, window=None) -> dict:
-    """The flash backward kernel (its two launches), its plain version and,
-    as the library yardstick, autograd's backward of
+    """The flash backward kernel (its two launches) as training runs it,
+    from the forward's row statistics, its plain version and, as the
+    library yardstick, autograd's backward of
     ``F.scaled_dot_product_attention`` on the same inputs (forward and
     backward captured together, less the forward alone), beside its
-    bound."""
+    bound; logged beside, the call without the statistics (the wrapper
+    runs the forward for them first) and the forward's time with and
+    without them."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_backward, flash_attention_backward_reference,
+        flash_attention_with_lse,
     )
 
     q, k, v, dout = flash_backward_inputs(device, B, S, S, H, KV, hd, torch.float32, seed=S + H)
     kw = dict(causal=causal, window=window, scale=1.0 / hd ** 0.5)
     with torch.no_grad():
-        out = flash_attention(q, k, v, **kw)
-    ms, eager_ms = time_both(lambda: flash_attention_backward(q, k, v, out, dout, **kw), iters=20)
+        out, lse = flash_attention_with_lse(q, k, v, **kw)
+    # as training runs it: from the forward's row statistics
+    ms, eager_ms = time_both(lambda: flash_attention_backward(q, k, v, out, dout, lse=lse, **kw),
+                             iters=20)
+    alone_ms = graph_ms(lambda: flash_attention_backward(q, k, v, out, dout, **kw), iters=20)
+    serve_fwd = graph_ms(lambda: flash_attention(q, k, v, **kw), iters=20)
+    stats_fwd = graph_ms(lambda: flash_attention_with_lse(q, k, v, **kw), iters=20)
     plain_ms = graph_ms(lambda: flash_attention_backward_reference(q, k, v, out, dout, **kw),
                         iters=5, replays=2)
     if window is not None and S > window:
@@ -3904,12 +3951,14 @@ def time_flash_backward(device, B, S, H, KV, hd, causal=True, window=None) -> di
 
     fwd_bwd = graph_ms(lambda: torch.autograd.grad(sdpa(), leaves, dout_t), iters=10)
     fwd = graph_ms(lambda: sdpa().detach(), iters=10)
-    bound_ms, bound_by = flash_backward_bound(B, S, S, H, KV, hd, causal, window)
+    bound_ms, bound_by, products = flash_backward_bound(B, S, S, H, KV, hd, causal, window)
     log(f"  flash_attention_backward ({B}, {S}, {H}, {hd}) KV={KV} causal={causal} "
         f"window={window} device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  autograd "
         f"of SDPA {fwd_bwd - fwd:.5f} ms (forward and backward {fwd_bwd:.5f} less forward "
-        f"{fwd:.5f})  bound {bound_ms:.6f} ms ({bound_by}); eager kernel with launch cost "
-        f"{eager_ms:.5f} ms")
+        f"{fwd:.5f})  bound {bound_ms:.6f} ms ({bound_by}; products at {products}); eager "
+        f"kernel with launch cost {eager_ms:.5f} ms; without the statistics (the forward "
+        f"with them first) {alone_ms:.5f} ms; the forward {serve_fwd:.5f} ms serving, "
+        f"{stats_fwd:.5f} ms with the statistics")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=fwd_bwd - fwd, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -3930,24 +3979,35 @@ def scan_backward_bound(B, S, D, N) -> tuple[float, str, float]:
 
 
 def time_scan_backward(device, B, S) -> dict:
-    """The selective-scan backward kernel (the scan and the finish) and its
-    plain version at jamba's widths, beside its bound; no PyTorch call
+    """The selective-scan backward kernel (the scan and the finish) as
+    training runs it, from the forward's range-start states, and its plain
+    version at jamba's widths, beside its bound; logged beside, the call
+    without the states (the wrapper runs the forward for them first) and
+    the forward's time with and without storing them.  No PyTorch call
     computes a selective scan or its backward."""
     import torch
-    from repro_torch.kernels.ssm_scan import ssm_scan_backward, ssm_scan_backward_reference
+    from repro_torch.kernels.ssm_scan import (
+        ssm_scan, ssm_scan_backward, ssm_scan_backward_reference, ssm_scan_with_checkpoints,
+    )
 
     D, N = JAMBA["D"], JAMBA["N"]
     args = scan_inputs(device, B, S, D, N, torch.float32, seed=B * 7 + S)
     dy = torch.randn(B, S, D, generator=torch.Generator(device=device).manual_seed(S),
                      device=device)
-    ms, eager_ms = time_both(lambda: ssm_scan_backward(*args, dy, None), iters=10)
+    ckpt = ssm_scan_with_checkpoints(*args)[2]
+    ms, eager_ms = time_both(lambda: ssm_scan_backward(*args, dy, None, ckpt=ckpt), iters=10)
+    alone_ms = graph_ms(lambda: ssm_scan_backward(*args, dy, None), iters=10)
+    serve_fwd = graph_ms(lambda: ssm_scan(*args), iters=10)
+    states_fwd = graph_ms(lambda: ssm_scan_with_checkpoints(*args), iters=10)
     plain_ms = graph_ms(lambda: ssm_scan_backward_reference(*args, dy, None), iters=1,
                         replays=2)
     bound_ms, bound_by, sfu_ms = scan_backward_bound(B, S, D, N)
     log(f"  ssm_scan_backward ({B}, {S}, {D}, {N}) device (graph): kernel {ms:.5f} ms  plain "
         f"{plain_ms:.5f} ms  bound {bound_ms:.6f} ms ({bound_by}; one expf a state on the SFUs "
-        f"{sfu_ms:.6f} ms); eager kernel with launch cost {eager_ms:.5f} ms; no PyTorch call "
-        f"computes a selective scan's backward")
+        f"{sfu_ms:.6f} ms); eager kernel with launch cost {eager_ms:.5f} ms; without the "
+        f"states (the forward with them first) {alone_ms:.5f} ms; the forward {serve_fwd:.5f} ms serving, "
+        f"{states_fwd:.5f} ms storing the states; no PyTorch call computes a selective scan's "
+        f"backward")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
 
 

@@ -46,9 +46,9 @@
 //   eight warps each take 8 of every 64-key tile.  Each warp keeps its own
 //   m, l and o; at the end a head's warps are merged in a fixed order
 //   through shared memory.  The grid is (ceil(S / 16), KV * ceil(G / h), B)
-//   with G = H / KV and h heads per block.  At 170 registers a thread, one
-//   256-thread block fits an SM, so a grid over the SM count runs in
-//   waves.  One head per block when its grid, ceil(S / 16) * H * B, fits
+//   with G = H / KV and h heads per block.  At 128 to 170 registers a
+//   thread, one or two 256-thread blocks fit an SM, so a grid over the SM
+//   count runs in waves.  One head per block when its grid, ceil(S / 16) * H * B, fits
 //   in one wave (llama3-8b on 132 SMs: S <= 64, 96 blocks at S = 34, each
 //   walking one tile instead of two), else two (176 blocks at S = 168;
 //   jamba's H = 64 at every serving length, S >= 34).
@@ -70,6 +70,14 @@
 //   unaligned) are converted through registers into the same fp32 tiles.
 // * Tiles that the causal or window mask fully hides are skipped.  Sums run
 //   in a fixed order, so results are the same from run to run.
+// * Under grad (flash_attention_lse_launch) a second kernel from the same
+//   body also writes each row's log-sum-exp, m + log(l) from the warps'
+//   merge, for the backward kernel (flash_attention_bwd.cu), which then
+//   skips recomputing it; its output is the same bits.  Serving's kernel
+//   is compiled as it was without that store: on an H100 the fp32 kernels
+//   fit 128 registers a thread (two blocks an SM), and the store left free
+//   moves the statistics kernel to 135 (one block an SM), so that kernel
+//   is held to two blocks an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -168,12 +176,17 @@ __device__ __forceinline__ void load_rows(float* __restrict__ dst, int pitch,
 
 __device__ __forceinline__ float4 lds4(const float* p) { return *reinterpret_cast<const float4*>(p); }
 
-template <typename T, bool kAsync, int kHeads>
-__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+// The kernel's body.  kLse: also write each query row's log-sum-exp of
+// its visible scaled scores into lse (B, H, S), for the backward kernel
+// (training: flash_attention_lse_kernel); serving runs kLse = false
+// (flash_attention_kernel).
+template <typename T, bool kAsync, int kHeads, bool kLse>
+__device__ __forceinline__ void flash_attention_body(
     const T* __restrict__ q,   // (B, S, H, hd)
     const T* __restrict__ k,   // (B, Sk, KV, hd)
     const T* __restrict__ v,   // (B, Sk, KV, hd)
     T* __restrict__ out,       // (B, S, H, hd)
+    float* __restrict__ lse,   // (B, H, S), written when kLse
     int S, int Sk, int H, int KV, int hd, float scale, int causal, int window) {
   extern __shared__ __align__(16) float smem[];
   constexpr int QP = kQKPitch, VP = kVPitch, OP = kPartPitch;
@@ -429,6 +442,9 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     den = fmaxf(den, 1e-30f);
 #pragma unroll
     for (int w = 0; w < kSplits; ++w) rows[w * kBQ * OP + kMaxHd] = f[w] / den;
+    if constexpr (kLse) {
+      if (q0 + lane < S) lse[(static_cast<int64_t>(b) * H + h) * S + q0 + lane] = m_all + logf(den);
+    }
   }
   __syncthreads();
   if (head_ok) {
@@ -449,50 +465,104 @@ __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
 }
 
 template <typename T, bool kAsync, int kHeads>
-cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, int B, int S,
-                      int Sk, int H, int KV, int hd, float scale, int causal, int window,
+__global__ void __launch_bounds__(kThreads) flash_attention_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, int S, int Sk, int H, int KV, int hd, float scale, int causal,
+    int window) {
+  flash_attention_body<T, kAsync, kHeads, false>(q, k, v, out, nullptr, S, Sk, H, KV, hd, scale,
+                                                 causal, window);
+}
+
+// The same with the row statistics.  Held to two blocks an SM (at most 128
+// registers a thread), as serving's fp32 kernel compiles: left free, the
+// store of lse moves the register allocation to 135 and one block an SM.
+template <typename T, bool kAsync, int kHeads>
+__global__ void __launch_bounds__(kThreads, 2) flash_attention_lse_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out, float* __restrict__ lse, int S, int Sk, int H, int KV, int hd,
+    float scale, int causal, int window) {
+  flash_attention_body<T, kAsync, kHeads, true>(q, k, v, out, lse, S, Sk, H, KV, hd, scale,
+                                                causal, window);
+}
+
+template <typename T, bool kAsync, int kHeads, bool kLse>
+cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                      int S, int Sk, int H, int KV, int hd, float scale, int causal, int window,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(kHeads, kWarps / kHeads);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T, kAsync, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
   const int pairs = (H / KV + kHeads - 1) / kHeads;
   const dim3 grid((S + kBQ - 1) / kBQ, KV * pairs, B);
-  flash_attention_kernel<T, kAsync, kHeads><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, Sk, H, KV, hd, scale, causal, window);
+  if constexpr (kLse) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_lse_kernel<T, kAsync, kHeads>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    flash_attention_lse_kernel<T, kAsync, kHeads><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), lse, S, Sk, H, KV, hd, scale, causal, window);
+  } else {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_attention_kernel<T, kAsync, kHeads>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    flash_attention_kernel<T, kAsync, kHeads><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(out), S, Sk, H, KV, hd, scale, causal, window);
+  }
   return cudaGetLastError();
 }
 
-template <typename T, bool kAsync>
-cudaError_t launch_heads(const void* q, const void* k, const void* v, void* out, int B, int S,
-                         int Sk, int H, int KV, int hd, float scale, int causal, int window,
-                         int heads, cudaStream_t stream) {
+template <typename T, bool kAsync, bool kLse>
+cudaError_t launch_heads(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B, int S, int Sk, int H, int KV, int hd, float scale, int causal,
+                         int window, int heads, cudaStream_t stream) {
   if (heads == 1) {
-    return launch_as<T, kAsync, 1>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window,
-                                   stream);
+    return launch_as<T, kAsync, 1, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale, causal,
+                                         window, stream);
   }
-  return launch_as<T, kAsync, 2>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window,
-                                 stream);
+  return launch_as<T, kAsync, 2, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale, causal,
+                                       window, stream);
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int S,
-                   int Sk, int H, int KV, int hd, float scale, int causal, int window, int heads,
-                   cudaStream_t stream) {
+template <typename T, bool kLse>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int S, int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                   int heads, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     const bool async = hd % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0
         && reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
     if (async) {
-      return launch_heads<float, true>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal,
-                                       window, heads, stream);
+      return launch_heads<float, true, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale,
+                                             causal, window, heads, stream);
     }
   }
-  return launch_heads<T, false>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window,
-                                heads, stream);
+  return launch_heads<T, false, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale, causal,
+                                      window, heads, stream);
+}
+
+template <bool kLse>
+int launch_dtype(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                 int S, int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                 int dtype, int heads, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return 0;
+  if (hd <= 0 || hd > kMaxHd || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535
+      || (heads != 1 && heads != 2) || Sk <= 0 || (Sk != S && (causal || window > 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return static_cast<int>(launch<float, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale,
+                                                causal, window, heads, s));
+  }
+  if (dtype == 1) {
+    return static_cast<int>(launch<__nv_bfloat16, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd,
+                                                        scale, causal, window, heads, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -525,20 +595,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
                                       int B, int S, int Sk, int H, int KV, int hd,
                                       float scale, int causal, int window, int dtype,
                                       int heads, void* stream) {
-  if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (hd <= 0 || hd > kMaxHd || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535
-      || (heads != 1 && heads != 2) || Sk <= 0 || (Sk != S && (causal || window > 0))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return static_cast<int>(
-        launch<float>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window, heads, s));
-  }
-  if (dtype == 1) {
-    return static_cast<int>(
-        launch<__nv_bfloat16>(q, k, v, out, B, S, Sk, H, KV, hd, scale, causal, window, heads,
-                              s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<false>(q, k, v, out, nullptr, B, S, Sk, H, KV, hd, scale, causal, window,
+                             dtype, heads, stream);
+}
+
+// flash_attention_launch that also writes each query row's log-sum-exp of
+// its visible scaled scores, log sum_t exp(scale q.k_t), into lse: (B, H,
+// S) fp32, for the backward kernel.  out is the same bits as
+// flash_attention_launch's.
+extern "C" int flash_attention_lse_launch(const void* q, const void* k, const void* v, void* out,
+                                          void* lse, int B, int S, int Sk, int H, int KV, int hd,
+                                          float scale, int causal, int window, int dtype,
+                                          int heads, void* stream) {
+  return launch_dtype<true>(q, k, v, out, static_cast<float*>(lse), B, S, Sk, H, KV, hd, scale,
+                            causal, window, dtype, heads, stream);
 }

@@ -13,11 +13,13 @@ at the top of the CUDA source for what bounds it.
 
 Gradients.  On the card, under grad mode with an input that requires
 grad, :func:`flash_attention` goes through a ``torch.autograd.Function``
-whose forward is the same kernel and whose backward is the hand-written
-backward kernel (``csrc/flash_attention_bwd.cu``), called through
-:func:`flash_attention_backward`; without grad it launches the forward
-alone, as serving does.  On the CPU the plain version is differentiable
-as it is.
+whose forward is the same kernel, here also writing each query row's
+log-sum-exp (``flash_attention_lse_launch``; the output is the same bits),
+and whose backward is the hand-written backward kernel
+(``csrc/flash_attention_bwd.cu``), called through
+:func:`flash_attention_backward` with those statistics; without grad it
+launches the forward alone, as serving does, and writes no statistics.
+On the CPU the plain version is differentiable as it is.
 """
 from __future__ import annotations
 
@@ -48,6 +50,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [ptr]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_lse_launch.argtypes = (
+        [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [ptr]
+    )
+    lib.flash_attention_lse_launch.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [i32]
     lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     lib.flash_attention_heads_per_block.argtypes = [i32] * 5
@@ -60,6 +66,8 @@ def _bind_backward(lib: ctypes.CDLL) -> None:
         [ptr] * 10 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
     )
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
+    lib.flash_attention_bwd_blocks_per_sm.argtypes = [i32, i32]
+    lib.flash_attention_bwd_blocks_per_sm.restype = i32
     lib.flash_attention_bwd_smem_bytes.argtypes = [i32]
     lib.flash_attention_bwd_smem_bytes.restype = ctypes.c_size_t
 
@@ -105,8 +113,10 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _forward(q, k, v, causal, window, scale, heads_per_block) -> torch.Tensor:
-    """One forward launch on CUDA tensors; counts nothing."""
+def _forward(q, k, v, causal, window, scale, heads_per_block, lse=None) -> torch.Tensor:
+    """One forward launch on CUDA tensors; counts nothing.  With ``lse``, a
+    (B, H, S) fp32 tensor, the launch also writes each query row's
+    log-sum-exp into it."""
     _check(q, k, v, causal, window)
     B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -126,36 +136,51 @@ def _forward(q, k, v, causal, window, scale, heads_per_block) -> torch.Tensor:
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, S, Sk, H, KV, hd, float(scale), int(causal),
-            0 if window is None else int(window), DTYPES[q.dtype], heads_per_block,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        args = (B, S, Sk, H, KV, hd, float(scale), int(causal),
+                0 if window is None else int(window), DTYPES[q.dtype], heads_per_block,
+                torch.cuda.current_stream().cuda_stream)
+        if lse is None:
+            rc = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            out.data_ptr(), *args)
+        else:
+            _check_lse(lse, q)
+            rc = lib.flash_attention_lse_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                out.data_ptr(), lse.data_ptr(), *args)
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {rc}")
     return out
 
 
+def _check_lse(lse, q) -> None:
+    B, S, H, _ = q.shape
+    if (tuple(lse.shape) != (B, H, S) or lse.dtype != torch.float32 or lse.device != q.device
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous ({B}, {H}, {S}) float32 tensor on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+
+
 class _FlashAttentionFunction(torch.autograd.Function):
     """:func:`flash_attention` on the card under grad: the forward kernel,
-    then :func:`flash_attention_backward`'s kernels.  The output is saved
-    for the backward (its ``D = Σ dout·out`` per row)."""
+    writing each row's log-sum-exp beside the output, then
+    :func:`flash_attention_backward`'s kernels.  The output (its ``D = Σ
+    dout·out`` per row) and the statistics are saved for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, heads_per_block):
-        out = _forward(q, k, v, causal, window, scale, heads_per_block)
+        B, S, H, _ = q.shape
+        lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, causal, window, scale, heads_per_block, lse=lse)
         flash_attention.launches += bool(out.numel())
-        ctx.save_for_backward(q, k, v, out)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.options = (causal, window, scale)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.options
         dq, dk, dv = flash_attention_backward(q, k, v, out, dout, causal=causal, window=window,
-                                              scale=scale)
+                                              scale=scale, lse=lse)
         return dq, dk, dv, None, None, None, None
 
 
@@ -188,13 +213,36 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     return out
 
 
+def flash_attention_with_lse(q, k, v, *, causal: bool = True, window: int | None = None,
+                             scale: float | None = None):
+    """``(out, lse)`` on CUDA tensors: one launch of the forward kernel as
+    the autograd Function runs it, ``out`` the same bits as
+    :func:`flash_attention`'s and ``lse`` (B, H, S) fp32 each query row's
+    log-sum-exp of its visible scaled scores, as
+    :func:`flash_attention_backward` takes it.  Counts one forward launch."""
+    hd = q.shape[-1]
+    if scale is None:
+        scale = hd ** -0.5
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_with_lse runs on cuda, not {q.device}")
+    B, S, H, _ = q.shape
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    out = _forward(q, k, v, causal, window, scale, None, lse=lse)
+    flash_attention.launches += bool(out.numel())
+    return out, lse
+
+
 def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
-                             window: int | None = None, scale: float | None = None):
+                             window: int | None = None, scale: float | None = None, lse=None):
     """The gradients ``(dq, dk, dv)`` of ``out = flash_attention(q, k, v,
     causal=..., window=..., scale=...)`` given ``dout = dL/dout``, each in
     its input's dtype: the backward kernel's two launches (dq with each
     row's statistics, then dk and dv) on CUDA tensors, its plain version
-    (:func:`~.ref.flash_attention_backward_reference`) on CPU tensors."""
+    (:func:`~.ref.flash_attention_backward_reference`) on CPU tensors.
+    ``lse`` is the forward's row statistics, as
+    :func:`flash_attention_with_lse` (or the autograd Function) gives them;
+    without it the wrapper runs that forward launch first (counted in
+    ``flash_attention.launches``).  The plain version recomputes them."""
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
@@ -221,8 +269,10 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    delta = torch.empty_like(lse)
+    if lse is None:
+        lse = flash_attention_with_lse(q, k, v, causal=causal, window=window, scale=scale)[1]
+    _check_lse(lse, q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         rc = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),

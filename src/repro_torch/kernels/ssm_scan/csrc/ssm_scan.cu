@@ -44,6 +44,12 @@
 //   them; y is gathered per range in shared memory and written in rows.
 // * y's lane sums meet in two __shfl_xor_sync steps; all lanes take part
 //   (a channel past D computes on zeros), so no shuffle is divergent.
+// * Under grad (ssm_scan_ckpt_launch) the same kernel, instantiated with
+//   kCkpt, also stores the state at the start of every 8 steps, the ranges
+//   of the backward kernel (ssm_scan_bwd.cu), which then need not walk the
+//   sequence to find them: (B, ceil(S / 8), D, N) fp32, 134 MB at jamba's
+//   training shape (4, 256, 16384, 16).  y and hT are the same bits;
+//   serving's instantiation is the kernel as it was.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,14 +60,17 @@ constexpr int kLanes = 4;                     // lanes per channel
 constexpr int kThreads = 128;                 // threads per block
 constexpr int kChannels = kThreads / kLanes;  // 32 channels per block
 constexpr int kSteps = 32;                    // sequence steps staged per range
+constexpr int kCkptSteps = 8;                 // steps between stored states (kCkpt)
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // kVec: N == NMAX == 16 and h0, hT and a 16-byte aligned, so each lane
-// moves its four states as one float4.
-template <typename T, int NMAX, bool kVec>
+// moves its four states as one float4.  kCkpt: also store the state at the
+// start of every kCkptSteps steps into ckpt (B, ceil(S / kCkptSteps), D, N)
+// for the backward kernel (training); serving runs kCkpt = false.
+template <typename T, int NMAX, bool kVec, bool kCkpt>
 __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
     const T* __restrict__ dt,         // (B, S, D) contiguous
     const T* __restrict__ x,          // (B, S, D) contiguous
@@ -71,6 +80,7 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
     const float* __restrict__ h0,     // (B, D, N) contiguous
     float* __restrict__ y,            // (B, S, D)
     float* __restrict__ hT,           // (B, D, N)
+    float* __restrict__ ckpt,         // (B, ceil(S / kCkptSteps), D, N), written when kCkpt
     int S, int D, int N,
     int64_t bm_sb, int64_t bm_ss, int64_t cm_sb, int64_t cm_ss) {
   constexpr int kPer = NMAX / kLanes;   // states per lane
@@ -126,6 +136,20 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
     __syncthreads();
 #pragma unroll 4
     for (int t = 0; t < steps; ++t) {
+      if constexpr (kCkpt) {
+        if ((t0 + t) % kCkptSteps == 0 && live) {
+          const int R = (S + kCkptSteps - 1) / kCkptSteps;
+          float* at = ckpt + ((b * R + (t0 + t) / kCkptSteps) * D + d) * N + n0;
+          if constexpr (kVec) {
+            *reinterpret_cast<float4*>(at) = float4{h[0], h[1], h[2], h[3]};
+          } else {
+#pragma unroll
+            for (int j = 0; j < kPer; ++j) {
+              if (n0 + j < N) at[j] = h[j];
+            }
+          }
+        }
+      }
       const float dtv = s_dt[t][ch];
       const float dx = __fmul_rn(dtv, s_x[t][ch]);
       float part = 0.0f;
@@ -161,40 +185,65 @@ __global__ void __launch_bounds__(kThreads) ssm_scan_kernel(
   }
 }
 
-template <typename T, int NMAX, bool kVec>
+template <typename T, int NMAX, bool kVec, bool kCkpt>
 cudaError_t launch(const void* dt, const void* x, const void* bm, const void* cm,
-                   const void* a, const void* h0, void* y, void* hT, int B, int S,
+                   const void* a, const void* h0, void* y, void* hT, void* ckpt, int B, int S,
                    int D, int N, int64_t bm_sb, int64_t bm_ss, int64_t cm_sb,
                    int64_t cm_ss, cudaStream_t stream) {
   const dim3 grid((D + kChannels - 1) / kChannels, B);
-  ssm_scan_kernel<T, NMAX, kVec><<<grid, kThreads, 0, stream>>>(
+  ssm_scan_kernel<T, NMAX, kVec, kCkpt><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x), static_cast<const T*>(bm),
       static_cast<const T*>(cm), static_cast<const float*>(a),
       static_cast<const float*>(h0), static_cast<float*>(y), static_cast<float*>(hT),
-      S, D, N, bm_sb, bm_ss, cm_sb, cm_ss);
+      static_cast<float*>(ckpt), S, D, N, bm_sb, bm_ss, cm_sb, cm_ss);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kCkpt>
 cudaError_t launch_n(const void* dt, const void* x, const void* bm, const void* cm,
-                     const void* a, const void* h0, void* y, void* hT, int B, int S,
+                     const void* a, const void* h0, void* y, void* hT, void* ckpt, int B, int S,
                      int D, int N, int64_t bm_sb, int64_t bm_ss, int64_t cm_sb,
                      int64_t cm_ss, cudaStream_t stream) {
   if (N <= 4) {
-    return launch<T, 4, false>(dt, x, bm, cm, a, h0, y, hT, B, S, D, N, bm_sb, bm_ss, cm_sb, cm_ss, stream);
+    return launch<T, 4, false, kCkpt>(dt, x, bm, cm, a, h0, y, hT, ckpt, B, S, D, N, bm_sb,
+                                      bm_ss, cm_sb, cm_ss, stream);
   }
   if (N <= 8) {
-    return launch<T, 8, false>(dt, x, bm, cm, a, h0, y, hT, B, S, D, N, bm_sb, bm_ss, cm_sb, cm_ss, stream);
+    return launch<T, 8, false, kCkpt>(dt, x, bm, cm, a, h0, y, hT, ckpt, B, S, D, N, bm_sb,
+                                      bm_ss, cm_sb, cm_ss, stream);
   }
   if (N <= 16) {
     const bool aligned = reinterpret_cast<uintptr_t>(a) % 16 == 0
-        && reinterpret_cast<uintptr_t>(h0) % 16 == 0 && reinterpret_cast<uintptr_t>(hT) % 16 == 0;
+        && reinterpret_cast<uintptr_t>(h0) % 16 == 0 && reinterpret_cast<uintptr_t>(hT) % 16 == 0
+        && reinterpret_cast<uintptr_t>(ckpt) % 16 == 0;
     if (N == 16 && aligned) {
-      return launch<T, 16, true>(dt, x, bm, cm, a, h0, y, hT, B, S, D, N, bm_sb, bm_ss, cm_sb, cm_ss, stream);
+      return launch<T, 16, true, kCkpt>(dt, x, bm, cm, a, h0, y, hT, ckpt, B, S, D, N, bm_sb,
+                                        bm_ss, cm_sb, cm_ss, stream);
     }
-    return launch<T, 16, false>(dt, x, bm, cm, a, h0, y, hT, B, S, D, N, bm_sb, bm_ss, cm_sb, cm_ss, stream);
+    return launch<T, 16, false, kCkpt>(dt, x, bm, cm, a, h0, y, hT, ckpt, B, S, D, N, bm_sb,
+                                       bm_ss, cm_sb, cm_ss, stream);
   }
   return cudaErrorInvalidValue;
+}
+
+template <bool kCkpt>
+int launch_dtype(const void* dt, const void* x, const void* bm, const void* cm, const void* a,
+                 const void* h0, void* y, void* hT, void* ckpt, int B, int S, int D, int N,
+                 long long bm_sb, long long bm_ss, long long cm_sb, long long cm_ss, int dtype,
+                 void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  if (N < 1 || B > 65535 || S < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    return static_cast<int>(launch_n<float, kCkpt>(dt, x, bm, cm, a, h0, y, hT, ckpt, B, S, D,
+                                                   N, bm_sb, bm_ss, cm_sb, cm_ss, s));
+  }
+  if (dtype == 1) {
+    return static_cast<int>(launch_n<__nv_bfloat16, kCkpt>(dt, x, bm, cm, a, h0, y, hT, ckpt, B,
+                                                           S, D, N, bm_sb, bm_ss, cm_sb, cm_ss,
+                                                           s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -208,16 +257,21 @@ extern "C" int ssm_scan_launch(const void* dt, const void* x, const void* bm,
                                void* hT, int B, int S, int D, int N, long long bm_sb,
                                long long bm_ss, long long cm_sb, long long cm_ss,
                                int dtype, void* stream) {
-  if (B <= 0 || D <= 0) return 0;
-  if (N < 1 || B > 65535 || S < 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    return static_cast<int>(launch_n<float>(dt, x, bm, cm, a, h0, y, hT, B, S, D, N,
-                                            bm_sb, bm_ss, cm_sb, cm_ss, s));
-  }
-  if (dtype == 1) {
-    return static_cast<int>(launch_n<__nv_bfloat16>(dt, x, bm, cm, a, h0, y, hT, B, S, D,
-                                                    N, bm_sb, bm_ss, cm_sb, cm_ss, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_dtype<false>(dt, x, bm, cm, a, h0, y, hT, nullptr, B, S, D, N, bm_sb, bm_ss,
+                             cm_sb, cm_ss, dtype, stream);
+}
+
+// Steps between the states ssm_scan_ckpt_launch stores.
+extern "C" int ssm_scan_ckpt_steps() { return kCkptSteps; }
+
+// ssm_scan_launch that also stores the state at the start of every
+// ssm_scan_ckpt_steps() steps into ckpt, (B, ceil(S / that), D, N) fp32,
+// for the backward kernel; y and hT are the same bits as ssm_scan_launch's.
+extern "C" int ssm_scan_ckpt_launch(const void* dt, const void* x, const void* bm,
+                                    const void* cm, const void* a, const void* h0, void* y,
+                                    void* hT, void* ckpt, int B, int S, int D, int N,
+                                    long long bm_sb, long long bm_ss, long long cm_sb,
+                                    long long cm_ss, int dtype, void* stream) {
+  return launch_dtype<true>(dt, x, bm, cm, a, h0, y, hT, ckpt, B, S, D, N, bm_sb, bm_ss, cm_sb,
+                            cm_ss, dtype, stream);
 }

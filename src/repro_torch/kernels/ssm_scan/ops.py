@@ -18,10 +18,13 @@ block's are already), and ``a`` and ``h0`` are converted to contiguous fp32.
 
 Gradients.  On the card, under grad mode with an input that requires
 grad, :func:`ssm_scan` goes through a ``torch.autograd.Function`` whose
-forward is the same kernel and whose backward is the hand-written
-backward kernel (``csrc/ssm_scan_bwd.cu``), called through
-:func:`ssm_scan_backward`; without grad it launches the forward alone, as
-serving does.  On the CPU the plain version is differentiable as it is.
+forward is the same kernel, here also storing the state at the start of
+every range of the backward's (``ssm_scan_ckpt_launch``; ``y`` and ``hT``
+are the same bits), and whose backward is the hand-written backward
+kernel (``csrc/ssm_scan_bwd.cu``), called through
+:func:`ssm_scan_backward` with those states; without grad it launches the
+forward alone, as serving does, and stores nothing.  On the CPU the plain
+version is differentiable as it is.
 """
 from __future__ import annotations
 
@@ -46,13 +49,21 @@ def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssm_scan_launch.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 4 + [i32, ptr]
     lib.ssm_scan_launch.restype = ctypes.c_int
+    lib.ssm_scan_ckpt_launch.argtypes = [ptr] * 9 + [i32] * 4 + [i64] * 4 + [i32, ptr]
+    lib.ssm_scan_ckpt_launch.restype = ctypes.c_int
+    lib.ssm_scan_ckpt_steps.argtypes = []
+    lib.ssm_scan_ckpt_steps.restype = i32
 
 
 def _bind_backward(lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.ssm_scan_bwd_workspace.argtypes = [i32] * 4
     lib.ssm_scan_bwd_workspace.restype = i64
-    lib.ssm_scan_bwd_launch.argtypes = [ptr] * 15 + [i32] * 4 + [i64] * 4 + [i32, ptr]
+    lib.ssm_scan_bwd_range_steps.argtypes = []
+    lib.ssm_scan_bwd_range_steps.restype = i32
+    lib.ssm_scan_bwd_blocks_per_sm.argtypes = []
+    lib.ssm_scan_bwd_blocks_per_sm.restype = i32
+    lib.ssm_scan_bwd_launch.argtypes = [ptr] * 16 + [i32] * 4 + [i64] * 4 + [i32, ptr]
     lib.ssm_scan_bwd_launch.restype = ctypes.c_int
 
 
@@ -97,8 +108,22 @@ def _operands(dt, x, bmat, cmat, a, h0):
             h0.to(torch.float32).contiguous())
 
 
-def _forward(dt, x, bmat, cmat, a, h0):
-    """(y, hT) from one forward launch on CUDA tensors; counts nothing."""
+def _checkpoint_shape(dt, a) -> tuple[int, int, int, int]:
+    """The shape (B, R, D, N) of the range-start states the forward stores
+    under grad and the backward takes: one every ``ssm_scan_ckpt_steps()``
+    steps, the backward's range."""
+    B, S, D = dt.shape
+    steps = LIBRARY.load().ssm_scan_ckpt_steps()
+    if steps != BACKWARD_LIBRARY.load().ssm_scan_bwd_range_steps():
+        raise RuntimeError("the forward stores states at another interval than the backward's "
+                           "ranges")
+    return B, -(-S // steps), D, a.shape[1]
+
+
+def _forward(dt, x, bmat, cmat, a, h0, ckpt=None):
+    """(y, hT) from one forward launch on CUDA tensors; counts nothing.
+    With ``ckpt`` (:func:`_checkpoint_shape`, fp32) the launch also stores
+    the range-start states in it."""
     _check(dt, x, bmat, cmat, a, h0)
     B, S, D = dt.shape
     N = a.shape[1]
@@ -109,36 +134,48 @@ def _forward(dt, x, bmat, cmat, a, h0):
         return y, hT
     lib = LIBRARY.load()
     with torch.cuda.device(dt.device):
-        rc = lib.ssm_scan_launch(
-            dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
-            a.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr(),
-            B, S, D, N, bmat.stride(0), bmat.stride(1), cmat.stride(0), cmat.stride(1),
-            DTYPES[dt.dtype], torch.cuda.current_stream().cuda_stream,
-        )
+        args = (B, S, D, N, bmat.stride(0), bmat.stride(1), cmat.stride(0), cmat.stride(1),
+                DTYPES[dt.dtype], torch.cuda.current_stream().cuda_stream)
+        pointers = (dt.data_ptr(), x.data_ptr(), bmat.data_ptr(), cmat.data_ptr(),
+                    a.data_ptr(), h0.data_ptr(), y.data_ptr(), hT.data_ptr())
+        if ckpt is None:
+            rc = lib.ssm_scan_launch(*pointers, *args)
+        else:
+            _check_ckpt(ckpt, dt, a)
+            rc = lib.ssm_scan_ckpt_launch(*pointers, ckpt.data_ptr(), *args)
     if rc != 0:
         raise RuntimeError(f"ssm_scan launch failed: CUDA error {rc}")
     return y, hT
 
 
+def _check_ckpt(ckpt, dt, a) -> None:
+    shape = _checkpoint_shape(dt, a)
+    if (tuple(ckpt.shape) != shape or ckpt.dtype != torch.float32 or ckpt.device != dt.device
+            or not ckpt.is_contiguous()):
+        raise ValueError(f"ckpt must be a contiguous {shape} float32 tensor on {dt.device}, got "
+                         f"{ckpt.dtype} {tuple(ckpt.shape)} on {ckpt.device}")
+
+
 class _SSMScanFunction(torch.autograd.Function):
-    """:func:`ssm_scan` on the card under grad: the forward kernel, then
-    :func:`ssm_scan_backward`'s kernels, which recompute the states from
-    the saved inputs."""
+    """:func:`ssm_scan` on the card under grad: the forward kernel, storing
+    the range-start states beside y and hT, then :func:`ssm_scan_backward`'s
+    kernels, which recompute the states of each range from them."""
 
     @staticmethod
     def forward(ctx, dt, x, bmat, cmat, a, h0):
         ctx.set_materialize_grads(False)
-        y, hT = _forward(dt, x, bmat, cmat, a, h0)
+        ckpt = torch.empty(_checkpoint_shape(dt, a), dtype=torch.float32, device=dt.device)
+        y, hT = _forward(dt, x, bmat, cmat, a, h0, ckpt=ckpt)
         ssm_scan.launches += bool(dt.shape[0] and dt.shape[2])
-        ctx.save_for_backward(dt, x, bmat, cmat, a, h0)
+        ctx.save_for_backward(dt, x, bmat, cmat, a, h0, ckpt)
         return y, hT
 
     @staticmethod
     def backward(ctx, dy, dhT):
-        dt, x, bmat, cmat, a, h0 = ctx.saved_tensors
+        dt, x, bmat, cmat, a, h0, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros(dt.shape, dtype=torch.float32, device=dt.device)
-        return ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT)
+        return ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT, ckpt=ckpt)
 
 
 def ssm_scan(dt, x, bmat, cmat, a, h0):
@@ -160,14 +197,32 @@ def ssm_scan(dt, x, bmat, cmat, a, h0):
     return y, hT
 
 
-def ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT=None):
+def ssm_scan_with_checkpoints(dt, x, bmat, cmat, a, h0):
+    """``(y, hT, ckpt)`` on CUDA tensors: one launch of the forward kernel
+    as the autograd Function runs it, ``y`` and ``hT`` the same bits as
+    :func:`ssm_scan`'s and ``ckpt`` the range-start states
+    (:func:`_checkpoint_shape`, fp32) as :func:`ssm_scan_backward` takes
+    them.  Counts one forward launch."""
+    if dt.device.type != "cuda":
+        raise ValueError(f"ssm_scan_with_checkpoints runs on cuda, not {dt.device}")
+    _check(dt, x, bmat, cmat, a, h0)
+    ckpt = torch.empty(_checkpoint_shape(dt, a), dtype=torch.float32, device=dt.device)
+    y, hT = _forward(dt, x, bmat, cmat, a, h0, ckpt=ckpt)
+    ssm_scan.launches += bool(dt.shape[0] and dt.shape[2])
+    return y, hT, ckpt
+
+
+def ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT=None, ckpt=None):
     """The gradients ``(ddt, dx, dB, dC, dA, dh0)`` of ``(y, hT) =
     ssm_scan(dt, x, bmat, cmat, a, h0)`` given ``dy = dL/dy`` (B, S, D)
     and ``dhT = dL/dhT`` (B, D, N, or None), each in its input's dtype: the
     backward kernel's two launches (the scan backward, then the fixed-order
     finish of the sums over channels and batch rows) on CUDA tensors, its
     plain version (:func:`~.ref.ssm_scan_backward_reference`) on CPU
-    tensors."""
+    tensors.  ``ckpt`` is the forward's range-start states, as
+    :func:`ssm_scan_with_checkpoints` (or the autograd Function) gives
+    them; without it the wrapper runs that forward launch first (counted in
+    ``ssm_scan.launches``).  The plain version recomputes every state."""
     if dt.device.type == "cpu":
         return ssm_scan_backward_reference(dt, x, bmat, cmat, a, h0, dy, dhT)
     if dt.device.type != "cuda":
@@ -190,16 +245,20 @@ def ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT=None):
     if B == 0 or D == 0:
         return ddt, dx, db.zero_(), dc.zero_(), da.zero_().to(a.dtype), dh0.to(h0.dtype)
     lib = BACKWARD_LIBRARY.load()
+    inputs = (dtp.data_ptr(), xp.data_ptr(), bp.data_ptr(), cp.data_ptr(), a32.data_ptr(),
+              h32.data_ptr(), dy.data_ptr(), None if dhT is None else dhT.data_ptr())
+    outputs = (ddt.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
+               dh0.data_ptr())
+    if ckpt is None:
+        ckpt = ssm_scan_with_checkpoints(dt, x, bmat, cmat, a, h0)[2]
+    _check_ckpt(ckpt, dt, a)
     work = torch.empty(lib.ssm_scan_bwd_workspace(B, S, D, N), dtype=torch.float32,
                        device=dt.device)
     with torch.cuda.device(dt.device):
         rc = lib.ssm_scan_bwd_launch(
-            dtp.data_ptr(), xp.data_ptr(), bp.data_ptr(), cp.data_ptr(), a32.data_ptr(),
-            h32.data_ptr(), dy.data_ptr(), None if dhT is None else dhT.data_ptr(),
-            ddt.data_ptr(), dx.data_ptr(), db.data_ptr(), dc.data_ptr(), da.data_ptr(),
-            dh0.data_ptr(), work.data_ptr(), B, S, D, N, bp.stride(0), bp.stride(1),
-            cp.stride(0), cp.stride(1), DTYPES[dt.dtype], torch.cuda.current_stream().cuda_stream,
-        )
+            *inputs, ckpt.data_ptr(), *outputs, work.data_ptr(), B, S, D, N, bp.stride(0),
+            bp.stride(1), cp.stride(0), cp.stride(1), DTYPES[dt.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"ssm_scan backward launch failed: CUDA error {rc}")
     ssm_scan_backward.launches += 1

@@ -24,7 +24,9 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_backward,
     flash_attention_backward_reference,
     flash_attention_reference,
+    flash_attention_with_lse,
 )
+from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.rmsnorm import (
     add_rmsnorm,
     add_rmsnorm_backward,
@@ -40,7 +42,9 @@ from repro_torch.kernels.ssm_scan import (
     ssm_scan_backward,
     ssm_scan_backward_reference,
     ssm_scan_reference,
+    ssm_scan_with_checkpoints,
 )
+from repro_torch.kernels.ssm_scan import ops as scan_ops
 from repro_torch.kernels.stream_flow import (
     container_members,
     container_sum,
@@ -1307,6 +1311,19 @@ def _flash_bwd_inputs(cuda, B, S, Sk, H, KV, hd, dtype, seed, v_width=None):
     (2, 1, 9, 4, 2, 64, False, None, None, torch.float32),         # S = 1 over 9 keys
     (2, 256, 256, 32, 32, 64, True, None, None, torch.bfloat16),
     (1, 130, 130, 64, 8, 128, True, 48, None, torch.bfloat16),
+    # the 16-row blocks and 32-row tiles' edges: G = 8 and 1, S and Sk not
+    # multiples of either, head_dim 32 / 64 / 96 / 128, windows, keys of
+    # their own length on both sides of S, bf16
+    (2, 100, 100, 16, 2, 128, True, None, None, torch.float32),    # G = 8, S % 32 = 4
+    (1, 77, 77, 8, 8, 64, True, None, None, torch.float32),        # G = 1, S % 16 = 13
+    (2, 45, 45, 8, 1, 96, True, 20, None, torch.float32),          # hd 96, G = 8, window 20
+    (1, 50, 83, 4, 4, 128, False, None, None, torch.float32),      # Sk > S, neither a tile
+    (1, 83, 50, 4, 2, 64, False, None, None, torch.float32),       # Sk < S
+    (3, 17, 17, 2, 2, 32, True, None, None, torch.float32),        # hd 32 on 64-wide rows
+    (2, 70, 70, 16, 2, 128, True, 9, None, torch.float32),         # window under a tile
+    (2, 100, 100, 16, 2, 128, True, None, None, torch.bfloat16),   # G = 8
+    (1, 40, 40, 8, 8, 96, True, None, 64, torch.bfloat16),         # MLA's padded v
+    (1, 61, 29, 8, 4, 64, False, None, None, torch.bfloat16),      # Sk != S
 ])
 def test_flash_backward_kernel_matches_plain_version(cuda, B, S, Sk, H, KV, hd, causal, window,
                                                      v_width, dtype):
@@ -1324,6 +1341,118 @@ def test_flash_backward_kernel_matches_plain_version(cuda, B, S, Sk, H, KV, hd, 
     assert flash_attention_backward.launches == before + 2
     _grads_close(got, want, ("dq", "dk", "dv"))
     assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_takes_unaligned_tensors(cuda, dtype):
+    """q, k, v, out and dout one element into their buffers (no 16-byte
+    alignment: the tiles arrive through registers, not cp.async) give the
+    bits of aligned copies."""
+    B, S, H, KV, hd = 2, 70, 8, 2, 64
+    q, k, v, dout = _flash_bwd_inputs(cuda, B, S, S, H, KV, hd, dtype, seed=21)
+    out = flash_attention(q, k, v, causal=True)
+
+    def unaligned(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    moved = [unaligned(t) for t in (q, k, v, out, dout)]
+    assert moved[0].data_ptr() % 16 != 0
+    got = flash_attention_backward(*moved, causal=True)
+    want = flash_attention_backward(q, k, v, out, dout, causal=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("B,S,Sk,H,KV,hd,causal,window,v_width,dtype", [
+    (4, 256, 256, 32, 32, 64, True, None, None, torch.float32),    # stablelm-1.6b training
+    (1, 256, 256, 64, 8, 128, True, None, None, torch.float32),    # jamba's attention, GQA 8
+    (2, 100, 100, 8, 1, 128, True, None, None, torch.float32),     # G = 8 at an odd tile edge
+    (2, 70, 70, 16, 2, 128, True, 9, None, torch.float32),         # window under a tile
+    (1, 50, 83, 4, 4, 96, False, None, None, torch.float32),       # Sk > S, hd 96
+    (1, 75, 75, 40, 40, 96, True, None, 64, torch.float32),        # MLA: qk 96, v padded
+    (3, 17, 17, 2, 2, 32, True, None, None, torch.float32),        # hd 32 on 64-wide rows
+    (2, 100, 100, 16, 2, 128, True, None, None, torch.bfloat16),
+    (1, 61, 29, 8, 4, 64, False, None, None, torch.bfloat16),
+])
+def test_flash_backward_from_the_forward_statistics(cuda, B, S, Sk, H, KV, hd, causal, window,
+                                                     v_width, dtype):
+    """The forward with row statistics (as training runs it) gives serving's
+    output bit for bit and each row's log-sum-exp (within fp32 rounding of
+    the plain one); the backward from them matches the plain version,
+    repeats bit for bit, and is the wrapper's without them (which runs the
+    forward for them first) bit for bit."""
+    q, k, v, dout = _flash_bwd_inputs(cuda, B, S, Sk, H, KV, hd, dtype, seed=S + Sk + hd,
+                                      v_width=v_width)
+    kw = dict(causal=causal, window=window, scale=1.0 / hd ** 0.5)
+    served = flash_attention(q, k, v, **kw)
+    out, lse = flash_attention_with_lse(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, served)
+    scores = torch.einsum("bshd,bthd->bhst", q.float(),
+                          k.float().repeat_interleave(H // KV, dim=2)) * kw["scale"]
+    s_idx = torch.arange(S, device=cuda)[:, None]
+    t_idx = torch.arange(Sk, device=cuda)[None, :]
+    mask = torch.ones(S, Sk, dtype=torch.bool, device=cuda)
+    if causal:
+        mask &= t_idx <= s_idx
+    if window is not None:
+        mask &= t_idx > s_idx - window
+    want_lse = torch.logsumexp(torch.where(mask, scores, float("-inf")), dim=-1)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5 * float(want_lse.abs().max()))
+    got = flash_attention_backward(q, k, v, out, dout, lse=lse, **kw)
+    again = flash_attention_backward(q, k, v, out, dout, lse=lse, **kw)
+    alone = flash_attention_backward(q, k, v, out, dout, **kw)
+    want = flash_attention_backward_reference(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    _grads_close(got, want, ("dq", "dk", "dv"))
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert all(torch.equal(g, a) for g, a in zip(got, alone))
+
+
+class _Calls:
+    """Counts the calls of one C entry point of a kernel library."""
+
+    def __init__(self, lib, name):
+        self.lib, self.name, self.fn, self.n = lib, name, getattr(lib, name), 0
+
+    def __enter__(self):
+        def counted(*args):
+            self.n += 1
+            return self.fn(*args)
+        setattr(self.lib, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.lib, self.name, self.fn)
+
+
+def test_forward_outputs_for_the_backward_only_under_grad(cuda):
+    """Without grad flash attention and the selective scan run serving's
+    launch and write no row statistics or range-start states; under grad
+    the forward writes them, once a call."""
+    q = torch.randn(1, 40, 4, 64, device=cuda)
+    k = torch.randn(1, 40, 2, 64, device=cuda)
+    B, S, D, N = 1, 20, 64, 16
+    dt = torch.rand(B, S, D, device=cuda)
+    x = torch.randn(B, S, D, device=cuda)
+    bm, cm = torch.randn(B, S, N, device=cuda), torch.randn(B, S, N, device=cuda)
+    a, h0 = -torch.rand(D, N, device=cuda), torch.zeros(B, D, N, device=cuda)
+    flash_lib, scan_lib = flash_ops.LIBRARY.load(), scan_ops.LIBRARY.load()
+    with _Calls(flash_lib, "flash_attention_lse_launch") as stats, \
+            _Calls(scan_lib, "ssm_scan_ckpt_launch") as states:
+        with torch.no_grad():
+            flash_attention(q.requires_grad_(True), k, k, causal=True)
+            ssm_scan(dt.requires_grad_(True), x, bm, cm, a, h0)
+        flash_attention(q.detach(), k, k, causal=True)
+        ssm_scan(dt.detach(), x, bm, cm, a, h0)
+        assert (stats.n, states.n) == (0, 0)
+        flash_attention(q, k, k, causal=True).sum().backward()
+        ssm_scan(dt, x, bm, cm, a, h0)[0].sum().backward()
+        torch.cuda.synchronize()
+        assert (stats.n, states.n) == (1, 1)
 
 
 def test_flash_backward_under_grad_is_autograd_through_the_plain_version(cuda):
@@ -1350,6 +1479,13 @@ def test_flash_backward_under_grad_is_autograd_through_the_plain_version(cuda):
     (2, 45, 70, 7, torch.float32, True, True),          # N not a power of two
     (1, 1, 96, 16, torch.float32, True, True),          # S = 1
     (2, 130, 1024, 16, torch.bfloat16, True, True),
+    # the 8-step ranges' and 32-channel blocks' edges
+    (2, 13, 70, 16, torch.float32, True, True),         # S % 8 = 5, a 6-channel tail
+    (3, 17, 1000, 16, torch.float32, False, False),     # S % 8 = 1, an 8-channel tail
+    (1, 8, 33, 16, torch.float32, True, False),         # one whole range, a 1-channel tail
+    (2, 40, 64, 3, torch.float32, True, True),          # N = 3 on four lanes of one state
+    (1, 31, 33, 16, torch.bfloat16, True, False),
+    (2, 9, 96, 8, torch.bfloat16, False, True),
 ])
 def test_ssm_scan_backward_kernel_matches_plain_version(cuda, B, S, D, N, dtype, strided,
                                                         with_dhT):
@@ -1365,6 +1501,43 @@ def test_ssm_scan_backward_kernel_matches_plain_version(cuda, B, S, D, N, dtype,
     assert ssm_scan_backward.launches == before + 2
     _grads_close(got, want, ("ddt", "dx", "dB", "dC", "dA", "dh0"))
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,S,D,N,dtype,strided,with_dhT", [
+    (4, 256, 16384, 16, torch.float32, True, False),   # jamba's training shape
+    (2, 13, 70, 16, torch.float32, True, True),         # S % 8 = 5, a 6-channel tail
+    (3, 17, 1000, 16, torch.float32, False, False),
+    (2, 45, 70, 7, torch.float32, True, True),          # N not a power of two
+    (1, 8, 33, 4, torch.float32, True, True),
+    (1, 31, 33, 16, torch.bfloat16, True, False),
+])
+def test_ssm_scan_backward_from_the_forward_states(cuda, B, S, D, N, dtype, strided, with_dhT):
+    """The forward with range-start states (as training runs it) gives
+    serving's y and hT bit for bit and the states of the plain recurrence
+    bit for bit at every range start; the backward from them matches the
+    plain version and is the wrapper's without them (which runs the
+    forward for them first) bit for bit."""
+    args = _scan_inputs(cuda, B, S, D, N, dtype=dtype, seed=S + D + 1, strided=strided)
+    g = torch.Generator(device=cuda).manual_seed(B + S + 1)
+    dy = torch.randn(B, S, D, generator=g, device=cuda)
+    dhT = torch.randn(B, D, N, generator=g, device=cuda) if with_dhT else None
+    served = ssm_scan(*args)
+    y, hT, ckpt = ssm_scan_with_checkpoints(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, served[0]) and torch.equal(hT, served[1])
+    steps = scan_ops.LIBRARY.load().ssm_scan_ckpt_steps()
+    assert ckpt.shape == (B, -(-S // steps), D, N)
+    dt, x, bm, cm, a, h0 = args
+    for r in range(ckpt.shape[1]):
+        _, h_r = ssm_scan_reference(dt[:, :r * steps], x[:, :r * steps], bm[:, :r * steps],
+                                    cm[:, :r * steps], a, h0)
+        assert torch.equal(ckpt[:, r], h_r), f"range {r}"
+    got = ssm_scan_backward(*args, dy, dhT, ckpt=ckpt)
+    alone = ssm_scan_backward(*args, dy, dhT)
+    want = ssm_scan_backward_reference(*args, dy, dhT)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(got, alone))
+    _grads_close(got, want, ("ddt", "dx", "dB", "dC", "dA", "dh0"))
 
 
 def test_ssm_scan_under_grad_is_autograd_through_the_plain_version(cuda):
