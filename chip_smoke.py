@@ -185,7 +185,26 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    losses and gradient norms, the second run bit for bit the first, and
    per step one backward launch for each forward launch of the norms,
    flash (24 a step for stablelm) and the scan;
-13. (run after 21) builds the LM bridge's workload model of each served
+22. (run after 21) drives the sharded steps (``repro_torch.launch.steps``)
+   on a (1, 1) ``("data", "model")`` mesh over a NCCL process group of one
+   rank (a ``FileStore`` in a temporary directory): (b) stablelm-1.6b
+   whole in fp32, ``make_step`` for 2 steps of 21 (b)'s first two batches,
+   its parameters copied to the host, then the train bundle (remat "none")
+   for the same 2 steps from the same seed-0 parameters: losses within rel
+   1e-6 (bit for bit reported), every parameter within 1e-5 of its leaf's
+   largest entry, both runs' launches those of 2 training steps (24 flash
+   forward and 24 backward a step, the norms and their backward kernels:
+   the kernels ran on the local shards through ``local_map``), each peak
+   under 75 GiB; (c) the prefill and decode bundles against the unsharded
+   ``forward_prefill`` and ``forward_decode`` on 4 of phase 6's seeded
+   prompts and 8 greedy steps: logits and caches within rtol 1e-4, atol
+   1e-4 x max, tokens equal; (d) ``gqa_decode_seqsharded`` at stablelm's
+   widths against ``gqa_decode`` (1e-5 of the largest entry) and
+   ``topk_allreduce`` against ``topk_decompress(topk_compress(...))`` bit
+   for bit; it prints the step walls of both, the DTensor path's host
+   overhead, the peaks and the launches.  One card shows the DTensor path
+   and its kernels, not the collectives of several ranks;
+13. (run after 22) builds the LM bridge's workload model of each served
    model (2N FLOPs and the fp32 parameter bytes over the slots per token)
    and prints its predicted one-card decode rate beside the measured one
    for phases 6, 9, 11, 12, 15-17 and 19; runs
@@ -4201,6 +4220,314 @@ def phases_train_attention_mamba(device, seed, timings, pair_grads) -> dict:
     return out
 
 
+# ------------------------------------- phase 22: sharded steps on a 1x1 mesh
+
+SHARDED_TRAIN_STEPS = 2               # 22 (b): steps of 21 (b)'s batches (4 x 256)
+SHARDED_PROMPTS, SHARDED_DECODE_STEPS = 4, 8   # 22 (c)
+SHARDED_LOSS_RTOL = 1e-6              # 22 (b): bundle's losses vs make_step's
+SHARDED_PARAM_ATOL_REL = 1e-5         # 22 (b): each parameter vs its leaf's largest entry
+SHARDED_SERVE_TOL = 1e-4              # 22 (c): rtol, and atol = 1e-4 x max|unsharded|
+SHARDED_SEQ_TOL = 1e-5                # 22 (d): seqsharded decode vs gqa_decode, x max|out|
+SHARDED_PEAK_LIMIT = 75 * 2**30
+
+
+def nccl_world_of_one(tmp_dir):
+    """A NCCL process group of world size 1 from a ``FileStore`` in
+    ``tmp_dir`` (no network), and the (1, 1) ``("data", "model")`` mesh on
+    it."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tmp_dir, "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60),
+                            device_id=torch.device("cuda", 0))
+    return make_debug_mesh(1, 1, device_type="cuda")
+
+
+def sharded_train(device, seed, mesh) -> dict:
+    """22 (b): stablelm-1.6b whole in fp32, ``make_step`` for two steps of
+    21 (b)'s first two batches and then the train bundle for the same two
+    steps from the same seed-0 parameters (remat "none").  The first run's
+    parameters go to the host leaf by leaf before the second is built, so
+    the card never holds both states."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.sharding import PlanConfig
+    from repro_torch.launch.steps import make_train_bundle
+    from repro_torch.launch.train import TrainConfig, make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_opt_state
+
+    cfg = stablelm_config()
+    opt_cfg = TrainConfig().opt
+    stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN21_SEQ,
+                                          global_batch=TRAIN21_BATCH, seed=seed))
+    batches = [{k: torch.as_tensor(v, device=device).long()
+                for k, v in stream.batch_at(s).items()} for s in range(SHARDED_TRAIN_STEPS)]
+    runs = {}
+    for kind in ("make_step", "bundle"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = build_model(cfg, device=device, seed=seed)
+        if kind == "make_step":
+            model.trainable()
+            params = dict(model.named_parameters())
+            step_fn = make_step(model, opt_cfg)
+        else:
+            bundle = make_train_bundle(cfg, ShapeConfig("train", TRAIN21_SEQ, TRAIN21_BATCH,
+                                                        "train"), mesh,
+                                       PlanConfig(tp=1, dp=1), opt_cfg,
+                                       param_dtype=torch.float32, remat="none",
+                                       device_type=device.type)
+            params = bundle.place_params(dict(model.named_parameters()))
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            step_fn = bundle.step_fn
+        opt_state = init_opt_state(opt_cfg, params)
+        zero_launches()
+        losses, norms, ms = [], [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, b)
+            losses.append(float(metrics["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(metrics["grad_norm"]))
+        torch.cuda.synchronize()
+        run = dict(losses=losses, grad_norms=norms, step_ms=ms, launches=kernel_launches(),
+                   peak_bytes=torch.cuda.max_memory_allocated())
+        if kind == "make_step":
+            run["params"] = {n: p.detach().to("cpu") for n, p in params.items()}
+        else:
+            worst = 0.0
+            for n, p in params.items():
+                got = p.to_local().detach()
+                want = runs["make_step"]["params"][n].to(device)
+                err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+                worst = max(worst, err)
+                if err > SHARDED_PARAM_ATOL_REL:
+                    raise AssertionError(f"22 (b): {n} after {SHARDED_TRAIN_STEPS} steps differs "
+                                         f"from make_step's by {err:.3e} of its largest entry")
+                del want
+            run["param_err"] = worst
+            run["param_bitwise"] = worst == 0.0
+            run["placements"] = sorted({str(tuple(p.placements)) for p in params.values()})
+        runs[kind] = run
+        del params, opt_state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref, got = runs["make_step"], runs["bundle"]
+    for a, b in zip(got["losses"], ref["losses"]):
+        if not (math.isfinite(a) and abs(a - b) <= SHARDED_LOSS_RTOL * abs(b)):
+            raise AssertionError(f"22 (b): bundle losses {got['losses']} vs make_step's "
+                                 f"{ref['losses']}")
+    want = training_launches(cfg, SHARDED_TRAIN_STEPS)
+    for kind, run in runs.items():
+        if run["launches"] != want:
+            raise AssertionError(f"22 (b): {kind} launched {run['launches']}, expected {want}")
+        if run["peak_bytes"] > SHARDED_PEAK_LIMIT:
+            raise AssertionError(f"22 (b): {kind}'s peak {run['peak_bytes']} bytes passes "
+                                 f"{SHARDED_PEAK_LIMIT / 2**30:.0f} GiB")
+    del ref["params"]
+    got["losses_bitwise"] = got["losses"] == ref["losses"]
+    return runs
+
+
+def sharded_serve(device, seed, mesh) -> dict:
+    """22 (c): stablelm-1.6b's prefill and decode bundles against the
+    unsharded ``forward_prefill`` and ``forward_decode``: the first 4 of
+    phase 6's seeded prompts (its generator and seed, stablelm's vocab),
+    each cut to the shortest of them, then 8 greedy decode steps against
+    caches padded to the prompt plus the steps."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.sharding import PlanConfig
+    from repro_torch.launch.steps import make_decode_bundle, make_prefill_bundle
+    from repro_torch.models import build_model
+
+    cfg = stablelm_config()
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(32, 193, size=8)
+    prompts = [rng.integers(4, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
+    S = int(min(lengths[:SHARDED_PROMPTS]))
+    tokens = torch.as_tensor(np.stack([p[:S] for p in prompts[:SHARDED_PROMPTS]]),
+                             device=device).long()
+    B, ctx = SHARDED_PROMPTS, S + SHARDED_DECODE_STEPS
+    model = build_model(cfg, device=device, seed=seed)
+    plan = PlanConfig(tp=1, dp=1)
+    pre = make_prefill_bundle(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh, plan,
+                              param_dtype=torch.float32, device_type=device.type)
+    dec = make_decode_bundle(cfg, ShapeConfig("decode", ctx, B, "decode"), mesh, plan,
+                             param_dtype=torch.float32, device_type=device.type)
+    params = pre.place_params(dict(model.named_parameters()))
+
+    def padded(caches):
+        full = model.cache_struct(B, ctx)
+        for key, per in caches.items():
+            for n, t in per.items():
+                full[key][n][:, :, :S] = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return full
+
+    worst = {"logits": 0.0, "caches": 0.0}
+
+    def check(label, got, want):
+        got = got.full_tensor() if hasattr(got, "full_tensor") else got
+        scale = float(want.abs().max())
+        excess = ((got - want).abs() - SHARDED_SERVE_TOL * want.abs()).max()
+        err = float((got - want).abs().max()) / max(scale, 1e-30)
+        if float(excess) > SHARDED_SERVE_TOL * scale:
+            raise AssertionError(f"22 (c): {label} differs from the unsharded run by {err:.3e} "
+                                 f"of its largest entry")
+        kind = "logits" if "logits" in label else "caches"
+        worst[kind] = max(worst[kind], err)
+
+    walls = {"unsharded": [], "bundle": []}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_logits, want_caches = model.forward_prefill(tokens)
+    torch.cuda.synchronize()
+    walls["unsharded"].append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    logits, caches = pre.step_fn(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    walls["bundle"].append((time.perf_counter() - t0) * 1e3)
+    check("prefill logits", logits, want_logits)
+    for key, per in want_caches.items():
+        for n, t in per.items():
+            check(f"prefill cache {key}/{n}", caches[key][n], t)
+    want_full, full = padded(want_caches), padded(caches)
+    del want_caches, caches
+    want_tok = want_logits.argmax(-1)
+    tok = logits.full_tensor().argmax(-1)
+    tokens_out = []
+    for i in range(SHARDED_DECODE_STEPS):
+        if not torch.equal(tok, want_tok):
+            raise AssertionError(f"22 (c): greedy tokens differ at step {i}: "
+                                 f"{tok.tolist()} vs {want_tok.tolist()}")
+        tokens_out.append(tok[:, 0].tolist())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_logits, want_full = model.forward_decode(want_tok, want_full, S + i)
+        torch.cuda.synchronize()
+        walls["unsharded"].append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        logits, full = dec.step_fn(params, full, tok, S + i)
+        torch.cuda.synchronize()
+        walls["bundle"].append((time.perf_counter() - t0) * 1e3)
+        check(f"decode {i} logits", logits, want_logits)
+        want_tok, tok = want_logits.argmax(-1), logits.full_tensor().argmax(-1)
+    for key, per in want_full.items():
+        for n, t in per.items():
+            check(f"decode cache {key}/{n}", full[key][n], t)
+    del model, params, full, want_full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(prompt_len=S, ctx=ctx, tokens=tokens_out, max_rel_err=worst, wall_ms=walls)
+
+
+def sharded_collectives(device, seed, mesh) -> dict:
+    """22 (d): ``gqa_decode_seqsharded`` at stablelm-1.6b's widths over the
+    mesh's 'data' group (one rank: the whole cache) against ``gqa_decode``,
+    and ``topk_allreduce`` against ``topk_decompress(topk_compress(...))``
+    bit for bit."""
+    import types
+
+    import torch
+    from repro_torch.models.attention import gqa_decode, gqa_decode_seqsharded, gqa_defs
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.compression import (
+        TopKConfig, topk_allreduce, topk_compress, topk_decompress,
+    )
+
+    cfg = stablelm_config()
+    g = torch.Generator(device=device).manual_seed(seed + 22)
+    layer = {k: v[0] for k, v in init_params(gqa_defs(cfg, 1), g, device=device).items()}
+    p = types.SimpleNamespace(**layer)
+    B, T, pos = 4, 512, 300
+    shape = (B, T, cfg.n_kv_heads, cfg.head_dim)
+    cache = {n: torch.randn(shape, generator=g, device=device) for n in "kv"}
+    x = 0.3 * torch.randn((B, 1, cfg.d_model), generator=g, device=device)
+    with torch.no_grad():
+        want, _ = gqa_decode(p, x, cfg, {n: t.clone() for n, t in cache.items()}, pos)
+        got, _ = gqa_decode_seqsharded(p, x, cfg, {n: t.clone() for n, t in cache.items()}, pos,
+                                       mesh.get_group("data"))
+    seq_err = float((got - want).abs().max()) / float(want.abs().max())
+    if seq_err > SHARDED_SEQ_TOL:
+        raise AssertionError(f"22 (d): gqa_decode_seqsharded differs from gqa_decode by "
+                             f"{seq_err:.3e} of the largest entry")
+    grad = torch.randn((cfg.d_model, cfg.d_ff), generator=g, device=device)
+    err = 0.1 * torch.randn(grad.shape, generator=g, device=device)
+    tcfg = TopKConfig(density=0.01)
+    mean, new_err = topk_allreduce(grad, err, tcfg, mesh.get_group("data"))
+    payload, want_err = topk_compress(grad, err, tcfg)
+    if not (torch.equal(mean, topk_decompress(payload, grad.shape))
+            and torch.equal(new_err, want_err)):
+        raise AssertionError("22 (d): topk_allreduce at world size 1 is not topk_decompress("
+                             "topk_compress(...)) bit for bit")
+    return dict(seqsharded_rel_err=seq_err, topk_bitwise=True)
+
+
+def phase_sharded(device, seed, timings) -> dict:
+    """Phase 22: the sharded train, prefill and decode bundles of
+    stablelm-1.6b on a (1, 1) mesh over a NCCL group of one rank, every
+    hand-written kernel on the local shards; the sequence-sharded decode
+    and the compressed all-reduce on that group.  One card shows the
+    DTensor path and its kernels, not the collectives of several ranks."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    log("phase 22 (a): NCCL process group of one rank (FileStore), a (1, 1) "
+        "('data', 'model') mesh")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = nccl_world_of_one(tmp)
+        try:
+            log(f"phase 22 (b): stablelm-1.6b whole, fp32, the train bundle vs make_step, "
+                f"{SHARDED_TRAIN_STEPS} steps of {TRAIN21_BATCH} x {TRAIN21_SEQ}")
+            train = sharded_train(device, seed, mesh)
+            timings["phase22b"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+            log(f"phase 22 (c): stablelm-1.6b prefill and decode bundles vs the unsharded "
+                f"forwards, {SHARDED_PROMPTS} prompts, {SHARDED_DECODE_STEPS} decode steps")
+            serve = sharded_serve(device, seed, mesh)
+            timings["phase22c"] = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            log("phase 22 (d): gqa_decode_seqsharded and topk_allreduce on the one-rank group")
+            coll = sharded_collectives(device, seed, mesh)
+            timings["phase22d"] = time.perf_counter() - t1
+        finally:
+            dist.destroy_process_group()
+    ref, got = train["make_step"], train["bundle"]
+    host_ms = [a - b for a, b in zip(got["step_ms"], ref["step_ms"])]
+    fig = {
+        "phase": 22, "card": card_line(),
+        "train": {"losses_bundle": got["losses"], "losses_make_step": ref["losses"],
+                  "losses_bitwise": got["losses_bitwise"],
+                  "param_max_rel_err": got["param_err"], "params_bitwise": got["param_bitwise"],
+                  "grad_norms": got["grad_norms"],
+                  "step_ms_bundle": got["step_ms"], "step_ms_make_step": ref["step_ms"],
+                  "dtensor_host_overhead_ms": host_ms,
+                  "peak_bytes_bundle": got["peak_bytes"], "peak_bytes_make_step": ref["peak_bytes"],
+                  "launches": got["launches"], "placements": got["placements"]},
+        "serve": serve, "collectives": coll,
+        "wall_s": time.perf_counter() - t0,
+    }
+    log(json.dumps(fig))
+    timings["phase22"] = time.perf_counter() - t0
+    return fig
+
+
 BRIDGE_TARGETS = (1e4, 1e5, 1e6)     # tok/s, as examples/serve_lm.py asks
 BRIDGE_FLEET_STEPS = 6
 
@@ -4824,6 +5151,7 @@ def main() -> int:
     xlstm = phases_xlstm(device, seed, serve_rng, timings)
     new_served = list(moe_mla["served"].values()) + [xlstm["served"]]
     trained = phases_train_attention_mamba(device, seed, timings, pair_grads)
+    sharded = phase_sharded(device, seed, timings)
 
     t0 = time.perf_counter()
     log("phase 13: the LM bridge on the card's own numbers (phases 6, 9, 11, 12, 15-17 and 19), "

@@ -4,11 +4,10 @@ the reference package's ``data/pipeline.py``.
 
 Deterministic-by-step: ``batch_at(step)`` is a pure function of (seed,
 step), so a restarted run reproduces the exact stream, and both packages
-give the same arrays bit for bit.  The reference's ``shard_batch`` places
-a batch on a device mesh; the port trains on one card (ROADMAP queue 1,
-item 3e (ii) for more).  ``DataConfig`` leaves out the reference's
-``prefetch`` field, which nothing reads there either: the prefetch depth
-is :class:`PrefetchIterator`'s own argument.
+give the same arrays bit for bit.  :func:`shard_batch` places a batch on a
+device mesh as DTensors, for the sharded steps.  ``DataConfig`` leaves out
+the reference's ``prefetch`` field, which nothing reads there either: the
+prefetch depth is :class:`PrefetchIterator`'s own argument.
 """
 from __future__ import annotations
 
@@ -18,6 +17,8 @@ import threading
 from typing import Iterator
 
 import numpy as np
+import torch
+from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 from .tokenizer import HashTokenizer, synthetic_document
 
@@ -87,3 +88,22 @@ class PrefetchIterator:
 
     def close(self):
         self._stop.set()
+
+
+def shard_batch(batch: dict, mesh, batch_axes=("data",)) -> dict:
+    """Place a host batch onto the mesh with the batch dim sharded: each
+    array becomes a DTensor on ``mesh``'s device type, ``Shard(0)`` over
+    the mesh dims named in ``batch_axes`` and replicated over the others.
+    ``"step"`` is dropped, as the reference drops it."""
+    names = tuple(mesh.mesh_dim_names)
+    missing = set(batch_axes) - set(names)
+    if missing:
+        raise ValueError(f"batch axes {sorted(missing)} are not in the mesh's {names}")
+    pl = [Shard(0) if n in batch_axes else Replicate() for n in names]
+    out = {}
+    for k, v in batch.items():
+        if k == "step":
+            continue
+        t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+        out[k] = distribute_tensor(t.to(mesh.device_type), mesh, pl)
+    return out

@@ -85,23 +85,35 @@ def model_params_from_numpy(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.
     ``ValueError``, and so does a leaf whose period count is not the
     config's.
     """
+    def take(name: str, value, layer: int | None, n_layers: int) -> torch.Tensor:
+        arr = np.asarray(value)
+        if layer is not None:
+            if arr.shape[0] != n_layers:
+                raise ValueError(f"{name}: {arr.shape[0]} layers, config has {n_layers}")
+            arr = arr[layer]
+        return torch.from_numpy(np.array(arr, copy=True))
+
+    return unstack_tree(tree, cfg, take)
+
+
+def unstack_tree(tree: Mapping, cfg: ModelConfig, take) -> dict:
+    """A tree shaped as the reference's parameter tree (block leaves stacked
+    along the period axis), flattened to the port's parameter names as
+    :func:`model_params_from_numpy` names them.  ``take(name, leaf, layer,
+    n_layers)`` gives each name's entry: ``layer`` is the period (or
+    encoder layer) of a stacked leaf, None for an unstacked one."""
     kinds = {key.split("_", 1)[1] for key in tree["blocks"]}
     if not kinds <= set(BLOCK_KINDS):
         raise ValueError(f"{cfg.name}: unknown block kinds {sorted(kinds - set(BLOCK_KINDS))}")
     n_periods = cfg.n_periods()
-    out: dict[str, torch.Tensor] = {}
+    out: dict = {}
 
     def walk(node: Mapping, prefix: str, layer: int | None, n_layers: int = n_periods) -> None:
         for key, value in node.items():
             if isinstance(value, Mapping):
                 walk(value, f"{prefix}{key}.", layer, n_layers)
                 continue
-            arr = np.asarray(value)
-            if layer is not None:
-                if arr.shape[0] != n_layers:
-                    raise ValueError(f"{prefix}{key}: {arr.shape[0]} layers, config has {n_layers}")
-                arr = arr[layer]
-            out[f"{prefix}{key}"] = torch.from_numpy(np.array(arr, copy=True))
+            out[f"{prefix}{key}"] = take(f"{prefix}{key}", value, layer, n_layers)
 
     for key, value in tree.items():
         if key == "encoder":

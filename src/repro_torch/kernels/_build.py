@@ -21,11 +21,23 @@ import threading
 from pathlib import Path
 from typing import Callable
 
+from torch.distributed.tensor import DTensor
+
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+
+def refuse_dtensor(fn: str, *tensors) -> None:
+    """Raises ``TypeError`` if any of ``tensors`` is a DTensor.  A kernel
+    wrapper hands its tensors' ``data_ptr()`` to the kernel, and a
+    DTensor's pointer is not its local shard's: sharded model code calls a
+    wrapper on local shards (``local_map``), never on a DTensor."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{fn} takes local tensors, not DTensors: call it on each rank's "
+                        "shard through torch.distributed.tensor.experimental.local_map")
 
 
 def nvcc() -> str:

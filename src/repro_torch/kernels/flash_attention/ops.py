@@ -29,7 +29,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import KernelLibrary
+from .._build import KernelLibrary, refuse_dtensor
 from .ref import (
     check_key_length,
     flash_attention_backward_reference,
@@ -198,6 +198,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     wave of one block per SM, else two (``flash_attention_heads_per_block``
     in the CUDA source).  ``heads_per_block`` forces it, for tests and timing
     only."""
+    refuse_dtensor("flash_attention", q, k, v)
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
@@ -220,6 +221,7 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True, window: int | None
     :func:`flash_attention`'s and ``lse`` (B, H, S) fp32 each query row's
     log-sum-exp of its visible scaled scores, as
     :func:`flash_attention_backward` takes it.  Counts one forward launch."""
+    refuse_dtensor("flash_attention_with_lse", q, k, v)
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
@@ -243,6 +245,7 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     :func:`flash_attention_with_lse` (or the autograd Function) gives them;
     without it the wrapper runs that forward launch first (counted in
     ``flash_attention.launches``).  The plain version recomputes them."""
+    refuse_dtensor("flash_attention_backward", q, k, v, out, dout, lse)
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5

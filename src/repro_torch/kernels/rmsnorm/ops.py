@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import KernelLibrary
+from .._build import KernelLibrary, refuse_dtensor
 from .ref import (
     add_rmsnorm_backward_reference,
     add_rmsnorm_reference,
@@ -173,6 +173,7 @@ class _AddRMSNormFunction(torch.autograd.Function):
 def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm of ``x`` over its last axis with per-feature ``gain``; the
     output has ``x``'s shape and dtype.  Differentiable on both devices."""
+    refuse_dtensor("rmsnorm", x, gain)
     if x.device.type == "cpu":
         return rmsnorm_reference(x, gain, eps)
     if _needs_grad(x, gain):
@@ -189,6 +190,7 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor | None, gain: torch.Tensor,
     dtype, as ``x + delta`` rounds) and its RMSNorm ``h = rmsnorm(s, gain,
     eps)``, from one launch.  With ``delta`` None, ``s`` is ``x`` itself and
     ``h`` comes from :func:`rmsnorm`.  Differentiable on both devices."""
+    refuse_dtensor("add_rmsnorm", x, delta, gain)
     if delta is None:
         return x, rmsnorm(x, gain, eps)
     if x.device.type == "cpu":
@@ -238,6 +240,7 @@ def rmsnorm_backward(x: torch.Tensor, dy: torch.Tensor, gain: torch.Tensor,
     ``dy = dL/dh`` (``dx`` in ``x``'s dtype, ``dgain`` in ``gain``'s): the
     backward kernel on CUDA tensors, its plain version
     (:func:`~.ref.rmsnorm_backward_reference`) on CPU tensors."""
+    refuse_dtensor("rmsnorm_backward", x, dy, gain)
     if x.device.type == "cpu":
         return rmsnorm_backward_reference(x, dy, gain, eps)
     out = _backward(x, dy, None, gain, eps)
@@ -254,6 +257,7 @@ def add_rmsnorm_backward(s: torch.Tensor, ds: torch.Tensor | None, dh: torch.Ten
     ``(dx, dgain)``, ``dx`` being the gradient of ``x`` and of ``delta``
     alike.  The backward kernel with the residual gradient added in, on
     CUDA tensors; its plain version on CPU tensors."""
+    refuse_dtensor("add_rmsnorm_backward", s, ds, dh, gain)
     if s.device.type == "cpu":
         return add_rmsnorm_backward_reference(s, ds, dh, gain, eps)
     out = _backward(s, dh, ds, gain, eps)

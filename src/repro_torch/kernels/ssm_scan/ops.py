@@ -33,7 +33,7 @@ from pathlib import Path
 
 import torch
 
-from .._build import KernelLibrary
+from .._build import KernelLibrary, refuse_dtensor
 from .ref import ssm_scan_backward_reference, ssm_scan_reference
 
 #: Largest state width N the kernel takes (four lanes per channel keep N / 4
@@ -185,6 +185,7 @@ def ssm_scan(dt, x, bmat, cmat, a, h0):
     (y (B, S, D), hT (B, D, N)), both fp32.  Differentiable on both
     devices: on the card under grad the backward kernel computes the
     gradients."""
+    refuse_dtensor("ssm_scan", dt, x, bmat, cmat, a, h0)
     if dt.device.type == "cpu":
         return ssm_scan_reference(dt, x, bmat, cmat, a, h0)
     if dt.device.type != "cuda":
@@ -203,6 +204,7 @@ def ssm_scan_with_checkpoints(dt, x, bmat, cmat, a, h0):
     :func:`ssm_scan`'s and ``ckpt`` the range-start states
     (:func:`_checkpoint_shape`, fp32) as :func:`ssm_scan_backward` takes
     them.  Counts one forward launch."""
+    refuse_dtensor("ssm_scan_with_checkpoints", dt, x, bmat, cmat, a, h0)
     if dt.device.type != "cuda":
         raise ValueError(f"ssm_scan_with_checkpoints runs on cuda, not {dt.device}")
     _check(dt, x, bmat, cmat, a, h0)
@@ -223,6 +225,7 @@ def ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT=None, ckpt=None):
     :func:`ssm_scan_with_checkpoints` (or the autograd Function) gives
     them; without it the wrapper runs that forward launch first (counted in
     ``ssm_scan.launches``).  The plain version recomputes every state."""
+    refuse_dtensor("ssm_scan_backward", dt, x, bmat, cmat, a, h0, dy, dhT, ckpt)
     if dt.device.type == "cpu":
         return ssm_scan_backward_reference(dt, x, bmat, cmat, a, h0, dy, dhT)
     if dt.device.type != "cuda":

@@ -24,17 +24,33 @@ latent norms run the RMSNorm kernel, and its decode attends to the
 compressed cache directly with ``wk_up`` absorbed into the query, in plain
 torch as in the reference.
 
-Sequence-sharded decode is a later slice (ROADMAP queue 1, item 3e).
+Under the sharded steps (:mod:`repro_torch.launch.steps`) the flash
+kernel and the MLA norms run on each rank's local shards
+(:func:`call_flash`, :func:`~.common.call_norm`), and GQA decode against a
+DTensor cache whose time axis is sharded combines each rank's partial
+softmax as flash-decoding does (:func:`gqa_decode_seqsharded` is that
+combine over one process group, on local tensors).
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..configs.base import MLAConfig, ModelConfig
 from ..kernels.flash_attention import flash_attention
 from ..kernels.rmsnorm import rmsnorm
-from .common import ParamDef, apply_rope, softmax_fp32
+from .common import (
+    ParamDef,
+    apply_rope,
+    call_norm,
+    on_shards,
+    replicated_like,
+    seq_whole,
+    shard_act,
+    softmax_fp32,
+)
 
 # ---------------------------------------------------------------------------
 # Parameter tables
@@ -96,17 +112,42 @@ def _gqa_core(q, k, v, mask, scale) -> torch.Tensor:
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
-    scores = torch.einsum("bsnh,btnh->bnst", q, k) * scale
+    score_axes = ("act_batch", "act_heads", None, None)
+    k = shard_act(k, ("act_batch", None, "act_heads", None))
+    v = shard_act(v, ("act_batch", None, "act_heads", None))
+    scores = shard_act(torch.einsum("bsnh,btnh->bnst", q, k) * scale, score_axes)
     mask = mask[None, None] if mask.dim() == 2 else mask[:, None]
     scores = torch.where(mask, scores.to(torch.float32), -1e30)
-    p = softmax_fp32(scores)
+    p = shard_act(softmax_fp32(scores), score_axes)
     return torch.einsum("bnst,btnh->bsnh", p.to(v.dtype), v)
+
+
+def call_flash(kernel, q, k, v, **options) -> torch.Tensor:
+    """``kernel(q, k, v, **options)`` (the flash-attention kernel), or on
+    each rank's local shards when ``q`` is a DTensor.  Per mesh dim the
+    call keeps q's batch shard, or its head shard where k's heads are
+    sharded on that dim too (each rank's query heads then read its own
+    kv heads); everything else, the sequence and head dim always, is
+    gathered whole first."""
+    if not isinstance(q, DTensor):
+        return kernel(q, k, v, **options)
+    k, v = replicated_like(k, q), replicated_like(v, q)
+    pl = []
+    for qp, kp in zip(q.placements, k.placements):
+        if qp == Shard(0) or (qp == Shard(2) and kp == Shard(2)):
+            pl.append(qp)
+        else:
+            pl.append(Replicate())
+    return on_shards(
+        lambda ql, kl, vl: kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(), **options),
+        (q, k, v), (pl, pl, pl), pl)
 
 
 def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                 make_cache: bool = False):
     """Full-sequence causal attention.  ``p`` holds ``wq``, ``wk``, ``wv``
     and ``wo`` as attributes.  Returns (out, cache|None)."""
+    x = seq_whole(x)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = (x @ p.wq).reshape(B, S, H, hd)
@@ -114,8 +155,11 @@ def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     v = (x @ p.wv).reshape(B, S, KV, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, k, v, causal=True, window=cfg.sliding_window,
-                          scale=1.0 / hd ** 0.5)
+    # SP hands off to TP here: seq gathers, heads shard (Megatron-SP style)
+    q = shard_act(q, ("act_batch", None, "act_heads", None))
+    k = shard_act(k, ("act_batch", None, "act_kv", None))
+    out = call_flash(flash_attention, q, k, v, causal=True, window=cfg.sliding_window,
+                     scale=1.0 / hd ** 0.5)
     out = out.reshape(B, S, H * hd) @ p.wo
     cache = None
     if make_cache:
@@ -135,6 +179,9 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
     into ``cache`` in place (the reference returns updated copies); the
     write index is clamped into the cache as ``dynamic_update_slice``
     clamps it.
+
+    A DTensor cache (the sharded decode step) is updated and attended on
+    each rank's local shard (:func:`_decode_on_shards`).
     """
     B, S, d = x.shape
     if S != 1:
@@ -144,9 +191,12 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
     q = (x @ p.wq).reshape(B, 1, H, hd)
     k = (x @ p.wk).reshape(B, 1, KV, hd)
     v = (x @ p.wv).reshape(B, 1, KV, hd)
-    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    posb = replicated_like(torch.full((B, 1), pos, dtype=torch.int32, device=x.device), x)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
+    if isinstance(cache["k"], DTensor):
+        out = _decode_on_shards(q, k, v, cache, cfg, pos)
+        return out.reshape(B, 1, H * hd) @ p.wo, cache
     slot = pos % T if cfg.sliding_window is not None else pos
     slot = min(max(slot, 0), T - 1)
     cache["k"][:, slot] = k[:, 0]
@@ -163,6 +213,119 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
     return out, cache
 
 
+def _partial_attend(q, ck, cv, valid, reduce) -> torch.Tensor:
+    """Decode attention of ``q`` (B, 1, H, hd) over one slice of the cache
+    ``ck``/``cv`` (B, Tl, KV, hd), positions where ``valid`` (Tl,) is
+    False masked at -1e30: each slice's softmax statistics, then
+    ``reduce(t, op)`` ("max" or "sum" across the slices) combines them as
+    the reference's ``pmax`` and ``psum`` do.  Returns (B, 1, H, hd) in
+    q's dtype."""
+    B, _, H, hd = q.shape
+    KV = ck.shape[2]
+    G = H // KV
+    qg = q.reshape(B, 1, KV, G, hd)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, ck) * (1.0 / hd ** 0.5)
+    scores = torch.where(valid[None, None, None, None, :], scores.to(torch.float32), -1e30)
+    m_loc = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m_loc)
+    num_loc = torch.einsum("bkgst,btkh->bskgh", e.to(cv.dtype), cv).to(torch.float32)
+    den_loc = e.sum(dim=-1)[..., None]                    # (B, KV, G, 1, 1)
+    m_glob = reduce(m_loc, "max")
+    corr = torch.exp(m_loc - m_glob)                       # (B, KV, G, 1, 1)
+    num = reduce(num_loc * corr.movedim(-2, 1), "sum")    # (B, 1, KV, G, hd)
+    den = reduce(den_loc * corr, "sum").movedim(-2, 1)
+    return (num / torch.clamp_min(den, 1e-30)).to(q.dtype).reshape(B, 1, H, hd)
+
+
+def _all_reduce(groups):
+    """``reduce(t, op)`` for :func:`_partial_attend`: ``t`` all-reduced
+    (MAX or SUM) over each process group in turn, out of place."""
+    ops = {"max": dist.ReduceOp.MAX, "sum": dist.ReduceOp.SUM}
+
+    def reduce(t, op):
+        t = t.clone()
+        for g in groups:
+            dist.all_reduce(t, op=ops[op], group=g)
+        return t
+
+    return reduce
+
+
+def gqa_decode_seqsharded(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int,
+                          group):
+    """Flash-decoding over a sequence-sharded KV cache, on local tensors:
+    ``cache["k"]``/``["v"]`` (B, Tl, KV, hd) are this rank's slice of the
+    time axis, rank ``r`` of ``group`` (the process group of the mesh dim
+    the reference calls ``axis_name``, e.g. ``mesh.get_group("data")``)
+    holding positions ``r·Tl`` ... ``(r+1)·Tl - 1``.  Each rank attends
+    over its slice and the partial statistics are combined by all-reduce,
+    MAX then SUM, as the reference's ``pmax`` and ``psum``.  The new
+    token's K/V is written in place, on the rank that owns slot ``pos``
+    only.  Returns (out (B, 1, d), cache)."""
+    B, S, d = x.shape
+    if S != 1:
+        raise ValueError(f"decode takes one token per row, got {S}")
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    Tl = cache["k"].shape[1]
+    shard = dist.get_rank(group)
+    q = (x @ p.wq).reshape(B, 1, H, hd)
+    k_new = (x @ p.wk).reshape(B, 1, KV, hd)
+    v_new = (x @ p.wv).reshape(B, 1, KV, hd)
+    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q = apply_rope(q, posb, cfg.rope_theta)
+    k_new = apply_rope(k_new, posb, cfg.rope_theta)
+    if pos // Tl == shard:
+        cache["k"][:, pos % Tl] = k_new[:, 0]
+        cache["v"][:, pos % Tl] = v_new[:, 0]
+    valid = shard * Tl + torch.arange(Tl, device=x.device) <= pos
+    out = _partial_attend(q, cache["k"], cache["v"], valid, _all_reduce([group]))
+    return out.reshape(B, 1, H * hd) @ p.wo, cache
+
+
+def _decode_on_shards(q, k, v, cache: dict, cfg: ModelConfig, pos: int) -> torch.Tensor:
+    """:func:`gqa_decode`'s cache write and attention on each rank's local
+    shard of a DTensor cache (B, T, KV, hd): q, k and v (replicated but for
+    the cache's batch shard) come in whole.  Where the cache's time axis
+    is not split the shard runs the single-device write and core as they
+    are; where it is, over the mesh dims that split it (in mesh order),
+    the rank owning the slot writes it and the partial softmaxes are
+    combined as in :func:`gqa_decode_seqsharded`.  Returns the attention
+    output (B, 1, H, hd)."""
+    ck = cache["k"]
+    mesh = ck.device_mesh
+    T = ck.shape[1]
+    window = cfg.sliding_window
+    slot = min(max(pos % T if window is not None else pos, 0), T - 1)
+    pl = [pc if pc == Shard(0) else Replicate() for pc in ck.placements]
+    time_dims = [i for i, pc in enumerate(ck.placements) if pc == Shard(1)]
+    nsh, shard = 1, 0
+    for i in time_dims:
+        nsh, shard = nsh * mesh.size(i), shard * mesh.size(i) + mesh.get_local_rank(i)
+    groups = [mesh.get_group(i) for i in time_dims]
+
+    def attend(ql, kl, vl, ckl, cvl):
+        B = ql.shape[0]
+        if nsh == 1:
+            ckl[:, slot] = kl[:, 0]
+            cvl[:, slot] = vl[:, 0]
+            if window is not None:
+                valid = torch.ones(T, dtype=torch.bool, device=ql.device)
+            else:
+                valid = torch.arange(T, device=ql.device) <= pos
+            mask = valid[None, None, :].expand(B, 1, T)
+            return _gqa_core(ql, ckl, cvl, mask, 1.0 / ql.shape[-1] ** 0.5)
+        Tl = ckl.shape[1]
+        if slot // Tl == shard:
+            ckl[:, slot % Tl] = kl[:, 0]
+            cvl[:, slot % Tl] = vl[:, 0]
+        gpos = shard * Tl + torch.arange(Tl, device=ql.device)
+        valid = torch.ones_like(gpos, dtype=torch.bool) if window is not None else gpos <= pos
+        return _partial_attend(ql, ckl, cvl, valid, _all_reduce(groups))
+
+    return on_shards(attend, (q, k, v, ck, cache["v"]),
+                     (pl, pl, pl, ck.placements, cache["v"].placements), pl)
+
+
 # ---------------------------------------------------------------------------
 # MLA (MiniCPM3 / DeepSeek-style latent attention)
 # ---------------------------------------------------------------------------
@@ -176,12 +339,12 @@ def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     m = cfg.mla or MLAConfig()
     B, S, _ = x.shape
     H = cfg.n_heads
-    q = rmsnorm(x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
+    q = call_norm(rmsnorm, x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
     q = q.reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = (x @ p.wkv_down).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
-    c_kv = rmsnorm(c_kv.contiguous(), p.kv_norm, cfg.norm_eps)
+    c_kv = call_norm(rmsnorm, c_kv.contiguous(), p.kv_norm, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
 
@@ -208,8 +371,8 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     width = max(qk, m.v_head_dim)
     qf, kf, v = (F.pad(t, (0, width - t.shape[-1])) for t in (qf, kf, v))
-    out = flash_attention(qf.contiguous(), kf.contiguous(), v.contiguous(), causal=True,
-                          scale=1.0 / qk ** 0.5)
+    out = call_flash(flash_attention, qf.contiguous(), kf.contiguous(), v.contiguous(),
+                     causal=True, scale=1.0 / qk ** 0.5)
     out = out[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim) @ p.wo
     cache = {"c_kv": c_kv, "k_rope": k_rope} if make_cache else None
     return out, cache
@@ -269,7 +432,7 @@ def cross_attention(p, x: torch.Tensor, enc_kv: dict, cfg: ModelConfig, *,
         mask = torch.ones((1, k.shape[1]), dtype=torch.bool, device=x.device)
         out = _gqa_core(q, k, v, mask, 1.0 / hd ** 0.5)
     else:
-        out = flash_attention(q, k, v, causal=False, scale=1.0 / hd ** 0.5)
+        out = call_flash(flash_attention, q, k, v, causal=False, scale=1.0 / hd ** 0.5)
     return out.reshape(B, S, H * hd) @ p.wo
 
 

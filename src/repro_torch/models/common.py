@@ -1,23 +1,188 @@
-"""Model-layer foundations: parameter definitions, initialisation, RoPE,
-norms.
+"""Model-layer foundations: parameter definitions with logical sharding
+axes, initialisation, activation-sharding helpers, RoPE, norms.
 
 Parameters are declared through :class:`ParamDef`, as in the reference
 package, with the same shapes, logical axis names and init rules, so that
 both packages count the same parameters and a reference parameter tree maps
 onto the port's modules one to one (:func:`repro_torch.interop.
-model_params_from_numpy`).  The port runs on one card, so the reference's
-logical-to-mesh axis rules and activation sharding constraints have no
-counterpart here.
+model_params_from_numpy`).  The launch layer maps logical axes to mesh
+axes (:mod:`repro_torch.launch.sharding`); model code never mentions the
+mesh.
+
+``axis_rules(...)`` installs the active logical→mesh mapping;
+``shard_act(x, axes)`` redistributes a DTensor activation to the
+placements the rules give its logical axes, and is a no-op without rules
+or on a plain tensor, so a single-device run is what it is without them.
+Under the sharded steps (:mod:`repro_torch.launch.steps`) parameters and
+activations are DTensors: every hand-written kernel then runs on each
+rank's local shards through ``local_map`` (:func:`on_shards`), with the
+axis it reduces over whole on every rank.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
+import threading
+from typing import Any, Callable, Mapping
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..kernels.rmsnorm import add_rmsnorm
+
+# ---------------------------------------------------------------------------
+# Logical axis rules
+# ---------------------------------------------------------------------------
+
+_STATE = threading.local()
+
+
+@contextlib.contextmanager
+def axis_rules(rules: Mapping[str, Any] | None):
+    """Install logical→mesh axis rules for the duration of a step."""
+    prev = getattr(_STATE, "rules", None)
+    _STATE.rules = dict(rules) if rules is not None else None
+    try:
+        yield
+    finally:
+        _STATE.rules = prev
+
+
+def current_rules() -> dict[str, Any] | None:
+    return getattr(_STATE, "rules", None)
+
+
+def logical_to_spec(axes: tuple[str | None, ...], rules: Mapping[str, Any]):
+    """The :class:`~repro_torch.launch.sharding.P` of ``axes`` under ``rules``."""
+    from ..launch.sharding import P
+
+    return P(*[rules.get(a) if a is not None else None for a in axes])
+
+
+def shard_act(x: torch.Tensor, axes: tuple[str | None, ...]) -> torch.Tensor:
+    """Redistribute a DTensor activation to the placements of its logical
+    axes under the installed rules; a no-op without rules or on a plain
+    tensor."""
+    rules = current_rules()
+    if rules is None or not isinstance(x, DTensor):
+        return x
+    from ..launch.sharding import placements
+
+    assert len(axes) == x.ndim, (axes, x.shape)
+    mesh = x.device_mesh
+    return x.redistribute(mesh, placements(logical_to_spec(axes, rules), mesh))
+
+
+def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``t``, a tensor every rank computes whole (positions, masks, RoPE
+    frequencies), as a replicated DTensor on ``ref``'s mesh when ``ref``
+    is a DTensor; else ``t`` itself."""
+    if not isinstance(ref, DTensor) or isinstance(t, DTensor):
+        return t
+    mesh = ref.device_mesh
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def seq_whole(x: torch.Tensor) -> torch.Tensor:
+    """A (B, S, d) DTensor activation with its sequence axis gathered whole,
+    its other placements kept (sequence parallelism hands off here, as
+    Megatron's does before a column-parallel matmul); ``x`` itself
+    otherwise.  A matmul flattens (B, S) into its rows, which a DTensor
+    sharded on both cannot do without this."""
+    if not isinstance(x, DTensor) or x.ndim != 3 or Shard(1) not in x.placements:
+        return x
+    return x.redistribute(x.device_mesh,
+                          [Replicate() if p == Shard(1) else p for p in x.placements])
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  A sharded table (vocab over 'model', d over
+    'data') is gathered whole first and each rank looks up its own tokens
+    on its shard of them (``local_map``); the table's gradient is then a
+    partial sum over the ranks that split the tokens."""
+    if not isinstance(table, DTensor):
+        return table[tokens]
+    tokens = replicated_like(tokens, table)
+    pl = list(tokens.placements)
+    rep = [Replicate()] * len(pl)
+    grad = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+    return on_shards(lambda t, i: t[i], (table, tokens), (rep, pl), pl, (grad, pl))
+
+
+def take_along_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[..., index]`` element by element: ``torch.gather`` over the last
+    axis of ``x`` with one index per row (``index`` has ``x``'s shape but
+    the last axis).  A DTensor ``x`` is read on each rank's rows, its last
+    axis whole."""
+    if not isinstance(x, DTensor):
+        return torch.gather(x, -1, index[..., None])[..., 0]
+    rows = _row_placements(x)
+    index = replicated_like(index, x)
+    return on_shards(lambda xl, il: torch.gather(xl, -1, il[..., None])[..., 0], (x, index),
+                     (rows, rows), rows)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: a
+    DTensor's reshape is a view of its local shard, which a strided
+    gradient (a plain version's einsum output) cannot take."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def on_shards(fn: Callable, args: tuple, in_placements: tuple, out_placements,
+              in_grad_placements: tuple | None = None):
+    """``fn`` on each rank's local shards of the DTensors ``args``, each
+    first redistributed to its ``in_placements``; the outputs become
+    DTensors with ``out_placements``.  ``in_grad_placements`` says how an
+    input's local gradient adds up (``Partial`` where each rank holds a
+    part of the sum), as ``local_map`` takes it."""
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+
+    def local(*ts):
+        return fn(*(_ContiguousGrad.apply(t) if t.requires_grad else t for t in ts))
+
+    return local_map(local, out_placements=out_placements, in_placements=in_placements,
+                     in_grad_placements=in_grad_placements, device_mesh=mesh,
+                     redistribute_inputs=True)(*args)
+
+
+def _row_placements(x: DTensor) -> list:
+    """``x``'s placements with its last axis whole on every rank: a shard
+    of another axis kept, anything else replicated."""
+    last = x.ndim - 1
+    return [p if isinstance(p, Shard) and p.dim != last else Replicate() for p in x.placements]
+
+
+def _norm_placements(x: DTensor) -> tuple[list, list, list]:
+    """A norm's rows of ``x`` (:func:`_row_placements`), its gain
+    replicated, and the gain's gradient: a partial sum over the mesh dims
+    that split the rows."""
+    rows = _row_placements(x)
+    gain_grad = [Partial() if isinstance(p, Shard) else Replicate() for p in rows]
+    return rows, [Replicate()] * len(rows), gain_grad
+
+
+def call_norm(norm: Callable, x: torch.Tensor, gain: torch.Tensor, eps: float) -> torch.Tensor:
+    """``norm(x, gain, eps)``: the RMSNorm kernel ``norm`` on ``x``, or on
+    each rank's rows of a DTensor ``x`` (its last axis gathered whole, the
+    gain replicated; the gain's gradient a partial sum over the ranks that
+    split the rows)."""
+    if not isinstance(x, DTensor):
+        return norm(x, gain, eps)
+    rows, rep, gain_grad = _norm_placements(x)
+    return on_shards(lambda xl, gl: norm(xl.contiguous(), gl, eps), (x, gain),
+                     (rows, rep), rows, (rows, gain_grad))
+
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -37,6 +202,13 @@ class ParamDef:
 
 
 ParamTree = dict  # nested dict[str, ParamDef | ParamTree]
+
+
+def tree_defs_map(fn: Callable[[ParamDef], Any], defs: ParamTree) -> dict:
+    out = {}
+    for k, v in defs.items():
+        out[k] = fn(v) if isinstance(v, ParamDef) else tree_defs_map(fn, v)
+    return out
 
 
 def init_params(defs: ParamTree, generator: torch.Generator,
@@ -79,6 +251,14 @@ def init_params(defs: ParamTree, generator: torch.Generator,
     return out
 
 
+def param_specs(defs: ParamTree, rules: Mapping[str, Any]) -> dict:
+    return tree_defs_map(lambda pd: logical_to_spec(pd.axes, rules), defs)
+
+
+def param_logical_axes(defs: ParamTree) -> dict:
+    return tree_defs_map(lambda pd: pd.axes, defs)
+
+
 def count_params(defs: ParamTree) -> int:
     total = 0
 
@@ -107,8 +287,16 @@ def add_rms_norm(x: torch.Tensor, delta: torch.Tensor | None, gain: torch.Tensor
     """The residual add and the RMSNorm after it: returns ``(x + delta,
     rmsnorm(x + delta))``, or ``(x, rmsnorm(x))`` when ``delta`` is None.
     One CUDA launch on the card, the plain versions on the CPU
-    (:func:`repro_torch.kernels.rmsnorm.add_rmsnorm`)."""
-    return add_rmsnorm(x, delta, gain, eps)
+    (:func:`repro_torch.kernels.rmsnorm.add_rmsnorm`); on each rank's rows
+    of a DTensor ``x`` (``delta`` brought to ``x``'s row placements), as
+    :func:`call_norm` runs the norm alone."""
+    if not isinstance(x, DTensor):
+        return add_rmsnorm(x, delta, gain, eps)
+    if delta is None:
+        return x, call_norm(lambda xl, gl, e: add_rmsnorm(xl, None, gl, e)[1], x, gain, eps)
+    rows, rep, gain_grad = _norm_placements(x)
+    return on_shards(lambda xl, dl, gl: add_rmsnorm(xl.contiguous(), dl.contiguous(), gl, eps),
+                     (x, delta, gain), (rows, rows, rep), (rows, rows), (rows, rows, gain_grad))
 
 
 def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
@@ -129,7 +317,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     The reference's half-split layout: the first and second halves of the
     head dimension form the rotated pairs."""
     hd = x.shape[-1]
-    freqs = _rope_freqs_on(hd, float(theta), x.device)            # (hd/2,)
+    freqs = replicated_like(_rope_freqs_on(hd, float(theta), x.device), x)  # (hd/2,)
     ang = positions[..., :, None, None].to(torch.float32) * freqs  # (..., S, 1, hd/2)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x.to(torch.float32).chunk(2, dim=-1)
@@ -138,6 +326,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def swiglu(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    x = seq_whole(x)
     h = F.silu(x @ w1) * (x @ w3)
     return h @ w2
 

@@ -25,7 +25,16 @@ from torch import nn
 from ..configs.base import ModelConfig
 from ..device import resolve_device
 from .attention import make_cache_struct
-from .common import add_rms_norm, count_params, init_params
+from .common import (
+    add_rms_norm,
+    count_params,
+    embed_lookup,
+    init_params,
+    replicated_like,
+    seq_whole,
+    shard_act,
+    take_along_last,
+)
 from .frontends import apply_frontend_proj
 from .ssm import mamba_state_struct, mlstm_state_struct, slstm_state_struct
 from .transformer import (
@@ -57,6 +66,10 @@ class Model(nn.Module):
     for serving; :meth:`trainable` turns them on in place.  Serving runs
     under ``torch.no_grad()`` either way.
     """
+
+    #: "full" recomputes each block in the training backward
+    #: (``torch.utils.checkpoint``); "none" keeps every activation.
+    remat = "none"
 
     def __init__(self, cfg: ModelConfig, params: dict):
         super().__init__()
@@ -95,22 +108,23 @@ class Model(nn.Module):
     # -- embedding / head ----------------------------------------------------
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         w = self.lm_head if hasattr(self, "lm_head") else self.embed.T
-        logits = x @ w
+        logits = seq_whole(x) @ w
         if self.cfg.padded_vocab != self.cfg.vocab:
             # mask padded vocabulary rows out of the softmax
             valid = torch.arange(self.cfg.padded_vocab, device=x.device) < self.cfg.vocab
-            logits = logits.masked_fill(~valid, -1e9)
-        return logits
+            logits = logits.masked_fill(replicated_like(~valid, logits), -1e9)
+        return shard_act(logits, ("act_batch", None, "act_vocab"))
 
     def _assemble_inputs(self, tokens: torch.Tensor, frontend: torch.Tensor | None):
         """Token embeddings, behind the projected frontend tokens for a
         decoder-only model with a frontend; and their positions (B, S)."""
-        x = self.embed[tokens]
+        x = embed_lookup(self.embed, tokens)
         if self.cfg.frontend is not None and not self.cfg.is_encdec:
             fe = apply_frontend_proj(self.frontend_proj, frontend.to(x.dtype))
             x = torch.cat([fe, x], dim=1)
+        x = shard_act(x, ("act_batch", "act_seq", None))
         B, S, _ = x.shape
-        return x, torch.arange(S, device=x.device).expand(B, S)
+        return x, replicated_like(torch.arange(S, device=x.device).expand(B, S), x)
 
     def _check_frontend(self, frontend) -> None:
         if (frontend is None) != (self.cfg.frontend is None):
@@ -138,7 +152,8 @@ class Model(nn.Module):
         x, positions = self._assemble_inputs(tokens, frontend)
         aux: dict = {}
         x, delta, _ = run_decoder_stack(self.blocks, x, cfg, "train", positions=positions,
-                                        cross=self.cross, enc_out=enc_out, aux=aux)
+                                        cross=self.cross, enc_out=enc_out, aux=aux,
+                                        remat=self.remat)
         _, h = add_rms_norm(x, delta, self.final_norm, cfg.norm_eps)
         return self._head(h), aux
 
@@ -160,9 +175,10 @@ class Model(nn.Module):
         logits, aux = self.forward_train(batch["tokens"], batch.get("frontend"))
         if cfg.frontend is not None and not cfg.is_encdec:
             logits = logits[:, cfg.frontend_tokens:, :]
-        logits = logits[:, :-1, :].float()
+        # a sharded step's vocab axis is gathered whole: the loss reads rows
+        logits = shard_act(logits[:, :-1, :], ("act_batch", None, None)).float()
         targets = batch["labels"][:, 1:].long()
-        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        gold = take_along_last(logits, targets)
         ce = (torch.logsumexp(logits, dim=-1) - gold).mean()
         loss = ce
         if "lb_loss" in aux:
@@ -204,7 +220,7 @@ class Model(nn.Module):
         in place and returns (logits (B, 1, V), caches).  An
         encoder-decoder model's cross-attention reads
         ``caches["cross_kv"]``."""
-        x = self.embed[token]
+        x = embed_lookup(self.embed, token)
         x, delta, caches = run_decoder_stack(self.blocks, x, self.cfg, "decode",
                                              caches=caches, positions=int(pos),
                                              cross=self.cross)

@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ..configs.base import ModelConfig
-from .common import ParamDef
+from .common import ParamDef, shard_act
 
 
 def moe_defs(cfg: ModelConfig, stack: int) -> dict:
@@ -81,7 +81,7 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, need_aux: bool = True):
     G = _moe_groups(cfg, T)
     Tg = T // G
     C = capacity(cfg, Tg)
-    xt = x.reshape(G, Tg, d)
+    xt = shard_act(x.reshape(G, Tg, d), ("act_batch", None, None))
     logits, probs, gate_vals, expert_ids = route(p, xt, cfg)
 
     flat_ids = expert_ids.reshape(G, Tg * k)                         # (G, Tk)
@@ -97,11 +97,14 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, need_aux: bool = True):
     g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
     buf = x.new_zeros((G, E, C, d))
     buf.index_put_((g_idx, flat_ids, safe_pos), contrib, accumulate=True)
+    buf = shard_act(buf, ("act_batch", "experts_act", None, None))
 
     # every expert's SwiGLU over its (G·C) rows, one batched matmul each
     rows = buf.permute(1, 0, 2, 3).reshape(E, G * C, d)
     h = F.silu(torch.bmm(rows, p.w1)) * torch.bmm(rows, p.w3)
+    h = shard_act(h, ("experts_act", None, "expert_act_ff"))        # (E, G·C, ff)
     out_buf = torch.bmm(h, p.w2).reshape(E, G, C, d).permute(1, 0, 2, 3)
+    out_buf = shard_act(out_buf, ("act_batch", "experts_act", None, None))
 
     # gather back and gate
     y_rep = out_buf[g_idx, flat_ids, safe_pos]                       # (G, Tk, d)

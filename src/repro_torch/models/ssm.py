@@ -14,17 +14,20 @@ plain jnp (``models/ssm.py:145-380``): mLSTM's prefill is the chunked
 gated linear attention, a Python loop over chunks carrying ``C`` and
 ``n``; sLSTM's is a loop over tokens.  Their norms go through the RMSNorm
 kernel on the card.  Each block returns its new state, and decode steps
-take one token from the carried state.
+take one token from the carried state.  On DTensor inputs the scan and the
+norms run on each rank's local shards (:func:`call_scan`,
+:func:`~.common.call_norm`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig, SSMConfig
 from ..kernels.rmsnorm import rmsnorm
 from ..kernels.ssm_scan import ssm_scan
-from .common import ParamDef
+from .common import ParamDef, call_norm, on_shards, replicated_like, shard_act
 
 
 def mamba_defs(cfg: ModelConfig, stack: int) -> dict:
@@ -46,6 +49,33 @@ def mamba_defs(cfg: ModelConfig, stack: int) -> dict:
     }
 
 
+def call_scan(kernel, dt, x, bmat, cmat, a, h0):
+    """``kernel(dt, x, bmat, cmat, a, h0)`` (the selective scan), or on each
+    rank's local shards when ``dt`` is a DTensor.  Per mesh dim the call
+    keeps dt's batch shard or its channel shard (``a`` and ``h0`` split
+    with the channels; B and C whole, their gradients then partial sums
+    over the channel shards, as ``a``'s are over the batch shards); the
+    time axis is always whole."""
+    if not isinstance(dt, DTensor):
+        return kernel(dt, x, bmat, cmat, a, h0)
+    bmat, cmat, a, h0 = (replicated_like(t, dt) for t in (bmat, cmat, a, h0))
+    pls: list[list] = [[] for _ in range(8)]   # dt/x, B/C, a, h0, y, hT; grads of B/C, a
+    for pd in dt.placements:
+        if pd == Shard(0):
+            row = (Shard(0), Shard(0), Replicate(), Shard(0), Shard(0), Shard(0),
+                   Shard(0), Partial())
+        elif pd == Shard(2):
+            row = (Shard(2), Replicate(), Shard(0), Shard(1), Shard(2), Shard(1),
+                   Partial(), Shard(0))
+        else:
+            row = (Replicate(),) * 8
+        for lst, pl in zip(pls, row):
+            lst.append(pl)
+    seq, bc, pa, ph, py, phT, gbc, ga = pls
+    return on_shards(kernel, (dt, x, bmat, cmat, a, h0),
+                     (seq, seq, bc, bc, pa, ph), (py, phT), (seq, seq, gbc, gbc, ga, ph))
+
+
 def _scan_and_gate(p, x_conv: torch.Tensor, z: torch.Tensor, s: SSMConfig,
                    h0: torch.Tensor):
     """x_proj → (dt, B, C), the selective scan from ``h0``, the skip term
@@ -57,7 +87,7 @@ def _scan_and_gate(p, x_conv: torch.Tensor, z: torch.Tensor, s: SSMConfig,
     dt_low, bmat, cmat = proj.split([dt_rank, N, N], dim=-1)        # B, C: strided views
     dt = F.softplus(dt_low @ p.dt_proj + p.dt_bias)                  # (B, S, di)
     a = -torch.exp(p.A_log.float())                                  # (di, N)
-    y, hT = ssm_scan(dt, x_conv, bmat, cmat, a, h0)
+    y, hT = call_scan(ssm_scan, dt, x_conv, bmat, cmat, a, h0)
     y = y + p.D.float() * x_conv.float()
     y = y * F.silu(z.float())
     return y.to(x_conv.dtype), hT
@@ -72,7 +102,8 @@ def mamba_block(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None)
     s = cfg.ssm or SSMConfig()
     B, S, d = x.shape
     di = s.expand * d
-    xs, z = (x @ p.in_proj).split(di, dim=-1)
+    xz = shard_act(x @ p.in_proj, ("act_batch", None, "act_inner"))
+    xs, z = xz.split(di, dim=-1)
     prev = state["conv"] if state is not None else x.new_zeros((B, s.d_conv - 1, di))
     xp = torch.cat([prev, xs], dim=1)
     # depthwise causal conv of width d_conv, summed in the reference's order
@@ -215,7 +246,7 @@ def mlstm_block(p, x: torch.Tensor, cfg: ModelConfig, state: dict | None = None)
                                C, n)
         hs.append(h)
     h = torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, di)
-    h = rmsnorm(h.to(x.dtype).contiguous(), p.norm, cfg.norm_eps)
+    h = call_norm(rmsnorm, h.to(x.dtype).contiguous(), p.norm, cfg.norm_eps)
     return (h * F.silu(z)) @ p.down, {"C": C, "n": n}
 
 
@@ -238,7 +269,7 @@ def mlstm_decode(p, x: torch.Tensor, cfg: ModelConfig, state: dict):
     num = torch.einsum("bhd,bhde->bhe", qs, C)
     den = torch.abs(torch.einsum("bhd,bhd->bh", qs, n))[..., None]
     h = (num / torch.clamp_min(den, 1.0)).reshape(B, 1, di).to(x.dtype)
-    h = rmsnorm(h, p.norm, cfg.norm_eps)
+    h = call_norm(rmsnorm, h, p.norm, cfg.norm_eps)
     return (h * F.silu(z)) @ p.down, {"C": C, "n": n}
 
 
@@ -303,7 +334,7 @@ def _slstm_step(p, cfg: ModelConfig, carry, wx_t: torch.Tensor):
 def _slstm_out(p, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The norm and the tanh-approximate GELU feed-forward after the
     recurrence (the reference's ``jax.nn.gelu`` defaults to the tanh form)."""
-    h = rmsnorm(h.contiguous(), p.norm, cfg.norm_eps)
+    h = call_norm(rmsnorm, h.contiguous(), p.norm, cfg.norm_eps)
     return F.gelu(h @ p.ff_up, approximate="tanh") @ p.ff_down
 
 

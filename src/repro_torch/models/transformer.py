@@ -9,9 +9,10 @@ reference: a period is one repetition of ``cfg.pattern()`` (one layer for
 packages count and initialise the same tree.  The port holds one
 :class:`ParamModule` per period in an ``nn.ModuleList`` and runs the periods
 and the blocks within each in Python loops where the reference scans;
-training keeps every activation (no remat: the reference's
-``jax.checkpoint`` changes memory, not numbers).  An encoder-decoder model
-adds the encoder (one
+training keeps every activation unless the stack runs with
+``remat="full"``, which recomputes each block in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``: memory,
+not numbers).  An encoder-decoder model adds the encoder (one
 module per layer) and, per decoder period, a cross-attention sub-block
 after the mixer, with its own norm.  A block's feed-forward is the MoE
 layer where the reference puts one (``idx % moe_every == moe_every - 1``
@@ -22,13 +23,14 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import attention as attn
 from . import ssm
 from .moe import moe_defs, moe_ffn
 from ..kernels.flash_attention import flash_attention
-from .common import ParamDef, add_rms_norm, apply_rope, swiglu
+from .common import ParamDef, add_rms_norm, apply_rope, replicated_like, shard_act, swiglu
 
 
 class ParamModule(nn.Module):
@@ -135,12 +137,15 @@ def _ffn_half(bp: nn.Module, x: torch.Tensor, y: torch.Tensor, cfg: ModelConfig,
     reference's does."""
     if hasattr(bp, "moe"):
         x, h = add_rms_norm(x, y, bp.norm2, cfg.norm_eps)
+        x = shard_act(x, ("act_batch", "act_seq", None))
         y, layer_aux = moe_ffn(bp.moe, h, cfg, need_aux=aux is not None)
         for k, v in (layer_aux or {}).items():
             aux[k] = aux[k] + v if k in aux else v
         return x, y
     if hasattr(bp, "mlp"):
         x, h = add_rms_norm(x, y, bp.norm2, cfg.norm_eps)
+        x = shard_act(x, ("act_batch", "act_seq", None))
+        h = shard_act(h, ("act_batch", "act_seq", None))
         return x, swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
     return x, y
 
@@ -169,6 +174,8 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
     if mode not in ("prefill", "train", "decode"):
         raise ValueError(f"mode must be 'prefill', 'train' or 'decode', got {mode!r}")
     x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
+    x = shard_act(x, ("act_batch", "act_seq", None))
+    h = shard_act(h, ("act_batch", "act_seq", None))
     mla = cfg.attention == "mla"
     if kind == "attn" and mode == "decode":
         decode = attn.mla_decode if mla else attn.gqa_decode
@@ -232,7 +239,8 @@ def period_block(period: nn.Module, cfg: ModelConfig, key: str) -> nn.Module:
 def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                       mode: str, caches: dict | None = None, positions=None,
                       cross: nn.ModuleList | None = None,
-                      enc_out: torch.Tensor | None = None, aux: dict | None = None):
+                      enc_out: torch.Tensor | None = None, aux: dict | None = None,
+                      remat: str = "none"):
     """Returns (x, delta, caches): the residual stream after the stack is
     ``x + delta``, the last block's update left for the final norm to add.
     ``blocks`` holds one module per period.  Caches keep the reference's
@@ -248,7 +256,12 @@ def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     An encoder-decoder model passes ``cross``, one cross-attention module
     per period.  Its K/V per period, ``caches["cross_kv"]`` ``{"k": (P, B,
     T, KV, hd), "v": ...}``, are built from the encoder's output
-    ``enc_out`` (B, T, d) at prefill and read from ``caches`` at decode."""
+    ``enc_out`` (B, T, d) at prefill and read from ``caches`` at decode.
+
+    ``remat="full"`` recomputes each block in the backward of a "train"
+    stack (``torch.utils.checkpoint``); "none" keeps every activation."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
     keys = block_keys(cfg)
     new: dict[str, list[dict]] = {key: [] for key, _ in keys}
     cross_kv = None
@@ -265,8 +278,12 @@ def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
         cross_i = None if cross is None else (cross[i], {n: t[i] for n, t in cross_kv.items()})
         for key, kind in keys:
             state = None if caches is None else {n: c[i] for n, c in caches[key].items()}
-            x, delta, ns = apply_block(period_block(period, cfg, key), kind, x, delta, cfg,
-                                       mode, state, positions, cross_i, aux)
+            args = (period_block(period, cfg, key), kind, x, delta, cfg, mode, state,
+                    positions, cross_i, aux)
+            if remat == "full" and mode == "train":
+                x, delta, ns = checkpoint(apply_block, *args, use_reentrant=False)
+            else:
+                x, delta, ns = apply_block(*args)
             new[key].append(ns)
     if mode == "decode":
         return x, delta, caches
@@ -288,14 +305,14 @@ def run_encoder_stack(encoder: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> 
     decoder stack, each residual add is fused into the norm after it."""
     B, T, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    positions = torch.arange(T, device=x.device).expand(B, T)
+    positions = replicated_like(torch.arange(T, device=x.device).expand(B, T), x)
     delta = None
     for bp in encoder.blocks:
         x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
         q = apply_rope((h @ bp.attn.wq).reshape(B, T, H, hd), positions, cfg.rope_theta)
         k = apply_rope((h @ bp.attn.wk).reshape(B, T, KV, hd), positions, cfg.rope_theta)
         v = (h @ bp.attn.wv).reshape(B, T, KV, hd)
-        y = flash_attention(q, k, v, causal=False, scale=1.0 / hd ** 0.5)
+        y = attn.call_flash(flash_attention, q, k, v, causal=False, scale=1.0 / hd ** 0.5)
         x, h = add_rms_norm(x, y.reshape(B, T, H * hd) @ bp.attn.wo, bp.norm2, cfg.norm_eps)
         delta = swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
     return add_rms_norm(x, delta, encoder.final_norm, cfg.norm_eps)[1]

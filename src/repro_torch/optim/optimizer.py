@@ -9,6 +9,10 @@ correction, decoupled weight decay) and written into the parameters and
 the state in place: the reference returns new trees, but on the card a
 second copy of a 1.3B-parameter model's state would cost gigabytes, so
 :func:`adamw_update` returns the same dicts, updated.
+
+The leaves may be DTensors (the sharded train step): the moments and the
+master copies then take their parameter's placements (ZeRO), and the
+gradient norm sums every shard's squares.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import dataclasses
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,13 +57,18 @@ def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 def init_opt_state(cfg: AdamWConfig, params: dict[str, torch.Tensor]) -> dict:
     """``{"step": 0, "m": zeros, "v": zeros, "master": fp32 copies}`` (no
     ``master`` unless ``cfg.use_master``), each leaf on its parameter's
-    device; the moments in ``cfg.moments_dtype``."""
+    device (a DTensor parameter's with its placements); the moments in
+    ``cfg.moments_dtype``."""
     mdt = _moments_dtype(cfg)
     device = next(iter(params.values())).device
+
+    def zeros(p):
+        return torch.zeros_like(p, dtype=mdt, memory_format=torch.contiguous_format)
+
     state = {
         "step": torch.zeros((), dtype=torch.int32, device=device),
-        "m": {n: torch.zeros(p.shape, dtype=mdt, device=p.device) for n, p in params.items()},
-        "v": {n: torch.zeros(p.shape, dtype=mdt, device=p.device) for n, p in params.items()},
+        "m": {n: zeros(p) for n, p in params.items()},
+        "v": {n: zeros(p) for n, p in params.items()},
     }
     if cfg.use_master:
         state["master"] = {n: p.detach().to(torch.float32, copy=True)
@@ -66,9 +76,16 @@ def init_opt_state(cfg: AdamWConfig, params: dict[str, torch.Tensor]) -> dict:
     return state
 
 
+def _sum_squares(t: torch.Tensor) -> torch.Tensor:
+    sq = torch.sum(torch.square(t.float()))
+    # a sharded leaf's sum is a partial sum per rank: add up every shard's
+    return sq.full_tensor() if isinstance(sq, DTensor) else sq
+
+
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum over leaves of their sums of squares, in fp32."""
-    return torch.sqrt(sum(torch.sum(torch.square(t.float())) for t in tree.values()))
+    """sqrt of the sum over leaves of their sums of squares, in fp32; a
+    DTensor leaf's sum covers all of its shards."""
+    return torch.sqrt(sum(_sum_squares(t) for t in tree.values()))
 
 
 @torch.no_grad()

@@ -1616,3 +1616,61 @@ def test_attention_and_mamba_models_train_on_card_as_the_host(cuda, arch):
         w = hp[name].grad
         torch.testing.assert_close(p.grad.cpu(), w, rtol=0.0, atol=1e-4 * float(w.abs().max()),
                                    msg=lambda m: f"d{name}: {m}")
+
+
+# ------------------------------------------------ wrappers refuse DTensors
+
+
+@pytest.fixture(scope="module")
+def card_mesh(tmp_path_factory):
+    """A (1, 1) ("data", "model") mesh on the card over a NCCL group of one
+    rank (a ``FileStore``, no network), taken down after the module."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is false)")
+    store = dist.FileStore(str(tmp_path_factory.mktemp("store") / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=60))
+    yield make_debug_mesh(1, 1, device_type="cuda")
+    dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("name", ["rmsnorm", "add_rmsnorm", "rmsnorm_backward",
+                                  "add_rmsnorm_backward", "flash_attention",
+                                  "flash_attention_with_lse", "flash_attention_backward",
+                                  "ssm_scan", "ssm_scan_with_checkpoints", "ssm_scan_backward"])
+def test_kernel_wrappers_refuse_dtensors_on_the_card(cuda, card_mesh, name):
+    """A DTensor's ``data_ptr()`` is not its local shard's: every wrapper
+    raises ``TypeError`` on a DTensor argument, before any launch."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    x, g, dy = (torch.randn(2, 3, 64, device=cuda), torch.ones(64, device=cuda),
+                torch.randn(2, 3, 64, device=cuda))
+    q = torch.randn(1, 16, 2, 64, device=cuda)
+    dt, bm = torch.rand(1, 16, 32, device=cuda), torch.randn(1, 16, 16, device=cuda)
+    a, h0 = -torch.ones(32, 16, device=cuda), torch.zeros(1, 32, 16, device=cuda)
+    fn, args = {
+        "rmsnorm": (rmsnorm, (x, g)),
+        "add_rmsnorm": (add_rmsnorm, (x, dy, g)),
+        "rmsnorm_backward": (rmsnorm_backward, (x, dy, g)),
+        "add_rmsnorm_backward": (add_rmsnorm_backward, (x, dy, dy, g)),
+        "flash_attention": (flash_attention, (q, q, q)),
+        "flash_attention_with_lse": (flash_attention_with_lse, (q, q, q)),
+        "flash_attention_backward": (flash_attention_backward, (q, q, q, q, q)),
+        "ssm_scan": (ssm_scan, (dt, dt, bm, bm, a, h0)),
+        "ssm_scan_with_checkpoints": (ssm_scan_with_checkpoints, (dt, dt, bm, bm, a, h0)),
+        "ssm_scan_backward": (ssm_scan_backward, (dt, dt, bm, bm, a, h0, dt)),
+    }[name]
+    before = getattr(fn, "launches", 0)
+    for i in range(len(args)):
+        dargs = list(args)
+        dargs[i] = DTensor.from_local(args[i], card_mesh, [Replicate(), Replicate()],
+                                      run_check=False)
+        with pytest.raises(TypeError, match="local_map"):
+            fn(*dargs)
+    assert getattr(fn, "launches", 0) == before

@@ -43,6 +43,10 @@ import numpy as np
 import repro_torch.models
 import repro_torch.kernels.flash_attention
 import repro_torch.kernels.rmsnorm
+import repro_torch.launch.mesh
+import repro_torch.launch.sharding
+import repro_torch.launch.steps
+import repro_torch.optim.compression
 from repro_torch.launch.serve import BatchedServer, Request
 server = BatchedServer("llama3-8b@smoke", batch_slots=2, max_ctx=64, device="cpu")
 server.submit(Request(0, np.arange(4, 13, dtype=np.int32), 4))

@@ -1,0 +1,297 @@
+"""The sharded steps across four ranks: the (2, 2) ``("data", "model")``
+train bundle of stablelm-1.6b whole (fp32, remat "none") on four cards over
+NCCL, with the hand-written kernels on each rank's local shards, against
+``make_step`` on one card from the same seed-0 parameters and batches
+(phase 21 (b)'s first batches, 4 x 256); then ``gqa_decode_seqsharded`` on
+a (4, 1) mesh against ``gqa_decode``, and ``topk_allreduce`` over the four
+ranks against the mean of each rank's decompressed payload.
+
+Gates: losses within rel 1e-5 and every parameter within 1e-4 of its
+leaf's largest entry of the single-card run's; each rank's kernel launches
+those of the steps on its shards (the single card's counts); the sequence-
+sharded decode within 1e-5 of the largest entry; the all-reduce within rel
+1e-6.  Prints the step walls of both, each rank's peak memory and one JSON
+line.  The ranks meet through a ``FileStore`` in a temporary directory (no
+TCP port), each process group with a 60 s timeout;
+``torch.multiprocessing.spawn`` ends every rank when one fails.
+
+    python3 tools/sharded_multi_card.py                  # four CUDA cards, NCCL
+    PYTHONPATH=src python3 tools/sharded_multi_card.py --device cpu \\
+        --arch stablelm-1.6b@smoke --seq 32              # four gloo ranks on the host
+"""
+from __future__ import annotations
+
+import argparse
+import datetime
+import gc
+import json
+import os
+import sys
+import tempfile
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+
+WORLD = 4
+LOSS_RTOL, PARAM_ATOL_REL, SEQ_TOL, TOPK_RTOL = 1e-5, 1e-4, 1e-5, 1e-6
+
+
+def log(rank: int, msg: str) -> None:
+    if rank == 0:
+        print(msg, flush=True)
+
+
+def sync(device) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def single_card_reference(cfg, opt_cfg, batches, device) -> dict:
+    """``make_step`` on one device: losses, learning rates, step walls, and
+    the parameters before and after the steps, on the host."""
+    import torch
+    from repro_torch.launch.train import make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_opt_state
+
+    model = build_model(cfg, device=device, seed=0).trainable()
+    params = dict(model.named_parameters())
+    start = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
+    opt = init_opt_state(opt_cfg, params)
+    step_fn = make_step(model, opt_cfg)
+    losses, lrs, ms = [], [], []
+    for b in batches:
+        sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, {k: v.to(device) for k, v in b.items()})
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        lrs.append(float(m["lr"]))
+    out = dict(losses=losses, lrs=lrs, step_ms=ms, start=start,
+               params={n: p.detach().to("cpu") for n, p in params.items()})
+    del model, params, opt, step_fn
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def sharded_train(rank, cfg, opt_cfg, batches, device, ref) -> dict:
+    """The (2, 2) train bundle for the same steps; its parameters gathered
+    leaf by leaf and held to ``ref`` on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import PlanConfig
+    from repro_torch.launch.steps import make_train_bundle
+    from repro_torch.models import build_model
+    from repro_torch.optim import init_opt_state
+
+    mesh = make_debug_mesh(2, 2, device_type=device.type)
+    B, S = batches[0]["tokens"].shape
+    bundle = make_train_bundle(cfg, ShapeConfig("train", S, B, "train"), mesh,
+                               PlanConfig(tp=2, dp=2), opt_cfg, param_dtype=torch.float32,
+                               remat="none", device_type=device.type)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    model = build_model(cfg, device=device, seed=0)
+    params = bundle.place_params(dict(model.named_parameters()))
+    del model
+    gc.collect()
+    opt = init_opt_state(opt_cfg, params)
+    cs.zero_launches()
+    losses, ms = [], []
+    for b in batches:
+        dist.barrier()
+        sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = bundle.step_fn(params, opt, shard_batch(b, mesh))
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = cs.kernel_launches()
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    errs, over = {}, {}
+    for n, p in params.items():
+        full = p.full_tensor().detach().to("cpu")
+        if rank == 0:
+            want = ref["params"][n]
+            scale = max(float(want.abs().max()), 1e-30)
+            diff = (full - want).abs()
+            errs[n] = float(diff.max()) / scale
+            if errs[n] > PARAM_ATOL_REL:
+                over[n] = _offenders(full, want, ref["start"][n], diff, scale)
+    per_rank = [None] * WORLD
+    dist.all_gather_object(per_rank, {"launches": launches, "peak_bytes": peak})
+    worst_name = max(errs, key=errs.get) if errs else None
+    return dict(losses=losses, step_ms=ms, param_max_rel_err=errs.get(worst_name, 0.0),
+                worst_leaf=worst_name, leaf_errs=sorted(errs.items(), key=lambda kv: -kv[1])[:5],
+                offenders=over, per_rank=per_rank,
+                placements=sorted({str(tuple(p.placements)) for p in params.values()}))
+
+
+def _offenders(got, want, start, diff, scale) -> dict:
+    """Where a leaf misses the gate: how many entries, how far each run
+    moved them from the start, and whether the moves agree in sign
+    (AdamW's step is the gradient's sign where it is far above ``eps``, so
+    a flip marks a gradient at the level of its own rounding)."""
+    import torch
+
+    bad = diff > PARAM_ATOL_REL * scale
+    d_got, d_want = (got - start)[bad], (want - start)[bad]
+    return {"entries": int(bad.sum()), "of": got.numel(),
+            "max_move_ref": float(d_want.abs().max()), "min_move_ref": float(d_want.abs().min()),
+            "sign_flips": int((torch.sign(d_got) != torch.sign(d_want)).sum()),
+            "rows": sorted({int(i) for i in bad.nonzero()[:, 0].tolist()})[:20]}
+
+
+def collectives(rank, cfg, device) -> dict:
+    """``gqa_decode_seqsharded`` on a (4, 1) mesh and ``topk_allreduce``
+    over the four ranks, each against its single-device result."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.attention import gqa_decode, gqa_decode_seqsharded, gqa_defs
+    from repro_torch.models.common import init_params
+    from repro_torch.optim.compression import (
+        TopKConfig, topk_allreduce, topk_compress, topk_decompress,
+    )
+
+    g = torch.Generator().manual_seed(22)
+    layer = {k: v[0].to(device) for k, v in init_params(gqa_defs(cfg, 1), g).items()}
+    p = types.SimpleNamespace(**layer)
+    B, T, pos = 4, 512, 300
+    shape = (B, T, cfg.n_kv_heads, cfg.head_dim)
+    cache = {n: torch.randn(shape, generator=g).to(device) for n in "kv"}
+    x = (0.3 * torch.randn((B, 1, cfg.d_model), generator=g)).to(device)
+    mesh = make_debug_mesh(4, 1, device_type=device.type)
+    group = mesh.get_group("data")
+    r, Tl = dist.get_rank(group), T // 4
+    local = {n: t[:, r * Tl:(r + 1) * Tl].clone() for n, t in cache.items()}
+    with torch.no_grad():
+        got, _ = gqa_decode_seqsharded(p, x, cfg, local, pos, group)
+        want, _ = gqa_decode(p, x, cfg, {n: t.clone() for n, t in cache.items()}, pos)
+    seq_err = float((got - want).abs().max()) / float(want.abs().max())
+
+    grads = torch.randn((WORLD, cfg.d_model, cfg.d_ff), generator=g)
+    tcfg = TopKConfig(density=0.01)
+    mean, _ = topk_allreduce(grads[dist.get_rank()].to(device), torch.zeros_like(grads[0]).to(device),
+                             tcfg)
+    expect = sum(topk_decompress(topk_compress(grads[w], torch.zeros_like(grads[w]), tcfg)[0],
+                                 grads[w].shape) for w in range(WORLD)) / WORLD
+    topk_err = float((mean.to("cpu") - expect).abs().max()) / float(expect.abs().max())
+    return dict(seqsharded_rel_err=seq_err, topk_rel_err=topk_err)
+
+
+def run(rank: int, args, store_dir: str) -> None:
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import TrainConfig
+
+    if args.device == "cuda":
+        from repro_torch import resolve_device
+
+        resolve_device("cuda")      # fp32 matmuls at full precision
+        torch.cuda.set_device(rank)
+        device = torch.device("cuda", rank)
+        backend = "nccl"
+    else:
+        torch.set_num_threads(1)
+        device = torch.device("cpu")
+        backend = "gloo"
+    store = dist.FileStore(os.path.join(store_dir, "store"), WORLD)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        cfg = get_config(args.arch)
+        opt_cfg = TrainConfig().opt
+        stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                              global_batch=args.batch, seed=0))
+        batches = [{k: torch.as_tensor(v).long() for k, v in stream.batch_at(s).items()}
+                   for s in range(args.steps)]
+        ref = None
+        if rank == 0:
+            log(rank, f"make_step on one device ({device}): {cfg.name}, {args.steps} steps of "
+                      f"{args.batch} x {args.seq}")
+            ref = single_card_reference(cfg, opt_cfg, batches, device)
+        dist.barrier()
+        log(rank, "the (2, 2) train bundle on four ranks")
+        train = sharded_train(rank, cfg, opt_cfg, batches, device, ref)
+        log(rank, "gqa_decode_seqsharded on a (4, 1) mesh and topk_allreduce over four ranks")
+        coll = collectives(rank, cfg, device)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        check(args, cfg, ref, train, coll)
+
+
+def check(args, cfg, ref, train, coll) -> None:
+    """Prints the figures; raises if a gate failed (after every rank has
+    left the process group)."""
+    import chip_smoke as cs
+
+    fig = {"arch": cfg.name, "device": args.device, "ranks": WORLD,
+           "losses_bundle": train["losses"], "losses_make_step": ref["losses"],
+           "step_ms_bundle": train["step_ms"], "step_ms_make_step": ref["step_ms"],
+           "param_max_rel_err": train["param_max_rel_err"], "worst_leaf": train["worst_leaf"],
+           "leaf_errs": train["leaf_errs"], "offenders": train["offenders"], "lr": ref["lrs"],
+           "per_rank": train["per_rank"], "placements": train["placements"], **coll}
+    if args.device == "cuda":
+        fig["card"] = cs.card_line()
+    print(json.dumps(fig), flush=True)
+    for a, b in zip(train["losses"], ref["losses"]):
+        if abs(a - b) > LOSS_RTOL * abs(b):
+            raise AssertionError(f"losses {train['losses']} vs make_step's {ref['losses']}")
+    if train["param_max_rel_err"] > PARAM_ATOL_REL:
+        raise AssertionError(f"{train['worst_leaf']} differs by {train['param_max_rel_err']:.3e} "
+                             "of its largest entry")
+    if args.device == "cuda":
+        want = cs.training_launches(cfg, args.steps)
+        for r, rank_fig in enumerate(train["per_rank"]):
+            if rank_fig["launches"] != want:
+                raise AssertionError(f"rank {r} launched {rank_fig['launches']}, expected {want}")
+    if coll["seqsharded_rel_err"] > SEQ_TOL or coll["topk_rel_err"] > TOPK_RTOL:
+        raise AssertionError(f"collectives: {coll}")
+    print("ok", flush=True)
+
+
+def main() -> None:
+    import torch.multiprocessing as mp
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="stablelm-1.6b")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=256)
+    args = ap.parse_args()
+    if args.device == "cuda":
+        import torch
+
+        if torch.cuda.device_count() < WORLD:
+            raise SystemExit(f"needs {WORLD} CUDA cards, found {torch.cuda.device_count()}")
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+
+        import chip_smoke as cs
+
+        cs.build_all([rmsnorm_ops.LIBRARY, rmsnorm_ops.BACKWARD_LIBRARY, flash_ops.LIBRARY,
+                      flash_ops.BACKWARD_LIBRARY])
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(run, args=(args, tmp), nprocs=WORLD, join=True)
+
+
+if __name__ == "__main__":
+    main()

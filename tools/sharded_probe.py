@@ -1,0 +1,42 @@
+"""The smoke run's phase 22 on its own: the sharded train, prefill and
+decode bundles of stablelm-1.6b on a (1, 1) mesh over a NCCL process group
+of one rank, held to ``make_step`` and the unsharded forwards, then the
+sequence-sharded decode and the compressed all-reduce on that group
+(``chip_smoke.phase_sharded``).  Prints the torch and CUDA versions first.
+
+Needs a CUDA card (about 2 minutes of command time) and builds the rmsnorm
+and flash-attention libraries, forward and backward, from the checkout.
+
+Run from the repository root:  python3 tools/sharded_probe.py
+"""
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
+
+
+def main() -> None:
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch import resolve_device
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+
+    device = resolve_device(None)
+    cs.log(cs.card_line())
+    cs.log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    timings = {"build": cs.build_all([rmsnorm_ops.LIBRARY, rmsnorm_ops.BACKWARD_LIBRARY,
+                                      flash_ops.LIBRARY, flash_ops.BACKWARD_LIBRARY])}
+    t0 = time.perf_counter()
+    cs.phase_sharded(device, 0, timings)
+    timings["total"] = time.perf_counter() - t0
+    cs.log("walls: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
+
+
+if __name__ == "__main__":
+    main()
