@@ -235,6 +235,7 @@ Run from the root of the repository:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -2622,6 +2623,32 @@ def zero_launches() -> None:
         fn.launches = 0
 
 
+@contextlib.contextmanager
+def first_step_grads(module, keep: bool = True):
+    """For the ``with`` block, wraps ``module.adamw_update`` (the train
+    loop's or the bundles' name for it) so that the first step's gradients,
+    as the update receives them, are made whole and copied to the host
+    into the yielded dict of name -> tensor.  ``keep=False`` makes them
+    whole (a collective that every rank of a sharded step joins) and keeps
+    none."""
+    update, grads0, taken = module.adamw_update, {}, []
+
+    def recorded(cfg, params, grads, state):
+        if not taken:
+            taken.append(True)
+            for n, g in grads.items():
+                full = (g.full_tensor() if hasattr(g, "full_tensor") else g).detach()
+                if keep:
+                    grads0[n] = full.to("cpu", copy=True)
+        return update(cfg, params, grads, state)
+
+    module.adamw_update = recorded
+    try:
+        yield grads0
+    finally:
+        module.adamw_update = update
+
+
 # ------------------------------------------------------------ selective scan
 
 JAMBA = dict(D=16384, N=16)         # jamba-1.5-large: d_inner 2 x 8192, d_state 16
@@ -2711,14 +2738,16 @@ class RouterLog:
     by ``side`` ("host" or "card"): the expert ids (T, k) and the router's
     margin, the k-th minus the (k+1)-th probability (T,), per token.  It
     wraps the transformer's ``moe_ffn`` with a second call of the same
-    ``moe.route`` on the same input, so the layer's own computation is
-    untouched."""
+    router on the same input (a DTensor's gathered whole), so the layer's
+    own computation is untouched."""
 
     def __init__(self):
         self.calls = {"host": [], "card": []}
         self.side = "host"
 
     def __enter__(self):
+        import types
+
         import torch
         from repro_torch.models import moe, transformer
 
@@ -2727,7 +2756,10 @@ class RouterLog:
         def recorded(p, x, cfg, need_aux=True):
             B, S, d = x.shape
             k = cfg.experts_per_token
-            _, probs, _, ids = moe.route(p, x.reshape(moe._moe_groups(cfg, B * S), -1, d), cfg)
+            x_, router = (t.full_tensor() if hasattr(t, "full_tensor") else t
+                          for t in (x, p.router))
+            _, probs, _, ids = moe.route(types.SimpleNamespace(router=router),
+                                         x_.reshape(moe._moe_groups(cfg, B * S), -1, d), cfg)
             top = torch.topk(probs, k + 1, dim=-1).values
             self.calls[self.side].append(
                 (ids.reshape(-1, k).cpu(), (top[..., k - 1] - top[..., k]).reshape(-1).cpu()))
@@ -4226,6 +4258,7 @@ SHARDED_TRAIN_STEPS = 2               # 22 (b): steps of 21 (b)'s batches (4 x 2
 SHARDED_PROMPTS, SHARDED_DECODE_STEPS = 4, 8   # 22 (c)
 SHARDED_LOSS_RTOL = 1e-6              # 22 (b): bundle's losses vs make_step's
 SHARDED_PARAM_ATOL_REL = 1e-5         # 22 (b): each parameter vs its leaf's largest entry
+SHARDED_GRAD_ATOL_REL = 1e-5          # the first step's gradients vs its leaf's largest entry
 SHARDED_SERVE_TOL = 1e-4              # 22 (c): rtol, and atol = 1e-4 x max|unsharded|
 SHARDED_SEQ_TOL = 1e-5                # 22 (d): seqsharded decode vs gqa_decode, x max|out|
 SHARDED_PEAK_LIMIT = 75 * 2**30
@@ -4249,22 +4282,28 @@ def nccl_world_of_one(tmp_dir):
     return make_debug_mesh(1, 1, device_type="cuda")
 
 
-def sharded_train(device, seed, mesh) -> dict:
-    """22 (b): stablelm-1.6b whole in fp32, ``make_step`` for two steps of
-    21 (b)'s first two batches and then the train bundle for the same two
-    steps from the same seed-0 parameters (remat "none").  The first run's
-    parameters go to the host leaf by leaf before the second is built, so
-    the card never holds both states."""
+def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
+    """22 (b): stablelm-1.6b whole in fp32 (or ``cfg``), ``make_step`` for
+    two steps of 21 (b)'s first two batches and then the train bundle for
+    the same two steps from the same seed-0 parameters (remat "none").
+    The first run's parameters and first-step gradients go to the host
+    leaf by leaf before the second is built, so the card never holds both
+    states.  Gates: the first step's gradients within 1e-5 of each leaf's
+    largest entry; each parameter after the steps within 1e-5 of its
+    leaf's largest entry; losses rel 1e-6; each run's launches those of
+    two training steps; peaks under 75 GiB."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch import steps as steps_module
+    from repro_torch.launch import train as train_module
     from repro_torch.launch.sharding import PlanConfig
     from repro_torch.launch.steps import make_train_bundle
     from repro_torch.launch.train import TrainConfig, make_step
     from repro_torch.models import build_model
     from repro_torch.optim import init_opt_state
 
-    cfg = stablelm_config()
+    cfg = cfg or stablelm_config()
     opt_cfg = TrainConfig().opt
     stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN21_SEQ,
                                           global_batch=TRAIN21_BATCH, seed=seed))
@@ -4292,32 +4331,46 @@ def sharded_train(device, seed, mesh) -> dict:
             torch.cuda.empty_cache()
             step_fn = bundle.step_fn
         opt_state = init_opt_state(opt_cfg, params)
+        module = train_module if kind == "make_step" else steps_module
         zero_launches()
-        losses, norms, ms = [], [], []
-        for b in batches:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt_state, metrics = step_fn(params, opt_state, b)
-            losses.append(float(metrics["loss"]))
-            ms.append((time.perf_counter() - t0) * 1e3)
-            norms.append(float(metrics["grad_norm"]))
+        losses, norms, lrs, ms = [], [], [], []
+        with first_step_grads(module) as grads0:
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt_state, metrics = step_fn(params, opt_state, b)
+                losses.append(float(metrics["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                norms.append(float(metrics["grad_norm"]))
+                lrs.append(float(metrics["lr"]))
         torch.cuda.synchronize()
         run = dict(losses=losses, grad_norms=norms, step_ms=ms, launches=kernel_launches(),
                    peak_bytes=torch.cuda.max_memory_allocated())
         if kind == "make_step":
             run["params"] = {n: p.detach().to("cpu") for n, p in params.items()}
+            run["grads0"] = grads0
         else:
-            worst = 0.0
+            ref_run = runs["make_step"]
+            worst, worst_grad = 0.0, 0.0
             for n, p in params.items():
                 got = p.to_local().detach()
-                want = runs["make_step"]["params"][n].to(device)
-                err = float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+                want = ref_run["params"][n].to(device)
+                top = max(float(want.abs().max()), 1e-30)
+                err = float((got - want).abs().max()) / top
                 worst = max(worst, err)
                 if err > SHARDED_PARAM_ATOL_REL:
-                    raise AssertionError(f"22 (b): {n} after {SHARDED_TRAIN_STEPS} steps differs "
+                    raise AssertionError(f"{label}: {n} after {SHARDED_TRAIN_STEPS} steps differs "
                                          f"from make_step's by {err:.3e} of its largest entry")
+                g_want = ref_run["grads0"][n]
+                g_err = float((grads0[n] - g_want).abs().max()) / max(
+                    float(g_want.abs().max()), 1e-30)
+                worst_grad = max(worst_grad, g_err)
+                if g_err > SHARDED_GRAD_ATOL_REL:
+                    raise AssertionError(f"{label}: {n}'s first-step gradient differs from "
+                                         f"make_step's by {g_err:.3e} of its largest entry")
                 del want
             run["param_err"] = worst
+            run["grad0_err"] = worst_grad
             run["param_bitwise"] = worst == 0.0
             run["placements"] = sorted({str(tuple(p.placements)) for p in params.values()})
         runs[kind] = run
@@ -4327,26 +4380,31 @@ def sharded_train(device, seed, mesh) -> dict:
     ref, got = runs["make_step"], runs["bundle"]
     for a, b in zip(got["losses"], ref["losses"]):
         if not (math.isfinite(a) and abs(a - b) <= SHARDED_LOSS_RTOL * abs(b)):
-            raise AssertionError(f"22 (b): bundle losses {got['losses']} vs make_step's "
+            raise AssertionError(f"{label}: bundle losses {got['losses']} vs make_step's "
                                  f"{ref['losses']}")
     want = training_launches(cfg, SHARDED_TRAIN_STEPS)
     for kind, run in runs.items():
         if run["launches"] != want:
-            raise AssertionError(f"22 (b): {kind} launched {run['launches']}, expected {want}")
+            raise AssertionError(f"{label}: {kind} launched {run['launches']}, expected {want}")
         if run["peak_bytes"] > SHARDED_PEAK_LIMIT:
-            raise AssertionError(f"22 (b): {kind}'s peak {run['peak_bytes']} bytes passes "
+            raise AssertionError(f"{label}: {kind}'s peak {run['peak_bytes']} bytes passes "
                                  f"{SHARDED_PEAK_LIMIT / 2**30:.0f} GiB")
-    del ref["params"]
+    del ref["params"], ref["grads0"]
     got["losses_bitwise"] = got["losses"] == ref["losses"]
     return runs
 
 
-def sharded_serve(device, seed, mesh) -> dict:
-    """22 (c): stablelm-1.6b's prefill and decode bundles against the
-    unsharded ``forward_prefill`` and ``forward_decode``: the first 4 of
-    phase 6's seeded prompts (its generator and seed, stablelm's vocab),
-    each cut to the shortest of them, then 8 greedy decode steps against
-    caches padded to the prompt plus the steps."""
+def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
+    """22 (c): stablelm-1.6b's (or ``cfg``'s) prefill and decode bundles
+    against the unsharded ``forward_prefill`` and ``forward_decode``: the
+    first 4 of phase 6's seeded prompts (its generator and seed, the
+    model's vocab), each cut to the shortest of them, then 8 greedy decode
+    steps against caches padded to the prompt plus the steps (attention's
+    K/V over the prompt's positions, recurrent states whole).  Each side's
+    kernel launches are counted and must be equal; an MoE model's expert
+    ids are compared under the tie rule (:func:`check_routing`), a flip
+    within the margin un-gating the comparisons that follow it (routing
+    moves no hand-written kernel's count, so the launches stay gated)."""
     import numpy as np
     import torch
     from repro_torch.configs import ShapeConfig
@@ -4354,7 +4412,7 @@ def sharded_serve(device, seed, mesh) -> dict:
     from repro_torch.launch.steps import make_decode_bundle, make_prefill_bundle
     from repro_torch.models import build_model
 
-    cfg = stablelm_config()
+    cfg = cfg or stablelm_config()
     rng = np.random.default_rng(seed)
     lengths = rng.integers(32, 193, size=8)
     prompts = [rng.integers(4, cfg.vocab, size=int(n)).astype(np.int32) for n in lengths]
@@ -4362,6 +4420,9 @@ def sharded_serve(device, seed, mesh) -> dict:
     tokens = torch.as_tensor(np.stack([p[:S] for p in prompts[:SHARDED_PROMPTS]]),
                              device=device).long()
     B, ctx = SHARDED_PROMPTS, S + SHARDED_DECODE_STEPS
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=device, seed=seed)
     plan = PlanConfig(tp=1, dp=1)
     pre = make_prefill_bundle(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh, plan,
@@ -4374,64 +4435,100 @@ def sharded_serve(device, seed, mesh) -> dict:
         full = model.cache_struct(B, ctx)
         for key, per in caches.items():
             for n, t in per.items():
-                full[key][n][:, :, :S] = t.full_tensor() if hasattr(t, "full_tensor") else t
+                t = t.full_tensor() if hasattr(t, "full_tensor") else t
+                if n in ("k", "v"):
+                    full[key][n][:, :, :S] = t
+                else:
+                    full[key][n].copy_(t)
         return full
 
     worst = {"logits": 0.0, "caches": 0.0}
 
-    def check(label, got, want):
+    def check(what, got, want):
         got = got.full_tensor() if hasattr(got, "full_tensor") else got
         scale = float(want.abs().max())
         excess = ((got - want).abs() - SHARDED_SERVE_TOL * want.abs()).max()
         err = float((got - want).abs().max()) / max(scale, 1e-30)
         if float(excess) > SHARDED_SERVE_TOL * scale:
-            raise AssertionError(f"22 (c): {label} differs from the unsharded run by {err:.3e} "
+            raise AssertionError(f"{label}: {what} differs from the unsharded run by {err:.3e} "
                                  f"of its largest entry")
-        kind = "logits" if "logits" in label else "caches"
+        kind = "logits" if "logits" in what else "caches"
         worst[kind] = max(worst[kind], err)
 
     walls = {"unsharded": [], "bundle": []}
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want_logits, want_caches = model.forward_prefill(tokens)
-    torch.cuda.synchronize()
-    walls["unsharded"].append((time.perf_counter() - t0) * 1e3)
-    t0 = time.perf_counter()
-    logits, caches = pre.step_fn(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    walls["bundle"].append((time.perf_counter() - t0) * 1e3)
-    check("prefill logits", logits, want_logits)
-    for key, per in want_caches.items():
-        for n, t in per.items():
-            check(f"prefill cache {key}/{n}", caches[key][n], t)
-    want_full, full = padded(want_caches), padded(caches)
-    del want_caches, caches
-    want_tok = want_logits.argmax(-1)
-    tok = logits.full_tensor().argmax(-1)
-    tokens_out = []
-    for i in range(SHARDED_DECODE_STEPS):
-        if not torch.equal(tok, want_tok):
-            raise AssertionError(f"22 (c): greedy tokens differ at step {i}: "
-                                 f"{tok.tolist()} vs {want_tok.tolist()}")
-        tokens_out.append(tok[:, 0].tolist())
+    launches = {"unsharded": dict.fromkeys(kernel_launches(), 0),
+                "bundle": dict.fromkeys(kernel_launches(), 0)}
+
+    def run(side, fn, *args):
+        before = kernel_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want_logits, want_full = model.forward_decode(want_tok, want_full, S + i)
+        out = fn(*args)
         torch.cuda.synchronize()
-        walls["unsharded"].append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
-        logits, full = dec.step_fn(params, full, tok, S + i)
-        torch.cuda.synchronize()
-        walls["bundle"].append((time.perf_counter() - t0) * 1e3)
-        check(f"decode {i} logits", logits, want_logits)
-        want_tok, tok = want_logits.argmax(-1), logits.full_tensor().argmax(-1)
-    for key, per in want_full.items():
-        for n, t in per.items():
-            check(f"decode cache {key}/{n}", full[key][n], t)
-    del model, params, full, want_full
+        walls[side].append((time.perf_counter() - t0) * 1e3)
+        for k, n in kernel_launches().items():
+            launches[side][k] += n - before[k]
+        return out
+
+    router = RouterLog() if cfg.is_moe else None
+    tokens_out, flip = [], None
+    with router or contextlib.nullcontext():
+        try:
+            if router:
+                router.side = "host"
+            want_logits, want_caches = run("unsharded", model.forward_prefill, tokens)
+            if router:
+                router.side = "card"
+            logits, caches = run("bundle", pre.step_fn, params, {"tokens": tokens})
+            check("prefill logits", logits, want_logits)
+            for key, per in want_caches.items():
+                for n, t in per.items():
+                    check(f"prefill cache {key}/{n}", caches[key][n], t)
+            want_full, full = padded(want_caches), padded(caches)
+            del want_caches, caches
+            want_tok = want_logits.argmax(-1)
+            tok = logits.full_tensor().argmax(-1)
+            for i in range(SHARDED_DECODE_STEPS):
+                if not torch.equal(tok, want_tok):
+                    raise AssertionError(f"{label}: greedy tokens differ at step {i}: "
+                                         f"{tok.tolist()} vs {want_tok.tolist()}")
+                tokens_out.append(tok[:, 0].tolist())
+                if router:
+                    router.side = "host"
+                want_logits, want_full = run("unsharded", model.forward_decode, want_tok,
+                                             want_full, S + i)
+                if router:
+                    router.side = "card"
+                logits, full = run("bundle", dec.step_fn, params, full, tok, S + i)
+                check(f"decode {i} logits", logits, want_logits)
+                want_tok, tok = want_logits.argmax(-1), logits.full_tensor().argmax(-1)
+            for key, per in want_full.items():
+                for n, t in per.items():
+                    check(f"decode cache {key}/{n}", full[key][n], t)
+        except AssertionError as err:
+            # a near-tie flipped by rounding routes the two runs apart;
+            # anything else (or a flip past the margin) fails the phase
+            flip = check_routing(label, router.calls["host"], router.calls["card"])[3] \
+                if router else None
+            if flip is None:
+                raise
+            log(f"  {label}: {err}: after a flip within the router margin at MoE call {flip[0]}, "
+                f"token {flip[1]} (margin {flip[2]:.3e}) the two runs route differently; not "
+                "gated from there")
+    routing = None
+    if router:
+        n, smallest, near, flip = check_routing(label, router.calls["host"], router.calls["card"])
+        routing = dict(tokens_compared=n, smallest_margin=smallest, within_margin=near,
+                       flip=flip)
+    if launches["bundle"] != launches["unsharded"]:
+        raise AssertionError(f"{label}: the bundles launched {launches['bundle']}, the unsharded "
+                             f"forwards {launches['unsharded']}")
+    peak = torch.cuda.max_memory_allocated()
+    del model, params
     gc.collect()
     torch.cuda.empty_cache()
-    return dict(prompt_len=S, ctx=ctx, tokens=tokens_out, max_rel_err=worst, wall_ms=walls)
+    return dict(prompt_len=S, ctx=ctx, tokens=tokens_out, max_rel_err=worst, wall_ms=walls,
+                launches=launches["bundle"], peak_bytes=peak, routing=routing)
 
 
 def sharded_collectives(device, seed, mesh) -> dict:
@@ -4476,12 +4573,43 @@ def sharded_collectives(device, seed, mesh) -> dict:
     return dict(seqsharded_rel_err=seq_err, topk_bitwise=True)
 
 
+SHARDED_OLMOE_LAYERS = 2             # 22 (e): olmoe-1b-7b cut to 2 of its 16 layers
+
+
+def sharded_blocks_configs():
+    """22 (e)-(g): olmoe-1b-7b cut to 2 of 16 layers, the jamba pair of
+    21 (c) (Mamba + attention, d 8192) and one xlstm-1.3b period (7
+    mLSTM + 1 sLSTM), each at full width."""
+    from repro_torch.configs import get_config
+    olmoe = get_config("olmoe-1b-7b")
+    return {"22 (e)": dataclasses.replace(olmoe, n_layers=SHARDED_OLMOE_LAYERS,
+                                          name=f"olmoe-1b-7b/{SHARDED_OLMOE_LAYERS}-layers"),
+            "22 (f)": jamba_pair_config(), "22 (g)": xlstm_configs()[1]}
+
+
+def train_figures(runs) -> dict:
+    """A train comparison's figures: losses, parameter error, walls, the
+    DTensor host overhead (the bundle's step wall less make_step's), peaks
+    and launches."""
+    ref, got = runs["make_step"], runs["bundle"]
+    return {"losses_bundle": got["losses"], "losses_make_step": ref["losses"],
+            "losses_bitwise": got["losses_bitwise"],
+            "param_max_rel_err": got["param_err"], "params_bitwise": got["param_bitwise"],
+            "grad0_max_rel_err": got["grad0_err"], "grad_norms": got["grad_norms"],
+            "step_ms_bundle": got["step_ms"], "step_ms_make_step": ref["step_ms"],
+            "dtensor_host_overhead_ms": [a - b for a, b in zip(got["step_ms"], ref["step_ms"])],
+            "peak_bytes_bundle": got["peak_bytes"], "peak_bytes_make_step": ref["peak_bytes"],
+            "launches": got["launches"], "placements": got["placements"]}
+
+
 def phase_sharded(device, seed, timings) -> dict:
     """Phase 22: the sharded train, prefill and decode bundles of
     stablelm-1.6b on a (1, 1) mesh over a NCCL group of one rank, every
     hand-written kernel on the local shards; the sequence-sharded decode
-    and the compressed all-reduce on that group.  One card shows the
-    DTensor path and its kernels, not the collectives of several ranks."""
+    and the compressed all-reduce on that group; then the same bundles
+    for an MoE model, the Mamba + attention pair and an xLSTM period
+    (:func:`sharded_blocks_configs`).  One card shows the DTensor path and
+    its kernels, not the collectives of several ranks."""
     import tempfile
 
     import torch
@@ -4490,6 +4618,7 @@ def phase_sharded(device, seed, timings) -> dict:
     t0 = time.perf_counter()
     log("phase 22 (a): NCCL process group of one rank (FileStore), a (1, 1) "
         "('data', 'model') mesh")
+    blocks = {}
     with tempfile.TemporaryDirectory() as tmp:
         mesh = nccl_world_of_one(tmp)
         try:
@@ -4506,21 +4635,26 @@ def phase_sharded(device, seed, timings) -> dict:
             log("phase 22 (d): gqa_decode_seqsharded and topk_allreduce on the one-rank group")
             coll = sharded_collectives(device, seed, mesh)
             timings["phase22d"] = time.perf_counter() - t1
+            for label, cfg in sharded_blocks_configs().items():
+                t1 = time.perf_counter()
+                log(f"phase {label}: {cfg.name} at full width, fp32: the train bundle vs "
+                    f"make_step, {SHARDED_TRAIN_STEPS} steps of {TRAIN21_BATCH} x {TRAIN21_SEQ}, "
+                    f"then the prefill and decode bundles vs the unsharded forwards")
+                runs = sharded_train(device, seed, mesh, cfg, label)
+                fig = {"train": train_figures(runs),
+                       "serve": sharded_serve(device, seed, mesh, cfg, label),
+                       "wall_s": time.perf_counter() - t1}
+                blocks[cfg.name] = fig
+                log(f"  {label}: steps {fig['train']['step_ms_bundle']} ms vs make_step's "
+                    f"{fig['train']['step_ms_make_step']} ms, param err "
+                    f"{fig['train']['param_max_rel_err']:.3e}, serve err "
+                    f"{fig['serve']['max_rel_err']}, {fig['wall_s']:.1f} s")
+                timings["phase" + label.split()[0] + label[-2]] = fig["wall_s"]
         finally:
             dist.destroy_process_group()
-    ref, got = train["make_step"], train["bundle"]
-    host_ms = [a - b for a, b in zip(got["step_ms"], ref["step_ms"])]
     fig = {
-        "phase": 22, "card": card_line(),
-        "train": {"losses_bundle": got["losses"], "losses_make_step": ref["losses"],
-                  "losses_bitwise": got["losses_bitwise"],
-                  "param_max_rel_err": got["param_err"], "params_bitwise": got["param_bitwise"],
-                  "grad_norms": got["grad_norms"],
-                  "step_ms_bundle": got["step_ms"], "step_ms_make_step": ref["step_ms"],
-                  "dtensor_host_overhead_ms": host_ms,
-                  "peak_bytes_bundle": got["peak_bytes"], "peak_bytes_make_step": ref["peak_bytes"],
-                  "launches": got["launches"], "placements": got["placements"]},
-        "serve": serve, "collectives": coll,
+        "phase": 22, "card": card_line(), "train": train_figures(train),
+        "serve": serve, "collectives": coll, "blocks": blocks,
         "wall_s": time.perf_counter() - t0,
     }
     log(json.dumps(fig))

@@ -25,11 +25,13 @@ backward (``torch.utils.checkpoint``); ``scan_layers`` is accepted for the
 reference's signature and has no counterpart in eager torch, whose layers
 run in a Python loop either way.
 
-This slice executes dense GQA decoders (llama3-8b, stablelm-1.6b,
-h2o-danube-3-4b, sliding windows included); the rules and specs cover
-every architecture, but the bundles of MoE, Mamba/xLSTM, MLA,
-encoder-decoder and frontend models raise ``NotImplementedError``
-(ROADMAP queue 1, item 3e (ii)).
+The bundles execute GQA decoders of attention, Mamba, mLSTM and sLSTM
+blocks with dense or MoE feed-forwards (llama3-8b, stablelm-1.6b,
+h2o-danube-3-4b with its sliding window, olmoe-1b-7b and mixtral-8x7b
+under EP or expert-TP, jamba-1.5-large, xlstm-1.3b); the rules and specs
+cover every architecture, but the bundles of MLA, encoder-decoder and
+frontend models raise ``NotImplementedError`` (ROADMAP queue 1, item 3e
+(ii)).
 """
 from __future__ import annotations
 
@@ -130,12 +132,11 @@ def _call(model: Model, params: dict, fn):
 
 
 def _check_executable(cfg: ModelConfig) -> None:
-    if (cfg.attention != "gqa" or cfg.pattern() != ("attn",) or cfg.is_moe or cfg.is_encdec
-            or cfg.frontend is not None):
+    if cfg.attention != "gqa" or cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the sharded steps run dense GQA decoders; sharded execution of "
-            "MoE, Mamba/xLSTM, MLA, encoder-decoder and frontend models is ROADMAP queue 1, "
-            "item 3e (ii)")
+            f"{cfg.name}: the sharded steps run GQA decoders of attention, Mamba, mLSTM and "
+            "sLSTM blocks with dense or MoE feed-forwards; sharded execution of MLA, "
+            "encoder-decoder and frontend models is ROADMAP queue 1, item 3e (ii)")
 
 
 def _meta_model(cfg: ModelConfig, param_dtype: torch.dtype, remat: str) -> Model:
@@ -150,7 +151,24 @@ def _name_specs(cfg: ModelConfig, rules: dict) -> dict[str, P]:
     """Each parameter's spec by the port's parameter name: a stacked leaf's
     spec without its period entry ("layers", never sharded)."""
     return unstack_tree(param_specs(decoder_defs(cfg), rules), cfg,
-                        lambda name, spec, layer, n: spec if layer is None else P(*spec[1:]))
+                        lambda name, spec, layer, n: _once(spec if layer is None
+                                                           else P(*spec[1:])))
+
+
+def _once(spec: P) -> P:
+    """``spec`` with each mesh axis kept on the first dim that names it.
+    The rules name 'model' twice for mLSTM's gate maps (di, H) where both
+    the inner axis and the heads divide tp (xlstm-1.3b@smoke at tp = 2);
+    neither JAX nor a DeviceMesh lays a tensor out so, and the inner axis
+    keeps the split that its matmul with the up-projection's half needs."""
+    used: set = set()
+    out = []
+    for entry in spec:
+        axes = () if entry is None else entry if isinstance(entry, tuple) else (entry,)
+        keep = tuple(a for a in axes if a not in used)
+        used.update(keep)
+        out.append(keep if len(keep) > 1 else keep[0] if keep else None)
+    return P(*out)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig,

@@ -156,6 +156,50 @@ def on_shards(fn: Callable, args: tuple, in_placements: tuple, out_placements,
                      redistribute_inputs=True)(*args)
 
 
+def rule_dims(mesh, logical: str) -> list[int]:
+    """The mesh dims that the installed rules map the logical axis
+    ``logical`` to (none without rules)."""
+    rule = (current_rules() or {}).get(logical)
+    axes = () if rule is None else rule if isinstance(rule, tuple) else (rule,)
+    return [i for i, name in enumerate(mesh.mesh_dim_names) if name in axes]
+
+
+def shard_index(mesh, dims: list[int]) -> tuple[int, int]:
+    """This rank's index among the shards that the mesh dims ``dims`` cut
+    one tensor dim into (the first mesh dim the slowest, as DTensor lays a
+    dim sharded on several mesh dims out), and their count."""
+    idx, count = 0, 1
+    for i in dims:
+        idx = idx * mesh.size(i) + mesh.get_local_rank(i)
+        count *= mesh.size(i)
+    return idx, count
+
+
+def split_last(t: torch.Tensor, n: int) -> tuple[torch.Tensor, ...]:
+    """``t.split(t.shape[-1] // n, dim=-1)``.  On a DTensor whose last axis
+    is sharded, each of the ``n`` parts comes out sharded the same way
+    (rank r holding the r-th shard of every part), so a fused projection's
+    halves (Mamba's ``xs``/``z``, mLSTM's ``u``/``z``, sLSTM's four gates)
+    keep their channels on the same ranks.  The axis is gathered whole and
+    each rank cuts its shards out of every part (``local_map``); the
+    input's gradient is then a partial sum over those mesh dims.  A part
+    whose width the shards do not divide comes out whole."""
+    m = t.shape[-1] // n
+    if not isinstance(t, DTensor):
+        return t.split(m, dim=-1)
+    last = t.ndim - 1
+    dims = [i for i, p in enumerate(t.placements) if p == Shard(last)]
+    idx, count = shard_index(t.device_mesh, dims)
+    whole = [Replicate() if p == Shard(last) else p for p in t.placements]
+    if not dims or m % count:
+        return on_shards(lambda tl: tuple(tl.split(m, dim=-1)), (t,), (whole,), (whole,) * n)
+    w = m // count
+    grad = [Partial() if p == Shard(last) else p for p in t.placements]
+    return on_shards(
+        lambda tl: tuple(tl[..., j * m + idx * w: j * m + (idx + 1) * w] for j in range(n)),
+        (t,), (whole,), (list(t.placements),) * n, (grad,))
+
+
 def _row_placements(x: DTensor) -> list:
     """``x``'s placements with its last axis whole on every rank: a shard
     of another axis kept, anything else replicated."""

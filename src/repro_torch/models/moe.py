@@ -16,14 +16,31 @@ kernel, so the port keeps library calls here: ``index_put_`` with
 token and exact zeros) and batched fp32 matmuls for the experts.  The
 router's top-k takes the lower expert index first among equal
 probabilities, as ``lax.top_k`` does (a stable descending sort).
+
+Under the sharded steps (DTensor inputs) the layer runs in three
+``local_map`` stages on each rank's tokens, with the same G and capacity
+as on one device, so every drop decision is the single device's: the
+router and the slots on the rank's whole dispatch groups (tokens are
+replicated over 'model'); then the scatter, the experts' matmuls and the
+gather back on the rank's expert weights, either its experts (EP:
+"experts" over 'model', each rank fills and reads only its experts' slice
+of the (G, E, C, d) buffer, the other experts' choices weighted by 0) or
+its slice of every expert's ff (expert-TP).  Either way each rank's
+output is a partial sum over 'model', reduced to the (G, Tg, d) tokens:
+the buffer never crosses ranks.  This is the reference's ``shard_act``
+layout of the dispatch buffer, G over 'data' and E over 'model'; the
+sum over ranks adds a token's k outputs in another order than one device.
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ModelConfig
-from .common import ParamDef, shard_act
+from .common import ParamDef, on_shards, rule_dims, shard_index
 
 
 def moe_defs(cfg: ModelConfig, stack: int) -> dict:
@@ -67,6 +84,55 @@ def route(p, xt: torch.Tensor, cfg: ModelConfig):
     return logits, probs, gate_vals, expert_ids
 
 
+def _positions(expert_ids: torch.Tensor, E: int, C: int):
+    """Each (token, k) choice's slot in its expert: the flattened ids (G,
+    Tk), the one-hot (G, Tk, E), the kept mask and the slot (``C - 1``
+    for a dropped choice)."""
+    G = expert_ids.shape[0]
+    flat_ids = expert_ids.reshape(G, -1)                             # (G, Tk)
+    # one-hot by comparison: F.one_hot checks its range on the host, a sync
+    onehot = (flat_ids[..., None] == torch.arange(E, device=flat_ids.device)).to(torch.int32)
+    pos_all = torch.cumsum(onehot, dim=1) - onehot
+    pos = torch.gather(pos_all, 2, flat_ids[..., None])[..., 0]      # (G, Tk)
+    keep = pos < C
+    return flat_ids, onehot, keep, torch.where(keep, pos, C - 1)
+
+
+def _local_choices(flat_ids, safe_pos, keep, first: int, El: int, C: int):
+    """The choices as experts ``first .. first + El - 1`` see them: ids
+    counted from ``first``, and a choice of another expert treated as a
+    dropped one (expert 0, slot ``C - 1``, not kept)."""
+    mask = keep & (flat_ids >= first) & (flat_ids < first + El)
+    return torch.where(mask, flat_ids - first, 0), torch.where(mask, safe_pos, C - 1), mask
+
+
+def _experts(xt, ids, pos, mask, w1, w3, w2, C: int, k: int):
+    """Scatter the kept choices into the (G, El, C, d) buffer of the El =
+    ``w1.shape[0]`` experts and run each expert's SwiGLU over its (G·C)
+    rows, one batched matmul each.  Returns the experts' outputs (G, El,
+    C, d).  A choice not kept adds an exact zero into its slot."""
+    G, Tg, d = xt.shape
+    El = w1.shape[0]
+    contrib = torch.where(mask[..., None], xt.repeat_interleave(k, dim=1), 0.0)
+    g_idx = torch.arange(G, device=xt.device)[:, None].expand(G, Tg * k)
+    buf = xt.new_zeros((G, El, C, d))
+    buf.index_put_((g_idx, ids, pos), contrib, accumulate=True)
+    rows = buf.permute(1, 0, 2, 3).reshape(El, G * C, d)
+    h = F.silu(torch.bmm(rows, w1)) * torch.bmm(rows, w3)            # (El, G·C, ff)
+    return torch.bmm(h, w2).reshape(El, G, C, d).permute(1, 0, 2, 3)
+
+
+def _combine(out_buf, flat_ids, safe_pos, keep, gate_vals, k: int, dtype):
+    """Gather each choice's expert output back and sum a token's k
+    outputs weighted by their gates (0 for a dropped choice): (G, Tg, d)."""
+    G, Tk = flat_ids.shape
+    d = out_buf.shape[-1]
+    g_idx = torch.arange(G, device=out_buf.device)[:, None].expand(G, Tk)
+    y_rep = out_buf[g_idx, flat_ids, safe_pos]                       # (G, Tk, d)
+    w = keep.to(dtype) * gate_vals.reshape(G, Tk).to(dtype)
+    return (y_rep * w[..., None]).reshape(G, Tk // k, k, d).sum(dim=2)
+
+
 def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, need_aux: bool = True):
     """x: (B, S, d) -> (y, aux).  ``p`` holds :func:`moe_defs`' leaves of
     one layer as attributes (``router`` (d, E), ``w1``/``w3`` (E, d, ff),
@@ -74,48 +140,94 @@ def moe_ffn(p, x: torch.Tensor, cfg: ModelConfig, need_aux: bool = True):
     the router z-loss ``z_loss`` and the dropped share of the (token, k)
     choices ``dropped_frac``, as 0-d fp32 tensors; ``need_aux=False``
     skips them (the reference computes them and serving drops them) and
-    returns None."""
+    returns None.  DTensor inputs run :func:`_moe_on_shards`."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     T = B * S
     G = _moe_groups(cfg, T)
     Tg = T // G
     C = capacity(cfg, Tg)
-    xt = shard_act(x.reshape(G, Tg, d), ("act_batch", None, None))
+    if isinstance(x, DTensor):
+        return _moe_on_shards(p, x, cfg, G, C, need_aux)
+    xt = x.reshape(G, Tg, d)
     logits, probs, gate_vals, expert_ids = route(p, xt, cfg)
-
-    flat_ids = expert_ids.reshape(G, Tg * k)                         # (G, Tk)
-    # one-hot by comparison: F.one_hot checks its range on the host, a sync
-    onehot = (flat_ids[..., None] == torch.arange(E, device=x.device)).to(torch.int32)
-    pos_all = torch.cumsum(onehot, dim=1) - onehot
-    pos = torch.gather(pos_all, 2, flat_ids[..., None])[..., 0]      # (G, Tk)
-    keep = pos < C
-    safe_pos = torch.where(keep, pos, C - 1)
-
-    # scatter the kept choices into (G, E, C, d)
-    contrib = torch.where(keep[..., None], xt.repeat_interleave(k, dim=1), 0.0)
-    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * k)
-    buf = x.new_zeros((G, E, C, d))
-    buf.index_put_((g_idx, flat_ids, safe_pos), contrib, accumulate=True)
-    buf = shard_act(buf, ("act_batch", "experts_act", None, None))
-
-    # every expert's SwiGLU over its (G·C) rows, one batched matmul each
-    rows = buf.permute(1, 0, 2, 3).reshape(E, G * C, d)
-    h = F.silu(torch.bmm(rows, p.w1)) * torch.bmm(rows, p.w3)
-    h = shard_act(h, ("experts_act", None, "expert_act_ff"))        # (E, G·C, ff)
-    out_buf = torch.bmm(h, p.w2).reshape(E, G, C, d).permute(1, 0, 2, 3)
-    out_buf = shard_act(out_buf, ("act_batch", "experts_act", None, None))
-
-    # gather back and gate
-    y_rep = out_buf[g_idx, flat_ids, safe_pos]                       # (G, Tk, d)
-    w = keep.to(x.dtype) * gate_vals.reshape(G, Tg * k).to(x.dtype)
-    y = (y_rep * w[..., None]).reshape(G, Tg, k, d).sum(dim=2).reshape(B, S, d)
+    flat_ids, onehot, keep, safe_pos = _positions(expert_ids, E, C)
+    out_buf = _experts(xt, flat_ids, safe_pos, keep, p.w1, p.w3, p.w2, C, k)
+    y = _combine(out_buf, flat_ids, safe_pos, keep, gate_vals, k, x.dtype).reshape(B, S, d)
     if not need_aux:
         return y, None
+    return y, _aux(logits, probs, onehot.sum(dim=(0, 1)).to(torch.float32), keep, T, cfg)
 
-    me = probs.reshape(T, E).mean(dim=0)
-    ce = onehot.reshape(T, k, E).sum(1).to(torch.float32).mean(0) / k
-    aux = {"lb_loss": E * torch.sum(me * ce),
-           "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
-           "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
-    return y, aux
+
+def _aux(logits, probs, counts, keep, T: int, cfg: ModelConfig) -> dict:
+    """The load-balance loss from the mean router probability and each
+    expert's share of the (token, k) choices (``counts``, summed over the
+    T tokens), the router z-loss and the dropped share."""
+    E, k = cfg.n_experts, cfg.experts_per_token
+    me = probs.mean(dim=(0, 1))
+    ce = counts / T / k
+    return {"lb_loss": E * torch.sum(me * ce),
+            "z_loss": torch.mean(torch.logsumexp(logits, dim=-1) ** 2),
+            "dropped_frac": 1.0 - keep.to(torch.float32).mean()}
+
+
+def _moe_on_shards(p, x: DTensor, cfg: ModelConfig, G: int, C: int, need_aux: bool):
+    """:func:`moe_ffn` on DTensors, in two stages on local shards.  A mesh
+    dim that splits x's batch keeps it split where each rank then holds
+    whole dispatch groups (G divides over it); a mesh dim that the rules'
+    "experts" (EP) or "expert_ff" (expert-TP) names splits the expert
+    weights; any other dim is replicated."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.experts_per_token
+    T = B * S
+    mesh = x.device_mesh
+    ep = rule_dims(mesh, "experts")
+    tp = [i for i in rule_dims(mesh, "expert_ff") if i not in ep]
+    shard, _ = shard_index(mesh, ep)
+    R = Replicate()
+    tok, count = [], 1
+    for i, pl in enumerate(x.placements):
+        n = count * mesh.size(i)
+        split = pl == Shard(0) and i not in ep + tp and G % n == 0 and B % n == 0
+        tok.append(Shard(0) if split else R)
+        count = n if split else count
+    per_token = [Partial() if t == Shard(0) else R for t in tok]     # a sum over tokens
+    rep = [R] * mesh.ndim
+    x = x.redistribute(mesh, tok)       # each rank's whole groups, the sequence whole
+
+    def role(i, ep_pl, tp_pl, other):
+        return ep_pl if i in ep else tp_pl if i in tp else other
+
+    # 1. route the rank's groups; the slots depend only on the ids
+    def route_local(xl, router):
+        xt = xl.reshape(-1, T // G, d)
+        logits, probs, gate_vals, expert_ids = route(SimpleNamespace(router=router), xt, cfg)
+        flat_ids, onehot, keep, safe_pos = _positions(expert_ids, E, C)
+        counts = onehot.sum(dim=(0, 1)).to(torch.float32)
+        return logits, probs, gate_vals, flat_ids, keep, safe_pos, counts
+
+    logits, probs, gate_vals, flat_ids, keep, safe_pos, counts = on_shards(
+        route_local, (x, p.router), (tok, rep), (tok,) * 6 + (per_token,), (tok, per_token))
+
+    # 2. scatter into the rank's experts (or ff slice), run them and gather
+    # back: a partial sum over the expert dims, then reduced
+    w13 = [role(i, Shard(0), Shard(2), R) for i in range(mesh.ndim)]
+    w2_ = [role(i, Shard(0), Shard(1), R) for i in range(mesh.ndim)]
+    part = [role(i, Partial(), Partial(), t) for i, t in enumerate(tok)]
+    w_grad = [[role(i, w[i], w[i], g) for i, g in enumerate(per_token)] for w in (w13, w2_)]
+
+    def experts_local(xl, ids, pos, kp, gates, w1, w3, w2):
+        xt = xl.reshape(-1, T // G, d)
+        El = w1.shape[0]
+        if El < E:
+            ids, pos, kp = _local_choices(ids, pos, kp, shard * El, El, C)
+        out_buf = _experts(xt, ids, pos, kp, w1, w3, w2, C, k)
+        return _combine(out_buf, ids, pos, kp, gates, k, x.dtype).reshape(-1, S, d)
+
+    y = on_shards(experts_local, (x, flat_ids, safe_pos, keep, gate_vals, p.w1, p.w3, p.w2),
+                  (tok,) * 5 + (w13, w13, w2_), part,
+                  (part, tok, tok, tok, part, w_grad[0], w_grad[0], w_grad[1]))
+    y = y.redistribute(mesh, tok)
+    if not need_aux:
+        return y, None
+    return y, _aux(logits, probs, counts, keep, T, cfg)

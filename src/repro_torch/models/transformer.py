@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
@@ -188,7 +189,7 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
         if mode == "decode":
             y, ns = decode(getattr(bp, kind), h, cfg, state)
             for name, t in ns.items():
-                state[name].copy_(t)
+                state[name].copy_(_placed_like(t, state[name]))
             new_state = state
         else:
             y, new_state = block(getattr(bp, kind), h, cfg)
@@ -201,6 +202,15 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
         x, hc = add_rms_norm(x, y, cp.norm, cfg.norm_eps)
         y = attn.cross_attention(cp.attn, hc, kv, cfg, decode=mode == "decode")
     return (*_ffn_half(bp, x, y, cfg, aux if mode == "train" else None), new_state)
+
+
+def _placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` redistributed to ``like``'s placements when both are DTensors
+    (a recurrent state computed on head shards, written back into a cache
+    laid out by the plan's cache specs)."""
+    if isinstance(t, DTensor) and isinstance(like, DTensor) and t.placements != like.placements:
+        return t.redistribute(like.device_mesh, like.placements)
+    return t
 
 
 #: The recurrent block kinds' prefill and decode functions.

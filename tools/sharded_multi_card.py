@@ -7,21 +7,38 @@ a (4, 1) mesh against ``gqa_decode``, and ``topk_allreduce`` over the four
 ranks against the mean of each rank's decompressed payload.
 
 Gates: losses within rel 1e-5 and every parameter within 1e-4 of its
-leaf's largest entry of the single-card run's; each rank's kernel launches
+leaf's largest entry of the single-card run's plus 2% of the steps'
+summed learning rate (fault 2, measured with ``--dump-row``: where an
+entry's clipped gradient sits at Adam's eps, 1e-8, the first steps move it
+by g/(|g|+eps) of a step, so gradients equal to rounding move it by
+different shares; embed row 34514's entry exceeded 1e-4 of embed's
+largest entry by 1.9% of the summed lr); each rank's kernel launches
 those of the steps on its shards (the single card's counts); the sequence-
 sharded decode within 1e-5 of the largest entry; the all-reduce within rel
-1e-6.  Prints the step walls of both, each rank's peak memory and one JSON
-line.  The ranks meet through a ``FileStore`` in a temporary directory (no
+1e-6.  Prints the step walls of both, each rank's peak memory, the first
+step's gradients' largest difference (reported), and one JSON line.  The ranks meet through a ``FileStore`` in a temporary directory (no
 TCP port), each process group with a 60 s timeout;
 ``torch.multiprocessing.spawn`` ends every rank when one fails.
 
+``--layers N`` cuts the model to its first N layers at full width
+(olmoe-1b-7b at 4 of 16: experts over 'model' across cards, and a
+single-card reference that fits).  ``--dump-row R`` follows row R of the
+embedding through both runs: each step's gradient as the update receives
+it, each rank's partial sum of it before the reduction (the lookup's
+``Partial`` gradient), Adam's ``m`` and ``v`` after the step and the
+row's update; it prints where the row's parameters differ most and why,
+and writes the vectors to ``build/dump_row.npz``.
+
     python3 tools/sharded_multi_card.py                  # four CUDA cards, NCCL
+    python3 tools/sharded_multi_card.py --dump-row 34514
+    python3 tools/sharded_multi_card.py --arch olmoe-1b-7b --layers 4
     PYTHONPATH=src python3 tools/sharded_multi_card.py --device cpu \\
         --arch stablelm-1.6b@smoke --seq 32              # four gloo ranks on the host
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import gc
 import json
@@ -35,6 +52,7 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 WORLD = 4
 LOSS_RTOL, PARAM_ATOL_REL, SEQ_TOL, TOPK_RTOL = 1e-5, 1e-4, 1e-5, 1e-6
+ADAM_SHARE = 0.02       # of the steps' summed learning rate, beside PARAM_ATOL_REL
 
 
 def log(rank: int, msg: str) -> None:
@@ -49,10 +67,129 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def single_card_reference(cfg, opt_cfg, batches, device) -> dict:
-    """``make_step`` on one device: losses, learning rates, step walls, and
-    the parameters before and after the steps, on the host."""
+class RowDump:
+    """One embedding row through a run: per step the gradient as the
+    update receives it, Adam's ``m`` and ``v`` after the step, and the row
+    before and after it (``steps``); on local shards also this rank's
+    partial sum of the gradient before the reduction (``partials``)."""
+
+    def __init__(self, row: int):
+        self.row = row
+        self.steps: list[dict] = []
+        self.partials: list = []
+
+    def take(self, t):
+        """Row ``row`` of a (possibly sharded) table, on the host in fp32."""
+        import torch
+
+        full = t.full_tensor() if hasattr(t, "full_tensor") else t
+        return full[self.row].detach().to("cpu", torch.float32, copy=True)
+
+    def spy(self, module):
+        """Wraps ``module.adamw_update`` to record the row; returns an undo."""
+        update = module.adamw_update
+
+        def recorded(cfg, params, grads, state):
+            before = self.take(params["embed"])
+            params, state, om = update(cfg, params, grads, state)
+            self.steps.append(dict(grad=self.take(grads["embed"]), before=before,
+                                   m=self.take(state["m"]["embed"]),
+                                   v=self.take(state["v"]["embed"]),
+                                   after=self.take(params["embed"])))
+            return params, state, om
+
+        module.adamw_update = recorded
+        return lambda: setattr(module, "adamw_update", update)
+
+    def tap_lookup(self):
+        """Replaces the model's ``embed_lookup`` with one that records the
+        row of each rank's local table gradient (its partial sum, zero on
+        a rank whose tokens miss the row); returns an undo."""
+        import torch
+        from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+        from repro_torch.models import common, model
+
+        dump = self
+
+        class Tap(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, t):
+                return t.view_as(t)
+
+            @staticmethod
+            def backward(ctx, g):
+                dump.partials.append(g[dump.row].detach().to("cpu", copy=True))
+                return g
+
+        def lookup(table, tokens):
+            if not isinstance(table, DTensor):
+                return common.embed_lookup(table, tokens)
+            tokens = common.replicated_like(tokens, table)
+            pl = list(tokens.placements)
+            grad = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+            return common.on_shards(lambda t, i: Tap.apply(t)[i], (table, tokens),
+                                    ([Replicate()] * len(pl), pl), pl, (grad, pl))
+
+        inner = model.embed_lookup
+        model.embed_lookup = lookup
+        return lambda: setattr(model, "embed_lookup", inner)
+
+
+def row_summary(row, single, sharded, partials, leaf_max, batches) -> dict:
+    """Fault 2's measurement: per step, the sharded gradient of the row
+    against the single card's (absolute, relative to the row's largest
+    entry, and in units of the fp32 spacing at that entry), and whether the
+    ranks' partial sums add up to the reduced row bit for bit with every
+    rank but the token's holder at exact zero; then, at the column where the
+    two runs' parameters differ most, each step's gradient, ``m``, ``v`` and
+    update in both runs."""
     import torch
+
+    where = [[int(b), int(p)] for s, batch in enumerate(batches)
+             for b, p in (batch["tokens"] == row).nonzero().tolist()]
+    seen = {s: int((batch["tokens"] == row).sum()) for s, batch in enumerate(batches)}
+    out = {"row": row, "token_count_by_step": seen, "positions_step0": where[:8], "steps": []}
+    for s, (a, b) in enumerate(zip(single.steps, sharded)):
+        diff = (b["grad"] - a["grad"]).abs()
+        top = float(a["grad"].abs().max())
+        ulp = float(torch.finfo(torch.float32).eps) * 2.0 ** float(torch.floor(torch.log2(
+            torch.tensor(max(top, 1e-38)))))
+        # the tokens split over 'data' and repeat over 'model': the
+        # reduction adds the data ranks' partials, each model replica alike
+        parts = {tuple(coord): p[s] for coord, p in partials}
+        total = None
+        for coord in sorted(c for c in parts if c[1] == 0):
+            total = parts[coord].clone() if total is None else total + parts[coord]
+        out["steps"].append(dict(
+            grad_row_max=top, grad_max_abs_diff=float(diff.max()),
+            grad_rel_diff=float(diff.max()) / max(top, 1e-38),
+            grad_diff_in_ulps_of_row_max=float(diff.max()) / ulp,
+            partials_sum_bitwise_reduced=bool(torch.equal(total, b["grad"])),
+            model_replicas_bitwise=all(torch.equal(p, parts[(c[0], 0)]) for c, p in parts.items()),
+            ranks_with_nonzero_partial=[list(c) for c, p in sorted(parts.items())
+                                        if bool(p.ne(0).any())]))
+    gap = (sharded[-1]["after"] - single.steps[-1]["after"]).abs()
+    col = int(gap.argmax())
+    out["column"] = col
+    out["param_gap"] = float(gap[col])
+    out["param_gap_rel_leaf_max"] = float(gap[col]) / leaf_max
+    out["at_column"] = [
+        {run: {k: float(st[k][col]) for k in ("grad", "m", "v")}
+         | {"update": float(st["after"][col] - st["before"][col])}
+         for run, st in (("make_step", a), ("bundle", b))}
+        for a, b in zip(single.steps, sharded)]
+    return out
+
+
+def single_card_reference(cfg, opt_cfg, batches, device, dump=None) -> dict:
+    """``make_step`` on one device: losses, learning rates, step walls, and
+    the parameters before and after the steps, on the host (``dump``, a
+    :class:`RowDump`, records its row)."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.launch import train
     from repro_torch.launch.train import make_step
     from repro_torch.models import build_model
     from repro_torch.optim import init_opt_state
@@ -63,14 +200,18 @@ def single_card_reference(cfg, opt_cfg, batches, device) -> dict:
     opt = init_opt_state(opt_cfg, params)
     step_fn = make_step(model, opt_cfg)
     losses, lrs, ms = [], [], []
-    for b in batches:
-        sync(device)
-        t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, {k: v.to(device) for k, v in b.items()})
-        losses.append(float(m["loss"]))
-        ms.append((time.perf_counter() - t0) * 1e3)
-        lrs.append(float(m["lr"]))
-    out = dict(losses=losses, lrs=lrs, step_ms=ms, start=start,
+    with cs.first_step_grads(train) as grads0:
+        undo = dump.spy(train) if dump else None
+        for b in batches:
+            sync(device)
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, {k: v.to(device) for k, v in b.items()})
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            lrs.append(float(m["lr"]))
+        if undo:
+            undo()
+    out = dict(losses=losses, lrs=lrs, step_ms=ms, start=start, grads0=grads0,
                params={n: p.detach().to("cpu") for n, p in params.items()})
     del model, params, opt, step_fn
     gc.collect()
@@ -79,15 +220,17 @@ def single_card_reference(cfg, opt_cfg, batches, device) -> dict:
     return out
 
 
-def sharded_train(rank, cfg, opt_cfg, batches, device, ref) -> dict:
+def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
     """The (2, 2) train bundle for the same steps; its parameters gathered
-    leaf by leaf and held to ``ref`` on rank 0."""
+    leaf by leaf and held to ``ref`` on rank 0 (``dump``, a
+    :class:`RowDump`, records its row on every rank)."""
     import torch
     import torch.distributed as dist
 
     import chip_smoke as cs
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch import steps
     from repro_torch.launch.mesh import make_debug_mesh
     from repro_torch.launch.sharding import PlanConfig
     from repro_torch.launch.steps import make_train_bundle
@@ -108,16 +251,23 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref) -> dict:
     opt = init_opt_state(opt_cfg, params)
     cs.zero_launches()
     losses, ms = [], []
-    for b in batches:
-        dist.barrier()
-        sync(device)
-        t0 = time.perf_counter()
-        params, opt, m = bundle.step_fn(params, opt, shard_batch(b, mesh))
-        losses.append(float(m["loss"]))
-        ms.append((time.perf_counter() - t0) * 1e3)
+    with cs.first_step_grads(steps, keep=rank == 0) as grads0:
+        undo = [dump.spy(steps), dump.tap_lookup()] if dump else []
+        for b in batches:
+            dist.barrier()
+            sync(device)
+            t0 = time.perf_counter()
+            params, opt, m = bundle.step_fn(params, opt, shard_batch(b, mesh))
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        for u in undo:
+            u()
     launches = cs.kernel_launches()
+    grad_errs = {n: float((grads0[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+                 for n, w in ref["grads0"].items()} if rank == 0 else {}
+    del grads0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    errs, over = {}, {}
+    errs, over, shares = {}, {}, {}
     for n, p in params.items():
         full = p.full_tensor().detach().to("cpu")
         if rank == 0:
@@ -125,30 +275,58 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref) -> dict:
             scale = max(float(want.abs().max()), 1e-30)
             diff = (full - want).abs()
             errs[n] = float(diff.max()) / scale
-            if errs[n] > PARAM_ATOL_REL:
-                over[n] = _offenders(full, want, ref["start"][n], diff, scale)
+            shares[n] = float(diff.max()) / sum(ref["lrs"])
+            tol = PARAM_ATOL_REL * scale + ADAM_SHARE * sum(ref["lrs"])
+            if float(diff.max()) > tol:
+                over[n] = _offenders(full, want, ref["start"][n], diff, tol)
     per_rank = [None] * WORLD
     dist.all_gather_object(per_rank, {"launches": launches, "peak_bytes": peak})
     worst_name = max(errs, key=errs.get) if errs else None
-    return dict(losses=losses, step_ms=ms, param_max_rel_err=errs.get(worst_name, 0.0),
+    row = None
+    if dump:
+        partials = [None] * WORLD
+        dist.all_gather_object(partials, (mesh.get_coordinate(), dump.partials))
+        if rank == 0:
+            row = row_summary(dump.row, ref["dump"], dump.steps, partials,
+                              float(ref["params"]["embed"].abs().max()), batches)
+            save_row(ref["dump"], dump.steps, partials)
+    grad_worst = max(grad_errs, key=grad_errs.get) if grad_errs else None
+    return dict(row_dump=row, param_max_err_of_lr_sum=max(shares.values(), default=0.0),
+                grad0_max_rel_err=grad_errs.get(grad_worst, 0.0), grad0_worst_leaf=grad_worst,
+                losses=losses, step_ms=ms, param_max_rel_err=errs.get(worst_name, 0.0),
                 worst_leaf=worst_name, leaf_errs=sorted(errs.items(), key=lambda kv: -kv[1])[:5],
                 offenders=over, per_rank=per_rank,
                 placements=sorted({str(tuple(p.placements)) for p in params.values()}))
 
 
-def _offenders(got, want, start, diff, scale) -> dict:
-    """Where a leaf misses the gate: how many entries, how far each run
-    moved them from the start, and whether the moves agree in sign
+def _offenders(got, want, start, diff, tol) -> dict:
+    """Where a leaf misses the gate ``tol``: how many entries, how far each
+    run moved them from the start, and whether the moves agree in sign
     (AdamW's step is the gradient's sign where it is far above ``eps``, so
     a flip marks a gradient at the level of its own rounding)."""
     import torch
 
-    bad = diff > PARAM_ATOL_REL * scale
+    bad = diff > tol
     d_got, d_want = (got - start)[bad], (want - start)[bad]
     return {"entries": int(bad.sum()), "of": got.numel(),
             "max_move_ref": float(d_want.abs().max()), "min_move_ref": float(d_want.abs().min()),
             "sign_flips": int((torch.sign(d_got) != torch.sign(d_want)).sum()),
             "rows": sorted({int(i) for i in bad.nonzero()[:, 0].tolist()})[:20]}
+
+
+def save_row(single, sharded, partials) -> None:
+    """The dumped vectors, by run, step and rank, in ``build/dump_row.npz``."""
+    import numpy as np
+
+    arrays = {}
+    for s, (a, b) in enumerate(zip(single.steps, sharded)):
+        for k in ("grad", "m", "v", "before", "after"):
+            arrays[f"make_step/{s}/{k}"] = a[k].numpy()
+            arrays[f"bundle/{s}/{k}"] = b[k].numpy()
+        for coord, p in partials:
+            arrays[f"bundle/{s}/partial/data{coord[0]}_model{coord[1]}"] = p[s].numpy()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    np.savez(os.path.join(ROOT, "build", "dump_row.npz"), **arrays)
 
 
 def collectives(rank, cfg, device) -> dict:
@@ -215,6 +393,9 @@ def run(rank: int, args, store_dir: str) -> None:
                             timeout=datetime.timedelta(seconds=60))
     try:
         cfg = get_config(args.arch)
+        if args.layers:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers,
+                                      name=f"{cfg.name}/{args.layers}-layers")
         opt_cfg = TrainConfig().opt
         stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                               global_batch=args.batch, seed=0))
@@ -224,10 +405,13 @@ def run(rank: int, args, store_dir: str) -> None:
         if rank == 0:
             log(rank, f"make_step on one device ({device}): {cfg.name}, {args.steps} steps of "
                       f"{args.batch} x {args.seq}")
-            ref = single_card_reference(cfg, opt_cfg, batches, device)
+            dump = RowDump(args.dump_row) if args.dump_row is not None else None
+            ref = single_card_reference(cfg, opt_cfg, batches, device, dump)
+            ref["dump"] = dump
         dist.barrier()
         log(rank, "the (2, 2) train bundle on four ranks")
-        train = sharded_train(rank, cfg, opt_cfg, batches, device, ref)
+        dump = RowDump(args.dump_row) if args.dump_row is not None else None
+        train = sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump)
         log(rank, "gqa_decode_seqsharded on a (4, 1) mesh and topk_allreduce over four ranks")
         coll = collectives(rank, cfg, device)
         dist.barrier()
@@ -246,17 +430,21 @@ def check(args, cfg, ref, train, coll) -> None:
            "losses_bundle": train["losses"], "losses_make_step": ref["losses"],
            "step_ms_bundle": train["step_ms"], "step_ms_make_step": ref["step_ms"],
            "param_max_rel_err": train["param_max_rel_err"], "worst_leaf": train["worst_leaf"],
+           "param_max_err_of_lr_sum": train["param_max_err_of_lr_sum"],
+           "grad0_max_rel_err": train["grad0_max_rel_err"],
+           "grad0_worst_leaf": train["grad0_worst_leaf"],
            "leaf_errs": train["leaf_errs"], "offenders": train["offenders"], "lr": ref["lrs"],
-           "per_rank": train["per_rank"], "placements": train["placements"], **coll}
+           "per_rank": train["per_rank"], "placements": train["placements"],
+           "row_dump": train["row_dump"], **coll}
     if args.device == "cuda":
         fig["card"] = cs.card_line()
     print(json.dumps(fig), flush=True)
     for a, b in zip(train["losses"], ref["losses"]):
         if abs(a - b) > LOSS_RTOL * abs(b):
             raise AssertionError(f"losses {train['losses']} vs make_step's {ref['losses']}")
-    if train["param_max_rel_err"] > PARAM_ATOL_REL:
-        raise AssertionError(f"{train['worst_leaf']} differs by {train['param_max_rel_err']:.3e} "
-                             "of its largest entry")
+    if train["offenders"]:
+        raise AssertionError(f"parameters past {PARAM_ATOL_REL:g} of their leaf's largest entry "
+                             f"plus {ADAM_SHARE:g} of the summed lr: {train['offenders']}")
     if args.device == "cuda":
         want = cs.training_launches(cfg, args.steps)
         for r, rank_fig in enumerate(train["per_rank"]):
@@ -276,6 +464,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=256)
+    ap.add_argument("--layers", type=int, default=0, help="cut to the first N layers")
+    ap.add_argument("--dump-row", type=int, default=None, help="follow this embedding row")
     args = ap.parse_args()
     if args.device == "cuda":
         import torch

@@ -1,11 +1,14 @@
 """The smoke run's phase 22 on its own: the sharded train, prefill and
 decode bundles of stablelm-1.6b on a (1, 1) mesh over a NCCL process group
 of one rank, held to ``make_step`` and the unsharded forwards, then the
-sequence-sharded decode and the compressed all-reduce on that group
-(``chip_smoke.phase_sharded``).  Prints the torch and CUDA versions first.
+sequence-sharded decode and the compressed all-reduce on that group, then
+the same bundles for olmoe-1b-7b at 2 layers, the jamba Mamba + attention
+pair and one xlstm-1.3b period (``chip_smoke.phase_sharded``).  Prints the
+torch and CUDA versions first.
 
-Needs a CUDA card (about 2 minutes of command time) and builds the rmsnorm
-and flash-attention libraries, forward and backward, from the checkout.
+Needs a CUDA card (about 4 minutes of command time) and builds the
+rmsnorm, flash-attention and selective-scan libraries, forward and
+backward, from the checkout.
 
 Run from the repository root:  python3 tools/sharded_probe.py
 """
@@ -26,12 +29,14 @@ def main() -> None:
     from repro_torch import resolve_device
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
 
     device = resolve_device(None)
     cs.log(cs.card_line())
     cs.log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     timings = {"build": cs.build_all([rmsnorm_ops.LIBRARY, rmsnorm_ops.BACKWARD_LIBRARY,
-                                      flash_ops.LIBRARY, flash_ops.BACKWARD_LIBRARY])}
+                                      flash_ops.LIBRARY, flash_ops.BACKWARD_LIBRARY,
+                                      ssm_ops.LIBRARY, ssm_ops.BACKWARD_LIBRARY])}
     t0 = time.perf_counter()
     cs.phase_sharded(device, 0, timings)
     timings["total"] = time.perf_counter() - t0
