@@ -197,13 +197,20 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    the kernels ran on the local shards through ``local_map``), each peak
    under 75 GiB; (c) the prefill and decode bundles against the unsharded
    ``forward_prefill`` and ``forward_decode`` on 4 of phase 6's seeded
-   prompts and 8 greedy steps: logits and caches within rtol 1e-4, atol
-   1e-4 x max, tokens equal; (d) ``gqa_decode_seqsharded`` at stablelm's
-   widths against ``gqa_decode`` (1e-5 of the largest entry) and
-   ``topk_allreduce`` against ``topk_decompress(topk_compress(...))`` bit
-   for bit; it prints the step walls of both, the DTensor path's host
-   overhead, the peaks and the launches.  One card shows the DTensor path
-   and its kernels, not the collectives of several ranks;
+   prompts and 8 greedy steps: logits over the real vocabulary and caches
+   within rtol 1e-4, atol 1e-4 x max, the padded vocabulary's masked
+   logits bit for bit, tokens equal; (d) ``gqa_decode_seqsharded`` at
+   stablelm's widths against ``gqa_decode`` (1e-5 of the largest entry)
+   and ``topk_allreduce`` against ``topk_decompress(topk_compress(...))``
+   bit for bit; (e)-(j) the checks of (b) and (c), the first step's
+   gradients within 1e-5 of each leaf's largest entry too, for olmoe-1b-7b
+   at 2 layers, the jamba pair, an xlstm-1.3b period, minicpm3-4b at 2
+   layers (MLA), seamless-m4t-large-v2 whole (encoder-decoder, 512
+   frames) and internvl2-26b at 2 layers (256 patch tokens before the
+   text), the frontend models with ``train.frontend_noise`` embeddings;
+   it prints the step walls of both, the DTensor path's host overhead, the
+   peaks and the launches.  One card shows the DTensor path and its
+   kernels, not the collectives of several ranks;
 13. (run after 22) builds the LM bridge's workload model of each served
    model (2N FLOPs and the fp32 parameter bytes over the slots per token)
    and prints its predicted one-card decode rate beside the measured one
@@ -4282,10 +4289,39 @@ def nccl_world_of_one(tmp_dir):
     return make_debug_mesh(1, 1, device_type="cuda")
 
 
+def sharded_batches(cfg, device, seed) -> tuple[list, int]:
+    """22 (b)'s two training batches of 21 (b)'s corpus (4 x 256 text
+    tokens) for ``cfg``, each with ``train()``'s stand-in frontend
+    embeddings of its step where the model takes them (a decoder-only
+    model's in front of the text, an encoder-decoder's into its encoder);
+    and the train shape's sequence length, which counts a decoder-only
+    model's frontend tokens."""
+    import torch
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.train import frontend_noise
+
+    stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN21_SEQ,
+                                          global_batch=TRAIN21_BATCH, seed=seed))
+    batches = []
+    for s in range(SHARDED_TRAIN_STEPS):
+        b = {k: torch.as_tensor(v, device=device).long() for k, v in stream.batch_at(s).items()}
+        if cfg.frontend is not None:
+            b["frontend"] = frontend_noise(cfg, TRAIN21_BATCH, s, device)
+        batches.append(b)
+    return batches, TRAIN21_SEQ + front_tokens(cfg)
+
+
+def front_tokens(cfg) -> int:
+    """The frontend tokens in front of a decoder-only model's text (none
+    for an encoder-decoder model, whose frames go to its encoder)."""
+    return cfg.frontend_tokens if cfg.frontend is not None and not cfg.is_encdec else 0
+
+
 def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
     """22 (b): stablelm-1.6b whole in fp32 (or ``cfg``), ``make_step`` for
-    two steps of 21 (b)'s first two batches and then the train bundle for
-    the same two steps from the same seed-0 parameters (remat "none").
+    two steps of 21 (b)'s first two batches (:func:`sharded_batches`) and
+    then the train bundle for the same two steps from the same seed-0
+    parameters (remat "none").
     The first run's parameters and first-step gradients go to the host
     leaf by leaf before the second is built, so the card never holds both
     states.  Gates: the first step's gradients within 1e-5 of each leaf's
@@ -4294,7 +4330,6 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
     two training steps; peaks under 75 GiB."""
     import torch
     from repro_torch.configs import ShapeConfig
-    from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.launch import steps as steps_module
     from repro_torch.launch import train as train_module
     from repro_torch.launch.sharding import PlanConfig
@@ -4305,10 +4340,7 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
 
     cfg = cfg or stablelm_config()
     opt_cfg = TrainConfig().opt
-    stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN21_SEQ,
-                                          global_batch=TRAIN21_BATCH, seed=seed))
-    batches = [{k: torch.as_tensor(v, device=device).long()
-                for k, v in stream.batch_at(s).items()} for s in range(SHARDED_TRAIN_STEPS)]
+    batches, seq = sharded_batches(cfg, device, seed)
     runs = {}
     for kind in ("make_step", "bundle"):
         gc.collect()
@@ -4320,8 +4352,8 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
             params = dict(model.named_parameters())
             step_fn = make_step(model, opt_cfg)
         else:
-            bundle = make_train_bundle(cfg, ShapeConfig("train", TRAIN21_SEQ, TRAIN21_BATCH,
-                                                        "train"), mesh,
+            bundle = make_train_bundle(cfg, ShapeConfig("train", seq, TRAIN21_BATCH, "train"),
+                                       mesh,
                                        PlanConfig(tp=1, dp=1), opt_cfg,
                                        param_dtype=torch.float32, remat="none",
                                        device_type=device.type)
@@ -4394,22 +4426,34 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
     return runs
 
 
-def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
+def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)", plan=None) -> dict:
     """22 (c): stablelm-1.6b's (or ``cfg``'s) prefill and decode bundles
     against the unsharded ``forward_prefill`` and ``forward_decode``: the
     first 4 of phase 6's seeded prompts (its generator and seed, the
-    model's vocab), each cut to the shortest of them, then 8 greedy decode
-    steps against caches padded to the prompt plus the steps (attention's
-    K/V over the prompt's positions, recurrent states whole).  Each side's
+    model's vocab), each cut to the shortest of them (75 tokens), behind
+    or beside ``train()``'s stand-in frontend embeddings where the model
+    takes them, then 8 greedy decode steps against caches padded to the
+    prefill's positions plus the steps (attention's K/V and MLA's latents
+    over the prefill's positions; recurrent states and an encoder-decoder
+    model's cross K/V whole).  Each side's
     kernel launches are counted and must be equal; an MoE model's expert
     ids are compared under the tie rule (:func:`check_routing`), a flip
     within the margin un-gating the comparisons that follow it (routing
-    moves no hand-written kernel's count, so the launches stay gated)."""
+    moves no hand-written kernel's count, so the launches stay gated).
+
+    ``plan`` (the (1, 1) plan by default) may split the caches' time axis
+    over 'model' (``tools/sharded_multi_card.py`` runs this on every rank
+    of a (2, 2) mesh, each holding the unsharded model on its own card):
+    the context is then tp x (prefill + 4) positions, so that the 'model'
+    ranks' first time shard ends at the fourth decode step and the slots
+    of the steps fall on both of tp = 2's ranks."""
     import numpy as np
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.sharding import PlanConfig
+    from repro_torch.launch.serve import SEQUENCE_CACHES
     from repro_torch.launch.steps import make_decode_bundle, make_prefill_bundle
+    from repro_torch.launch.train import frontend_noise
     from repro_torch.models import build_model
 
     cfg = cfg or stablelm_config()
@@ -4419,13 +4463,20 @@ def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
     S = int(min(lengths[:SHARDED_PROMPTS]))
     tokens = torch.as_tensor(np.stack([p[:S] for p in prompts[:SHARDED_PROMPTS]]),
                              device=device).long()
-    B, ctx = SHARDED_PROMPTS, S + SHARDED_DECODE_STEPS
+    B = SHARDED_PROMPTS
+    frames = frontend_noise(cfg, B, seed, device) if cfg.frontend is not None else None
+    filled = S + front_tokens(cfg)
+    plan = plan or PlanConfig(tp=1, dp=1)
+    ctx = (filled + SHARDED_DECODE_STEPS if plan.tp == 1
+           else plan.tp * (filled + SHARDED_DECODE_STEPS // 2))
+    cuda = device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg, device=device, seed=seed)
-    plan = PlanConfig(tp=1, dp=1)
-    pre = make_prefill_bundle(cfg, ShapeConfig("prefill", S, B, "prefill"), mesh, plan,
+    pre = make_prefill_bundle(cfg, ShapeConfig("prefill", filled, B, "prefill"), mesh, plan,
                               param_dtype=torch.float32, device_type=device.type)
     dec = make_decode_bundle(cfg, ShapeConfig("decode", ctx, B, "decode"), mesh, plan,
                              param_dtype=torch.float32, device_type=device.type)
@@ -4436,8 +4487,8 @@ def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
         for key, per in caches.items():
             for n, t in per.items():
                 t = t.full_tensor() if hasattr(t, "full_tensor") else t
-                if n in ("k", "v"):
-                    full[key][n][:, :, :S] = t
+                if n in SEQUENCE_CACHES and key != "cross_kv":
+                    full[key][n][:, :, :filled] = t
                 else:
                     full[key][n].copy_(t)
         return full
@@ -4446,6 +4497,13 @@ def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
 
     def check(what, got, want):
         got = got.full_tensor() if hasattr(got, "full_tensor") else got
+        if "logits" in what:
+            # the padded vocabulary's rows are masked to -1e9, which would
+            # set the scale: they must agree bit for bit, the rest within it
+            if not torch.equal(got[..., cfg.vocab:], want[..., cfg.vocab:]):
+                raise AssertionError(f"{label}: {what}: the padded vocabulary's masked logits "
+                                     "differ")
+            got, want = got[..., :cfg.vocab], want[..., :cfg.vocab]
         scale = float(want.abs().max())
         excess = ((got - want).abs() - SHARDED_SERVE_TOL * want.abs()).max()
         err = float((got - want).abs().max()) / max(scale, 1e-30)
@@ -4461,25 +4519,26 @@ def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
 
     def run(side, fn, *args):
         before = kernel_launches()
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = fn(*args)
-        torch.cuda.synchronize()
+        sync()
         walls[side].append((time.perf_counter() - t0) * 1e3)
         for k, n in kernel_launches().items():
             launches[side][k] += n - before[k]
         return out
 
     router = RouterLog() if cfg.is_moe else None
-    tokens_out, flip = [], None
+    tokens_out, flip, full = [], None, {}
     with router or contextlib.nullcontext():
         try:
             if router:
                 router.side = "host"
-            want_logits, want_caches = run("unsharded", model.forward_prefill, tokens)
+            want_logits, want_caches = run("unsharded", model.forward_prefill, tokens, frames)
             if router:
                 router.side = "card"
-            logits, caches = run("bundle", pre.step_fn, params, {"tokens": tokens})
+            batch = {"tokens": tokens} if frames is None else {"tokens": tokens, "frontend": frames}
+            logits, caches = run("bundle", pre.step_fn, params, batch)
             check("prefill logits", logits, want_logits)
             for key, per in want_caches.items():
                 for n, t in per.items():
@@ -4496,10 +4555,10 @@ def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
                 if router:
                     router.side = "host"
                 want_logits, want_full = run("unsharded", model.forward_decode, want_tok,
-                                             want_full, S + i)
+                                             want_full, filled + i)
                 if router:
                     router.side = "card"
-                logits, full = run("bundle", dec.step_fn, params, full, tok, S + i)
+                logits, full = run("bundle", dec.step_fn, params, full, tok, filled + i)
                 check(f"decode {i} logits", logits, want_logits)
                 want_tok, tok = want_logits.argmax(-1), logits.full_tensor().argmax(-1)
             for key, per in want_full.items():
@@ -4523,12 +4582,16 @@ def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)") -> dict:
     if launches["bundle"] != launches["unsharded"]:
         raise AssertionError(f"{label}: the bundles launched {launches['bundle']}, the unsharded "
                              f"forwards {launches['unsharded']}")
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
     del model, params
     gc.collect()
-    torch.cuda.empty_cache()
+    if cuda:
+        torch.cuda.empty_cache()
+    placed = {f"{key}/{n}": [list(t.to_local().shape), [str(p) for p in t.placements]]
+              for key, per in full.items() for n, t in per.items()}
     return dict(prompt_len=S, ctx=ctx, tokens=tokens_out, max_rel_err=worst, wall_ms=walls,
-                launches=launches["bundle"], peak_bytes=peak, routing=routing)
+                launches=launches["bundle"], peak_bytes=peak, routing=routing,
+                cache_local=placed)
 
 
 def sharded_collectives(device, seed, mesh) -> dict:
@@ -4574,17 +4637,28 @@ def sharded_collectives(device, seed, mesh) -> dict:
 
 
 SHARDED_OLMOE_LAYERS = 2             # 22 (e): olmoe-1b-7b cut to 2 of its 16 layers
+SHARDED_MINICPM_LAYERS = 2           # 22 (h): minicpm3-4b cut to 2 of its 62 layers
+SHARDED_INTERNVL_LAYERS = 2          # 22 (j): internvl2-26b cut to 2 of its 48 layers
 
 
 def sharded_blocks_configs():
-    """22 (e)-(g): olmoe-1b-7b cut to 2 of 16 layers, the jamba pair of
-    21 (c) (Mamba + attention, d 8192) and one xlstm-1.3b period (7
-    mLSTM + 1 sLSTM), each at full width."""
+    """22 (e)-(j): olmoe-1b-7b cut to 2 of 16 layers, the jamba pair of
+    21 (c) (Mamba + attention, d 8192), one xlstm-1.3b period (7 mLSTM + 1
+    sLSTM), minicpm3-4b (MLA) cut to 2 of 62 layers, seamless-m4t-large-v2
+    whole (24 encoder and 24 decoder layers over 512 frames) and
+    internvl2-26b cut to 2 of 48 layers behind its 256 frontend tokens,
+    each at full width."""
     from repro_torch.configs import get_config
-    olmoe = get_config("olmoe-1b-7b")
-    return {"22 (e)": dataclasses.replace(olmoe, n_layers=SHARDED_OLMOE_LAYERS,
-                                          name=f"olmoe-1b-7b/{SHARDED_OLMOE_LAYERS}-layers"),
-            "22 (f)": jamba_pair_config(), "22 (g)": xlstm_configs()[1]}
+
+    def cut(arch, layers):
+        return dataclasses.replace(get_config(arch), n_layers=layers,
+                                   name=f"{arch}/{layers}-layers")
+
+    return {"22 (e)": cut("olmoe-1b-7b", SHARDED_OLMOE_LAYERS),
+            "22 (f)": jamba_pair_config(), "22 (g)": xlstm_configs()[1],
+            "22 (h)": cut("minicpm3-4b", SHARDED_MINICPM_LAYERS),
+            "22 (i)": get_config("seamless-m4t-large-v2"),
+            "22 (j)": cut("internvl2-26b", SHARDED_INTERNVL_LAYERS)}
 
 
 def train_figures(runs) -> dict:
@@ -4607,7 +4681,8 @@ def phase_sharded(device, seed, timings) -> dict:
     stablelm-1.6b on a (1, 1) mesh over a NCCL group of one rank, every
     hand-written kernel on the local shards; the sequence-sharded decode
     and the compressed all-reduce on that group; then the same bundles
-    for an MoE model, the Mamba + attention pair and an xLSTM period
+    for an MoE model, the Mamba + attention pair, an xLSTM period, an MLA
+    model, an encoder-decoder model and a decoder behind frontend tokens
     (:func:`sharded_blocks_configs`).  One card shows the DTensor path and
     its kernels, not the collectives of several ranks."""
     import tempfile
@@ -4638,8 +4713,9 @@ def phase_sharded(device, seed, timings) -> dict:
             for label, cfg in sharded_blocks_configs().items():
                 t1 = time.perf_counter()
                 log(f"phase {label}: {cfg.name} at full width, fp32: the train bundle vs "
-                    f"make_step, {SHARDED_TRAIN_STEPS} steps of {TRAIN21_BATCH} x {TRAIN21_SEQ}, "
-                    f"then the prefill and decode bundles vs the unsharded forwards")
+                    f"make_step, {SHARDED_TRAIN_STEPS} steps of {TRAIN21_BATCH} x "
+                    f"{TRAIN21_SEQ + front_tokens(cfg)}, then the prefill and decode bundles vs "
+                    f"the unsharded forwards")
                 runs = sharded_train(device, seed, mesh, cfg, label)
                 fig = {"train": train_figures(runs),
                        "serve": sharded_serve(device, seed, mesh, cfg, label),

@@ -25,13 +25,14 @@ backward (``torch.utils.checkpoint``); ``scan_layers`` is accepted for the
 reference's signature and has no counterpart in eager torch, whose layers
 run in a Python loop either way.
 
-The bundles execute GQA decoders of attention, Mamba, mLSTM and sLSTM
-blocks with dense or MoE feed-forwards (llama3-8b, stablelm-1.6b,
-h2o-danube-3-4b with its sliding window, olmoe-1b-7b and mixtral-8x7b
-under EP or expert-TP, jamba-1.5-large, xlstm-1.3b); the rules and specs
-cover every architecture, but the bundles of MLA, encoder-decoder and
-frontend models raise ``NotImplementedError`` (ROADMAP queue 1, item 3e
-(ii)).
+The bundles execute every registered architecture: decoders of GQA or
+MLA attention, Mamba, mLSTM and sLSTM blocks with dense or MoE
+feed-forwards (MoE under EP or expert-TP), decoders behind a frontend's
+tokens and encoder-decoder models.  A decode step combines the partial
+softmaxes of a cache whose time axis the plan splits (GQA's K/V, MLA's
+compressed ``c_kv``/``k_rope``, and an encoder-decoder model's
+``cross_kv``, whose frames split by the decode shape's ``cache_t``,
+unevenly where they do not divide it).
 """
 from __future__ import annotations
 
@@ -72,11 +73,21 @@ class StepBundle:
         """The step's parameters from full tensors by parameter name: each
         cast to the bundle's parameter dtype and distributed onto the mesh
         with its spec's placements (every rank passes the same values), a
-        train bundle's with gradients on."""
+        train bundle's with gradients on.  A train step updates its
+        parameters in place, so a train bundle's local shard that would
+        share ``state``'s storage (a replicated leaf, or any leaf on a
+        one-rank mesh) is a copy."""
         out = {}
         for name, meta in self.model.named_parameters():
-            t = _place(state[name].detach().to(meta.dtype), self.param_specs[name], self.mesh)
-            out[name] = t.requires_grad_(True) if self.kind == "train" else t
+            full = state[name].detach().to(meta.dtype)
+            t = _place(full, self.param_specs[name], self.mesh)
+            if self.kind == "train":
+                local = t.to_local()
+                if local.untyped_storage().data_ptr() == full.untyped_storage().data_ptr():
+                    t = DTensor.from_local(local.clone(), self.mesh, t.placements,
+                                           run_check=False, shape=t.shape, stride=t.stride())
+                t.requires_grad_(True)
+            out[name] = t
         return out
 
 
@@ -129,14 +140,6 @@ def _call(model: Model, params: dict, fn):
     model's meta parameters, the backward included if ``fn`` runs it (a
     block recomputed there reads the same parameters)."""
     return functional_call(_With(model), {f"model.{n}": t for n, t in params.items()}, (fn,))
-
-
-def _check_executable(cfg: ModelConfig) -> None:
-    if cfg.attention != "gqa" or cfg.is_encdec or cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded steps run GQA decoders of attention, Mamba, mLSTM and "
-            "sLSTM blocks with dense or MoE feed-forwards; sharded execution of MLA, "
-            "encoder-decoder and frontend models is ROADMAP queue 1, item 3e (ii)")
 
 
 def _meta_model(cfg: ModelConfig, param_dtype: torch.dtype, remat: str) -> Model:
@@ -225,7 +228,6 @@ def make_train_bundle(
     semantics on DTensors (the loss, its gradients by autograd, the AdamW
     update in place, the gradient norm over every shard).  ``metrics``
     holds ``loss``, ``ce``, ``lr`` and ``grad_norm`` as full 0-d tensors."""
-    _check_executable(cfg)
     _check_mesh(mesh, device_type)
     opt_cfg = opt_cfg or AdamWConfig()
     model = _meta_model(cfg, param_dtype, remat)
@@ -286,7 +288,6 @@ def make_prefill_bundle(
     """The prefill step ``step_fn(params, batch) -> (logits, caches)``: the
     model's ``forward_prefill`` on DTensors; the logits are the last
     position's (B, 1, V), the caches stacked along the period axis."""
-    _check_executable(cfg)
     _check_mesh(mesh, device_type)
     model = _meta_model(cfg, param_dtype, remat)
     rules = shlib.make_rules(cfg, shape, plan)
@@ -318,7 +319,6 @@ def make_decode_bundle(
     a 0-d tensor, as the model's ``forward_decode`` takes it) against
     caches of ``shape.seq_len`` positions (``Model.cache_struct``'s tree),
     placed with the plan's cache specs and returned."""
-    _check_executable(cfg)
     _check_mesh(mesh, device_type)
     model = _meta_model(cfg, param_dtype, "none")
     rules = shlib.make_rules(cfg, shape, plan)

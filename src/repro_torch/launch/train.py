@@ -28,8 +28,8 @@ Four departures:
   the disk's speed, and its own write of a step never meets a writer of
   the failed run in the same directory.
 
-The step runs on one device; the reference's sharded step bundles
-(``launch/steps.py``) are ROADMAP queue 1, item 3e (ii).  On the card
+The step runs on one device; :mod:`repro_torch.launch.steps` builds the
+same step on a device mesh for every architecture.  On the card
 every kernel the forward launches has a backward kernel (the RMSNorm
 pair, flash attention, the selective scan), so every registered
 architecture trains there; :func:`check_trainable` refuses, before

@@ -49,6 +49,7 @@ from .common import (
     replicated_like,
     seq_whole,
     shard_act,
+    shard_index,
     softmax_fp32,
 )
 
@@ -213,18 +214,20 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
     return out, cache
 
 
-def _partial_attend(q, ck, cv, valid, reduce) -> torch.Tensor:
+def _partial_attend(q, ck, cv, valid, reduce, scale: float | None = None) -> torch.Tensor:
     """Decode attention of ``q`` (B, 1, H, hd) over one slice of the cache
-    ``ck``/``cv`` (B, Tl, KV, hd), positions where ``valid`` (Tl,) is
-    False masked at -1e30: each slice's softmax statistics, then
-    ``reduce(t, op)`` ("max" or "sum" across the slices) combines them as
-    the reference's ``pmax`` and ``psum`` do.  Returns (B, 1, H, hd) in
-    q's dtype."""
+    ``ck`` (B, Tl, KV, hd) and ``cv`` (B, Tl, KV, hd_v), positions where
+    ``valid`` (Tl,) is False masked at -1e30, the scores scaled by
+    ``scale`` (1/sqrt(hd) by default): each slice's softmax statistics,
+    then ``reduce(t, op)`` ("max" or "sum" across the slices) combines
+    them as the reference's ``pmax`` and ``psum`` do.  Returns (B, 1, H,
+    hd_v) in q's dtype."""
     B, _, H, hd = q.shape
     KV = ck.shape[2]
     G = H // KV
     qg = q.reshape(B, 1, KV, G, hd)
-    scores = torch.einsum("bskgh,btkh->bkgst", qg, ck) * (1.0 / hd ** 0.5)
+    scale = 1.0 / hd ** 0.5 if scale is None else scale
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, ck) * scale
     scores = torch.where(valid[None, None, None, None, :], scores.to(torch.float32), -1e30)
     m_loc = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m_loc)
@@ -234,7 +237,7 @@ def _partial_attend(q, ck, cv, valid, reduce) -> torch.Tensor:
     corr = torch.exp(m_loc - m_glob)                       # (B, KV, G, 1, 1)
     num = reduce(num_loc * corr.movedim(-2, 1), "sum")    # (B, 1, KV, G, hd)
     den = reduce(den_loc * corr, "sum").movedim(-2, 1)
-    return (num / torch.clamp_min(den, 1e-30)).to(q.dtype).reshape(B, 1, H, hd)
+    return (num / torch.clamp_min(den, 1e-30)).to(q.dtype).reshape(B, 1, H, cv.shape[-1])
 
 
 def _all_reduce(groups):
@@ -282,26 +285,34 @@ def gqa_decode_seqsharded(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos
     return out.reshape(B, 1, H * hd) @ p.wo, cache
 
 
+def _time_split(cache: DTensor):
+    """How a DTensor cache's time axis (dim 1) lies on its mesh: the
+    placements that bring a decode step's other inputs whole to every rank
+    (the cache's batch shard kept), the number of shards that the mesh
+    dims splitting the time axis cut it into (in mesh order), this rank's
+    index among them, and the ``reduce`` of :func:`_partial_attend` over
+    those mesh dims."""
+    mesh = cache.device_mesh
+    pl = [pc if pc == Shard(0) else Replicate() for pc in cache.placements]
+    dims = [i for i, pc in enumerate(cache.placements) if pc == Shard(1)]
+    shard, nsh = shard_index(mesh, dims)
+    return pl, nsh, shard, _all_reduce([mesh.get_group(i) for i in dims])
+
+
 def _decode_on_shards(q, k, v, cache: dict, cfg: ModelConfig, pos: int) -> torch.Tensor:
     """:func:`gqa_decode`'s cache write and attention on each rank's local
     shard of a DTensor cache (B, T, KV, hd): q, k and v (replicated but for
     the cache's batch shard) come in whole.  Where the cache's time axis
     is not split the shard runs the single-device write and core as they
-    are; where it is, over the mesh dims that split it (in mesh order),
-    the rank owning the slot writes it and the partial softmaxes are
-    combined as in :func:`gqa_decode_seqsharded`.  Returns the attention
-    output (B, 1, H, hd)."""
+    are; where it is (:func:`_time_split`), the rank owning the slot
+    writes it and the partial softmaxes are combined as in
+    :func:`gqa_decode_seqsharded`.  Returns the attention output (B, 1, H,
+    hd)."""
     ck = cache["k"]
-    mesh = ck.device_mesh
     T = ck.shape[1]
     window = cfg.sliding_window
     slot = min(max(pos % T if window is not None else pos, 0), T - 1)
-    pl = [pc if pc == Shard(0) else Replicate() for pc in ck.placements]
-    time_dims = [i for i, pc in enumerate(ck.placements) if pc == Shard(1)]
-    nsh, shard = 1, 0
-    for i in time_dims:
-        nsh, shard = nsh * mesh.size(i), shard * mesh.size(i) + mesh.get_local_rank(i)
-    groups = [mesh.get_group(i) for i in time_dims]
+    pl, nsh, shard, reduce = _time_split(ck)
 
     def attend(ql, kl, vl, ckl, cvl):
         B = ql.shape[0]
@@ -320,7 +331,7 @@ def _decode_on_shards(q, k, v, cache: dict, cfg: ModelConfig, pos: int) -> torch
             cvl[:, slot % Tl] = vl[:, 0]
         gpos = shard * Tl + torch.arange(Tl, device=ql.device)
         valid = torch.ones_like(gpos, dtype=torch.bool) if window is not None else gpos <= pos
-        return _partial_attend(ql, ckl, cvl, valid, _all_reduce(groups))
+        return _partial_attend(ql, ckl, cvl, valid, reduce)
 
     return on_shards(attend, (q, k, v, ck, cache["v"]),
                      (pl, pl, pl, ck.placements, cache["v"].placements), pl)
@@ -335,8 +346,11 @@ def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     """The query halves (B, S, H, nope) and (B, S, H, rope), RoPE'd, and
     the cache entries: the normed latent ``c_kv`` (B, S, rank) and the
     shared RoPE key ``k_rope`` (B, S, rope).  Both latent norms run the
-    RMSNorm kernel on the card."""
+    RMSNorm kernel on the card, on each rank's rows of a DTensor (the
+    rank axis whole).  ``wq_up``'s output axis (H·(nope+rope), split by
+    ``heads_w``) reshapes to (H, nope+rope) on head boundaries."""
     m = cfg.mla or MLAConfig()
+    x = seq_whole(x)
     B, S, _ = x.shape
     H = cfg.n_heads
     q = call_norm(rmsnorm, x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
@@ -358,9 +372,16 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     from 64 to 96 at minicpm3's widths; zero columns add nothing to q·k
     and give zero output columns) and the output is cut back to
     ``v_head_dim``.  Returns (out, cache|None), the cache ``{"c_kv": (B, S,
-    rank), "k_rope": (B, S, rope)}``."""
+    rank), "k_rope": (B, S, rope)}``.
+
+    On DTensors q, k and v are laid out by ``act_heads``, so
+    :func:`call_flash` keeps the head shard where the heads divide tp and
+    otherwise gathers them, each rank then running every head of its
+    batch shard (the reference moves the score tensors onto the KV
+    sequence instead); the padding and the cut run with the kernel on
+    each rank's local shards."""
     m = cfg.mla or MLAConfig()
-    B, S, _ = x.shape
+    B, S, _ = seq_whole(x).shape
     H = cfg.n_heads
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
     k_nope = (c_kv @ p.wk_up).reshape(B, S, H, m.qk_nope_head_dim)
@@ -370,10 +391,17 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
                    dim=-1)
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
     width = max(qk, m.v_head_dim)
-    qf, kf, v = (F.pad(t, (0, width - t.shape[-1])) for t in (qf, kf, v))
-    out = call_flash(flash_attention, qf.contiguous(), kf.contiguous(), v.contiguous(),
-                     causal=True, scale=1.0 / qk ** 0.5)
-    out = out[..., :m.v_head_dim].reshape(B, S, H * m.v_head_dim) @ p.wo
+
+    def padded(q, k, v, **options):
+        q, k, v = (F.pad(t, (0, width - t.shape[-1])) if t.shape[-1] < width else t
+                   for t in (q, k, v))
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                               **options)[..., :m.v_head_dim].contiguous()
+
+    heads = ("act_batch", None, "act_heads", None)
+    out = call_flash(padded, *(shard_act(t, heads) for t in (qf, kf, v)), causal=True,
+                     scale=1.0 / qk ** 0.5)
+    out = out.reshape(B, S, H * m.v_head_dim) @ p.wo
     cache = {"c_kv": c_kv, "k_rope": k_rope} if make_cache else None
     return out, cache
 
@@ -385,28 +413,54 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
     ``pos`` masked at -1e30, an fp32 softmax, and ``wv_up`` applied to the
     attended latent.  The new token's entries are written into ``cache``
     in place at ``pos`` (clamped into the cache, as the reference's
-    ``dynamic_update_slice`` clamps)."""
+    ``dynamic_update_slice`` clamps).
+
+    A DTensor cache is written and attended on each rank's local shard:
+    where its time axis is split (:func:`_time_split`), the rank that owns
+    the slot writes it and the partial softmaxes are combined across the
+    time shards, as GQA's :func:`_decode_on_shards` does."""
     m = cfg.mla or MLAConfig()
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per row, got {S}")
     H = cfg.n_heads
-    posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    posb = replicated_like(torch.full((B, 1), pos, dtype=torch.int32, device=x.device), x)
     q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, posb)
     ck, cr = cache["c_kv"], cache["k_rope"]
     T = ck.shape[1]
     slot = min(max(pos, 0), T - 1)
-    ck[:, slot] = c_kv_new[:, 0]
-    cr[:, slot] = k_rope_new[:, 0]
     wk = p.wk_up.reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_eff = torch.einsum("bshd,rhd->bshr", q_nope, wk)
     scale = 1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5
-    scores = (torch.einsum("bshr,btr->bhst", q_eff, ck)
-              + torch.einsum("bshd,btd->bhst", q_rope, cr)) * scale
-    valid = torch.arange(T, device=x.device) <= pos
-    scores = torch.where(valid[None, None, None], scores.to(torch.float32), -1e30)
-    pattn = softmax_fp32(scores)
-    ctx = torch.einsum("bhst,btr->bshr", pattn.to(ck.dtype), ck)       # (B, 1, H, rank)
+
+    def attend(qe, qr, ckn, crn, ckl, crl, shard=0, reduce=None):
+        """The new entries written and the attended latent (B, 1, H, rank):
+        ``ckl``/``crl`` hold the positions from ``shard·Tl`` on; with
+        ``reduce`` they are one time slice of the cache, and each slice's
+        partial softmax is combined across the slices by
+        :func:`_partial_attend` (one kv head of ``[c_kv ‖ k_rope]``, the
+        values ``c_kv``)."""
+        Tl = ckl.shape[1]
+        if slot // Tl == shard:
+            ckl[:, slot % Tl] = ckn[:, 0]
+            crl[:, slot % Tl] = crn[:, 0]
+        valid = shard * Tl + torch.arange(Tl, device=ckl.device) <= pos
+        if reduce is not None:
+            keys = torch.cat([ckl, crl], dim=-1)[:, :, None, :]
+            return _partial_attend(torch.cat([qe, qr], dim=-1), keys, ckl[:, :, None, :],
+                                   valid, reduce, scale)
+        scores = (torch.einsum("bshr,btr->bhst", qe, ckl)
+                  + torch.einsum("bshd,btd->bhst", qr, crl)) * scale
+        scores = torch.where(valid[None, None, None], scores.to(torch.float32), -1e30)
+        return torch.einsum("bhst,btr->bshr", softmax_fp32(scores).to(ckl.dtype), ckl)
+
+    if isinstance(ck, DTensor):
+        pl, nsh, shard, reduce = _time_split(ck)
+        ctx = on_shards(lambda *ts: attend(*ts, shard, reduce if nsh > 1 else None),
+                        (q_eff, q_rope, c_kv_new, k_rope_new, ck, cr),
+                        (pl, pl, pl, pl, ck.placements, cr.placements), pl)
+    else:
+        ctx = attend(q_eff, q_rope, c_kv_new, k_rope_new, ck, cr)
     wv = p.wv_up.reshape(m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bshr,rhd->bshd", ctx, wv)
     out = out.reshape(B, 1, H * m.v_head_dim) @ p.wo
@@ -423,22 +477,40 @@ def cross_attention(p, x: torch.Tensor, enc_kv: dict, cfg: ModelConfig, *,
     """Decoder cross-attention over precomputed encoder K/V: ``x`` (B, S, d)
     attends to all T encoder frames of ``enc_kv["k"]``/``["v"]`` (B, T, KV,
     hd), without RoPE.  A prefill runs the flash kernel non-causal with T
-    keys; a decode step (``decode=True``, S = 1) the plain core."""
+    keys; a decode step (``decode=True``, S = 1) the plain core.
+
+    A decode step's DTensor K/V (the plan's cache specs split the frames
+    over 'model', evenly or not) are read on each rank's local shard, every
+    frame valid, and the partial softmaxes combined across the frame
+    shards (:func:`_time_split`, :func:`_partial_attend`)."""
+    x = seq_whole(x)
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
     q = (x @ p.wq).reshape(B, S, H, hd)
     k, v = enc_kv["k"], enc_kv["v"]
-    if decode:
-        mask = torch.ones((1, k.shape[1]), dtype=torch.bool, device=x.device)
-        out = _gqa_core(q, k, v, mask, 1.0 / hd ** 0.5)
+    scale = 1.0 / hd ** 0.5
+
+    def attend(ql, kl, vl, reduce=None):
+        every = torch.ones(kl.shape[1], dtype=torch.bool, device=kl.device)
+        if reduce is None:
+            return _gqa_core(ql, kl, vl, every[None], scale)
+        return _partial_attend(ql, kl, vl, every, reduce, scale)
+
+    if not decode:
+        out = call_flash(flash_attention, q, k, v, causal=False, scale=scale)
+    elif isinstance(k, DTensor):
+        pl, nsh, _, reduce = _time_split(k)
+        out = on_shards(lambda *ts: attend(*ts, reduce if nsh > 1 else None), (q, k, v),
+                        (pl, k.placements, v.placements), pl)
     else:
-        out = call_flash(flash_attention, q, k, v, causal=False, scale=1.0 / hd ** 0.5)
+        out = attend(q, k, v)
     return out.reshape(B, S, H * hd) @ p.wo
 
 
 def encoder_kv(p, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
     """The cross-attention K/V of one decoder layer from the encoder's
     output (B, T, d): ``{"k": (B, T, KV, hd), "v": ...}``."""
+    enc_out = seq_whole(enc_out)
     B, T, _ = enc_out.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
     return {"k": (enc_out @ p.wk).reshape(B, T, KV, hd),

@@ -117,11 +117,14 @@ class Model(nn.Module):
 
     def _assemble_inputs(self, tokens: torch.Tensor, frontend: torch.Tensor | None):
         """Token embeddings, behind the projected frontend tokens for a
-        decoder-only model with a frontend; and their positions (B, S)."""
+        decoder-only model with a frontend; and their positions (B, S).
+        DTensor halves are brought to one layout before they are joined."""
         x = embed_lookup(self.embed, tokens)
         if self.cfg.frontend is not None and not self.cfg.is_encdec:
             fe = apply_frontend_proj(self.frontend_proj, frontend.to(x.dtype))
-            x = torch.cat([fe, x], dim=1)
+            # the projection may come out split over d, the lookup not
+            whole = ("act_batch", None, None)
+            x = torch.cat([shard_act(fe, whole), shard_act(x, whole)], dim=1)
         x = shard_act(x, ("act_batch", "act_seq", None))
         B, S, _ = x.shape
         return x, replicated_like(torch.arange(S, device=x.device).expand(B, S), x)

@@ -31,7 +31,8 @@ from . import attention as attn
 from . import ssm
 from .moe import moe_defs, moe_ffn
 from ..kernels.flash_attention import flash_attention
-from .common import ParamDef, add_rms_norm, apply_rope, replicated_like, shard_act, swiglu
+from .common import (ParamDef, add_rms_norm, apply_rope, replicated_like, seq_whole, shard_act,
+                     swiglu)
 
 
 class ParamModule(nn.Module):
@@ -319,6 +320,7 @@ def run_encoder_stack(encoder: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> 
     delta = None
     for bp in encoder.blocks:
         x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
+        h = seq_whole(h)
         q = apply_rope((h @ bp.attn.wq).reshape(B, T, H, hd), positions, cfg.rope_theta)
         k = apply_rope((h @ bp.attn.wk).reshape(B, T, KV, hd), positions, cfg.rope_theta)
         v = (h @ bp.attn.wv).reshape(B, T, KV, hd)

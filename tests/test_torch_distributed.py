@@ -53,11 +53,9 @@ from repro.optim import init_opt_state as jax_init_opt_state
 from repro.optim.compression import TopKConfig as JaxTopKConfig
 from repro.optim.compression import topk_compress as jax_topk_compress
 from repro.optim.compression import topk_decompress as jax_topk_decompress
-from repro_torch.configs import ShapeConfig, get_config
+from repro_torch.configs import get_config
 from repro_torch.data import DataConfig, SyntheticLMStream
 from repro_torch.interop import model_params_from_numpy
-from repro_torch.launch.sharding import PlanConfig
-from repro_torch.launch.steps import make_decode_bundle, make_prefill_bundle, make_train_bundle
 from repro_torch.launch.train import make_step
 from repro_torch.models import build_model
 from repro_torch.optim import AdamWConfig, init_opt_state
@@ -397,17 +395,3 @@ def test_tuple_entry_layout_equals_jax(run):
 def test_kernels_on_local_shards_equal_the_whole_call(run, case):
     got, _, _ = run
     assert got["local_kernel_err"][case] < 1e-5, got["local_kernel_err"]
-
-
-# ----------------------------------------------------------------- refusals
-
-
-@pytest.mark.parametrize("arch", ["minicpm3-4b@smoke", "seamless-m4t-large-v2@smoke",
-                                  "internvl2-26b@smoke"])
-def test_bundles_refuse_what_this_slice_does_not_run(arch):
-    cfg = get_config(arch)
-    plan = PlanConfig(tp=2, dp=2)
-    for make, kind in ((make_train_bundle, "train"), (make_prefill_bundle, "prefill"),
-                       (make_decode_bundle, "decode")):
-        with pytest.raises(NotImplementedError, match=r"3e \(ii\)"):
-            make(cfg, ShapeConfig(kind, 32, 4, kind), None, plan, device_type="cpu")

@@ -199,7 +199,7 @@ def single_card_reference(cfg, opt_cfg, batches, device, dump=None) -> dict:
     start = {n: p.detach().to("cpu", copy=True) for n, p in params.items()}
     opt = init_opt_state(opt_cfg, params)
     step_fn = make_step(model, opt_cfg)
-    losses, lrs, ms = [], [], []
+    losses, lrs, ms, norms = [], [], [], []
     with cs.first_step_grads(train) as grads0:
         undo = dump.spy(train) if dump else None
         for b in batches:
@@ -209,9 +209,10 @@ def single_card_reference(cfg, opt_cfg, batches, device, dump=None) -> dict:
             losses.append(float(m["loss"]))
             ms.append((time.perf_counter() - t0) * 1e3)
             lrs.append(float(m["lr"]))
+            norms.append(float(m["grad_norm"]))
         if undo:
             undo()
-    out = dict(losses=losses, lrs=lrs, step_ms=ms, start=start, grads0=grads0,
+    out = dict(losses=losses, lrs=lrs, step_ms=ms, grad_norms=norms, start=start, grads0=grads0,
                params={n: p.detach().to("cpu") for n, p in params.items()})
     del model, params, opt, step_fn
     gc.collect()
@@ -239,7 +240,8 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
 
     mesh = make_debug_mesh(2, 2, device_type=device.type)
     B, S = batches[0]["tokens"].shape
-    bundle = make_train_bundle(cfg, ShapeConfig("train", S, B, "train"), mesh,
+    bundle = make_train_bundle(cfg, ShapeConfig("train", S + cs.front_tokens(cfg), B, "train"),
+                               mesh,
                                PlanConfig(tp=2, dp=2), opt_cfg, param_dtype=torch.float32,
                                remat="none", device_type=device.type)
     if device.type == "cuda":
@@ -250,7 +252,7 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
     gc.collect()
     opt = init_opt_state(opt_cfg, params)
     cs.zero_launches()
-    losses, ms = [], []
+    losses, ms, norms = [], [], []
     with cs.first_step_grads(steps, keep=rank == 0) as grads0:
         undo = [dump.spy(steps), dump.tap_lookup()] if dump else []
         for b in batches:
@@ -260,12 +262,12 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
             params, opt, m = bundle.step_fn(params, opt, shard_batch(b, mesh))
             losses.append(float(m["loss"]))
             ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(m["grad_norm"]))
         for u in undo:
             u()
     launches = cs.kernel_launches()
     grad_errs = {n: float((grads0[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
                  for n, w in ref["grads0"].items()} if rank == 0 else {}
-    del grads0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
     errs, over, shares = {}, {}, {}
     for n, p in params.items():
@@ -278,7 +280,10 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
             shares[n] = float(diff.max()) / sum(ref["lrs"])
             tol = PARAM_ATOL_REL * scale + ADAM_SHARE * sum(ref["lrs"])
             if float(diff.max()) > tol:
-                over[n] = _offenders(full, want, ref["start"][n], diff, tol)
+                over[n] = _offenders(full, want, ref["start"][n], diff, tol,
+                                     (grads0[n], ref["grads0"][n]),
+                                     (norms[0], ref["grad_norms"][0]), opt_cfg)
+    del grads0
     per_rank = [None] * WORLD
     dist.all_gather_object(per_rank, {"launches": launches, "peak_bytes": peak})
     worst_name = max(errs, key=errs.get) if errs else None
@@ -299,19 +304,36 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
                 placements=sorted({str(tuple(p.placements)) for p in params.values()}))
 
 
-def _offenders(got, want, start, diff, tol) -> dict:
+def _offenders(got, want, start, diff, tol, grads0, norms, opt_cfg, shown=8) -> dict:
     """Where a leaf misses the gate ``tol``: how many entries, how far each
     run moved them from the start, and whether the moves agree in sign
     (AdamW's step is the gradient's sign where it is far above ``eps``, so
-    a flip marks a gradient at the level of its own rounding)."""
+    a flip marks a gradient at the level of its own rounding); and, at the
+    ``shown`` entries furthest apart, each run's first-step gradient
+    (``grads0``: bundle's, make_step's) before and after the global-norm
+    clip (``norms``: each run's first gradient norm), the clipped one in
+    units of Adam's ``eps``, and each run's move."""
     import torch
 
     bad = diff > tol
     d_got, d_want = (got - start)[bad], (want - start)[bad]
+    worst = diff.flatten().topk(min(shown, int(bad.sum()))).indices
+    entries = []
+    for i in worst.tolist():
+        at = []
+        for g, norm in zip(grads0, norms):
+            raw = float(g.flatten()[i])
+            clipped = raw * min(1.0, opt_cfg.clip_norm / max(norm, 1e-30))
+            at.append({"grad": raw, "clipped_in_eps": clipped / opt_cfg.eps})
+        entries.append({"index": [int(j) for j in torch.unravel_index(torch.tensor(i), got.shape)],
+                        "bundle": at[0] | {"move": float((got - start).flatten()[i])},
+                        "make_step": at[1] | {"move": float((want - start).flatten()[i])},
+                        "grad_leaf_max": float(grads0[1].abs().max())})
     return {"entries": int(bad.sum()), "of": got.numel(),
             "max_move_ref": float(d_want.abs().max()), "min_move_ref": float(d_want.abs().min()),
             "sign_flips": int((torch.sign(d_got) != torch.sign(d_want)).sum()),
-            "rows": sorted({int(i) for i in bad.nonzero()[:, 0].tolist()})[:20]}
+            "rows": sorted({int(i) for i in bad.nonzero()[:, 0].tolist()})[:20],
+            "worst": entries}
 
 
 def save_row(single, sharded, partials) -> None:
@@ -373,9 +395,12 @@ def run(rank: int, args, store_dir: str) -> None:
     import torch
     import torch.distributed as dist
 
+    import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMStream
-    from repro_torch.launch.train import TrainConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import PlanConfig
+    from repro_torch.launch.train import TrainConfig, frontend_noise
 
     if args.device == "cuda":
         from repro_torch import resolve_device
@@ -401,6 +426,9 @@ def run(rank: int, args, store_dir: str) -> None:
                                               global_batch=args.batch, seed=0))
         batches = [{k: torch.as_tensor(v).long() for k, v in stream.batch_at(s).items()}
                    for s in range(args.steps)]
+        if cfg.frontend is not None:
+            for s, b in enumerate(batches):
+                b["frontend"] = frontend_noise(cfg, args.batch, s, "cpu")
         ref = None
         if rank == 0:
             log(rank, f"make_step on one device ({device}): {cfg.name}, {args.steps} steps of "
@@ -412,16 +440,22 @@ def run(rank: int, args, store_dir: str) -> None:
         log(rank, "the (2, 2) train bundle on four ranks")
         dump = RowDump(args.dump_row) if args.dump_row is not None else None
         train = sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump)
+        serve = None
+        if cfg.attention == "mla" or cfg.frontend is not None:
+            log(rank, "the (2, 2) prefill and decode bundles on four ranks against the "
+                      "unsharded forwards on each rank's card")
+            serve = cs.sharded_serve(device, 0, make_debug_mesh(2, 2, device_type=device.type),
+                                     cfg, "serve", PlanConfig(tp=2, dp=2))
         log(rank, "gqa_decode_seqsharded on a (4, 1) mesh and topk_allreduce over four ranks")
         coll = collectives(rank, cfg, device)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     if rank == 0:
-        check(args, cfg, ref, train, coll)
+        check(args, cfg, ref, train, coll, serve)
 
 
-def check(args, cfg, ref, train, coll) -> None:
+def check(args, cfg, ref, train, coll, serve) -> None:
     """Prints the figures; raises if a gate failed (after every rank has
     left the process group)."""
     import chip_smoke as cs
@@ -435,7 +469,7 @@ def check(args, cfg, ref, train, coll) -> None:
            "grad0_worst_leaf": train["grad0_worst_leaf"],
            "leaf_errs": train["leaf_errs"], "offenders": train["offenders"], "lr": ref["lrs"],
            "per_rank": train["per_rank"], "placements": train["placements"],
-           "row_dump": train["row_dump"], **coll}
+           "row_dump": train["row_dump"], "serve": serve, **coll}
     if args.device == "cuda":
         fig["card"] = cs.card_line()
     print(json.dumps(fig), flush=True)

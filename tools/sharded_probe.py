@@ -3,17 +3,20 @@ decode bundles of stablelm-1.6b on a (1, 1) mesh over a NCCL process group
 of one rank, held to ``make_step`` and the unsharded forwards, then the
 sequence-sharded decode and the compressed all-reduce on that group, then
 the same bundles for olmoe-1b-7b at 2 layers, the jamba Mamba + attention
-pair and one xlstm-1.3b period (``chip_smoke.phase_sharded``).  Prints the
+pair, one xlstm-1.3b period, minicpm3-4b at 2 layers, seamless-m4t-large-v2
+whole and internvl2-26b at 2 layers (``chip_smoke.phase_sharded``).
+``--blocks h,i`` keeps only those of the sub-phases (e)-(j).  Prints the
 torch and CUDA versions first.
 
 Needs a CUDA card (about 4 minutes of command time) and builds the
 rmsnorm, flash-attention and selective-scan libraries, forward and
 backward, from the checkout.
 
-Run from the repository root:  python3 tools/sharded_probe.py
+Run from the repository root:  python3 tools/sharded_probe.py [--blocks h,i,j]
 """
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -23,9 +26,17 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--blocks", default="", help="letters of the sub-phases (e)-(j) to keep")
+    args = ap.parse_args()
     import torch
 
     import chip_smoke as cs
+
+    if args.blocks:
+        blocks = {label: cfg for label, cfg in cs.sharded_blocks_configs().items()
+                  if label[-2] in args.blocks.split(",")}
+        cs.sharded_blocks_configs = lambda: blocks
     from repro_torch import resolve_device
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
