@@ -205,12 +205,21 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    bit for bit; (e)-(j) the checks of (b) and (c), the first step's
    gradients within 1e-5 of each leaf's largest entry too, for olmoe-1b-7b
    at 2 layers, the jamba pair, an xlstm-1.3b period, minicpm3-4b at 2
-   layers (MLA), seamless-m4t-large-v2 whole (encoder-decoder, 512
-   frames) and internvl2-26b at 2 layers (256 patch tokens before the
+   layers (MLA), seamless-m4t-large-v2 at 8 + 8 layers (encoder-decoder,
+   512 frames) and internvl2-26b at 2 layers (256 patch tokens before the
    text), the frontend models with ``train.frontend_noise`` embeddings;
    it prints the step walls of both, the DTensor path's host overhead, the
    peaks and the launches.  One card shows the DTensor path and its
-   kernels, not the collectives of several ranks;
+   kernels, not the collectives of several ranks; (b) also counts one
+   more step (``launch/counting.py``) for phase 23;
+23. (run after 22, its NCCL group destroyed) dry-runs 22 (b)'s cell on a
+   fake process group of one rank (``launch/dryrun.py``: fake CUDA
+   tensors, the kernels' stand-ins, nothing launched) and holds its FLOPs
+   to that counted step's (rel 1e-6), printing the dry run's peak beside
+   the card's, the roofline's terms beside the measured step and the LM
+   bridge's tokens/s beside the measured; then dry-runs llama3-8b x
+   decode_32k on the 16x16 production mesh of a fake group of 256 ranks,
+   which must report ok;
 13. (run after 22) builds the LM bridge's workload model of each served
    model (2N FLOPs and the fp32 parameter bytes over the slots per token)
    and prints its predicted one-card decode rate beside the measured one
@@ -2358,34 +2367,35 @@ def _bytes_or_flops(nbytes, flops) -> tuple[float, str]:
 
 
 def rmsnorm_bound(rows, d) -> tuple[float, str]:
-    """fp32: x read, out written, gain read once; 4 flops per element."""
-    return _bytes_or_flops(2 * rows * d * 4 + d * 4, rows * d * 4)
+    """fp32, ``kernels/rmsnorm/cost.py::rmsnorm_cost``."""
+    from repro_torch.kernels.rmsnorm.cost import rmsnorm_cost
+
+    flops, nbytes = rmsnorm_cost(rows, d)
+    return _bytes_or_flops(nbytes, flops)
 
 
 def add_rmsnorm_bound(rows, d) -> tuple[float, str]:
-    """fp32: x and delta read, s and h written, gain read once; 5 flops per
-    element (the add, the square-and-sum, two scalings)."""
-    return _bytes_or_flops((4 * rows * d + d) * 4, rows * d * 5)
+    """fp32, ``kernels/rmsnorm/cost.py::add_rmsnorm_cost``."""
+    from repro_torch.kernels.rmsnorm.cost import add_rmsnorm_cost
+
+    flops, nbytes = add_rmsnorm_cost(rows, d)
+    return _bytes_or_flops(nbytes, flops)
 
 
 def flash_bound(S, H, KV, hd, Sk=None, causal=True, v_width=None) -> tuple[float, str]:
-    """Attention of S queries: causal over S positions, S(S+1)/2 scored
-    pairs per head; non-causal over Sk keys (S by default), S·Sk pairs.
-    Each pair is 2·hd flops for q·k, 2·dv for p·v and about 4 for the
-    softmax, dv being v's width (``v_width``, hd by default: MLA's v is
-    narrower than q and k, and the work counted is the function's, not
-    the zero-padded columns the kernel runs); q and k (hd wide) and v and
-    the output (dv wide) move once, q and the output S rows of H heads, k
-    and v Sk rows of KV heads.  Two ways to do the products: fp32 on CUDA cores
-    (all flops at 67 TFLOP/s), or 3xTF32 on the tensor cores (three tf32
-    products per product at 495 TFLOP/s, the softmax on CUDA cores); each
-    is held against the bytes, and the bound is the faster of the two."""
+    """Attention of S queries of one batch row, fp32
+    (``kernels/flash_attention/cost.py::flash_cost``): causal over S
+    positions, non-causal over Sk keys (S by default); v's width
+    ``v_width`` (hd by default: MLA's v is narrower than q and k, and the
+    work counted is the function's, not the zero-padded columns the kernel
+    runs).  Two ways to do the products: fp32 on CUDA cores (all flops at
+    67 TFLOP/s), or 3xTF32 on the tensor cores (three tf32 products per
+    product at 495 TFLOP/s, the softmax on CUDA cores); each is held
+    against the bytes, and the bound is the faster of the two."""
+    from repro_torch.kernels.flash_attention.cost import flash_cost
+
     Sk = S if Sk is None else Sk
-    dv = hd if v_width is None else v_width
-    pairs = S * (S + 1) // 2 if causal else S * Sk
-    mm_flops = H * pairs * 2 * (hd + dv)
-    soft_flops = H * pairs * 4
-    nbytes = 4 * (hd + dv) * (S * H + Sk * KV)
+    mm_flops, soft_flops, nbytes = flash_cost(1, S, Sk, H, KV, hd, v_width, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_fp32 = (mm_flops + soft_flops) / FP32_FLOPS_PER_S
     t_tc = 3 * mm_flops / TF32_FLOPS_PER_S + soft_flops / FP32_FLOPS_PER_S
@@ -2656,6 +2666,61 @@ def first_step_grads(module, keep: bool = True):
         module.adamw_update = update
 
 
+@contextlib.contextmanager
+def optimizer_steps_replayed(module, keep: bool = True, device="cpu"):
+    """For the ``with`` block, wraps ``module.adamw_update`` (the bundles'
+    name for it) so that each step's update is replayed on one device: the
+    parameters, gradients and optimizer state as the update receives them
+    are made whole, ``adamw_update`` runs on those copies on ``device``,
+    and each leaf's largest difference from the sharded update's result,
+    over that result's largest entry, is appended to the yielded list (a
+    dict name -> error per step).  This holds the sharded update alone,
+    whatever its gradients' rounding.  ``keep=False`` makes every tensor
+    whole (a collective that every rank of a sharded step joins) and keeps
+    none."""
+    from repro_torch.optim.optimizer import adamw_update
+
+    update, errors = module.adamw_update, []
+
+    def whole(t):
+        return (t.full_tensor() if hasattr(t, "full_tensor") else t).detach()
+
+    def copies(tree):
+        out = {}
+        for n, t in tree.items():
+            if isinstance(t, dict):
+                out[n] = copies(t)
+            else:
+                full = whole(t)
+                if keep:
+                    out[n] = full.to(device, copy=True)
+                del full
+        return out
+
+    def recorded(cfg, params, grads, state):
+        before = copies({"params": params, "grads": grads, "state": state})
+        params, state, om = update(cfg, params, grads, state)
+        replayed = adamw_update(cfg, *before.values())[0] if keep else None
+        del before
+        step = {}
+        for n, p in params.items():
+            got = whole(p)
+            if keep:
+                got = got.to(device)
+                step[n] = float((replayed[n] - got).abs().max()) / max(float(got.abs().max()),
+                                                                        1e-30)
+            del got
+        if keep:
+            errors.append(step)
+        return params, state, om
+
+    module.adamw_update = recorded
+    try:
+        yield errors
+    finally:
+        module.adamw_update = update
+
+
 # ------------------------------------------------------------ selective scan
 
 JAMBA = dict(D=16384, N=16)         # jamba-1.5-large: d_inner 2 x 8192, d_state 16
@@ -2710,12 +2775,11 @@ def check_ssm_scan(device, cases) -> float:
 
 
 def ssm_bound(B, S, D, N) -> tuple[float, str, float]:
-    """fp32 inputs: dt and x read and y written once (B·S·D each), B and C
-    read once (B·S·N each), a, h0 and hT once; 1 + 7·N fp32 operations per
-    (b, t, channel) (dt·x; per state: dt·A, exp, a·h, dx·B, +, h·C, +).
-    Returns (bound ms, what bounds it, the expf time on the SFUs in ms)."""
-    nbytes = 4 * (3 * B * S * D + 2 * B * S * N + D * N + 2 * B * D * N)
-    flops = B * S * D * (1 + 7 * N)
+    """fp32 inputs (``kernels/ssm_scan/cost.py::ssm_scan_cost``).  Returns
+    (bound ms, what bounds it, the expf time on the SFUs in ms)."""
+    from repro_torch.kernels.ssm_scan.cost import ssm_scan_cost
+
+    flops, nbytes = ssm_scan_cost(B, S, D, N)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     sfu_ms = B * S * D * N / SFU_PER_S * 1e3
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", sfu_ms
@@ -3282,6 +3346,10 @@ BACKWARD_REGISTER_WIDTHS = (256, 768, 1024, 2560, 3840, 4096, 6144, 8192)
 TRAIN_LOSS_RTOL = 1e-5              # card vs host loss, and a restart vs the uninterrupted run
 TRAIN_GRAD_ATOL_REL = 1e-4          # card vs host gradient, of its leaf's largest host entry
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_CKPT_EVERY, TRAIN_FAIL_AFTER = 6, 4, 256, 4, 5
+# phase 20 (b)'s restart runs 2 of xlstm-1.3b's 6 periods: its checkpoints
+# (9.3 GB, not the whole model's 21.4) are written twice and read once on
+# the host's disk, which took 130 s at the whole depth on an H100 host
+TRAIN_RESTART_LAYERS = 16
 GRAD_BATCH, GRAD_SEQ = 2, 256       # phase 20 (a)'s one batch
 
 
@@ -3378,10 +3446,11 @@ def check_norm_backwards(device, shapes) -> tuple[float, float]:
 
 
 def norm_backward_bound(rows, d, fused) -> tuple[float, str]:
-    """fp32: x, dy (and the residual gradient, fused) read and dx written
-    once, the gain read and its gradient written once; about 8 flops per
-    element (two row sums, dx, the gain's partial)."""
-    return _bytes_or_flops(((4 if fused else 3) * rows * d + 2 * d) * 4, rows * d * 8)
+    """fp32, ``kernels/rmsnorm/cost.py::norm_backward_cost``."""
+    from repro_torch.kernels.rmsnorm.cost import norm_backward_cost
+
+    flops, nbytes = norm_backward_cost(rows, d, fused)
+    return _bytes_or_flops(nbytes, flops)
 
 
 def time_norm_backward(device, shape, fused) -> dict:
@@ -3512,13 +3581,14 @@ def phase_train(device, seed) -> dict:
     """Phase 20 (b): xlstm-1.3b whole trained on the card for 6 steps (batch
     4 x 256 positions), uninterrupted, with every loss and gradient norm
     finite and the launches per step held to the norms' forward and
-    backward counts; then the same run with checkpoints every 4 steps under
-    ``build/``, crashed after step 5 and restarted under
-    ``run_with_restarts``, whose losses must equal the uninterrupted run's
-    to rel 1e-5.  The step times are ``train()``'s own, passed to its
-    ``on_step``.  The restarted run needs about 45 GB of free disk under
-    ``build/`` for two checkpoints, removed afterwards.  Returns the
-    figures."""
+    backward counts; then its first ``TRAIN_RESTART_LAYERS`` layers (2
+    periods) trained the same way, uninterrupted and again with
+    checkpoints every 4 steps under ``build/``, crashed after step 5 and
+    restarted under ``run_with_restarts``, whose losses must equal the
+    uninterrupted cut's to rel 1e-5.  The step times are ``train()``'s own,
+    passed to its ``on_step``.  The restarted run needs about 19 GB of free
+    disk under ``build/`` for two checkpoints, removed afterwards.  Returns
+    the figures."""
     import gc
     import shutil
 
@@ -3565,6 +3635,15 @@ def phase_train(device, seed) -> dict:
         f"{peak / 2**30:.2f} GiB ({peak} bytes); launches {json.dumps(launches)} "
         f"({n_rms} rmsnorm, {n_add} add_rmsnorm and as many backward launches each a step)")
 
+    cut = dict(base, n_layers=TRAIN_RESTART_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cut_losses = train(TrainConfig(**cut), device=device)["losses"]
+    torch.cuda.synchronize()
+    cut_wall = time.perf_counter() - t0
+    log(f"  the first {TRAIN_RESTART_LAYERS} layers uninterrupted: {TRAIN_STEPS} steps in "
+        f"{cut_wall:.1f} s; losses {[round(v, 6) for v in cut_losses]}")
     ckpt_dir = os.path.join(ROOT, "build", "phase20_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     restarted: dict[int, float] = {}
@@ -3575,7 +3654,7 @@ def phase_train(device, seed) -> dict:
     def run(attempt: int) -> int:
         gc.collect()                  # the crashed attempt's state, before the next builds
         torch.cuda.empty_cache()
-        res = train(TrainConfig(**base, ckpt_dir=ckpt_dir), failure_plan=plan,
+        res = train(TrainConfig(**cut, ckpt_dir=ckpt_dir), failure_plan=plan,
                     on_step=lambda step, loss, m, dt: restarted.__setitem__(step, loss),
                     device=device)
         starts.append(res["start_step"])
@@ -3589,10 +3668,12 @@ def phase_train(device, seed) -> dict:
     if restarts != 1 or starts != [TRAIN_CKPT_EVERY] or sorted(restarted) != list(
             range(TRAIN_STEPS)):
         raise AssertionError(f"restarts {restarts}, starts {starts}, steps {sorted(restarted)}")
-    worst = max(abs(restarted[s] - losses[s]) / abs(losses[s]) for s in range(TRAIN_STEPS))
-    bitwise = all(restarted[s] == losses[s] for s in range(TRAIN_STEPS))
+    worst = max(abs(restarted[s] - cut_losses[s]) / abs(cut_losses[s])
+                for s in range(TRAIN_STEPS))
+    bitwise = all(restarted[s] == cut_losses[s] for s in range(TRAIN_STEPS))
     if worst > TRAIN_LOSS_RTOL:
-        raise AssertionError(f"restarted losses {restarted} against {losses}: rel {worst:.3e}")
+        raise AssertionError(f"restarted losses {restarted} against {cut_losses}: "
+                             f"rel {worst:.3e}")
     log(f"  restarted after step {TRAIN_FAIL_AFTER} from step {starts[0]}'s checkpoint: "
         f"{restarts} restart, {restart_wall:.1f} s with checkpoints; losses equal the "
         f"uninterrupted run's within rel {worst:.3e} ("
@@ -3696,8 +3777,9 @@ def phases_xlstm(device, seed, serve_rng, timings) -> dict:
     timings["phase20a"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     log(f"phase 20 (b): train xlstm-1.3b whole on the card, {TRAIN_STEPS} steps of "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ}, then again checkpointed every {TRAIN_CKPT_EVERY} steps, "
-        f"crashed after step {TRAIN_FAIL_AFTER} and restarted")
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, then its first {TRAIN_RESTART_LAYERS} layers, "
+        f"uninterrupted and again checkpointed every {TRAIN_CKPT_EVERY} steps, crashed after "
+        f"step {TRAIN_FAIL_AFTER} and restarted")
     out["train"] = phase_train(device, seed)
     timings["phase20b"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -3940,29 +4022,18 @@ def check_scan_backward(device, cases) -> float:
     return worst
 
 
-def visible_pairs(S, Sk, causal, window) -> int:
-    """Query-key pairs the masks let through."""
-    if not causal and window is None:
-        return S * Sk
-    return sum(min(s + 1, Sk) - (0 if window is None else max(0, s - window + 1))
-               for s in range(S))
-
-
 def flash_backward_bound(B, S, Sk, H, KV, hd, causal, window) -> tuple[float, str, str]:
-    """fp32: q, out, dout read and dq written (S rows of H heads), k and v
-    read and dk, dv written (Sk rows of KV heads), each once; five products
-    of 2·hd flops per visible pair (q·k, dout·v, dq, dk, dv) and about 4
-    for the softmax and dS.  Two ways to do the products, as
-    :func:`flash_bound` counts them: fp32 on CUDA cores (all flops at 67
-    TFLOP/s), or 3xTF32 on the tensor cores (three tf32 products per
-    product at 495 TFLOP/s, the softmax on CUDA cores); the faster of the
-    two is held against the bytes.  Returns (bound ms, "bytes" or
-    "operations", which way of doing the products is the faster: "fp32" or
-    "3xTF32")."""
-    pairs = B * H * visible_pairs(S, Sk, causal, window)
-    mm_flops = pairs * 5 * 2 * hd
-    soft_flops = pairs * 4
-    t_bytes = 4 * B * hd * (4 * S * H + 4 * Sk * KV) / HBM_BYTES_PER_S
+    """fp32 (``kernels/flash_attention/cost.py::flash_backward_cost``).
+    Two ways to do the products, as :func:`flash_bound` counts them: fp32
+    on CUDA cores (all flops at 67 TFLOP/s), or 3xTF32 on the tensor cores
+    (three tf32 products per product at 495 TFLOP/s, the softmax on CUDA
+    cores); the faster of the two is held against the bytes.  Returns
+    (bound ms, "bytes" or "operations", which way of doing the products is
+    the faster: "fp32" or "3xTF32")."""
+    from repro_torch.kernels.flash_attention.cost import flash_backward_cost
+
+    mm_flops, soft_flops, nbytes = flash_backward_cost(B, S, Sk, H, KV, hd, causal, window)
+    t_bytes = nbytes / HBM_BYTES_PER_S
     t_fp32 = (mm_flops + soft_flops) / FP32_FLOPS_PER_S
     t_tc = 3 * mm_flops / TF32_FLOPS_PER_S + soft_flops / FP32_FLOPS_PER_S
     t_ops = min(t_fp32, t_tc)
@@ -4022,15 +4093,12 @@ def time_flash_backward(device, B, S, H, KV, hd, causal=True, window=None) -> di
 
 
 def scan_backward_bound(B, S, D, N) -> tuple[float, str, float]:
-    """fp32: dt, x and dy read and ddt, dx written (B·S·D each), B and C
-    read and dB, dC written (B·S·N each), A read and dA written (D·N), h0
-    read and dh0 written (B·D·N), each once; per (b, t, channel, state)
-    about 20 fp32 operations (the state recomputed: dt·A, exp, a·h, dx·B,
-    +; its gradient: dy·C and +, dy·h, g·dx, g·B and +, g·h·a, e·dt and +,
-    e·A and +, g·a), and the expf on the SFUs beside.  Returns (bound ms,
-    what bounds it, the expf time in ms)."""
-    nbytes = 4 * (5 * B * S * D + 4 * B * S * N + 2 * D * N + 2 * B * D * N)
-    flops = B * S * D * (20 * N + 4)
+    """fp32 (``kernels/ssm_scan/cost.py::ssm_scan_backward_cost``), and the
+    expf on the SFUs beside.  Returns (bound ms, what bounds it, the expf
+    time in ms)."""
+    from repro_torch.kernels.ssm_scan.cost import ssm_scan_backward_cost
+
+    flops, nbytes = ssm_scan_backward_cost(B, S, D, N)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     sfu_ms = B * S * D * N / SFU_PER_S * 1e3
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", sfu_ms
@@ -4317,7 +4385,7 @@ def front_tokens(cfg) -> int:
     return cfg.frontend_tokens if cfg.frontend is not None and not cfg.is_encdec else 0
 
 
-def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
+def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> dict:
     """22 (b): stablelm-1.6b whole in fp32 (or ``cfg``), ``make_step`` for
     two steps of 21 (b)'s first two batches (:func:`sharded_batches`) and
     then the train bundle for the same two steps from the same seed-0
@@ -4327,7 +4395,11 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
     states.  Gates: the first step's gradients within 1e-5 of each leaf's
     largest entry; each parameter after the steps within 1e-5 of its
     leaf's largest entry; losses rel 1e-6; each run's launches those of
-    two training steps; peaks under 75 GiB."""
+    two training steps; peaks under 75 GiB.  ``count``: then one more step
+    of the bundle (not timed as a step, the batch placed before it) under
+    ``launch/counting.py``'s counter, for phase 23 (a): its counts, its
+    wall and the memory it allocated above what was allocated before it,
+    in ``runs["bundle"]["counted"]``."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import steps as steps_module
@@ -4405,6 +4477,8 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
             run["grad0_err"] = worst_grad
             run["param_bitwise"] = worst == 0.0
             run["placements"] = sorted({str(tuple(p.placements)) for p in params.values()})
+            if count:
+                run["counted"] = counted_step(step_fn, params, opt_state, batches[0], mesh)
         runs[kind] = run
         del params, opt_state, step_fn
         gc.collect()
@@ -4424,6 +4498,30 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)") -> dict:
     del ref["params"], ref["grads0"]
     got["losses_bitwise"] = got["losses"] == ref["losses"]
     return runs
+
+
+def counted_step(step_fn, params, opt_state, batch, mesh) -> dict:
+    """One train step under ``launch/counting.py``'s counter on the card,
+    the batch placed on the mesh before it (as a dry run's): its FLOPs,
+    bytes, collective bytes and kernel launches, its wall (counting
+    included), and ``torch.cuda.max_memory_allocated`` over the step less
+    the memory allocated before it."""
+    import torch
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.counting import StepCounter
+
+    placed = shard_batch(batch, mesh)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with StepCounter() as counter:
+        step_fn(params, opt_state, placed)
+    torch.cuda.synchronize()
+    fig = counter.figures()
+    fig["wall_ms"] = (time.perf_counter() - t0) * 1e3
+    fig["peak_above_args_bytes"] = torch.cuda.max_memory_allocated() - before
+    return fig
 
 
 def sharded_serve(device, seed, mesh, cfg=None, label="22 (c)", plan=None) -> dict:
@@ -4639,15 +4737,17 @@ def sharded_collectives(device, seed, mesh) -> dict:
 SHARDED_OLMOE_LAYERS = 2             # 22 (e): olmoe-1b-7b cut to 2 of its 16 layers
 SHARDED_MINICPM_LAYERS = 2           # 22 (h): minicpm3-4b cut to 2 of its 62 layers
 SHARDED_INTERNVL_LAYERS = 2          # 22 (j): internvl2-26b cut to 2 of its 48 layers
+SHARDED_SEAMLESS_LAYERS = 8          # 22 (i): seamless cut to 8 + 8 of its 24 + 24 layers
 
 
 def sharded_blocks_configs():
     """22 (e)-(j): olmoe-1b-7b cut to 2 of 16 layers, the jamba pair of
     21 (c) (Mamba + attention, d 8192), one xlstm-1.3b period (7 mLSTM + 1
     sLSTM), minicpm3-4b (MLA) cut to 2 of 62 layers, seamless-m4t-large-v2
-    whole (24 encoder and 24 decoder layers over 512 frames) and
-    internvl2-26b cut to 2 of 48 layers behind its 256 frontend tokens,
-    each at full width."""
+    cut to 8 of its 24 encoder and 8 of its 24 decoder layers over 512
+    frames (whole on four cards in ``tools/sharded_multi_card.py``; cut
+    here to keep the smoke inside its limit) and internvl2-26b cut to 2 of
+    48 layers behind its 256 frontend tokens, each at full width."""
     from repro_torch.configs import get_config
 
     def cut(arch, layers):
@@ -4657,7 +4757,11 @@ def sharded_blocks_configs():
     return {"22 (e)": cut("olmoe-1b-7b", SHARDED_OLMOE_LAYERS),
             "22 (f)": jamba_pair_config(), "22 (g)": xlstm_configs()[1],
             "22 (h)": cut("minicpm3-4b", SHARDED_MINICPM_LAYERS),
-            "22 (i)": get_config("seamless-m4t-large-v2"),
+            "22 (i)": dataclasses.replace(
+                get_config("seamless-m4t-large-v2"), n_layers=SHARDED_SEAMLESS_LAYERS,
+                enc_layers=SHARDED_SEAMLESS_LAYERS,
+                name=f"seamless-m4t-large-v2/{SHARDED_SEAMLESS_LAYERS}+"
+                     f"{SHARDED_SEAMLESS_LAYERS}-layers"),
             "22 (j)": cut("internvl2-26b", SHARDED_INTERNVL_LAYERS)}
 
 
@@ -4699,7 +4803,7 @@ def phase_sharded(device, seed, timings) -> dict:
         try:
             log(f"phase 22 (b): stablelm-1.6b whole, fp32, the train bundle vs make_step, "
                 f"{SHARDED_TRAIN_STEPS} steps of {TRAIN21_BATCH} x {TRAIN21_SEQ}")
-            train = sharded_train(device, seed, mesh)
+            train = sharded_train(device, seed, mesh, count=True)
             timings["phase22b"] = time.perf_counter() - t0
             t1 = time.perf_counter()
             log(f"phase 22 (c): stablelm-1.6b prefill and decode bundles vs the unsharded "
@@ -4733,8 +4837,99 @@ def phase_sharded(device, seed, timings) -> dict:
         "serve": serve, "collectives": coll, "blocks": blocks,
         "wall_s": time.perf_counter() - t0,
     }
+    counted = train["bundle"]["counted"]
     log(json.dumps(fig))
+    fig["counted_step"] = counted
     timings["phase22"] = time.perf_counter() - t0
+    return fig
+
+
+# ------------------------------- phase 23: the dry run against the card's step
+
+DRY_FLOPS_RTOL = 1e-6                 # 23 (a): the dry run's FLOPs vs the card step's
+DRY_CELL = ("llama3-8b", "decode_32k")   # 23 (b): on the 16x16 production mesh
+
+
+def phase_dry_run(device, sharded, timings) -> dict:
+    """Phase 23, after phase 22 has destroyed its NCCL group: (a) the cell
+    of 22 (b) (stablelm-1.6b whole, fp32, train, 4 x 256 tokens, a (1, 1)
+    mesh, remat "none") dry-run on a fake group of one rank
+    (``launch/dryrun.py``: fake CUDA tensors, the kernels' stand-ins, nothing
+    launched), its FLOPs, kernels' counts included, held to those of the
+    step that 22 (b) counted on the card (rel 1e-6); reported beside the
+    card: the dry run's peak against the card step's memory above its
+    arguments, the roofline's compute term (BF16 peak and fp32's 67
+    TFLOP/s) and memory term against the measured second step, and
+    ``LMWorkloadModel.from_roofline``'s tokens/s against the measured; (b)
+    llama3-8b x decode_32k dry-run on the 16x16 production mesh of a fake
+    group of 256 ranks, which must report ok."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.lm_bridge import LMWorkloadModel
+    from repro_torch.launch.dryrun import count_step, fake_process_group, run_cell
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.roofline import analyze_cell
+    from repro_torch.launch.sharding import PlanConfig
+    from repro_torch.launch.train import TrainConfig
+
+    t0 = time.perf_counter()
+    cfg = stablelm_config()
+    shape = ShapeConfig("train_4x256", TRAIN21_SEQ, TRAIN21_BATCH, "train")
+    log(f"phase 23 (a): {cfg.name} {shape.global_batch} x {shape.seq_len} train, (1, 1) mesh, "
+        f"dry-run on a fake group of one rank, against 22 (b)'s counted step on the card")
+    with fake_process_group(1):
+        mesh = make_debug_mesh(1, 1, device_type=device.type)
+        dry = count_step(cfg, shape, mesh, PlanConfig(tp=1, dp=1), opt_cfg=TrainConfig().opt,
+                         param_dtype=torch.float32, remat="none")
+    wall_a = time.perf_counter() - t0
+    card = sharded["counted_step"]
+    flops_err = abs(dry["flops"] - card["flops"]) / card["flops"]
+    if flops_err > DRY_FLOPS_RTOL:
+        raise AssertionError(f"23 (a): the dry run counts {dry['flops']} FLOPs, the card step "
+                             f"{card['flops']} (rel {flops_err:.3e}); kernels {dry['kernels']} vs "
+                             f"{card['kernels']}")
+    step_s = sharded["train"]["step_ms_bundle"][-1] / 1e3
+    report = {"arch": cfg.name, "shape": shape.name, "mesh": "1x1", "flops": dry["flops"],
+              "hlo_bytes": dry["bytes"], "collectives": dry["collectives"],
+              "peak_bytes_per_device": dry["peak_bytes"], "argument_bytes": dry["argument_bytes"]}
+    row = analyze_cell(report, calibrate=False, shape=shape)
+    bridge = LMWorkloadModel.from_roofline(row, shape=shape)
+    predicted_tps = bridge.tokens_per_second(shape.tokens, 1)
+    fig_a = {
+        "flops_dry": dry["flops"], "flops_card": card["flops"], "flops_rel_err": flops_err,
+        "kernels_equal": dry["kernels"] == card["kernels"],
+        "bytes_dry": dry["bytes"], "bytes_card": card["bytes"],
+        "collectives_dry": dry["collectives"], "collectives_card": card["collectives"],
+        "peak_dry_bytes": dry["peak_bytes"], "peak_card_bytes": card["peak_above_args_bytes"],
+        "argument_bytes_dry": dry["argument_bytes"],
+        "step_s_measured": step_s, "counted_step_wall_s": card["wall_ms"] / 1e3,
+        "t_compute_bf16_s": row.t_compute, "t_compute_fp32_s": dry["flops"] / FP32_FLOPS_PER_S,
+        "t_memory_s": row.t_memory, "t_collective_s": row.t_collective,
+        "bottleneck": row.bottleneck, "useful_ratio": row.useful_ratio,
+        "tokens_per_s_bridge": predicted_tps, "tokens_per_s_measured": shape.tokens / step_s,
+        "dry_run_wall_s": wall_a}
+    log(f"  23 (a): FLOPs dry {dry['flops']:.6e} card {card['flops']:.6e} (rel {flops_err:.2e}); "
+        f"peak dry {dry['peak_bytes'] / 2**30:.3f} GiB card {card['peak_above_args_bytes'] / 2**30:.3f} "
+        f"GiB; step {step_s:.4f} s against compute {row.t_compute:.4f} s (BF16) / "
+        f"{fig_a['t_compute_fp32_s']:.4f} s (fp32), memory {row.t_memory:.4f} s; bridge "
+        f"{predicted_tps:.1f} tok/s against {fig_a['tokens_per_s_measured']:.1f}; "
+        f"{wall_a:.1f} s")
+    t1 = time.perf_counter()
+    arch, shape_name = DRY_CELL
+    log(f"phase 23 (b): {arch} x {shape_name} dry-run on the 16x16 mesh of a fake group of "
+        f"256 ranks, full depth")
+    with fake_process_group(256):
+        rep = run_cell(arch, shape_name, False, verbose=False, device_type=device.type)
+    if not rep.ok:
+        raise AssertionError(f"23 (b): {arch} x {shape_name} failed: {rep.error}")
+    fig_b = rep.to_json()
+    log(f"  23 (b): ok, {rep.flops / 1e9:.1f} GFLOP a device, temp {rep.peak_bytes_per_device / 2**30:.2f} "
+        f"GiB, args {rep.argument_bytes / 2**30:.2f} GiB, collectives {json.dumps(rep.collectives)}, "
+        f"{time.perf_counter() - t1:.1f} s")
+    fig = {"phase": 23, "card": card_line(), "a": fig_a, "b": fig_b,
+           "wall_s": time.perf_counter() - t0}
+    log(json.dumps(fig))
+    timings["phase23"] = fig["wall_s"]
     return fig
 
 
@@ -4859,6 +5054,7 @@ def build_all(libraries) -> float:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -5362,6 +5558,7 @@ def main() -> int:
     new_served = list(moe_mla["served"].values()) + [xlstm["served"]]
     trained = phases_train_attention_mamba(device, seed, timings, pair_grads)
     sharded = phase_sharded(device, seed, timings)
+    phase_dry_run(device, sharded, timings)
 
     t0 = time.perf_counter()
     log("phase 13: the LM bridge on the card's own numbers (phases 6, 9, 11, 12, 15-17 and 19), "
@@ -5447,7 +5644,8 @@ def main() -> int:
         f"{empty_ms:.5f} ms per launch):")
     for label, ms in sorted(excess.items(), key=lambda kv: -kv[1]):
         log(f"  {ms:10.3f} ms  {label}")
-    log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
+    log("phase wall times: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items())
+        + f"; since main began {time.perf_counter() - t_main:.1f}s")
     log(f"card vs host: max|logit difference| llama3-8b {logit_err:.3e}, "
         f"jamba mamba+attn {hybrid_err:.3e}, seamless 2+2 layers {encdec_err:.3e}, "
         + ", ".join(f"{k} 2 layers {v:.3e}" for k, v in moe_mla["card_vs_host"].items())

@@ -83,15 +83,17 @@ class LMWorkloadModel:
     chips_measured: int          # card count the costs were taken at
 
     @classmethod
-    def from_roofline(cls, row) -> "LMWorkloadModel":
+    def from_roofline(cls, row, shape=None) -> "LMWorkloadModel":
         """Build from a roofline row (any object with ``arch``, ``shape``,
         ``flops_total``, ``bytes_total``, ``coll_bytes_total`` and
         ``chips``, e.g. a ``SimpleNamespace`` of a roofline JSON record):
         whole-step totals → one fused per-token stage, which is what the
-        allocator's rate-matching point depends on."""
+        allocator's rate-matching point depends on.  ``shape`` (a
+        ``ShapeConfig``) stands for a row whose shape is not one of
+        ``SHAPES``."""
         from ..configs import SHAPES, get_config
 
-        shape = SHAPES[row.shape]
+        shape = shape or SHAPES[row.shape]
         get_config(row.arch)                     # an unknown arch raises
         tokens = shape.tokens if shape.kind != "decode" else shape.global_batch
         stage = StageCost(

@@ -20,6 +20,13 @@ and whose backward is the hand-written backward kernel
 :func:`flash_attention_backward` with those statistics; without grad it
 launches the forward alone, as serving does, and writes no statistics.
 On the CPU the plain version is differentiable as it is.
+
+Counting.  Each launch, forward or backward, reports its FLOPs and bytes
+(:mod:`.cost`) to the active counters (:mod:`repro_torch.kernels._cost`).
+On ``FakeTensor`` or meta inputs (a dry run), and on CPU inputs while a
+counter is active, the wrappers run a stand-in instead: empty outputs and,
+under grad, the row statistics the card keeps (a dry run), or the plain
+versions, with the same cost reported and no launch.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ from pathlib import Path
 import torch
 
 from .._build import KernelLibrary, refuse_dtensor
+from .._cost import StandIn, add_kernel, counted, filled, is_fake, run_stand_in, stands_in
+from .cost import flash_backward_cost, flash_cost
 from .ref import (
     check_key_length,
     flash_attention_backward_reference,
@@ -159,6 +168,52 @@ def _check_lse(lse, q) -> None:
                          f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
 
 
+def _cost(q, k, v, causal, window, lse: bool) -> tuple[int, int]:
+    """``(flops, bytes)`` of one forward launch on these inputs."""
+    B, S, H, hd = q.shape
+    mm, soft, nbytes = flash_cost(B, S, k.shape[1], H, k.shape[2], hd, v.shape[-1], causal, window,
+                                  q.element_size(), lse)
+    return mm + soft, nbytes
+
+
+def _backward_cost(q, k, causal, window) -> tuple[int, int]:
+    """``(flops, bytes)`` of one backward launch on these inputs."""
+    B, S, H, hd = q.shape
+    mm, soft, nbytes = flash_backward_cost(B, S, k.shape[1], H, k.shape[2], hd, causal, window,
+                                           q.element_size())
+    return mm + soft, nbytes
+
+
+class _FlashStandIn(StandIn):
+    """:func:`flash_attention` in a count: an empty output and, under grad,
+    the (B, H, S) fp32 row statistics the card keeps, on fake inputs; the
+    plain versions on real ones."""
+
+    name, backward_name = "flash_attention", "flash_attention_backward"
+
+    def __init__(self, causal, window, scale):
+        self.causal, self.window, self.scale = causal, window, scale
+
+    def outputs(self, inputs, grad):
+        q, k, v = inputs
+        fake = is_fake(q, k, v)
+        B, S, H, _ = q.shape
+        kept = (q.new_empty((B, H, S), dtype=torch.float32),) if fake and grad else ()
+        return filled((torch.empty_like(q),), lambda: (flash_attention_reference(
+            q, k, v, causal=self.causal, window=self.window, scale=self.scale),), fake), kept
+
+    def cost(self, inputs, grad):
+        return _cost(*inputs, self.causal, self.window, grad)
+
+    def gradients(self, inputs, outputs, kept, grads):
+        q, k, v = inputs
+        out = filled((torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)),
+                     lambda: flash_attention_backward_reference(
+                         q, k, v, outputs[0], grads[0], causal=self.causal, window=self.window,
+                         scale=self.scale), is_fake(q, k, v))
+        return out, _backward_cost(q, k, self.causal, self.window)
+
+
 class _FlashAttentionFunction(torch.autograd.Function):
     """:func:`flash_attention` on the card under grad: the forward kernel,
     writing each row's log-sum-exp beside the output, then
@@ -170,7 +225,9 @@ class _FlashAttentionFunction(torch.autograd.Function):
         B, S, H, _ = q.shape
         lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
         out = _forward(q, k, v, causal, window, scale, heads_per_block, lse=lse)
-        flash_attention.launches += bool(out.numel())
+        if out.numel():
+            flash_attention.launches += 1
+            add_kernel("flash_attention", _cost, q, k, v, causal, window, True)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.options = (causal, window, scale)
         return out
@@ -202,6 +259,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
+    if stands_in(q, k, v):
+        return run_stand_in(_FlashStandIn(causal, window, scale), q, k, v)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal, window=window, scale=scale)
     if q.device.type != "cuda":
@@ -211,6 +270,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     out = _forward(q, k, v, causal, window, scale, heads_per_block)
     if out.numel():
         flash_attention.launches += 1
+        add_kernel("flash_attention", _cost, q, k, v, causal, window, False)
     return out
 
 
@@ -230,7 +290,9 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True, window: int | None
     B, S, H, _ = q.shape
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     out = _forward(q, k, v, causal, window, scale, None, lse=lse)
-    flash_attention.launches += bool(out.numel())
+    if out.numel():
+        flash_attention.launches += 1
+        add_kernel("flash_attention", _cost, q, k, v, causal, window, True)
     return out, lse
 
 
@@ -249,6 +311,13 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
+    if stands_in(q, k, v, out, dout):
+        return counted("flash_attention_backward", _backward_cost(q, k, causal, window),
+                       lambda: filled((torch.empty_like(q), torch.empty_like(k),
+                                       torch.empty_like(v)),
+                                      lambda: flash_attention_backward_reference(
+                                          q, k, v, out, dout, causal=causal, window=window,
+                                          scale=scale), is_fake(q, k, v, out, dout)))
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, dout, causal=causal,
                                                   window=window, scale=scale)
@@ -287,6 +356,7 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA error {rc}")
     flash_attention_backward.launches += 1
+    add_kernel("flash_attention_backward", _backward_cost, q, k, causal, window)
     return dq, dk, dv
 
 

@@ -18,6 +18,12 @@ same kernel and whose backward is the hand-written backward kernel
 :func:`add_rmsnorm_backward`; without grad they launch the forward alone,
 as serving does.  On the CPU the plain versions are differentiable as
 they are.
+
+Counting.  Each launch, forward or backward, reports its FLOPs and bytes
+(:mod:`.cost`) to the active counters (:mod:`repro_torch.kernels._cost`).
+On ``FakeTensor`` or meta inputs (a dry run), and on CPU inputs while a
+counter is active, the wrappers run a stand-in instead: empty outputs (a
+dry run) or the plain versions, with the same cost reported and no launch.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ from pathlib import Path
 import torch
 
 from .._build import KernelLibrary, refuse_dtensor
+from .._cost import StandIn, add_kernel, counted, filled, is_fake, run_stand_in, stands_in
+from .cost import add_rmsnorm_cost, norm_backward_cost, rmsnorm_cost
 from .ref import (
     add_rmsnorm_backward_reference,
     add_rmsnorm_reference,
@@ -123,6 +131,85 @@ def _forward(x, delta, gain, eps: float):
     return s, h
 
 
+def _rows(x: torch.Tensor) -> int:
+    return x.numel() // x.shape[-1] if x.shape[-1] else 0
+
+
+def _cost(name: str, x: torch.Tensor, fused: bool) -> tuple[int, int]:
+    if name == "rmsnorm":
+        return rmsnorm_cost(_rows(x), x.shape[-1], x.element_size())
+    if name == "add_rmsnorm":
+        return add_rmsnorm_cost(_rows(x), x.shape[-1], x.element_size())
+    return norm_backward_cost(_rows(x), x.shape[-1], fused, x.element_size())
+
+
+def _report(name: str, x: torch.Tensor, fused: bool = False) -> None:
+    """One launch of kernel ``name`` on the rows of ``x``, to the counters."""
+    add_kernel(name, _cost, name, x, fused)
+
+
+def _grad_buffers(x: torch.Tensor, gain: torch.Tensor) -> tuple:
+    """``(dx, dgain)`` as the backward wrapper allocates them."""
+    return torch.empty_like(x), x.new_empty(x.shape[-1], dtype=gain.dtype)
+
+
+class _RMSNormStandIn(StandIn):
+    """:func:`rmsnorm` in a count: empty outputs on fake inputs, the plain
+    versions on real ones."""
+
+    name, backward_name = "rmsnorm", "rmsnorm_backward"
+
+    def __init__(self, eps: float):
+        self.eps = eps
+
+    def outputs(self, inputs, grad):
+        x, gain = inputs
+        return filled((torch.empty_like(x),), lambda: (rmsnorm_reference(x, gain, self.eps),),
+                      is_fake(x, gain)), ()
+
+    def cost(self, inputs, grad):
+        x = inputs[0]
+        return rmsnorm_cost(_rows(x), x.shape[-1], x.element_size())
+
+    def gradients(self, inputs, outputs, kept, grads):
+        x, gain = inputs
+        out = filled(_grad_buffers(x, gain),
+                     lambda: rmsnorm_backward_reference(x, grads[0], gain, self.eps),
+                     is_fake(x, gain))
+        return out, norm_backward_cost(_rows(x), x.shape[-1], False, x.element_size())
+
+
+class _AddRMSNormStandIn(StandIn):
+    """:func:`add_rmsnorm` in a count, as :class:`_RMSNormStandIn`."""
+
+    name, backward_name = "add_rmsnorm", "add_rmsnorm_backward"
+
+    def __init__(self, eps: float):
+        self.eps = eps
+
+    def outputs(self, inputs, grad):
+        x, delta, gain = inputs
+        return filled((torch.empty_like(x), torch.empty_like(x)),
+                      lambda: add_rmsnorm_reference(x, delta, gain, self.eps),
+                      is_fake(x, delta, gain)), ()
+
+    def cost(self, inputs, grad):
+        x = inputs[0]
+        return add_rmsnorm_cost(_rows(x), x.shape[-1], x.element_size())
+
+    def gradients(self, inputs, outputs, kept, grads):
+        x, delta, gain = inputs
+        s, (ds, dh) = outputs[0], grads
+        if dh is None:               # the norm's output was not used: no launch
+            dx = torch.zeros_like(s) if ds is None else ds
+            return (dx, dx, torch.zeros_like(gain)), None
+        dx, dgain = filled(_grad_buffers(x, gain),
+                           lambda: add_rmsnorm_backward_reference(s, ds, dh, gain, self.eps),
+                           is_fake(x, delta, gain))
+        return (dx, dx, dgain), norm_backward_cost(_rows(x), x.shape[-1], ds is not None,
+                                                  x.element_size())
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
 
@@ -134,7 +221,9 @@ class _RMSNormFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gain, eps):
         _, h = _forward(x, None, gain, eps)
-        rmsnorm.launches += bool(h.numel())
+        if h.numel():
+            rmsnorm.launches += 1
+            _report("rmsnorm", x)
         ctx.save_for_backward(x, gain)
         ctx.eps = eps
         return h
@@ -155,7 +244,9 @@ class _AddRMSNormFunction(torch.autograd.Function):
     def forward(ctx, x, delta, gain, eps):
         ctx.set_materialize_grads(False)
         s, h = _forward(x, delta, gain, eps)
-        add_rmsnorm.launches += bool(h.numel())
+        if h.numel():
+            add_rmsnorm.launches += 1
+            _report("add_rmsnorm", x)
         ctx.save_for_backward(s, gain)
         ctx.eps = eps
         return s, h
@@ -174,6 +265,8 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5) -> torch.Ten
     """RMSNorm of ``x`` over its last axis with per-feature ``gain``; the
     output has ``x``'s shape and dtype.  Differentiable on both devices."""
     refuse_dtensor("rmsnorm", x, gain)
+    if stands_in(x, gain):
+        return run_stand_in(_RMSNormStandIn(eps), x, gain)
     if x.device.type == "cpu":
         return rmsnorm_reference(x, gain, eps)
     if _needs_grad(x, gain):
@@ -181,6 +274,7 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-5) -> torch.Ten
     _, out = _forward(x, None, gain, eps)
     if out.numel():
         rmsnorm.launches += 1
+        _report("rmsnorm", x)
     return out
 
 
@@ -193,6 +287,8 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor | None, gain: torch.Tensor,
     refuse_dtensor("add_rmsnorm", x, delta, gain)
     if delta is None:
         return x, rmsnorm(x, gain, eps)
+    if stands_in(x, delta, gain):
+        return run_stand_in(_AddRMSNormStandIn(eps), x, delta, gain)
     if x.device.type == "cpu":
         return add_rmsnorm_reference(x, delta, gain, eps)
     if _needs_grad(x, delta, gain):
@@ -200,6 +296,7 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor | None, gain: torch.Tensor,
     s, h = _forward(x, delta, gain, eps)
     if h.numel():
         add_rmsnorm.launches += 1
+        _report("add_rmsnorm", x)
     return s, h
 
 
@@ -241,11 +338,17 @@ def rmsnorm_backward(x: torch.Tensor, dy: torch.Tensor, gain: torch.Tensor,
     backward kernel on CUDA tensors, its plain version
     (:func:`~.ref.rmsnorm_backward_reference`) on CPU tensors."""
     refuse_dtensor("rmsnorm_backward", x, dy, gain)
+    if stands_in(x, dy, gain):
+        cost = norm_backward_cost(_rows(x), x.shape[-1], False, x.element_size())
+        return counted("rmsnorm_backward", cost, lambda: filled(
+            _grad_buffers(x, gain), lambda: rmsnorm_backward_reference(x, dy, gain, eps),
+            is_fake(x, dy, gain)))
     if x.device.type == "cpu":
         return rmsnorm_backward_reference(x, dy, gain, eps)
     out = _backward(x, dy, None, gain, eps)
     if x.numel():
         rmsnorm_backward.launches += 1
+        _report("rmsnorm_backward", x)
     return out
 
 
@@ -258,11 +361,17 @@ def add_rmsnorm_backward(s: torch.Tensor, ds: torch.Tensor | None, dh: torch.Ten
     alike.  The backward kernel with the residual gradient added in, on
     CUDA tensors; its plain version on CPU tensors."""
     refuse_dtensor("add_rmsnorm_backward", s, ds, dh, gain)
+    if stands_in(s, ds, dh, gain):
+        cost = norm_backward_cost(_rows(s), s.shape[-1], ds is not None, s.element_size())
+        return counted("add_rmsnorm_backward", cost, lambda: filled(
+            _grad_buffers(s, gain), lambda: add_rmsnorm_backward_reference(s, ds, dh, gain, eps),
+            is_fake(s, ds, dh, gain)))
     if s.device.type == "cpu":
         return add_rmsnorm_backward_reference(s, ds, dh, gain, eps)
     out = _backward(s, dh, ds, gain, eps)
     if s.numel():
         add_rmsnorm_backward.launches += 1
+        _report("add_rmsnorm_backward", s, fused=ds is not None)
     return out
 
 

@@ -25,6 +25,13 @@ kernel (``csrc/ssm_scan_bwd.cu``), called through
 :func:`ssm_scan_backward` with those states; without grad it launches the
 forward alone, as serving does, and stores nothing.  On the CPU the plain
 version is differentiable as it is.
+
+Counting.  Each launch, forward or backward, reports its FLOPs and bytes
+(:mod:`.cost`) to the active counters (:mod:`repro_torch.kernels._cost`).
+On ``FakeTensor`` or meta inputs (a dry run), and on CPU inputs while a
+counter is active, the wrappers run a stand-in instead: empty outputs and,
+under grad, the range-start states the card keeps (a dry run), or the
+plain versions, with the same cost reported and no launch.
 """
 from __future__ import annotations
 
@@ -34,6 +41,8 @@ from pathlib import Path
 import torch
 
 from .._build import KernelLibrary, refuse_dtensor
+from .._cost import StandIn, add_kernel, counted, filled, is_fake, run_stand_in, stands_in
+from .cost import ssm_scan_backward_cost, ssm_scan_cost
 from .ref import ssm_scan_backward_reference, ssm_scan_reference
 
 #: Largest state width N the kernel takes (four lanes per channel keep N / 4
@@ -43,6 +52,9 @@ MAX_STATE = 16
 MAX_BATCH = 65535
 #: Input types the kernel takes, with the code its C entry point expects.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: Steps between the states the forward stores under grad (``kCkptSteps``
+#: in ``csrc/ssm_scan.cu``; :func:`_checkpoint_shape` checks the library's).
+CKPT_STEPS = 8
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -114,9 +126,9 @@ def _checkpoint_shape(dt, a) -> tuple[int, int, int, int]:
     steps, the backward's range."""
     B, S, D = dt.shape
     steps = LIBRARY.load().ssm_scan_ckpt_steps()
-    if steps != BACKWARD_LIBRARY.load().ssm_scan_bwd_range_steps():
+    if steps != BACKWARD_LIBRARY.load().ssm_scan_bwd_range_steps() or steps != CKPT_STEPS:
         raise RuntimeError("the forward stores states at another interval than the backward's "
-                           "ranges")
+                           f"ranges or CKPT_STEPS ({CKPT_STEPS})")
     return B, -(-S // steps), D, a.shape[1]
 
 
@@ -156,6 +168,59 @@ def _check_ckpt(ckpt, dt, a) -> None:
                          f"{ckpt.dtype} {tuple(ckpt.shape)} on {ckpt.device}")
 
 
+def _cost(dt, a, ckpt: bool) -> tuple[int, int]:
+    """``(flops, bytes)`` of one forward launch on these inputs."""
+    B, S, D = dt.shape
+    return ssm_scan_cost(B, S, D, a.shape[1], dt.element_size(), CKPT_STEPS if ckpt else 0)
+
+
+def _backward_cost(dt, a) -> tuple[int, int]:
+    """``(flops, bytes)`` of one backward launch on these inputs."""
+    B, S, D = dt.shape
+    return ssm_scan_backward_cost(B, S, D, a.shape[1], dt.element_size())
+
+
+def _launched(dt) -> bool:
+    return bool(dt.shape[0] and dt.shape[2])
+
+
+def _grad_buffers(inputs: tuple) -> tuple:
+    """The gradients of ``(dt, x, bmat, cmat, a, h0)`` as the backward
+    wrapper allocates them (each contiguous, in its input's dtype)."""
+    return tuple(t.new_empty(t.shape) for t in inputs)
+
+
+class _ScanStandIn(StandIn):
+    """:func:`ssm_scan` in a count: empty outputs and, under grad, the
+    range-start states the card keeps, on fake inputs; the plain versions
+    on real ones."""
+
+    name, backward_name = "ssm_scan", "ssm_scan_backward"
+
+    def outputs(self, inputs, grad):
+        dt, a = inputs[0], inputs[4]
+        fake = is_fake(*inputs)
+        B, S, D = dt.shape
+        N = a.shape[1]
+        kept = ((dt.new_empty((B, -(-S // CKPT_STEPS), D, N), dtype=torch.float32),)
+                if fake and grad else ())
+        return filled((dt.new_empty((B, S, D), dtype=torch.float32),
+                       dt.new_empty((B, D, N), dtype=torch.float32)),
+                      lambda: ssm_scan_reference(*inputs), fake), kept
+
+    def cost(self, inputs, grad):
+        return _cost(inputs[0], inputs[4], grad)
+
+    def gradients(self, inputs, outputs, kept, grads):
+        dy, dhT = grads
+        dt = inputs[0]
+        if dy is None:
+            dy = dt.new_zeros(dt.shape, dtype=torch.float32)
+        out = filled(_grad_buffers(inputs), lambda: ssm_scan_backward_reference(*inputs, dy, dhT),
+                     is_fake(*inputs))
+        return out, _backward_cost(dt, inputs[4])
+
+
 class _SSMScanFunction(torch.autograd.Function):
     """:func:`ssm_scan` on the card under grad: the forward kernel, storing
     the range-start states beside y and hT, then :func:`ssm_scan_backward`'s
@@ -166,7 +231,9 @@ class _SSMScanFunction(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ckpt = torch.empty(_checkpoint_shape(dt, a), dtype=torch.float32, device=dt.device)
         y, hT = _forward(dt, x, bmat, cmat, a, h0, ckpt=ckpt)
-        ssm_scan.launches += bool(dt.shape[0] and dt.shape[2])
+        if _launched(dt):
+            ssm_scan.launches += 1
+            add_kernel("ssm_scan", _cost, dt, a, True)
         ctx.save_for_backward(dt, x, bmat, cmat, a, h0, ckpt)
         return y, hT
 
@@ -186,6 +253,8 @@ def ssm_scan(dt, x, bmat, cmat, a, h0):
     devices: on the card under grad the backward kernel computes the
     gradients."""
     refuse_dtensor("ssm_scan", dt, x, bmat, cmat, a, h0)
+    if stands_in(dt, x, bmat, cmat, a, h0):
+        return run_stand_in(_ScanStandIn(), dt, x, bmat, cmat, a, h0)
     if dt.device.type == "cpu":
         return ssm_scan_reference(dt, x, bmat, cmat, a, h0)
     if dt.device.type != "cuda":
@@ -193,8 +262,9 @@ def ssm_scan(dt, x, bmat, cmat, a, h0):
     if torch.is_grad_enabled() and any(t.requires_grad for t in (dt, x, bmat, cmat, a, h0)):
         return _SSMScanFunction.apply(dt, x, bmat, cmat, a, h0)
     y, hT = _forward(dt, x, bmat, cmat, a, h0)
-    if dt.shape[0] and dt.shape[2]:
+    if _launched(dt):
         ssm_scan.launches += 1
+        add_kernel("ssm_scan", _cost, dt, a, False)
     return y, hT
 
 
@@ -210,7 +280,9 @@ def ssm_scan_with_checkpoints(dt, x, bmat, cmat, a, h0):
     _check(dt, x, bmat, cmat, a, h0)
     ckpt = torch.empty(_checkpoint_shape(dt, a), dtype=torch.float32, device=dt.device)
     y, hT = _forward(dt, x, bmat, cmat, a, h0, ckpt=ckpt)
-    ssm_scan.launches += bool(dt.shape[0] and dt.shape[2])
+    if _launched(dt):
+        ssm_scan.launches += 1
+        add_kernel("ssm_scan", _cost, dt, a, True)
     return y, hT, ckpt
 
 
@@ -226,6 +298,11 @@ def ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT=None, ckpt=None):
     them; without it the wrapper runs that forward launch first (counted in
     ``ssm_scan.launches``).  The plain version recomputes every state."""
     refuse_dtensor("ssm_scan_backward", dt, x, bmat, cmat, a, h0, dy, dhT, ckpt)
+    if stands_in(dt, x, bmat, cmat, a, h0, dy):
+        inputs = (dt, x, bmat, cmat, a, h0)
+        return counted("ssm_scan_backward", _backward_cost(dt, a), lambda: filled(
+            _grad_buffers(inputs), lambda: ssm_scan_backward_reference(*inputs, dy, dhT),
+            is_fake(*inputs, dy)))
     if dt.device.type == "cpu":
         return ssm_scan_backward_reference(dt, x, bmat, cmat, a, h0, dy, dhT)
     if dt.device.type != "cuda":
@@ -265,6 +342,7 @@ def ssm_scan_backward(dt, x, bmat, cmat, a, h0, dy, dhT=None, ckpt=None):
     if rc != 0:
         raise RuntimeError(f"ssm_scan backward launch failed: CUDA error {rc}")
     ssm_scan_backward.launches += 1
+    add_kernel("ssm_scan_backward", _backward_cost, dt, a)
     return ddt, dx, db, dc, da.to(a.dtype), dh0.to(h0.dtype)
 
 

@@ -33,10 +33,12 @@ combine over one process group, on local tensors).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import MLAConfig, ModelConfig
 from ..kernels.flash_attention import flash_attention
@@ -45,12 +47,14 @@ from .common import (
     ParamDef,
     apply_rope,
     call_norm,
+    merge_heads,
     on_shards,
     replicated_like,
     seq_whole,
     shard_act,
     shard_index,
     softmax_fp32,
+    split_heads,
 )
 
 # ---------------------------------------------------------------------------
@@ -129,19 +133,51 @@ def call_flash(kernel, q, k, v, **options) -> torch.Tensor:
     call keeps q's batch shard, or its head shard where k's heads are
     sharded on that dim too (each rank's query heads then read its own
     kv heads); everything else, the sequence and head dim always, is
-    gathered whole first."""
+    gathered whole first.
+
+    Where q's heads are sharded and k's are not (fewer kv heads than
+    ranks: llama3-8b's 8 at tp 16), q keeps its head shard and each rank
+    takes, from k and v gathered whole, the kv heads its own query heads
+    read, as GSPMD slices them; their gradients add up over those ranks
+    (``Partial``).  This needs each rank's query heads to read whole kv
+    heads, i.e. a rank's heads and a kv group's to divide one another;
+    else q is gathered too."""
     if not isinstance(q, DTensor):
         return kernel(q, k, v, **options)
     k, v = replicated_like(k, q), replicated_like(v, q)
-    pl = []
-    for qp, kp in zip(q.placements, k.placements):
+    H, KV = q.shape[2], k.shape[2]
+    group = H // KV
+    own = [i for i, (qp, kp) in enumerate(zip(q.placements, k.placements))
+           if qp == Shard(2) and kp != Shard(2)]
+    local_heads = H // math.prod(q.device_mesh.size(i) for i in own) if own else H
+    if own and (group % local_heads and local_heads % group):
+        own = []
+    pl, kv_pl, kv_grad = [], [], []
+    for i, (qp, kp) in enumerate(zip(q.placements, k.placements)):
         if qp == Shard(0) or (qp == Shard(2) and kp == Shard(2)):
             pl.append(qp)
+            kv_pl.append(qp)
+            kv_grad.append(qp)
+        elif i in own:
+            pl.append(qp)
+            kv_pl.append(Replicate())
+            kv_grad.append(Partial())
         else:
             pl.append(Replicate())
-    return on_shards(
-        lambda ql, kl, vl: kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(), **options),
-        (q, k, v), (pl, pl, pl), pl)
+            kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    if not own:
+        return on_shards(
+            lambda ql, kl, vl: kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(), **options),
+            (q, k, v), (pl, pl, pl), pl)
+    idx, _ = shard_index(q.device_mesh, own)
+    first, n_kv = idx * local_heads // group, max(1, local_heads // group)
+
+    def local(ql, kl, vl):
+        kl, vl = kl[:, :, first:first + n_kv], vl[:, :, first:first + n_kv]
+        return kernel(ql.contiguous(), kl.contiguous(), vl.contiguous(), **options)
+
+    return on_shards(local, (q, k, v), (pl, kv_pl, kv_pl), pl, (pl, kv_grad, kv_grad))
 
 
 def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
@@ -151,9 +187,9 @@ def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     x = seq_whole(x)
     B, S, d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(B, S, H, hd)
-    k = (x @ p.wk).reshape(B, S, KV, hd)
-    v = (x @ p.wv).reshape(B, S, KV, hd)
+    q = split_heads(x @ p.wq, B, S, H, hd)
+    k = split_heads(x @ p.wk, B, S, KV, hd)
+    v = split_heads(x @ p.wv, B, S, KV, hd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     # SP hands off to TP here: seq gathers, heads shard (Megatron-SP style)
@@ -161,7 +197,7 @@ def gqa_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     k = shard_act(k, ("act_batch", None, "act_kv", None))
     out = call_flash(flash_attention, q, k, v, causal=True, window=cfg.sliding_window,
                      scale=1.0 / hd ** 0.5)
-    out = out.reshape(B, S, H * hd) @ p.wo
+    out = merge_heads(out) @ p.wo
     cache = None
     if make_cache:
         W = cfg.sliding_window
@@ -189,15 +225,15 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
         raise ValueError(f"decode takes one token per row, got {S}")
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     T = cache["k"].shape[1]
-    q = (x @ p.wq).reshape(B, 1, H, hd)
-    k = (x @ p.wk).reshape(B, 1, KV, hd)
-    v = (x @ p.wv).reshape(B, 1, KV, hd)
+    q = split_heads(x @ p.wq, B, 1, H, hd)
+    k = split_heads(x @ p.wk, B, 1, KV, hd)
+    v = split_heads(x @ p.wv, B, 1, KV, hd)
     posb = replicated_like(torch.full((B, 1), pos, dtype=torch.int32, device=x.device), x)
     q = apply_rope(q, posb, cfg.rope_theta)
     k = apply_rope(k, posb, cfg.rope_theta)
     if isinstance(cache["k"], DTensor):
         out = _decode_on_shards(q, k, v, cache, cfg, pos)
-        return out.reshape(B, 1, H * hd) @ p.wo, cache
+        return merge_heads(out) @ p.wo, cache
     slot = pos % T if cfg.sliding_window is not None else pos
     slot = min(max(slot, 0), T - 1)
     cache["k"][:, slot] = k[:, 0]
@@ -210,7 +246,7 @@ def gqa_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
         valid = torch.arange(T, device=x.device) <= pos
     mask = valid[None, None, :].expand(B, 1, T)
     out = _gqa_core(q, cache["k"], cache["v"], mask, 1.0 / hd ** 0.5)
-    out = out.reshape(B, 1, H * hd) @ p.wo
+    out = merge_heads(out) @ p.wo
     return out, cache
 
 
@@ -271,9 +307,9 @@ def gqa_decode_seqsharded(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     Tl = cache["k"].shape[1]
     shard = dist.get_rank(group)
-    q = (x @ p.wq).reshape(B, 1, H, hd)
-    k_new = (x @ p.wk).reshape(B, 1, KV, hd)
-    v_new = (x @ p.wv).reshape(B, 1, KV, hd)
+    q = split_heads(x @ p.wq, B, 1, H, hd)
+    k_new = split_heads(x @ p.wk, B, 1, KV, hd)
+    v_new = split_heads(x @ p.wv, B, 1, KV, hd)
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = apply_rope(q, posb, cfg.rope_theta)
     k_new = apply_rope(k_new, posb, cfg.rope_theta)
@@ -282,7 +318,7 @@ def gqa_decode_seqsharded(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos
         cache["v"][:, pos % Tl] = v_new[:, 0]
     valid = shard * Tl + torch.arange(Tl, device=x.device) <= pos
     out = _partial_attend(q, cache["k"], cache["v"], valid, _all_reduce([group]))
-    return out.reshape(B, 1, H * hd) @ p.wo, cache
+    return merge_heads(out) @ p.wo, cache
 
 
 def _time_split(cache: DTensor):
@@ -354,7 +390,7 @@ def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
     B, S, _ = x.shape
     H = cfg.n_heads
     q = call_norm(rmsnorm, x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
-    q = q.reshape(B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q = split_heads(q, B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     c_kv, k_rope = (x @ p.wkv_down).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
@@ -384,8 +420,8 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     B, S, _ = seq_whole(x).shape
     H = cfg.n_heads
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, x, cfg, positions)
-    k_nope = (c_kv @ p.wk_up).reshape(B, S, H, m.qk_nope_head_dim)
-    v = (c_kv @ p.wv_up).reshape(B, S, H, m.v_head_dim)
+    k_nope = split_heads(c_kv @ p.wk_up, B, S, H, m.qk_nope_head_dim)
+    v = split_heads(c_kv @ p.wv_up, B, S, H, m.v_head_dim)
     qf = torch.cat([q_nope, q_rope], dim=-1)                           # (B, S, H, qk)
     kf = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)],
                    dim=-1)
@@ -401,7 +437,7 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     heads = ("act_batch", None, "act_heads", None)
     out = call_flash(padded, *(shard_act(t, heads) for t in (qf, kf, v)), causal=True,
                      scale=1.0 / qk ** 0.5)
-    out = out.reshape(B, S, H * m.v_head_dim) @ p.wo
+    out = merge_heads(out) @ p.wo
     cache = {"c_kv": c_kv, "k_rope": k_rope} if make_cache else None
     return out, cache
 
@@ -429,7 +465,7 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
     ck, cr = cache["c_kv"], cache["k_rope"]
     T = ck.shape[1]
     slot = min(max(pos, 0), T - 1)
-    wk = p.wk_up.reshape(m.kv_lora_rank, H, m.qk_nope_head_dim)
+    wk = split_heads(p.wk_up, m.kv_lora_rank, H, m.qk_nope_head_dim)
     q_eff = torch.einsum("bshd,rhd->bshr", q_nope, wk)
     scale = 1.0 / (m.qk_nope_head_dim + m.qk_rope_head_dim) ** 0.5
 
@@ -461,9 +497,9 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
                         (pl, pl, pl, pl, ck.placements, cr.placements), pl)
     else:
         ctx = attend(q_eff, q_rope, c_kv_new, k_rope_new, ck, cr)
-    wv = p.wv_up.reshape(m.kv_lora_rank, H, m.v_head_dim)
+    wv = split_heads(p.wv_up, m.kv_lora_rank, H, m.v_head_dim)
     out = torch.einsum("bshr,rhd->bshd", ctx, wv)
-    out = out.reshape(B, 1, H * m.v_head_dim) @ p.wo
+    out = merge_heads(out) @ p.wo
     return out, cache
 
 
@@ -486,7 +522,7 @@ def cross_attention(p, x: torch.Tensor, enc_kv: dict, cfg: ModelConfig, *,
     x = seq_whole(x)
     B, S, _ = x.shape
     H, hd = cfg.n_heads, cfg.head_dim
-    q = (x @ p.wq).reshape(B, S, H, hd)
+    q = split_heads(x @ p.wq, B, S, H, hd)
     k, v = enc_kv["k"], enc_kv["v"]
     scale = 1.0 / hd ** 0.5
 
@@ -504,7 +540,7 @@ def cross_attention(p, x: torch.Tensor, enc_kv: dict, cfg: ModelConfig, *,
                         (pl, k.placements, v.placements), pl)
     else:
         out = attend(q, k, v)
-    return out.reshape(B, S, H * hd) @ p.wo
+    return merge_heads(out) @ p.wo
 
 
 def encoder_kv(p, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
@@ -513,8 +549,8 @@ def encoder_kv(p, enc_out: torch.Tensor, cfg: ModelConfig) -> dict:
     enc_out = seq_whole(enc_out)
     B, T, _ = enc_out.shape
     KV, hd = cfg.n_kv_heads, cfg.head_dim
-    return {"k": (enc_out @ p.wk).reshape(B, T, KV, hd),
-            "v": (enc_out @ p.wv).reshape(B, T, KV, hd)}
+    return {"k": split_heads(enc_out @ p.wk, B, T, KV, hd),
+            "v": split_heads(enc_out @ p.wv, B, T, KV, hd)}
 
 
 # ---------------------------------------------------------------------------

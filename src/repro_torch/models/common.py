@@ -23,6 +23,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 import threading
 from typing import Any, Callable, Mapping
 
@@ -96,6 +97,61 @@ def seq_whole(x: torch.Tensor) -> torch.Tensor:
         return x
     return x.redistribute(x.device_mesh,
                           [Replicate() if p == Shard(1) else p for p in x.placements])
+
+
+def _head_cuts(t: DTensor, heads: int) -> list[int]:
+    """The mesh dims sharding ``t``'s last axis, if their shards would cut
+    one of its ``heads`` (else none)."""
+    last = t.ndim - 1
+    split = [i for i, p in enumerate(t.placements) if isinstance(p, Shard) and p.dim == last]
+    return split if split and heads % math.prod(t.device_mesh.size(i) for i in split) else []
+
+
+def _whole_heads(t: DTensor, heads: int) -> DTensor:
+    """``t`` with its last axis gathered where its shards would cut a head."""
+    cut = _head_cuts(t, heads)
+    if not cut:
+        return t
+    return t.redistribute(t.device_mesh, [Replicate() if i in cut else p
+                                          for i, p in enumerate(t.placements)])
+
+
+def split_heads(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t.reshape(*shape)``, whose last two entries split ``t``'s last axis
+    into (heads, head width).  A DTensor whose last axis is sharded over
+    mesh dims that do not divide the heads (llama3-8b's 8 kv heads at tp
+    16: a shard boundary inside a head) is gathered on that axis first,
+    as GSPMD reshards there; the plan then leaves those heads whole."""
+    if isinstance(t, DTensor):
+        t = _whole_heads(t, shape[-2])
+    return t.reshape(*shape)
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """The identity, whose backward gathers a DTensor gradient's last axis
+    where its shards would cut a head (:func:`merge_heads`)."""
+
+    @staticmethod
+    def forward(ctx, t, heads: int):
+        ctx.heads = heads
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_whole_heads(g, ctx.heads) if isinstance(g, DTensor) else g), None
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (..., heads, width) with its last two axes merged.  Its
+    gradient comes back through the projection after it sharded like the
+    projection's input rows, which may cut a head (minicpm3-4b's 40 heads
+    at tp 16); such a gradient is gathered before it splits back into
+    heads, as :func:`split_heads` gathers."""
+    heads = t.shape[-2]
+    out = t.reshape(*t.shape[:-2], heads * t.shape[-1])
+    if isinstance(out, DTensor) and out.requires_grad:
+        out = _WholeHeadsGrad.apply(out, heads)
+    return out
 
 
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -348,10 +404,21 @@ def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
     return 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32) / half))
 
 
-@functools.lru_cache(maxsize=32)
 def _rope_freqs_on(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
     """:func:`rope_freqs`, computed on the host (so every device rotates by
-    the same frequencies) and copied once to ``device``."""
+    the same frequencies) and copied once to ``device``.  Under a fake mode
+    (a dry run) they are made anew, kept out of the cache, and their ops
+    left out of a count, as a step on the card finds them cached."""
+    from ..kernels import _cost
+
+    if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+        with _cost.quiet():
+            return rope_freqs(head_dim, theta).to(device)
+    return _rope_freqs_cached(head_dim, theta, device)
+
+
+@functools.lru_cache(maxsize=32)
+def _rope_freqs_cached(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
     return rope_freqs(head_dim, theta).to(device)
 
 

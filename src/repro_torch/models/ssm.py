@@ -87,6 +87,12 @@ def _ssm_core(x_conv, z, proj, dt_proj, dt_bias, A_log, D, h0, N: int):
     ``h0``, the skip term and the SiLU gate.  x_conv, z: (B, S, di).
     Returns (y (B, S, di) in x_conv's dtype, hT (B, di, N) fp32)."""
     dt_rank = dt_proj.shape[0]
+    if isinstance(proj, DTensor):
+        # the x_proj partial sums reduced first: with dt_low Partial, torch
+        # 2.11's DTensor would shard dt_proj into a Partial for the matmul
+        # (Shard -> Partial), which it cannot (jamba at tp 16)
+        proj = proj.redistribute(proj.device_mesh, [Replicate() if p.is_partial() else p
+                                                    for p in proj.placements])
     dt_low, bmat, cmat = proj.split([dt_rank, N, N], dim=-1)        # B, C: strided views
     dt = F.softplus(dt_low @ dt_proj + dt_bias)                      # (B, S, di)
     a = -torch.exp(A_log.float())                                    # (di, N)
@@ -448,6 +454,7 @@ def _slstm_cells(wx: torch.Tensor, r_gates, b_gates, carry):
     ``carry`` (None: zeros, ``m`` at :data:`SLSTM_M0`).  Returns (h (B,
     S, d) fp32, the last carry)."""
     B, S, d4 = wx.shape
+    r_gates = r_gates.to(wx.dtype)     # bf16 weights: fp32 products, as jnp promotes them
     if carry is None:
         zero = torch.zeros((B, d4 // 4), dtype=torch.float32, device=wx.device)
         carry = (zero, zero, zero, torch.full_like(zero, SLSTM_M0))

@@ -31,8 +31,8 @@ from . import attention as attn
 from . import ssm
 from .moe import moe_defs, moe_ffn
 from ..kernels.flash_attention import flash_attention
-from .common import (ParamDef, add_rms_norm, apply_rope, replicated_like, seq_whole, shard_act,
-                     swiglu)
+from .common import (ParamDef, add_rms_norm, apply_rope, axis_rules, current_rules,
+                     replicated_like, seq_whole, shard_act, swiglu)
 
 
 class ParamModule(nn.Module):
@@ -247,6 +247,17 @@ def period_block(period: nn.Module, cfg: ModelConfig, key: str) -> nn.Module:
     return period if cfg.pattern() == ("attn",) else getattr(period, key)
 
 
+def _with_rules(fn, rules):
+    """``fn`` under ``rules``: a checkpointed block is recomputed inside the
+    backward, which autograd runs on a device thread of its own for CUDA
+    tensors, where the step's thread-local rules are not installed (every
+    ``shard_act`` there would keep its input's layout)."""
+    def run(*args):
+        with axis_rules(rules):
+            return fn(*args)
+    return run
+
+
 def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                       mode: str, caches: dict | None = None, positions=None,
                       cross: nn.ModuleList | None = None,
@@ -292,7 +303,8 @@ def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
             args = (period_block(period, cfg, key), kind, x, delta, cfg, mode, state,
                     positions, cross_i, aux)
             if remat == "full" and mode == "train":
-                x, delta, ns = checkpoint(apply_block, *args, use_reentrant=False)
+                x, delta, ns = checkpoint(_with_rules(apply_block, current_rules()), *args,
+                                          use_reentrant=False)
             else:
                 x, delta, ns = apply_block(*args)
             new[key].append(ns)

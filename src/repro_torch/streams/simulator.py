@@ -759,9 +759,11 @@ def shard_count(batch: int, devices: int | None = None, device=None) -> int:
     ``devices=None`` keeps the batch on the run's one device.  Unlike the
     reference, which shards automatically while every shard keeps two
     configurations, the port shards only when the caller passes a count:
-    its multi-card path has not run on a host with several cards.  An
-    explicit count pins the shard count (never more shards than rows), and
-    asking for more devices than the host has raises."""
+    its shards run one after another from one host thread, bit for bit
+    one card's rows and slower than one card on four H100s
+    (``tools/sim_multi_card.py``).  An explicit count pins the shard
+    count (never more shards than rows), and asking for more devices than
+    the host has raises."""
     if devices is None:
         return 1
     dev = torch.device("cuda" if device is None else device)

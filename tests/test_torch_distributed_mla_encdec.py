@@ -278,6 +278,20 @@ def test_sharded_train_parameters(run, case, against):
     assert moved > 0.5 * lr_sum    # the steps moved the weights past the tolerance
 
 
+@pytest.mark.parametrize("case", TRAIN)
+def test_sharded_optimizer_step_alone(run, case):
+    """Each step's sharded AdamW update equals ``adamw_update`` run on one
+    device on that step's gathered parameters, gradients and optimizer
+    state, within 1e-6 of each leaf's largest entry: the update alone,
+    whatever its gradients' rounding (``chip_smoke.optimizer_steps_replayed``)."""
+    got, _, _ = run
+    steps = got[f"{case}/adamw_replay_err"]
+    assert len(steps) == TRAIN_STEPS
+    for errs in steps:
+        worst = max(errs, key=errs.get)
+        assert errs[worst] <= 1e-6, (worst, errs[worst])
+
+
 # -------------------------------------------------------------------- serving
 
 

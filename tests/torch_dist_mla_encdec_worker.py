@@ -75,7 +75,7 @@ def case_train(inp, meta, out):
     """The (2, 2) train bundle of each trained case, two steps from the
     reference's parameters (remat "full"), and the first step's gradients
     as the update receives them."""
-    from chip_smoke import first_step_grads
+    from chip_smoke import first_step_grads, optimizer_steps_replayed
     from repro_torch.configs import ShapeConfig
     from repro_torch.data.pipeline import shard_batch
     from repro_torch.launch import steps
@@ -94,7 +94,8 @@ def case_train(inp, meta, out):
         params = bundle.place_params(_state(inp, meta, arch))
         opt = init_opt_state(opt_cfg, params)
         losses = []
-        with first_step_grads(steps) as grads0:
+        with first_step_grads(steps) as grads0, optimizer_steps_replayed(
+                steps, keep=dist.get_rank() == 0) as replayed:
             for step in range(inp["train_tokens/" + name].shape[0]):
                 batch = {"tokens": inp["train_tokens/" + name][step],
                          "labels": inp["train_labels/" + name][step]}
@@ -104,6 +105,7 @@ def case_train(inp, meta, out):
                 losses.append(float(m["loss"]))
         for n, g in grads0.items():
             out[f"{name}/train_grad0/{n}"] = g.numpy()
+        out[f"{name}/adamw_replay_err"] = replayed
         out[f"{name}/train_loss"] = np.asarray(losses)
         for n, p in params.items():
             out[f"{name}/train_param/{n}"] = _np(p)

@@ -6,17 +6,24 @@ NCCL, with the hand-written kernels on each rank's local shards, against
 a (4, 1) mesh against ``gqa_decode``, and ``topk_allreduce`` over the four
 ranks against the mean of each rank's decompressed payload.
 
-Gates: losses within rel 1e-5 and every parameter within 1e-4 of its
-leaf's largest entry of the single-card run's plus 2% of the steps'
-summed learning rate (fault 2, measured with ``--dump-row``: where an
-entry's clipped gradient sits at Adam's eps, 1e-8, the first steps move it
-by g/(|g|+eps) of a step, so gradients equal to rounding move it by
-different shares; embed row 34514's entry exceeded 1e-4 of embed's
-largest entry by 1.9% of the summed lr); each rank's kernel launches
-those of the steps on its shards (the single card's counts); the sequence-
-sharded decode within 1e-5 of the largest entry; the all-reduce within rel
-1e-6.  Prints the step walls of both, each rank's peak memory, the first
-step's gradients' largest difference (reported), and one JSON line.  The ranks meet through a ``FileStore`` in a temporary directory (no
+Gates: losses within rel 1e-5; the sharded optimizer step alone: each
+step's update equal to ``adamw_update`` on card 0 applied to that step's
+gathered parameters, gradients and state, within 1e-6 of each leaf's
+largest entry (``chip_smoke.optimizer_steps_replayed``); the parameters
+against ``make_step``'s by the size of each entry's clipped first-step
+gradient (:func:`classify_entries`): at least 10 Adam eps in both runs,
+within 1e-4 of the leaf's largest entry; under that in either run (where
+Adam's first update g/(|g|+eps) follows the gradient's rounding: faults 2
+and 3), moved the same way in both runs and apart by at most the steps'
+summed learning rate; each rank's kernel launches those of the steps on
+its shards (the single card's counts); a dry run of the same cell on a
+fake group of four ranks (``repro_torch.launch.dryrun.count_step``) equal
+to one more real step counted on every rank (``launch/counting.py``), in
+FLOPs and in collective bytes by kind; the sequence-sharded decode within
+1e-5 of the largest entry; the all-reduce within rel 1e-6.  Prints the
+step walls of both, each rank's peak memory, the first step's gradients'
+largest difference (reported), how many entries fall in each class with
+the largest gap in each, and one JSON line.  The ranks meet through a ``FileStore`` in a temporary directory (no
 TCP port), each process group with a 60 s timeout;
 ``torch.multiprocessing.spawn`` ends every rank when one fails.
 
@@ -52,7 +59,8 @@ sys.path[:0] = [os.path.join(ROOT, "src"), ROOT]
 
 WORLD = 4
 LOSS_RTOL, PARAM_ATOL_REL, SEQ_TOL, TOPK_RTOL = 1e-5, 1e-4, 1e-5, 1e-6
-ADAM_SHARE = 0.02       # of the steps' summed learning rate, beside PARAM_ATOL_REL
+REPLAY_ATOL_REL = 1e-6  # the sharded update vs adamw_update on its own inputs, of leaf max
+ADAM_EPS_CLASS = 10     # clipped first-step gradients from this many Adam eps are held to PARAM_ATOL_REL
 
 
 def log(rank: int, msg: str) -> None:
@@ -253,7 +261,8 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
     opt = init_opt_state(opt_cfg, params)
     cs.zero_launches()
     losses, ms, norms = [], [], []
-    with cs.first_step_grads(steps, keep=rank == 0) as grads0:
+    with cs.first_step_grads(steps, keep=rank == 0) as grads0, cs.optimizer_steps_replayed(
+            steps, keep=rank == 0, device=device) as replayed:
         undo = [dump.spy(steps), dump.tap_lookup()] if dump else []
         for b in batches:
             dist.barrier()
@@ -269,7 +278,8 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
     grad_errs = {n: float((grads0[n] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
                  for n, w in ref["grads0"].items()} if rank == 0 else {}
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    errs, over, shares = {}, {}, {}
+    errs, over, shares, classes = {}, {}, {}, {}
+    lr_sum = sum(ref["lrs"]) if rank == 0 else 0.0
     for n, p in params.items():
         full = p.full_tensor().detach().to("cpu")
         if rank == 0:
@@ -277,15 +287,19 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
             scale = max(float(want.abs().max()), 1e-30)
             diff = (full - want).abs()
             errs[n] = float(diff.max()) / scale
-            shares[n] = float(diff.max()) / sum(ref["lrs"])
-            tol = PARAM_ATOL_REL * scale + ADAM_SHARE * sum(ref["lrs"])
-            if float(diff.max()) > tol:
-                over[n] = _offenders(full, want, ref["start"][n], diff, tol,
-                                     (grads0[n], ref["grads0"][n]),
-                                     (norms[0], ref["grad_norms"][0]), opt_cfg)
+            shares[n] = float(diff.max()) / lr_sum
+            grads = (grads0[n], ref["grads0"][n])
+            firsts = (norms[0], ref["grad_norms"][0])
+            classes[n], failed = classify_entries(full, want, ref["start"][n], grads, firsts,
+                                                  opt_cfg, lr_sum)
+            if not classes[n]["ok"]:
+                over[n] = _offenders(full, want, ref["start"][n], diff, failed, grads, firsts,
+                                     opt_cfg)
     del grads0
+    counted = count_real_step(bundle, params, opt, shard_batch(batches[0], mesh), device)
     per_rank = [None] * WORLD
-    dist.all_gather_object(per_rank, {"launches": launches, "peak_bytes": peak})
+    dist.all_gather_object(per_rank, {"launches": launches, "peak_bytes": peak,
+                                      "counted": counted})
     worst_name = max(errs, key=errs.get) if errs else None
     row = None
     if dump:
@@ -296,7 +310,10 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
                               float(ref["params"]["embed"].abs().max()), batches)
             save_row(ref["dump"], dump.steps, partials)
     grad_worst = max(grad_errs, key=grad_errs.get) if grad_errs else None
+    replay = {n: max(step[n] for step in replayed) for n in replayed[0]} if replayed else {}
     return dict(row_dump=row, param_max_err_of_lr_sum=max(shares.values(), default=0.0),
+                classes=class_totals(classes), replay_max_rel_err=max(replay.values(), default=0.0),
+                replay_worst_leaf=max(replay, key=replay.get) if replay else None,
                 grad0_max_rel_err=grad_errs.get(grad_worst, 0.0), grad0_worst_leaf=grad_worst,
                 losses=losses, step_ms=ms, param_max_rel_err=errs.get(worst_name, 0.0),
                 worst_leaf=worst_name, leaf_errs=sorted(errs.items(), key=lambda kv: -kv[1])[:5],
@@ -304,8 +321,103 @@ def sharded_train(rank, cfg, opt_cfg, batches, device, ref, dump=None) -> dict:
                 placements=sorted({str(tuple(p.placements)) for p in params.values()}))
 
 
-def _offenders(got, want, start, diff, tol, grads0, norms, opt_cfg, shown=8) -> dict:
-    """Where a leaf misses the gate ``tol``: how many entries, how far each
+def classify_entries(got, want, start, grads0, norms, opt_cfg, lr_sum) -> dict:
+    """The parameter gate of one leaf: the sharded run's parameters ``got``
+    against ``make_step``'s ``want`` (both from ``start``), each entry
+    classed by its clipped first-step gradient in both runs (``grads0``:
+    bundle's, make_step's; ``norms``: each run's first gradient norm).
+
+    - ``above``: at least ``ADAM_EPS_CLASS`` Adam eps in both runs.  Adam's
+      update there is the gradient's sign to within eps/|g|, so both runs
+      land within ``PARAM_ATOL_REL`` of the leaf's largest entry.
+    - ``below``: under that in either run.  Adam's first update g/(|g|+eps)
+      then follows the gradient's own rounding (up to 1/eps of it), so no
+      share of the step bounds two correct runs apart; such an entry must
+      move the same way in both runs and land at most the steps' summed
+      learning rate ``lr_sum`` apart.  The optimizer replay and the
+      gradients' agreement pin these entries: each run's parameters are
+      AdamW of its own gradients.
+
+    Returns ``(summary, failed)``: each class's entry count and largest
+    gap, the failures' count and whether the leaf passes; and the mask of
+    the failing entries."""
+    import torch
+
+    scale = max(float(want.abs().max()), 1e-30)
+    clipped = [g.abs() * min(1.0, opt_cfg.clip_norm / max(n, 1e-30)) for g, n in zip(grads0, norms)]
+    above = (clipped[0] >= ADAM_EPS_CLASS * opt_cfg.eps) & (clipped[1] >= ADAM_EPS_CLASS * opt_cfg.eps)
+    gap = (got - want).abs()
+    opposite = torch.sign(got - start) != torch.sign(want - start)
+    failed = (above & (gap > PARAM_ATOL_REL * scale)) | (~above & (opposite | (gap > lr_sum)))
+    out = {}
+    for name, mask in (("above", above), ("below", ~above)):
+        n = int(mask.sum())
+        out[name] = {"entries": n, "max_gap": float(gap[mask].max()) if n else 0.0,
+                     "max_gap_of_leaf_max": float(gap[mask].max()) / scale if n else 0.0}
+    out["below"]["max_gap_of_lr_sum"] = out["below"]["max_gap"] / lr_sum
+    out["below"]["opposite_moves"] = int((~above & opposite).sum())
+    out["failed"] = int(failed.sum())
+    out["ok"] = out["failed"] == 0
+    return out, failed
+
+
+def class_totals(classes: dict) -> dict:
+    """:func:`classify_entries`' summaries over every leaf: each class's
+    entries, its largest gap (the leaf it is in) and the failures."""
+    out = {}
+    for name in ("above", "below"):
+        n = sum(c[name]["entries"] for c in classes.values())
+        key = "max_gap_of_leaf_max" if name == "above" else "max_gap_of_lr_sum"
+        worst = max(classes, key=lambda k: classes[k][name][key], default=None)
+        out[name] = {"entries": n, key: classes[worst][name][key] if worst else 0.0,
+                     "max_gap": classes[worst][name]["max_gap"] if worst else 0.0,
+                     "worst_leaf": worst}
+    out["below"]["opposite_moves"] = sum(c["below"]["opposite_moves"] for c in classes.values())
+    out["failed"] = sum(c["failed"] for c in classes.values())
+    return out
+
+
+def count_real_step(bundle, params, opt, batch, device) -> dict:
+    """One more step of the train bundle on this rank under
+    ``launch/counting.py``'s counter (the batch placed before it, as a dry
+    run places it): its FLOPs, bytes, collective bytes by kind and kernel
+    launches, for the dry run's gate."""
+    from repro_torch.launch.counting import StepCounter
+
+    sync(device)
+    with StepCounter() as counter:
+        bundle.step_fn(params, opt, batch)
+    sync(device)
+    fig = counter.figures()
+    return {k: fig[k] for k in ("flops", "bytes", "collectives", "kernels")}
+
+
+def dry_run(cfg, opt_cfg, batches, device) -> dict:
+    """The same (2, 2) train cell dry-run on a fake process group of four
+    ranks (``repro_torch.launch.dryrun.count_step``: fake tensors, nothing
+    launched); call with no process group held."""
+    import torch
+
+    import chip_smoke as cs
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import count_step, fake_process_group
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import PlanConfig
+
+    B, S = batches[0]["tokens"].shape
+    t0 = time.perf_counter()
+    with fake_process_group(WORLD):
+        mesh = make_debug_mesh(2, 2, device_type=device.type)
+        fig = count_step(cfg, ShapeConfig("train", S + cs.front_tokens(cfg), B, "train"), mesh,
+                         PlanConfig(tp=2, dp=2), opt_cfg=opt_cfg, param_dtype=torch.float32,
+                         remat="none")
+    fig["wall_s"] = time.perf_counter() - t0
+    return fig
+
+
+def _offenders(got, want, start, diff, bad, grads0, norms, opt_cfg, shown=8) -> dict:
+    """Where a leaf misses its gate (``bad``, the failing entries' mask):
+    how many entries, how far each
     run moved them from the start, and whether the moves agree in sign
     (AdamW's step is the gradient's sign where it is far above ``eps``, so
     a flip marks a gradient at the level of its own rounding); and, at the
@@ -315,9 +427,8 @@ def _offenders(got, want, start, diff, tol, grads0, norms, opt_cfg, shown=8) -> 
     units of Adam's ``eps``, and each run's move."""
     import torch
 
-    bad = diff > tol
     d_got, d_want = (got - start)[bad], (want - start)[bad]
-    worst = diff.flatten().topk(min(shown, int(bad.sum()))).indices
+    worst = torch.where(bad, diff, -1.0).flatten().topk(min(shown, int(bad.sum()))).indices
     entries = []
     for i in worst.tolist():
         at = []
@@ -452,12 +563,15 @@ def run(rank: int, args, store_dir: str) -> None:
     finally:
         dist.destroy_process_group()
     if rank == 0:
-        check(args, cfg, ref, train, coll, serve)
+        log(rank, "the same train cell dry-run on a fake group of four ranks")
+        dry = dry_run(cfg, TrainConfig().opt, batches, device)
+        check(args, cfg, ref, train, coll, serve, dry)
 
 
-def check(args, cfg, ref, train, coll, serve) -> None:
-    """Prints the figures; raises if a gate failed (after every rank has
-    left the process group)."""
+def check(args, cfg, ref, train, coll, serve, dry) -> None:
+    """Prints the figures and every gate's verdict; raises once, after all
+    of them are weighed (and every rank has left the process group), if
+    any failed."""
     import chip_smoke as cs
 
     fig = {"arch": cfg.name, "device": args.device, "ranks": WORLD,
@@ -469,23 +583,48 @@ def check(args, cfg, ref, train, coll, serve) -> None:
            "grad0_worst_leaf": train["grad0_worst_leaf"],
            "leaf_errs": train["leaf_errs"], "offenders": train["offenders"], "lr": ref["lrs"],
            "per_rank": train["per_rank"], "placements": train["placements"],
-           "row_dump": train["row_dump"], "serve": serve, **coll}
+           "row_dump": train["row_dump"], "serve": serve, **coll,
+           "replay_max_rel_err": train["replay_max_rel_err"],
+           "replay_worst_leaf": train["replay_worst_leaf"], "param_classes": train["classes"],
+           "dry_run": {k: dry[k] for k in ("flops", "bytes", "collectives", "kernels",
+                                           "peak_bytes", "argument_bytes", "wall_s")}}
     if args.device == "cuda":
         fig["card"] = cs.card_line()
-    print(json.dumps(fig), flush=True)
-    for a, b in zip(train["losses"], ref["losses"]):
-        if abs(a - b) > LOSS_RTOL * abs(b):
-            raise AssertionError(f"losses {train['losses']} vs make_step's {ref['losses']}")
+    failed = {}
+    if any(abs(a - b) > LOSS_RTOL * abs(b) for a, b in zip(train["losses"], ref["losses"])):
+        failed["losses"] = f"{train['losses']} vs make_step's {ref['losses']}"
+    if train["replay_max_rel_err"] > REPLAY_ATOL_REL:
+        failed["optimizer step"] = (
+            f"the sharded update of {train['replay_worst_leaf']} differs from adamw_update on "
+            f"its own inputs by {train['replay_max_rel_err']:.3e} of its largest entry")
     if train["offenders"]:
-        raise AssertionError(f"parameters past {PARAM_ATOL_REL:g} of their leaf's largest entry "
-                             f"plus {ADAM_SHARE:g} of the summed lr: {train['offenders']}")
+        failed["parameters"] = (
+            f"outside their class's gate (>= {ADAM_EPS_CLASS} eps: {PARAM_ATOL_REL:g} of the "
+            f"leaf's largest entry; below: the same move, within the summed lr): "
+            f"{train['offenders']}")
+    for r, rank_fig in enumerate(train["per_rank"]):
+        real = rank_fig["counted"]
+        if (abs(real["flops"] - dry["flops"]) > 1e-9 * dry["flops"]
+                or set(real["collectives"]) != set(dry["collectives"])
+                or any(abs(real["collectives"][k] - v) > 1e-9 * v
+                       for k, v in dry["collectives"].items())):
+            failed.setdefault("dry run", []).append(
+                f"rank {r}'s counted step {real['flops']} flops, collectives "
+                f"{real['collectives']}; the dry run's {dry['flops']}, {dry['collectives']}")
     if args.device == "cuda":
         want = cs.training_launches(cfg, args.steps)
         for r, rank_fig in enumerate(train["per_rank"]):
             if rank_fig["launches"] != want:
-                raise AssertionError(f"rank {r} launched {rank_fig['launches']}, expected {want}")
+                failed.setdefault("launches", []).append(
+                    f"rank {r} launched {rank_fig['launches']}, expected {want}")
     if coll["seqsharded_rel_err"] > SEQ_TOL or coll["topk_rel_err"] > TOPK_RTOL:
-        raise AssertionError(f"collectives: {coll}")
+        failed["collectives"] = str(coll)
+    gates = ["losses", "optimizer step", "parameters", "dry run", "collectives"]
+    fig["gates"] = {g: "missed" if g in failed else "met"
+                    for g in gates + (["launches"] if args.device == "cuda" else [])}
+    print(json.dumps(fig), flush=True)
+    if failed:
+        raise AssertionError("; ".join(f"{g}: {why}" for g, why in failed.items()))
     print("ok", flush=True)
 
 

@@ -4,15 +4,17 @@ of one rank, held to ``make_step`` and the unsharded forwards, then the
 sequence-sharded decode and the compressed all-reduce on that group, then
 the same bundles for olmoe-1b-7b at 2 layers, the jamba Mamba + attention
 pair, one xlstm-1.3b period, minicpm3-4b at 2 layers, seamless-m4t-large-v2
-whole and internvl2-26b at 2 layers (``chip_smoke.phase_sharded``).
-``--blocks h,i`` keeps only those of the sub-phases (e)-(j).  Prints the
-torch and CUDA versions first.
+whole and internvl2-26b at 2 layers (``chip_smoke.phase_sharded``); then
+phase 23, the dry run of 22 (b)'s cell against its counted step on the
+card and the production-mesh cell (``chip_smoke.phase_dry_run``).
+``--blocks h,i`` keeps only those of the sub-phases (e)-(j) (``--blocks
+none``: none of them).  Prints the torch and CUDA versions first.
 
 Needs a CUDA card (about 4 minutes of command time) and builds the
 rmsnorm, flash-attention and selective-scan libraries, forward and
 backward, from the checkout.
 
-Run from the repository root:  python3 tools/sharded_probe.py [--blocks h,i,j]
+Run from the repository root:  python3 tools/sharded_probe.py [--blocks h,i,j|none]
 """
 from __future__ import annotations
 
@@ -49,7 +51,8 @@ def main() -> None:
                                       flash_ops.LIBRARY, flash_ops.BACKWARD_LIBRARY,
                                       ssm_ops.LIBRARY, ssm_ops.BACKWARD_LIBRARY])}
     t0 = time.perf_counter()
-    cs.phase_sharded(device, 0, timings)
+    sharded = cs.phase_sharded(device, 0, timings)
+    cs.phase_dry_run(device, sharded, timings)
     timings["total"] = time.perf_counter() - t0
     cs.log("walls: " + " ".join(f"{k} {v:.1f}s" for k, v in timings.items()))
 
