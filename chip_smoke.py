@@ -82,7 +82,12 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    MoE and MLA models' shapes: flash at olmoe's (16/16 heads), mixtral's
    (32/8, window 4096) and minicpm3's prefills (40 heads, q and k at 96, v
    at 64 zero-padded to 96: the padded columns exactly zero, the rest
-   attention with v at its own width), rmsnorm at MLA's latent widths 768
+   attention with v at its own width) and minicpm3's attention split over
+   the keys of 16 'model' ranks as its sharded prefill and training run it
+   (each rank's two key chunks through the flash kernel at their key
+   offsets, the partial softmaxes combined, each rank's backward with the
+   combined statistics) against the flash kernels over the whole keys,
+   rmsnorm at MLA's latent widths 768
    and 256, add_rmsnorm at d 2048 and 2560; xlstm-1.3b's: rmsnorm at d 2048
    and mLSTM's inner 2732 (serving's and training's rows), add_rmsnorm at
    2048, and both RMSNorm backward kernels (the norm alone, and after the
@@ -780,24 +785,26 @@ def ordered_bound(B, R, L, dim, masked) -> tuple[float, str]:
 
 
 def time_ordered_sum(args) -> dict:
-    """The kernel, its plain version and, unmasked, ``torch.sum`` (one
-    PyTorch call for the same sums, in the order its reduction picks) on
-    the same inputs; a masked sum has no one PyTorch call."""
+    """The kernel, its plain version and ``torch.sum`` (the PyTorch calls
+    for the same sums, in the order its reduction picks: one unmasked, the
+    two ``torch.sum(x * mask, dim)`` masked) on the same inputs."""
+    import torch
+
     from repro_torch.kernels.stream_flow import ordered_sum, ordered_sum_reference
 
     x, dim, mask = (list(args) + [None])[:3]
     ms, eager_ms = time_both(lambda: ordered_sum(x, dim, mask), iters=200)
     plain_ms, plain_eager = time_both(lambda: ordered_sum_reference(x, dim, mask), iters=20)
-    library_ms = library_eager = None
     if mask is None:
         library_ms, library_eager = time_both(lambda: x.sum(dim=dim), iters=200)
+    else:
+        library_ms, library_eager = time_both(lambda: torch.sum(x * mask, dim), iters=200)
     bound_ms, bound_by = ordered_bound(*x.shape, dim, mask is not None)
-    lib = "none (masked)" if library_ms is None else f"{library_ms:.5f} ms"
-    lib_eager = "" if library_eager is None else f"  torch.sum {library_eager:.5f} ms"
+    lib = "torch.sum(x * mask)" if mask is not None else "torch.sum"
     log(f"  ordered_sum {tuple(x.shape)} dim {dim} {'masked' if mask is not None else 'unmasked'} "
-        f"device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  torch.sum {lib}  "
+        f"device (graph): kernel {ms:.5f} ms  plain {plain_ms:.5f} ms  {lib} {library_ms:.5f} ms  "
         f"bound {bound_ms:.6f} ms ({bound_by}); eager with launch cost: kernel {eager_ms:.5f}  "
-        f"plain {plain_eager:.5f}{lib_eager}")
+        f"plain {plain_eager:.5f}  {lib} {library_eager:.5f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
@@ -2361,6 +2368,65 @@ def check_flash_mla(device, lengths, H, qk, v_width) -> float:
     return worst
 
 
+KEY_SHARDS = 16                     # minicpm3-4b's 40 heads over tp 16: keys split instead
+
+
+def check_flash_key_split(device, lengths, H, qk, v_width, shards=KEY_SHARDS) -> float:
+    """Attention split over the keys as MLA's sharded prefill and training
+    run it where the heads do not divide the 'model' ranks (minicpm3-4b's
+    40 heads at tp 16): for each of ``shards`` ranks, its local function
+    (``models.attention.key_shard_forward``: the flash kernel on the
+    rank's two key chunks at their key offsets), the partial results
+    combined (``combine_partials``), then each rank's backward
+    (``key_shard_backward``: the backward kernel on its chunks with the
+    combined row statistics) summed; against the flash kernel and its
+    backward over the whole keys, at MLA's widths (q and k ``qk``, v
+    zero-padded from ``v_width``, scale 1/sqrt(qk), causal): the output
+    and row log-sum-exps within the flash gate (2e-5), each gradient
+    within 1e-4 of its largest entry.  Returns the largest output
+    difference."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention_backward, flash_attention_with_lse
+    from repro_torch.models.attention import (
+        combine_partials, key_shard_backward, key_shard_forward,
+    )
+
+    worst = 0.0
+    for S in lengths:
+        q, k, _, v = mla_flash_inputs(device, S, H, qk, v_width, seed=S * 11 + qk)
+        g = torch.Generator(device=device).manual_seed(S)
+        dout = torch.randn(q.shape, generator=g, device=device)
+        scale = 1.0 / qk ** 0.5
+        out_w, lse_w = flash_attention_with_lse(q, k, v, causal=True, scale=scale)
+        grads_w = flash_attention_backward(q, k, v, out_w, dout, causal=True, scale=scale,
+                                           lse=lse_w)
+        parts = [p for r in range(shards) for p in key_shard_forward(q, k, v, r, shards, scale)]
+        out, lse = combine_partials(parts)
+        grads = [torch.zeros_like(t) for t in (q, k, v)]
+        for r in range(shards):
+            for acc, part in zip(grads, key_shard_backward(q, k, v, out, dout, lse, r, shards,
+                                                           scale)):
+                acc += part
+        torch.cuda.synchronize()
+        if not all(bool(torch.isfinite(t).all()) for t in (out, lse, *grads)):
+            raise AssertionError(f"flash key split S={S}: non-finite output or gradient")
+        torch.testing.assert_close(out, out_w, rtol=FLASH_TOL, atol=FLASH_TOL)
+        torch.testing.assert_close(lse, lse_w, rtol=FLASH_TOL, atol=FLASH_TOL)
+        rel = {}
+        for name, got, want in zip(("dq", "dk", "dv"), grads, grads_w):
+            rel[name] = float((got - want).abs().max()) / float(want.abs().max())
+            if rel[name] > 1e-4:
+                raise AssertionError(f"flash key split S={S}: {name} {rel[name]:.3e} of its "
+                                     f"largest entry from the whole keys' backward (gate 1e-4)")
+        err = float((out - out_w).abs().max())
+        worst = max(worst, err)
+        log(f"  flash split over the keys, {shards} shards x 2 chunks, S={S} H={H} qk={qk} "
+            f"(v {v_width} padded): max|out - whole keys| {err:.3e}, lse "
+            f"{float((lse - lse_w).abs().max()):.3e}; gradients of their largest entry "
+            + ", ".join(f"{n} {v:.3e}" for n, v in rel.items()))
+    return worst
+
+
 def _bytes_or_flops(nbytes, flops) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -3208,7 +3274,9 @@ def moe_mla_configs():
 def check_moe_mla_kernels(device, prompt_lengths) -> tuple[float, float, float]:
     """Phase 4's checks at the MoE and MLA models' shapes: flash at
     olmoe's prefills (16/16 heads, hd 128), mixtral's (32/8, window 4096)
-    and minicpm3's (40 heads, q/k 96, v 64 padded); rmsnorm at olmoe's and
+    and minicpm3's (40 heads, q/k 96, v 64 padded), and minicpm3's split
+    over the keys of 16 ranks, forward and backward, against the whole
+    keys (S = 512, 4096); rmsnorm at olmoe's and
     minicpm3's d (2048, 2560: block 0's first norm) and MLA's latent
     widths (768 and 256); add_rmsnorm at olmoe's and minicpm3's d;
     prefill rows and batch-4 decode rows.  Mixtral's d is llama3-8b's
@@ -3225,6 +3293,9 @@ def check_moe_mla_kernels(device, prompt_lengths) -> tuple[float, float, float]:
             mixtral.sliding_window) for S in prompt_lengths])
     flash_err = max(flash_err, check_flash_mla(
         device, prompt_lengths, minicpm.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim,
+        m.v_head_dim))
+    flash_err = max(flash_err, check_flash_key_split(
+        device, (512, 4096), minicpm.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim,
         m.v_head_dim))
     widths = (olmoe.d_model, minicpm.d_model, m.q_lora_rank, m.kv_lora_rank)
     rms_err = check_rmsnorm(device, [(1, S, w) for w in widths for S in prompt_lengths]

@@ -17,7 +17,11 @@
 // a padded one (the reference wrapper passes the padded length, which lets
 // padded keys into non-causal rows).  k and v may hold S_k != S keys in a
 // non-causal call without a window (the decoder's cross-attention over the
-// encoder's frames); causal and windowed calls take S_k = S, and the entry
+// encoder's frames).  A causal or windowed call takes the keys at positions
+// k_off .. k_off + S_k - 1 of the queries' sequence: the whole of it (k_off
+// = 0, S_k = S), or one key shard of attention split over the keys (MLA
+// where the heads do not divide the tensor-parallel ranks), whose rows
+// before the shard see no key: output 0, log-sum-exp -1e30.  The entry
 // point refuses anything else.
 //
 // What bounds it: at prefill lengths of a few hundred tokens the matrix
@@ -187,7 +191,7 @@ __device__ __forceinline__ void flash_attention_body(
     const T* __restrict__ v,   // (B, Sk, KV, hd)
     T* __restrict__ out,       // (B, S, H, hd)
     float* __restrict__ lse,   // (B, H, S), written when kLse
-    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window) {
+    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off) {
   extern __shared__ __align__(16) float smem[];
   constexpr int QP = kQKPitch, VP = kVPitch, OP = kPartPitch;
   constexpr int kSplits = kWarps / kHeads;   // warps per head, each 8 keys of every tile
@@ -230,12 +234,14 @@ __device__ __forceinline__ void flash_attention_body(
   }
 
   // Keys this block's queries can see: from the window's lower edge (whole
-  // tiles) up to the last query when causal, else to the last key.
+  // tiles) up to the last query when causal, else to the last key.  Key t
+  // sits at position k_off + t, so a query at s masks as one at s - k_off;
+  // a block whose queries all come before the first key has no tile.
   const int q_last = min(q0 + kBQ, S) - 1;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  int k_begin = window > 0 ? max(0, q0 - k_off - window + 1) : 0;
   k_begin = k_begin / kBK * kBK;
-  const int k_end = causal ? q_last + 1 : Sk;
-  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
+  const int k_end = causal ? min(q_last + 1 - k_off, Sk) : Sk;
+  const int n_tiles = max(0, (k_end - k_begin + kBK - 1) / kBK);
 
   auto load_kv = [&](int stage, int k0) {
     load_rows<T, kAsync>(ks + stage * kBK * QP, QP, kb, kv_step, k0, kBK, Sk, hd, tid, kThreads);
@@ -327,7 +333,7 @@ __device__ __forceinline__ void flash_attention_body(
       bool ok[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const int qp = q0 + g + 8 * (i >> 1);
+        const int qp = q0 + g + 8 * (i >> 1) - k_off;
         const int key = k0 + split * 8 + 2 * t + (i & 1);
         ok[i] = key < Sk && (!causal || key <= qp) && (window <= 0 || key > qp - window);
         p[i] = ok[i] ? (s_bb[i] + (s_sb[i] + s_bs[i])) * scale : kNegInf;
@@ -402,6 +408,10 @@ __device__ __forceinline__ void flash_attention_body(
     }
     __syncthreads();   // every warp is done with this tile's stage
   }
+  if (n_tiles == 0) {  // the q rows and first tile, loaded but never read, land first
+    cp_async_wait<0>();
+    __syncthreads();
+  }
 
   // Merge the four partial results of each head's rows, in split order.
   // Lane (g, t) of a warp holds, for rows g and g + 8, output dims
@@ -468,9 +478,9 @@ template <typename T, bool kAsync, int kHeads>
 __global__ void __launch_bounds__(kThreads) flash_attention_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, int S, int Sk, int H, int KV, int hd, float scale, int causal,
-    int window) {
+    int window, int k_off) {
   flash_attention_body<T, kAsync, kHeads, false>(q, k, v, out, nullptr, S, Sk, H, KV, hd, scale,
-                                                 causal, window);
+                                                 causal, window, k_off);
 }
 
 // The same with the row statistics.  Held to two blocks an SM (at most 128
@@ -480,14 +490,14 @@ template <typename T, bool kAsync, int kHeads>
 __global__ void __launch_bounds__(kThreads, 2) flash_attention_lse_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ out, float* __restrict__ lse, int S, int Sk, int H, int KV, int hd,
-    float scale, int causal, int window) {
+    float scale, int causal, int window, int k_off) {
   flash_attention_body<T, kAsync, kHeads, true>(q, k, v, out, lse, S, Sk, H, KV, hd, scale,
-                                                causal, window);
+                                                causal, window, k_off);
 }
 
 template <typename T, bool kAsync, int kHeads, bool kLse>
 cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                      int S, int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                      int S, int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off,
                       cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(kHeads, kWarps / kHeads);
   const int pairs = (H / KV + kHeads - 1) / kHeads;
@@ -501,7 +511,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, fl
     }
     flash_attention_lse_kernel<T, kAsync, kHeads><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), lse, S, Sk, H, KV, hd, scale, causal, window);
+        static_cast<T*>(out), lse, S, Sk, H, KV, hd, scale, causal, window, k_off);
   } else {
     if (smem > 48 * 1024) {
       const cudaError_t err = cudaFuncSetAttribute(
@@ -511,7 +521,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, fl
     }
     flash_attention_kernel<T, kAsync, kHeads><<<grid, kThreads, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(out), S, Sk, H, KV, hd, scale, causal, window);
+        static_cast<T*>(out), S, Sk, H, KV, hd, scale, causal, window, k_off);
   }
   return cudaGetLastError();
 }
@@ -519,48 +529,57 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, void* out, fl
 template <typename T, bool kAsync, bool kLse>
 cudaError_t launch_heads(const void* q, const void* k, const void* v, void* out, float* lse,
                          int B, int S, int Sk, int H, int KV, int hd, float scale, int causal,
-                         int window, int heads, cudaStream_t stream) {
+                         int window, int k_off, int heads, cudaStream_t stream) {
   if (heads == 1) {
     return launch_as<T, kAsync, 1, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale, causal,
-                                         window, stream);
+                                         window, k_off, stream);
   }
   return launch_as<T, kAsync, 2, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale, causal,
-                                       window, stream);
+                                       window, k_off, stream);
 }
 
 template <typename T, bool kLse>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                   int S, int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                   int S, int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off,
                    int heads, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     const bool async = hd % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0
         && reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0;
     if (async) {
       return launch_heads<float, true, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale,
-                                             causal, window, heads, stream);
+                                             causal, window, k_off, heads, stream);
     }
   }
   return launch_heads<T, false, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale, causal,
-                                      window, heads, stream);
+                                      window, k_off, heads, stream);
+}
+
+// Whether k and v's Sk keys fit the masks: in a causal or windowed call
+// they are the keys at positions k_off .. k_off + Sk - 1 of the S queries'
+// sequence (k_off = 0 and Sk = S: the whole sequence; a key shard
+// otherwise), in any other call all of them, from position 0.
+bool keys_ok(int S, int Sk, int causal, int window, int k_off) {
+  if (causal || window > 0) return k_off >= 0 && static_cast<int64_t>(k_off) + Sk <= S;
+  return k_off == 0;
 }
 
 template <bool kLse>
 int launch_dtype(const void* q, const void* k, const void* v, void* out, float* lse, int B,
-                 int S, int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                 int S, int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off,
                  int dtype, int heads, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (hd <= 0 || hd > kMaxHd || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535
-      || (heads != 1 && heads != 2) || Sk <= 0 || (Sk != S && (causal || window > 0))) {
+      || (heads != 1 && heads != 2) || Sk <= 0 || !keys_ok(S, Sk, causal, window, k_off)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return static_cast<int>(launch<float, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd, scale,
-                                                causal, window, heads, s));
+                                                causal, window, k_off, heads, s));
   }
   if (dtype == 1) {
     return static_cast<int>(launch<__nv_bfloat16, kLse>(q, k, v, out, lse, B, S, Sk, H, KV, hd,
-                                                        scale, causal, window, heads, s));
+                                                        scale, causal, window, k_off, heads, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -586,17 +605,17 @@ extern "C" size_t flash_attention_smem_bytes(int hd) {
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  Sk: keys in k and v,
-// S unless the call is non-causal without a window.  window <= 0 means
-// no window.  heads: query heads per block, 1 or 2
+// at positions k_off .. k_off + Sk - 1 (within S) in a causal or windowed
+// call, k_off = 0 otherwise.  window <= 0 means no window.  heads: query heads per block, 1 or 2
 // (flash_attention_heads_per_block picks it; the results are the same up
 // to the order of the key splits' merge).  Returns the CUDA error of the
 // launch (0 on success).
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* out,
                                       int B, int S, int Sk, int H, int KV, int hd,
-                                      float scale, int causal, int window, int dtype,
+                                      float scale, int causal, int window, int k_off, int dtype,
                                       int heads, void* stream) {
   return launch_dtype<false>(q, k, v, out, nullptr, B, S, Sk, H, KV, hd, scale, causal, window,
-                             dtype, heads, stream);
+                             k_off, dtype, heads, stream);
 }
 
 // flash_attention_launch that also writes each query row's log-sum-exp of
@@ -605,8 +624,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k, const void* 
 // flash_attention_launch's.
 extern "C" int flash_attention_lse_launch(const void* q, const void* k, const void* v, void* out,
                                           void* lse, int B, int S, int Sk, int H, int KV, int hd,
-                                          float scale, int causal, int window, int dtype,
+                                          float scale, int causal, int window, int k_off, int dtype,
                                           int heads, void* stream) {
   return launch_dtype<true>(q, k, v, out, static_cast<float*>(lse), B, S, Sk, H, KV, hd, scale,
-                            causal, window, dtype, heads, stream);
+                            causal, window, k_off, dtype, heads, stream);
 }

@@ -8,9 +8,13 @@
 // (flash_attention.cu), so training needs this kernel for dq, dk and dv.
 //
 // Contract: ref.py::flash_attention_backward_reference.  With the masks of
-// the forward (key t seen by query s when t < Sk, t <= s if causal, and
-// t > s - window if a window is given; S_k != S only in a non-causal call
-// without a window), GQA (kv head = h / G, G = H / KV), all in fp32:
+// the forward (key t, at position k_off + t, seen by query s when t < Sk,
+// k_off + t <= s if causal, and k_off + t > s - window if a window is
+// given; S_k != S only in a non-causal call without a window or for a key
+// shard, k_off > 0 only for a key shard), GQA (kv head = h / G, G = H /
+// KV), all in fp32.  A key shard's lse and O are the whole row's (the
+// shards' forwards combined), so its dq is the shard's part of the row's
+// and its dk, dv are the shard's keys' whole gradients:
 //   lse_s = log sum_t exp(scale q_s.k_t)
 //   P_st  = exp(scale q_s.k_t - lse_s), 0 where masked
 //   D_s   = sum_d dO_sd O_sd                       (O: the forward's output)
@@ -315,8 +319,10 @@ __device__ __forceinline__ void load_p(const float* __restrict__ p, const float*
   split_tf32(hi.y, big[3], small[3]);
 }
 
-__device__ __forceinline__ bool visible(int qp, int key, int S, int Sk, int causal, int window) {
-  return qp < S && key < Sk && (!causal || key <= qp) && (window <= 0 || key > qp - window);
+__device__ __forceinline__ bool visible(int qp, int key, int S, int Sk, int causal, int window,
+                                        int k_off) {
+  return qp < S && key < Sk && (!causal || key <= qp - k_off)
+      && (window <= 0 || key > qp - k_off - window);
 }
 
 // A warp's 16 rows of 32-column block s (rows g, g + 8; dims 32s + 8t +
@@ -362,7 +368,7 @@ __global__ void __launch_bounds__(32 * kHeads * kGroups) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ out, const T* __restrict__ dout, T* __restrict__ dq,
     const float* __restrict__ lse_ws, float* __restrict__ delta_ws,   // (B, H, S)
-    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window) {
+    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off) {
   constexpr int kWarps = kHeads * kGroups, kThreads = 32 * kWarps;
   constexpr int kBlockRows = 16 * kGroups;   // query rows of each head
   constexpr int kNT = kTile / 8;             // groups of 8 keys a tile
@@ -408,13 +414,13 @@ __global__ void __launch_bounds__(32 * kHeads * kGroups) flash_bwd_dq_kernel(
   // tiles) up to the last row when causal, else to the last key; and the
   // part of them this warp's rows can see
   const int q_last = min(q0 + kBlockRows, S) - 1;
-  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  int k_begin = window > 0 ? max(0, q0 - k_off - window + 1) : 0;
   k_begin = k_begin / kTile * kTile;
-  const int k_end = causal ? min(q_last + 1, Sk) : Sk;
-  const int n_tiles = (k_end - k_begin + kTile - 1) / kTile;
+  const int k_end = causal ? min(q_last + 1 - k_off, Sk) : Sk;
+  const int n_tiles = max(0, (k_end - k_begin + kTile - 1) / kTile);
   const bool rows = r0 < S;
-  const int w_lo = window > 0 ? max(0, r0 - window + 1) : 0;
-  const int w_hi = causal ? min(min(r0 + 15, S - 1) + 1, Sk) : Sk;
+  const int w_lo = window > 0 ? max(0, r0 - k_off - window + 1) : 0;
+  const int w_hi = causal ? min(min(r0 + 15, S - 1) + 1 - k_off, Sk) : Sk;
   auto sees = [&](int k0) { return rows && k0 < w_hi && k0 + kTile > w_lo; };
 
   // D of the warp's rows: two lanes a row, each half of the columns
@@ -479,7 +485,7 @@ __global__ void __launch_bounds__(32 * kHeads * kGroups) flash_bwd_dq_kernel(
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             const int key = k0 + 8 * n + 2 * t + (i & 1);
-            const bool ok = visible(r0 + g + 8 * (i >> 1), key, S, Sk, causal, window);
+            const bool ok = visible(r0 + g + 8 * (i >> 1), key, S, Sk, causal, window, k_off);
             p[n][i] = ok ? expf((sb[n][i] + ss[n][i]) * scale - lse[i >> 1]) : 0.0f;
           }
         }
@@ -507,6 +513,7 @@ __global__ void __launch_bounds__(32 * kHeads * kGroups) flash_bwd_dq_kernel(
     }
     __syncthreads();   // every warp is done with this tile's stage
   }
+  cp_async_wait<0>();  // nothing in flight when the block ends (no tile: rows before every key)
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
     store_rows<T>(dq + q_off, q_step, r0, S, hd, acc[c], scale, c, g, t);
@@ -569,7 +576,7 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_rows_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse_ws,
     const float* __restrict__ delta_ws, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window) {
+    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off) {
   constexpr int kHd = 64, kWarps = 4, kThreads = 128, kBlockKeys = 16 * kWarps;
   constexpr int kNT = kTile / 8;         // groups of 8 queries a tile
   constexpr int kCols = kHd / 32;        // 32-column blocks of dk and dv
@@ -601,11 +608,12 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_rows_kernel(
   // query rows that can see the block's keys: from its first key on when
   // causal, below its last key + window when windowed; and whether a tile
   // holds a query that sees one of this warp's keys
-  const int q_begin = causal ? k0 / kTile * kTile : 0;
-  const int q_end = window > 0 ? min(S, k0 + kBlockKeys - 1 + window) : S;
+  const int q_begin = causal ? (k0 + k_off) / kTile * kTile : 0;
+  const int q_end = window > 0 ? min(S, k0 + k_off + kBlockKeys - 1 + window) : S;
   const int n_qt = max(0, (q_end - q_begin + kTile - 1) / kTile);
   auto sees = [&](int qt0) {
-    return kw < Sk && (!causal || qt0 + kTile - 1 >= kw) && (window <= 0 || qt0 < kw + 15 + window);
+    return kw < Sk && (!causal || qt0 + kTile - 1 >= kw + k_off)
+        && (window <= 0 || qt0 < kw + k_off + 15 + window);
   };
 
   float adv[kCols][4][4], adk[kCols][4][4];
@@ -629,7 +637,7 @@ __global__ void __launch_bounds__(128, 3) flash_bwd_dkdv_rows_kernel(
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const int col = 8 * n + 2 * t + (i & 1);
-              const bool ok = visible(qt0 + col, kw + g + 8 * (i >> 1), S, Sk, causal, window);
+              const bool ok = visible(qt0 + col, kw + g + 8 * (i >> 1), S, Sk, causal, window, k_off);
               p[n][i] = ok ? expf((sb[n][i] + ss[n][i]) * scale - lse[col]) : 0.0f;
             }
           }
@@ -688,7 +696,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse_ws,
     const float* __restrict__ delta_ws, T* __restrict__ dk, T* __restrict__ dv,
-    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window) {
+    int S, int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off) {
   constexpr int kHd = 128, kThreads = 128;
   constexpr int kPart = kTile / 2;        // queries a warp takes of a tile in the first step
   extern __shared__ __align__(16) float smem[];
@@ -713,8 +721,8 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_kernel(
   load_rows<T, kAsync, kHd>(ks, k + kv_off, kv_step, k0, kRows, Sk, hd, tid, kThreads);
   load_rows<T, kAsync, kHd>(vs, v + kv_off, kv_step, k0, kRows, Sk, hd, tid, kThreads);
 
-  const int q_begin = causal ? k0 / kTile * kTile : 0;
-  const int q_end = window > 0 ? min(S, k0 + kRows - 1 + window) : S;
+  const int q_begin = causal ? (k0 + k_off) / kTile * kTile : 0;
+  const int q_end = window > 0 ? min(S, k0 + k_off + kRows - 1 + window) : S;
   const int n_qt = max(0, (q_end - q_begin + kTile - 1) / kTile);
   const int part = warp % 2;
 
@@ -736,7 +744,7 @@ __global__ void __launch_bounds__(128) flash_bwd_dkdv_kernel(
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               const bool ok = visible(qt0 + col + (i & 1), k0 + g + 8 * (i >> 1), S, Sk, causal,
-                                      window);
+                                      window, k_off);
               p[i] = ok ? expf((sb[n][i] + ss[n][i]) * scale - lse[col + (i & 1)]) : 0.0f;
             }
             sts2(ps + g * kPP + col, p[0], p[1]);
@@ -790,7 +798,7 @@ cudaError_t set_smem(const void* kernel, size_t bytes) {
 template <typename T, int kHd, int kHeads, int kGroups, bool kAsync>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, void* dq, const float* lse_ws, float* delta_ws, int B, int S,
-                      int Sk, int H, int KV, int hd, float scale, int causal, int window,
+                      int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off,
                       cudaStream_t stream) {
   const auto kernel = flash_bwd_dq_kernel<T, kHd, kHeads, kGroups, kAsync>;
   const size_t smem = sizeof(float) * dq_smem_floats<kHd, kHeads * kGroups>();
@@ -800,7 +808,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o
   kernel<<<grid, 32 * kHeads * kGroups, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(out), static_cast<const T*>(dout), static_cast<T*>(dq), lse_ws,
-      delta_ws, S, Sk, H, KV, hd, scale, causal, window);
+      delta_ws, S, Sk, H, KV, hd, scale, causal, window, k_off);
   return cudaGetLastError();
 }
 
@@ -808,19 +816,19 @@ template <typename T, int kHd, bool kAsync>
 cudaError_t launch_as(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, void* dq, void* dk, void* dv, const float* lse_ws,
                       float* delta_ws, int B, int S, int Sk, int H, int KV, int hd, float scale,
-                      int causal, int window, cudaStream_t stream) {
+                      int causal, int window, int k_off, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (kHd == 64) {
     err = launch_dq<T, 64, 1, 4, kAsync>(q, k, v, out, dout, dq, lse_ws, delta_ws, B, S,
-                                                 Sk, H, KV, hd, scale, causal, window, stream);
+                                                 Sk, H, KV, hd, scale, causal, window, k_off, stream);
   } else {
     if ((H / KV) % 2 == 0) {
       err = launch_dq<T, kHd, 2, 4, kAsync>(q, k, v, out, dout, dq, lse_ws, delta_ws, B,
-                                                    S, Sk, H, KV, hd, scale, causal, window,
+                                                    S, Sk, H, KV, hd, scale, causal, window, k_off,
                                                     stream);
     } else {
       err = launch_dq<T, kHd, 1, 8, kAsync>(q, k, v, out, dout, dq, lse_ws, delta_ws, B,
-                                                    S, Sk, H, KV, hd, scale, causal, window,
+                                                    S, Sk, H, KV, hd, scale, causal, window, k_off,
                                                     stream);
     }
   }
@@ -834,7 +842,7 @@ cudaError_t launch_as(const void* q, const void* k, const void* v, const void* o
   kernel<<<dim3(KV, B, (Sk + block_keys - 1) / block_keys), 128, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse_ws, delta_ws, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, Sk, H, KV, hd, scale, causal, window);
+      S, Sk, H, KV, hd, scale, causal, window, k_off);
   return cudaGetLastError();
 }
 
@@ -842,40 +850,49 @@ template <typename T, bool kAsync>
 cudaError_t launch_hd(const void* q, const void* k, const void* v, const void* out,
                       const void* dout, void* dq, void* dk, void* dv, const float* lse_ws,
                       float* delta_ws, int B, int S, int Sk, int H, int KV, int hd, float scale,
-                      int causal, int window, cudaStream_t stream) {
+                      int causal, int window, int k_off, cudaStream_t stream) {
   if (hd <= 64) {
     return launch_as<T, 64, kAsync>(q, k, v, out, dout, dq, dk, dv, lse_ws, delta_ws, B,
-                                            S, Sk, H, KV, hd, scale, causal, window, stream);
+                                            S, Sk, H, KV, hd, scale, causal, window, k_off, stream);
   }
   return launch_as<T, 128, kAsync>(q, k, v, out, dout, dq, dk, dv, lse_ws, delta_ws, B,
-                                           S, Sk, H, KV, hd, scale, causal, window, stream);
+                                           S, Sk, H, KV, hd, scale, causal, window, k_off, stream);
 }
 
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    const void* dout, void* dq, void* dk, void* dv, const float* lse_ws,
                    float* delta_ws, int B, int S, int Sk, int H, int KV, int hd, float scale,
-                   int causal, int window, cudaStream_t stream) {
+                   int causal, int window, int k_off, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     const bool async = hd % 4 == 0 && reinterpret_cast<uintptr_t>(q) % 16 == 0
         && reinterpret_cast<uintptr_t>(k) % 16 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0
         && reinterpret_cast<uintptr_t>(dout) % 16 == 0;
     if (async) {
       return launch_hd<float, true>(q, k, v, out, dout, dq, dk, dv, lse_ws, delta_ws, B,
-                                            S, Sk, H, KV, hd, scale, causal, window, stream);
+                                            S, Sk, H, KV, hd, scale, causal, window, k_off, stream);
     }
   }
   return launch_hd<T, false>(q, k, v, out, dout, dq, dk, dv, lse_ws, delta_ws, B, S, Sk,
-                                     H, KV, hd, scale, causal, window, stream);
+                                     H, KV, hd, scale, causal, window, k_off, stream);
+}
+
+// Whether k and v's Sk keys fit the masks: in a causal or windowed call
+// they are the keys at positions k_off .. k_off + Sk - 1 of the S queries'
+// sequence (k_off = 0 and Sk = S: the whole sequence; a key shard
+// otherwise), in any other call all of them, from position 0.
+bool keys_ok(int S, int Sk, int causal, int window, int k_off) {
+  if (causal || window > 0) return k_off >= 0 && static_cast<int64_t>(k_off) + Sk <= S;
+  return k_off == 0;
 }
 
 int launch_dtype(const void* q, const void* k, const void* v, const void* out, const void* dout,
                  void* dq, void* dk, void* dv, const void* lse_ws, void* delta_ws, int B, int S,
-                 int Sk, int H, int KV, int hd, float scale, int causal, int window, int dtype,
+                 int Sk, int H, int KV, int hd, float scale, int causal, int window, int k_off, int dtype,
                  void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (hd <= 0 || hd > kMaxHd || KV <= 0 || H % KV != 0 || B > 65535 || H > 65535
-      || S > (1 << 20) || Sk <= 0 || Sk > (1 << 20) || (Sk != S && (causal || window > 0))) {
+      || S > (1 << 20) || Sk <= 0 || Sk > (1 << 20) || !keys_ok(S, Sk, causal, window, k_off)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -883,11 +900,11 @@ int launch_dtype(const void* q, const void* k, const void* v, const void* out, c
   float* delta = static_cast<float*>(delta_ws);
   if (dtype == 0) {
     return static_cast<int>(launch<float>(q, k, v, out, dout, dq, dk, dv, lse, delta, B, S, Sk,
-                                          H, KV, hd, scale, causal, window, s));
+                                          H, KV, hd, scale, causal, window, k_off, s));
   }
   if (dtype == 1) {
     return static_cast<int>(launch<__nv_bfloat16>(q, k, v, out, dout, dq, dk, dv, lse, delta, B,
-                                                  S, Sk, H, KV, hd, scale, causal, window, s));
+                                                  S, Sk, H, KV, hd, scale, causal, window, k_off, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -933,14 +950,15 @@ extern "C" int flash_attention_bwd_blocks_per_sm(int hd, int which) {
 // query row's log-sum-exp of its visible scaled scores, as
 // flash_attention_lse_launch (the forward under grad) writes it;
 // delta_ws: (B, H, S) fp32 scratch, written by the first kernel and read
-// by the second.  Sk: keys in k and v, S unless the call is non-causal
-// without a window.  window <= 0 means no window.  Returns the CUDA error
+// by the second.  Sk: keys in k and v, at positions k_off .. k_off + Sk - 1
+// (within S) in a causal or windowed call, k_off = 0 otherwise.  window <=
+// 0 means no window.  Returns the CUDA error
 // of the launches (0 on success).
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* out, const void* dout, void* dq, void* dk,
                                           void* dv, const void* lse_ws, void* delta_ws, int B,
                                           int S, int Sk, int H, int KV, int hd, float scale,
-                                          int causal, int window, int dtype, void* stream) {
+                                          int causal, int window, int k_off, int dtype, void* stream) {
   return launch_dtype(q, k, v, out, dout, dq, dk, dv, lse_ws, delta_ws, B, S, Sk, H, KV, hd,
-                      scale, causal, window, dtype, stream);
+                      scale, causal, window, k_off, dtype, stream);
 }

@@ -42,6 +42,7 @@ from .cost import flash_backward_cost, flash_cost
 from .ref import (
     check_key_length,
     flash_attention_backward_reference,
+    flash_attention_lse_reference,
     flash_attention_reference,
 )
 
@@ -56,11 +57,11 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def _bind(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = (
-        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [ptr]
+        [ptr] * 4 + [i32] * 6 + [ctypes.c_float] + [i32] * 5 + [ptr]
     )
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.flash_attention_lse_launch.argtypes = (
-        [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [ptr]
+        [ptr] * 5 + [i32] * 6 + [ctypes.c_float] + [i32] * 5 + [ptr]
     )
     lib.flash_attention_lse_launch.restype = ctypes.c_int
     lib.flash_attention_smem_bytes.argtypes = [i32]
@@ -72,7 +73,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 def _bind_backward(lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_bwd_launch.argtypes = (
-        [ptr] * 10 + [i32] * 6 + [ctypes.c_float] + [i32] * 3 + [ptr]
+        [ptr] * 10 + [i32] * 6 + [ctypes.c_float] + [i32] * 4 + [ptr]
     )
     lib.flash_attention_bwd_launch.restype = ctypes.c_int
     lib.flash_attention_bwd_blocks_per_sm.argtypes = [i32, i32]
@@ -87,7 +88,7 @@ BACKWARD_LIBRARY = KernelLibrary("flash_attention_bwd", _CSRC / "flash_attention
                                  _bind_backward)
 
 
-def _check(q, k, v, causal, window) -> None:
+def _check(q, k, v, causal, window, key_offset=None) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k and v must be (B, S, heads, head_dim)")
     B, S, H, hd = q.shape
@@ -96,7 +97,7 @@ def _check(q, k, v, causal, window) -> None:
         raise ValueError(f"{H} query heads do not group over {KV} kv heads")
     if Sk == 0:
         raise ValueError("k and v hold no keys")
-    check_key_length(S, Sk, causal, window)
+    check_key_length(S, Sk, causal, window, key_offset)
     for name, t, shape in (("k", k, (B, Sk, KV, hd)), ("v", v, (B, Sk, KV, hd))):
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
@@ -122,11 +123,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _forward(q, k, v, causal, window, scale, heads_per_block, lse=None) -> torch.Tensor:
+def _forward(q, k, v, causal, window, scale, heads_per_block, lse=None,
+             key_offset=None) -> torch.Tensor:
     """One forward launch on CUDA tensors; counts nothing.  With ``lse``, a
     (B, H, S) fp32 tensor, the launch also writes each query row's
-    log-sum-exp into it."""
-    _check(q, k, v, causal, window)
+    log-sum-exp into it.  ``key_offset``: k and v are the keys at those
+    positions on (:func:`~.ref.check_key_length`)."""
+    _check(q, k, v, causal, window, key_offset)
     B, S, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     lib = LIBRARY.load()
@@ -146,8 +149,8 @@ def _forward(q, k, v, causal, window, scale, heads_per_block, lse=None) -> torch
         return out
     with torch.cuda.device(q.device):
         args = (B, S, Sk, H, KV, hd, float(scale), int(causal),
-                0 if window is None else int(window), DTYPES[q.dtype], heads_per_block,
-                torch.cuda.current_stream().cuda_stream)
+                0 if window is None else int(window), int(key_offset or 0), DTYPES[q.dtype],
+                heads_per_block, torch.cuda.current_stream().cuda_stream)
         if lse is None:
             rc = lib.flash_attention_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                             out.data_ptr(), *args)
@@ -168,19 +171,19 @@ def _check_lse(lse, q) -> None:
                          f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
 
 
-def _cost(q, k, v, causal, window, lse: bool) -> tuple[int, int]:
+def _cost(q, k, v, causal, window, lse: bool, key_offset=None) -> tuple[int, int]:
     """``(flops, bytes)`` of one forward launch on these inputs."""
     B, S, H, hd = q.shape
     mm, soft, nbytes = flash_cost(B, S, k.shape[1], H, k.shape[2], hd, v.shape[-1], causal, window,
-                                  q.element_size(), lse)
+                                  q.element_size(), lse, key_offset or 0)
     return mm + soft, nbytes
 
 
-def _backward_cost(q, k, causal, window) -> tuple[int, int]:
+def _backward_cost(q, k, causal, window, key_offset=None) -> tuple[int, int]:
     """``(flops, bytes)`` of one backward launch on these inputs."""
     B, S, H, hd = q.shape
     mm, soft, nbytes = flash_backward_cost(B, S, k.shape[1], H, k.shape[2], hd, causal, window,
-                                           q.element_size())
+                                           q.element_size(), key_offset or 0)
     return mm + soft, nbytes
 
 
@@ -275,29 +278,47 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True, window: int | None = None,
-                             scale: float | None = None):
-    """``(out, lse)`` on CUDA tensors: one launch of the forward kernel as
-    the autograd Function runs it, ``out`` the same bits as
-    :func:`flash_attention`'s and ``lse`` (B, H, S) fp32 each query row's
-    log-sum-exp of its visible scaled scores, as
-    :func:`flash_attention_backward` takes it.  Counts one forward launch."""
+                             scale: float | None = None, key_offset: int | None = None):
+    """``(out, lse)``: one launch of the forward kernel as the autograd
+    Function runs it, ``out`` the same bits as :func:`flash_attention`'s
+    and ``lse`` (B, H, S) fp32 each query row's log-sum-exp of its visible
+    scaled scores, as :func:`flash_attention_backward` takes it.  Counts
+    one forward launch.  CPU tensors run the plain version
+    (:func:`~.ref.flash_attention_lse_reference`).
+
+    ``key_offset`` makes k and v one shard of the keys, those at positions
+    ``key_offset ... key_offset + Sk - 1`` of the queries' sequence (causal,
+    no window): a row before the shard sees no key, its output 0 and its
+    log-sum-exp -1e30.  Attention split over the keys combines the
+    shards' outputs by these statistics (:mod:`repro_torch.models.attention`)."""
     refuse_dtensor("flash_attention_with_lse", q, k, v)
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention_with_lse runs on cuda, not {q.device}")
     B, S, H, _ = q.shape
+    if stands_in(q, k, v):
+        return counted("flash_attention", _cost(q, k, v, causal, window, True, key_offset),
+                       lambda: filled((torch.empty_like(q),
+                                       q.new_empty((B, H, S), dtype=torch.float32)),
+                                      lambda: flash_attention_lse_reference(
+                                          q, k, v, causal=causal, window=window, scale=scale,
+                                          key_offset=key_offset), is_fake(q, k, v)))
+    if q.device.type == "cpu":
+        return flash_attention_lse_reference(q, k, v, causal=causal, window=window, scale=scale,
+                                             key_offset=key_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_with_lse runs on cuda or cpu, not {q.device}")
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
-    out = _forward(q, k, v, causal, window, scale, None, lse=lse)
+    out = _forward(q, k, v, causal, window, scale, None, lse=lse, key_offset=key_offset)
     if out.numel():
         flash_attention.launches += 1
-        add_kernel("flash_attention", _cost, q, k, v, causal, window, True)
+        add_kernel("flash_attention", _cost, q, k, v, causal, window, True, key_offset)
     return out, lse
 
 
 def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
-                             window: int | None = None, scale: float | None = None, lse=None):
+                             window: int | None = None, scale: float | None = None, lse=None,
+                             key_offset: int | None = None):
     """The gradients ``(dq, dk, dv)`` of ``out = flash_attention(q, k, v,
     causal=..., window=..., scale=...)`` given ``dout = dL/dout``, each in
     its input's dtype: the backward kernel's two launches (dq with each
@@ -306,24 +327,32 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     ``lse`` is the forward's row statistics, as
     :func:`flash_attention_with_lse` (or the autograd Function) gives them;
     without it the wrapper runs that forward launch first (counted in
-    ``flash_attention.launches``).  The plain version recomputes them."""
+    ``flash_attention.launches``).  The plain version recomputes them.
+
+    For one shard of the keys (``key_offset``, as in
+    :func:`flash_attention_with_lse`) ``out`` and ``lse`` are the whole
+    row's, combined over the shards: dq is then the shard's part of the
+    row's dq, dk and dv the shard's keys' whole gradients."""
     refuse_dtensor("flash_attention_backward", q, k, v, out, dout, lse)
     hd = q.shape[-1]
     if scale is None:
         scale = hd ** -0.5
     if stands_in(q, k, v, out, dout):
-        return counted("flash_attention_backward", _backward_cost(q, k, causal, window),
+        return counted("flash_attention_backward",
+                       _backward_cost(q, k, causal, window, key_offset),
                        lambda: filled((torch.empty_like(q), torch.empty_like(k),
                                        torch.empty_like(v)),
                                       lambda: flash_attention_backward_reference(
                                           q, k, v, out, dout, causal=causal, window=window,
-                                          scale=scale), is_fake(q, k, v, out, dout)))
+                                          scale=scale, lse=lse, key_offset=key_offset),
+                                      is_fake(q, k, v, out, dout)))
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, out, dout, causal=causal,
-                                                  window=window, scale=scale)
+                                                  window=window, scale=scale, lse=lse,
+                                                  key_offset=key_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_backward runs on cuda or cpu, not {q.device}")
-    _check(q, k, v, causal, window)
+    _check(q, k, v, causal, window, key_offset)
     dout = dout.contiguous()
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -342,7 +371,8 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
     if lse is None:
-        lse = flash_attention_with_lse(q, k, v, causal=causal, window=window, scale=scale)[1]
+        lse = flash_attention_with_lse(q, k, v, causal=causal, window=window, scale=scale,
+                                       key_offset=key_offset)[1]
     _check_lse(lse, q)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -350,13 +380,13 @@ def flash_attention_backward(q, k, v, out, dout, *, causal: bool = True,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             B, S, Sk, H, KV, hd, float(scale), int(causal),
-            0 if window is None else int(window), DTYPES[q.dtype],
+            0 if window is None else int(window), int(key_offset or 0), DTYPES[q.dtype],
             torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention backward launch failed: CUDA error {rc}")
     flash_attention_backward.launches += 1
-    add_kernel("flash_attention_backward", _backward_cost, q, k, causal, window)
+    add_kernel("flash_attention_backward", _backward_cost, q, k, causal, window, key_offset)
     return dq, dk, dv
 
 

@@ -71,8 +71,8 @@ constexpr int kMaxThreads = 1024;
 constexpr int kSumWarps = 4;          // warps per container_sum block, a container per lane
 constexpr int kLaneMembers = 8;       // longest member list one lane sums alone
 constexpr int kWarpAhead = 16;        // loads per lane per step when a warp walks a long list
-constexpr int kSumAhead = 8;          // loads an ordered_sum lane keeps in flight ahead of its adds
-constexpr int kRowWarps = 8;          // rows per block of ordered_sum over dim 2
+constexpr int kSumAhead = 16;         // loads an ordered_sum lane keeps in flight ahead of its adds
+constexpr int kRowWarps = 4;          // rows per block of ordered_sum over dim 2
 constexpr int kColTile = 16;          // columns per block of ordered_sum over dim 1
 constexpr int kWarp = 32;
 constexpr unsigned kFull = 0xffffffffu;
@@ -358,13 +358,23 @@ __global__ void __launch_bounds__(kSumWarps * kWarp) container_sum_kernel(
 // depend on the padding of B, R or L (torch's reductions group by the
 // padded length).
 //
-// What bounds it: bytes, the tensor (and mask) read once.  The design:
-// row sums (dim 2) give each row one warp, whose lanes read 128
-// contiguous bytes a step; column sums (dim 1) give each block 16 columns
-// and all 32 lanes of each, a warp reading two rows of 64 contiguous
-// bytes a step (8 columns a block were 8% slower), the lane sums meeting
-// in shared memory for the butterfly.  Either way each lane keeps 8 loads
-// in flight ahead of its adds.
+// What bounds it: bytes, the tensor (and mask) read once; at the dense
+// tick's (1, 1024, 1024), a few microseconds from L2 in a CUDA graph, the
+// rounds of loads each lane waits for.  Row sums (dim 2) give each row one
+// warp, four rows a block, whose lanes read 128 contiguous bytes a step;
+// column sums (dim 1) give each block 16 columns and all 32 lanes of each,
+// a warp reading two rows of 64 contiguous bytes a step, the lane sums
+// meeting in shared memory for the butterfly.  Either way each lane keeps
+// 16 loads in flight ahead of its adds: two rounds for a lane's 32 of
+// 1024, where 8 took four (masked column sums 0.00290-0.00307 ms against
+// 0.00353-0.00361 on an H100; 24 or 32 ahead were slower, 32 masked
+// spilled).  Measured and left out (tools/sum_probe.py with variant
+// sources): a thread-block cluster of 2-4 CTAs splitting the 32 lanes of
+// each column tile, joined through distributed shared memory, cost
+// 0.0012-0.0015 ms more at every tile width (the cluster's launch and
+// barriers outweigh a wave of 64 CTAs); float4 or float2 loads of x with
+// 4- or 2-byte mask loads, a thread four or two columns, fewer threads
+// for the same bytes, were 0.0001-0.0013 ms slower.
 template <bool kMasked>
 __device__ __forceinline__ float masked_load(const float* x, const uint8_t* mask, int64_t i) {
   return kMasked ? __fmul_rn(x[i], mask[i] ? 1.f : 0.f) : x[i];

@@ -29,7 +29,10 @@ kernel and the MLA norms run on each rank's local shards
 (:func:`call_flash`, :func:`~.common.call_norm`), and GQA decode against a
 DTensor cache whose time axis is sharded combines each rank's partial
 softmax as flash-decoding does (:func:`gqa_decode_seqsharded` is that
-combine over one process group, on local tensors).
+combine over one process group, on local tensors).  MLA prefill whose
+heads do not divide the ranks of 'model' splits the keys over them
+instead (:func:`key_shard_attention`), as the reference's score tensors
+are split on the key axis.
 """
 from __future__ import annotations
 
@@ -41,15 +44,22 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import MLAConfig, ModelConfig
-from ..kernels.flash_attention import flash_attention
+from ..kernels.flash_attention import (
+    flash_attention,
+    flash_attention_backward,
+    flash_attention_with_lse,
+)
 from ..kernels.rmsnorm import rmsnorm
 from .common import (
     ParamDef,
     apply_rope,
     call_norm,
+    current_rules,
+    input_whole,
     merge_heads,
     on_shards,
     replicated_like,
+    rule_dims,
     seq_whole,
     shard_act,
     shard_index,
@@ -374,26 +384,149 @@ def _decode_on_shards(q, k, v, cache: dict, cfg: ModelConfig, pos: int) -> torch
 
 
 # ---------------------------------------------------------------------------
+# Causal attention split over the keys
+# ---------------------------------------------------------------------------
+
+
+def _padded_to(t, width: int | None):
+    """``t`` contiguous, its last axis zero-padded to ``width`` where it is
+    narrower (the kernel takes one head width for q, k and v)."""
+    if width is not None and t.shape[-1] < width:
+        t = F.pad(t, (0, width - t.shape[-1]))
+    return t.contiguous()
+
+
+def key_chunks(S: int, index: int, count: int) -> list[tuple[int, int]]:
+    """The key positions ``[start, stop)`` that shard ``index`` of ``count``
+    takes of a causal attention over ``S`` keys: chunks ``index`` and ``2 ·
+    count - 1 - index`` of ``2 · count`` near-equal chunks, so every shard
+    scores about the same number of visible (query, key) pairs (contiguous
+    shards would give the first ``2 - 1/count`` times the mean); the
+    whole sequence for one shard.  Empty chunks are left out."""
+    if count == 1:
+        return [(0, S)]
+    n = 2 * count
+    cuts = [(j * S // n, (j + 1) * S // n) for j in (index, n - 1 - index)]
+    return [(a, b) for a, b in cuts if b > a]
+
+
+def combine_partials(parts, reduce=None):
+    """``(out, lse)`` of the attention over every key from partial results
+    ``parts``, each ``(out (B, S, H, w), lse (B, H, S))`` over some of the
+    keys (a row that sees none of them: out 0, lse -1e30): each part
+    weighted by ``exp(lse_part - lse)``, ``lse`` their log-sum-exp, in
+    fp32.  ``reduce(t, op)`` ("max" or "sum") combines the statistics and
+    the weighted sums across ranks holding other keys (as
+    :func:`_partial_attend`'s); None when ``parts`` hold every key.
+    ``out`` comes back in the parts' dtype, ``lse`` in fp32."""
+    reduce = reduce or (lambda t, op: t)
+    m = reduce(torch.stack([lse for _, lse in parts]).amax(dim=0), "max")
+    total = reduce(sum(torch.exp(lse - m) for _, lse in parts), "sum")
+    lse = m + torch.log(total)
+    out = reduce(sum(o.float() * torch.exp(l - lse).transpose(1, 2)[..., None]
+                     for o, l in parts), "sum")
+    return out.to(parts[0][0].dtype), lse
+
+
+def key_shard_forward(q, k, v, index: int, count: int, scale: float):
+    """Shard ``index`` of ``count``'s partial results over its keys
+    (:func:`key_chunks`): for each chunk the flash kernel's output and row
+    log-sum-exps (``flash_attention_with_lse`` with the chunk's key
+    offset), q (B, S, H, w) every query row, k and v (B, S, KV, w) the
+    whole sequence's keys.  :func:`combine_partials` joins them."""
+    return [flash_attention_with_lse(q, k[:, a:b].contiguous(), v[:, a:b].contiguous(),
+                                     causal=True, scale=scale, key_offset=a)
+            for a, b in key_chunks(k.shape[1], index, count)]
+
+
+def key_shard_backward(q, k, v, out, dout, lse, index: int, count: int, scale: float):
+    """Shard ``index`` of ``count``'s part of the gradients ``(dq, dk, dv)``
+    of causal attention split over the keys, given the combined ``out``
+    and ``lse`` (:func:`combine_partials`) and ``dout``: the flash backward
+    kernel on each of its key chunks with the whole row's statistics (the
+    ring-attention form).  dq is this shard's part of the sum over the
+    shards, dk and dv hold its own keys' gradients and zeros elsewhere."""
+    dq = torch.zeros_like(q, dtype=torch.float32)
+    dk, dv = torch.zeros_like(k), torch.zeros_like(v)
+    for a, b in key_chunks(k.shape[1], index, count):
+        dqa, dk[:, a:b], dv[:, a:b] = flash_attention_backward(
+            q, k[:, a:b].contiguous(), v[:, a:b].contiguous(), out, dout, causal=True,
+            scale=scale, lse=lse, key_offset=a)
+        dq += dqa
+    return dq.to(q.dtype), dk, dv
+
+
+class _KeyShardAttention(torch.autograd.Function):
+    """Causal attention of q over this shard's keys, combined across the
+    shards: :func:`key_shard_forward` then :func:`combine_partials`; the
+    backward :func:`key_shard_backward` with the combined statistics."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, index, count, scale, reduce):
+        out, lse = combine_partials(key_shard_forward(q, k, v, index, count, scale), reduce)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.options = (index, count, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = key_shard_backward(q, k, v, out, dout.contiguous(), lse, *ctx.options)
+        return dq, dk, dv, None, None, None, None
+
+
+def key_shard_attention(q, k, v, dims: list[int], scale: float, width: int | None = None):
+    """Causal attention of DTensors q (B, S, H, hd) and k, v (B, S, KV, hd)
+    split over the keys across the mesh dims ``dims``: each rank keeps its
+    batch shard, takes every query row and head and the whole keys, runs
+    the flash kernel on its own key chunks (:func:`key_chunks`) and the
+    partial softmaxes are combined across ``dims`` (:func:`combine_partials`).
+    q's gradient is then a partial sum over ``dims``, as are k's and v's
+    (each rank's keys).  ``width`` zero-pads every head to that width for
+    the kernel (MLA's v) and cuts the output back to v's."""
+    mesh = q.device_mesh
+    index, count = shard_index(mesh, dims)
+    reduce = _all_reduce([mesh.get_group(i) for i in dims])
+    rows = [p if p == Shard(0) else Replicate() for p in q.placements]
+    grad = [Partial() if i in dims else p for i, p in enumerate(rows)]
+    dv = v.shape[-1]
+
+    def local(ql, kl, vl):
+        ql, kl, vl = (_padded_to(t, width) for t in (ql, kl, vl))
+        out = _KeyShardAttention.apply(ql, kl, vl, index, count, scale, reduce)
+        return out[..., :dv].contiguous()
+
+    return on_shards(local, (q, k, v), (rows, rows, rows), rows, (grad, grad, grad))
+
+
+# ---------------------------------------------------------------------------
 # MLA (MiniCPM3 / DeepSeek-style latent attention)
 # ---------------------------------------------------------------------------
 
 
-def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+def _mla_qkv(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+             own_rows: bool = False):
     """The query halves (B, S, H, nope) and (B, S, H, rope), RoPE'd, and
     the cache entries: the normed latent ``c_kv`` (B, S, rank) and the
     shared RoPE key ``k_rope`` (B, S, rope).  Both latent norms run the
     RMSNorm kernel on the card, on each rank's rows of a DTensor (the
     rank axis whole).  ``wq_up``'s output axis (H·(nope+rope), split by
-    ``heads_w``) reshapes to (H, nope+rope) on head boundaries."""
+    ``heads_w``) reshapes to (H, nope+rope) on head boundaries.
+    ``own_rows`` (decode) gathers the FSDP-sharded down-projections
+    instead of the rows (:func:`~.common.input_whole`), so each rank
+    projects and norms its own batch rows only."""
     m = cfg.mla or MLAConfig()
     x = seq_whole(x)
     B, S, _ = x.shape
     H = cfg.n_heads
-    q = call_norm(rmsnorm, x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
+    wq_down, wkv_down = p.wq_down, p.wkv_down
+    if own_rows:
+        wq_down, wkv_down = input_whole(wq_down), input_whole(wkv_down)
+    q = call_norm(rmsnorm, x @ wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
     q = split_heads(q, B, S, H, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    c_kv, k_rope = (x @ p.wkv_down).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    c_kv, k_rope = (x @ wkv_down).split([m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
     c_kv = call_norm(rmsnorm, c_kv.contiguous(), p.kv_norm, cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0, :]
     return q_nope, q_rope, c_kv, k_rope
@@ -410,12 +543,14 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     ``v_head_dim``.  Returns (out, cache|None), the cache ``{"c_kv": (B, S,
     rank), "k_rope": (B, S, rope)}``.
 
-    On DTensors q, k and v are laid out by ``act_heads``, so
-    :func:`call_flash` keeps the head shard where the heads divide tp and
-    otherwise gathers them, each rank then running every head of its
-    batch shard (the reference moves the score tensors onto the KV
-    sequence instead); the padding and the cut run with the kernel on
-    each rank's local shards."""
+    On DTensors q, k and v are laid out by ``act_heads``: where the heads
+    divide tp, :func:`call_flash` keeps the head shard; where they do not
+    and ``act_seq`` names mesh dims, the attention is split over the keys
+    across those dims (:func:`key_shard_attention`), as the reference
+    shards its score tensors on the key axis
+    (``("act_batch", None, None, "act_seq")``); otherwise every rank runs
+    every head of its batch shard.  The padding and the cut run with the
+    kernel on each rank's local shards."""
     m = cfg.mla or MLAConfig()
     B, S, _ = seq_whole(x).shape
     H = cfg.n_heads
@@ -429,14 +564,17 @@ def mla_prefill(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
     width = max(qk, m.v_head_dim)
 
     def padded(q, k, v, **options):
-        q, k, v = (F.pad(t, (0, width - t.shape[-1])) if t.shape[-1] < width else t
-                   for t in (q, k, v))
-        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                               **options)[..., :m.v_head_dim].contiguous()
+        q, k, v = (_padded_to(t, width) for t in (q, k, v))
+        return flash_attention(q, k, v, **options)[..., :m.v_head_dim].contiguous()
 
     heads = ("act_batch", None, "act_heads", None)
-    out = call_flash(padded, *(shard_act(t, heads) for t in (qf, kf, v)), causal=True,
-                     scale=1.0 / qk ** 0.5)
+    qf, kf, v = (shard_act(t, heads) for t in (qf, kf, v))
+    keys = (rule_dims(qf.device_mesh, "act_seq") if isinstance(qf, DTensor)
+            and (current_rules() or {}).get("act_heads") is None else [])
+    if keys:
+        out = key_shard_attention(qf, kf, v, keys, 1.0 / qk ** 0.5, width)
+    else:
+        out = call_flash(padded, qf, kf, v, causal=True, scale=1.0 / qk ** 0.5)
     out = merge_heads(out) @ p.wo
     cache = {"c_kv": c_kv, "k_rope": k_rope} if make_cache else None
     return out, cache
@@ -461,7 +599,7 @@ def mla_decode(p, x: torch.Tensor, cfg: ModelConfig, cache: dict, pos: int):
         raise ValueError(f"decode takes one token per row, got {S}")
     H = cfg.n_heads
     posb = replicated_like(torch.full((B, 1), pos, dtype=torch.int32, device=x.device), x)
-    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, posb)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(p, x, cfg, posb, own_rows=True)
     ck, cr = cache["c_kv"], cache["k_rope"]
     T = ck.shape[1]
     slot = min(max(pos, 0), T - 1)

@@ -99,6 +99,19 @@ def seq_whole(x: torch.Tensor) -> torch.Tensor:
                           [Replicate() if p == Shard(1) else p for p in x.placements])
 
 
+def input_whole(w: torch.Tensor) -> torch.Tensor:
+    """A weight (in, out) with its input axis gathered whole where a mesh dim
+    shards it (FSDP's all-gather before use), its output axis as it lies;
+    ``w`` itself otherwise.  A one-token decode step then multiplies each
+    rank's own batch rows by it, where DTensor, meeting the sharded input
+    axis, would gather the rows instead and run the whole batch on every
+    rank."""
+    if not isinstance(w, DTensor):
+        return w
+    pl = [Replicate() if p == Shard(0) else p for p in w.placements]
+    return w.redistribute(w.device_mesh, pl) if pl != list(w.placements) else w
+
+
 def _head_cuts(t: DTensor, heads: int) -> list[int]:
     """The mesh dims sharding ``t``'s last axis, if their shards would cut
     one of its ``heads`` (else none)."""

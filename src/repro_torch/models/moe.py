@@ -88,8 +88,8 @@ def _positions(expert_ids: torch.Tensor, E: int, C: int):
     """Each (token, k) choice's slot in its expert: the flattened ids (G,
     Tk), the one-hot (G, Tk, E), the kept mask and the slot (``C - 1``
     for a dropped choice)."""
-    G = expert_ids.shape[0]
-    flat_ids = expert_ids.reshape(G, -1)                             # (G, Tk)
+    G, Tg, k = expert_ids.shape
+    flat_ids = expert_ids.reshape(G, Tg * k)                         # (G, Tk)
     # one-hot by comparison: F.one_hot checks its range on the host, a sync
     onehot = (flat_ids[..., None] == torch.arange(E, device=flat_ids.device)).to(torch.int32)
     pos_all = torch.cumsum(onehot, dim=1) - onehot
@@ -176,10 +176,21 @@ def _moe_on_shards(p, x: DTensor, cfg: ModelConfig, G: int, C: int, need_aux: bo
     dim that splits x's batch keeps it split where each rank then holds
     whole dispatch groups (G divides over it); a mesh dim that the rules'
     "experts" (EP) or "expert_ff" (expert-TP) names splits the expert
-    weights; any other dim is replicated."""
+    weights; any other dim is replicated.
+
+    A batch dim that G does not divide (``moe_groups`` 16 over 'pod' and
+    'data', 2 x 16 ranks) still splits the groups, unevenly, as GSPMD pads
+    the (G, ...) buffers: x is gathered over it, and its rank ``i`` of
+    ``n`` routes and runs groups ``i·c ... i·c + c - 1`` of its whole
+    ones (``c = ceil(G_local / n)``; none for a rank past the last).  The
+    routing outputs and the experts' output then hold the rank's own
+    groups and zeros elsewhere, a partial sum over those dims, whose
+    gradients come back whole to every rank; the output is reduced back
+    onto x's batch shards."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.experts_per_token
     T = B * S
+    Tg = T // G
     mesh = x.device_mesh
     ep = rule_dims(mesh, "experts")
     tp = [i for i in rule_dims(mesh, "expert_ff") if i not in ep]
@@ -191,43 +202,66 @@ def _moe_on_shards(p, x: DTensor, cfg: ModelConfig, G: int, C: int, need_aux: bo
         split = pl == Shard(0) and i not in ep + tp and G % n == 0 and B % n == 0
         tok.append(Shard(0) if split else R)
         count = n if split else count
-    per_token = [Partial() if t == Shard(0) else R for t in tok]     # a sum over tokens
+    # the batch dims that split groups unevenly, and this rank's own groups
+    grp = [i for i, pl in enumerate(x.placements)
+           if pl == Shard(0) and i not in ep + tp and tok[i] == R]
+    index, n_grp = shard_index(mesh, grp)
+    local_groups = G // count
+    per_rank = -(-local_groups // n_grp)
+    lo = min(local_groups, index * per_rank)
+    hi = min(local_groups, lo + per_rank)
+    own = [Partial() if i in grp else t for i, t in enumerate(tok)]   # zeros off the own groups
+    per_token = [Partial() if t == Shard(0) else o for t, o in zip(tok, own)]   # a sum over tokens
     rep = [R] * mesh.ndim
+    back = [Shard(0) if i in grp else t for i, t in enumerate(tok)]
     x = x.redistribute(mesh, tok)       # each rank's whole groups, the sequence whole
 
     def role(i, ep_pl, tp_pl, other):
         return ep_pl if i in ep else tp_pl if i in tp else other
 
-    # 1. route the rank's groups; the slots depend only on the ids
+    def filled(t):
+        """``t`` (the own groups' rows) in a zero tensor of every local group;
+        ``t`` itself where the rank's groups are all its local ones."""
+        if not grp:
+            return t
+        whole = t.new_zeros((local_groups, *t.shape[1:]))
+        whole[lo:hi] = t
+        return whole
+
+    # 1. route the rank's own groups; the slots depend only on the ids
     def route_local(xl, router):
-        xt = xl.reshape(-1, T // G, d)
+        xt = xl.reshape(-1, Tg, d)[lo:hi]
         logits, probs, gate_vals, expert_ids = route(SimpleNamespace(router=router), xt, cfg)
         flat_ids, onehot, keep, safe_pos = _positions(expert_ids, E, C)
         counts = onehot.sum(dim=(0, 1)).to(torch.float32)
-        return logits, probs, gate_vals, flat_ids, keep, safe_pos, counts
+        return (filled(logits), filled(probs), filled(gate_vals), filled(flat_ids),
+                filled(keep.to(torch.int32)), filled(safe_pos), counts)
 
     logits, probs, gate_vals, flat_ids, keep, safe_pos, counts = on_shards(
-        route_local, (x, p.router), (tok, rep), (tok,) * 6 + (per_token,), (tok, per_token))
+        route_local, (x, p.router), (tok, rep), (own,) * 6 + (per_token,),
+        (own, per_token))
 
     # 2. scatter into the rank's experts (or ff slice), run them and gather
     # back: a partial sum over the expert dims, then reduced
     w13 = [role(i, Shard(0), Shard(2), R) for i in range(mesh.ndim)]
     w2_ = [role(i, Shard(0), Shard(1), R) for i in range(mesh.ndim)]
-    part = [role(i, Partial(), Partial(), t) for i, t in enumerate(tok)]
+    part = [role(i, Partial(), Partial(), t) for i, t in enumerate(own)]
     w_grad = [[role(i, w[i], w[i], g) for i, g in enumerate(per_token)] for w in (w13, w2_)]
 
     def experts_local(xl, ids, pos, kp, gates, w1, w3, w2):
-        xt = xl.reshape(-1, T // G, d)
+        xt = xl.reshape(-1, Tg, d)
+        ids, pos, kp, gates = ids[lo:hi], pos[lo:hi], kp[lo:hi].bool(), gates[lo:hi]
         El = w1.shape[0]
         if El < E:
             ids, pos, kp = _local_choices(ids, pos, kp, shard * El, El, C)
-        out_buf = _experts(xt, ids, pos, kp, w1, w3, w2, C, k)
-        return _combine(out_buf, ids, pos, kp, gates, k, x.dtype).reshape(-1, S, d)
+        out_buf = _experts(xt[lo:hi], ids, pos, kp, w1, w3, w2, C, k)
+        y = _combine(out_buf, ids, pos, kp, gates, k, x.dtype)
+        return filled(y).reshape(-1, S, d)
 
     y = on_shards(experts_local, (x, flat_ids, safe_pos, keep, gate_vals, p.w1, p.w3, p.w2),
-                  (tok,) * 5 + (w13, w13, w2_), part,
-                  (part, tok, tok, tok, part, w_grad[0], w_grad[0], w_grad[1]))
-    y = y.redistribute(mesh, tok)
+                  (tok,) + (own,) * 4 + (w13, w13, w2_), part,
+                  (part, own, own, own, part, w_grad[0], w_grad[0], w_grad[1]))
+    y = y.redistribute(mesh, back)
     if not need_aux:
         return y, None
     return y, _aux(logits, probs, counts, keep, T, cfg)

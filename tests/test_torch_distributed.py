@@ -2,7 +2,7 @@
 reference's single-device outputs and its own sharded decode.
 
 One spawned group of four ranks (``tests/torch_dist_worker.py``, under a
-120 s limit, its process group's timeout 60 s, meeting through a
+300 s limit that is also its process group's timeout, meeting through a
 ``FileStore`` in a temporary directory) runs every case; this process
 computes the references with JAX and holds the ranks' results to them:
 
@@ -71,7 +71,10 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 32
 PROMPT_BATCH, DECODE_STEPS = 4, 8
 SQ_B, SQ_T, SQ_POS = 2, 64, 37
 TOPK_DENSITY = 0.1
-LIMIT_S = 120
+#: The ranks' limit and their process groups' timeout: at least three times
+#: the fixture's wall under the suite's own load (``-n 6 --dist loadfile``,
+#: 45-89 s), so a slow run finishes and a hang still fails.
+LIMIT_S = 300
 
 _SHARD_MAP_REFERENCE = """
 import json, sys
@@ -169,7 +172,7 @@ def run(tmp_path_factory):
     (work / "meta.json").write_text(json.dumps({
         "arch": ARCH, "names": {arch: list(m[2]) for arch, m in models.items()}, "opt": OPT,
         "serve": SERVE, "decode_steps": DECODE_STEPS, "sq_pos": SQ_POS,
-        "topk_density": TOPK_DENSITY}))
+        "topk_density": TOPK_DENSITY, "limit_s": LIMIT_S}))
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -179,14 +182,18 @@ def run(tmp_path_factory):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     started = time.monotonic()
     ranks = _start_ranks(work)
+    threads = torch.get_num_threads()
     try:
+        torch.set_num_threads(1)    # smoke-size ops; the ranks have the cores
         ref = _train_references(*models[ARCH], batches)
         for arch, (jm, jparams, _) in models.items():
             ref[arch] = _serve_references(jm, jparams, prompts[arch], SERVE[arch])
         ref.update(_collective_references(jcfg, attn, sq, cmp))
+        torch.set_num_threads(threads)
         _wait_ranks(ranks, started)
         out, err = shard_map_ref.communicate(timeout=LIMIT_S)
     finally:
+        torch.set_num_threads(threads)
         for proc in (ranks, shard_map_ref):
             if proc.poll() is None:
                 os.killpg(proc.pid, signal.SIGKILL) if proc is ranks else proc.kill()

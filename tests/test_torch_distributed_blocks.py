@@ -2,15 +2,17 @@
 CPU, against the reference's single-device outputs.
 
 One spawned group of four ranks (``tests/torch_dist_blocks_worker.py``,
-under a 120 s limit, its process group's timeout 60 s, meeting through a
+under a 450 s limit that is also its process group's timeout, meeting through a
 ``FileStore`` in a temporary directory) runs every case on a (2, 2)
 ``("data", "model")`` mesh in fp32; this process computes the references
 with JAX meanwhile and holds the ranks' results to them:
 
 - ``moe_ffn`` on the inputs of the reference's expert-parallel test
   (olmoe-1b-7b@smoke, ``capacity_factor=8.0``, x (2, 16, d) from
-  ``PRNGKey(1)``) under EP and under expert-TP (``ep=False``): y within
-  1e-5 of the largest entry, aux rel 1e-5;
+  ``PRNGKey(1)``) under EP, under expert-TP (``ep=False``) and under EP
+  with one dispatch group (``moe_groups=1``), which the two 'data' ranks
+  split unevenly as GSPMD pads: y within 1e-5 of the largest entry, aux
+  rel 1e-5;
 - the train bundle on jamba-1.5-large-398b@smoke (Mamba, attention and
   MoE under EP), xlstm-1.3b@smoke and mixtral-8x7b@smoke with ``ep=False``
   (expert-TP), two steps from the reference's parameters
@@ -60,6 +62,9 @@ from repro_torch.optim import AdamWConfig, cosine_lr, init_opt_state
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 MOE_ARCH, MOE_CF = "olmoe-1b-7b@smoke", 8.0
+#: moe_ffn's layouts on the ranks and their dispatch groups (None: the
+#: config's); one group is split unevenly over the two 'data' ranks
+MOE_LAYOUTS = {"ep": None, "expert_tp": None, "ep_one_group": 1}
 #: trained and served archs and their plan's ``ep`` (None: by divisibility,
 #: EP here; False: expert-TP)
 TRAIN = {"jamba-1.5-large-398b@smoke": None, "xlstm-1.3b@smoke": None,
@@ -69,7 +74,10 @@ SERVE = {"jamba-1.5-large-398b@smoke": None, "xlstm-1.3b@smoke": None,
 OPT = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 32
 PROMPT_BATCH, PROMPT_LEN, CTX, DECODE_STEPS = 4, 16, 32, 8
-LIMIT_S = 120
+#: The ranks' limit and their process groups' timeout: at least three times
+#: the fixture's wall under the suite's own load (``-n 6 --dist loadfile``,
+#: 136-146 s), so a slow run finishes and a hang still fails.
+LIMIT_S = 450
 
 
 def _np_tree(tree):
@@ -110,21 +118,27 @@ def run(tmp_path_factory):
     (work / "meta.json").write_text(json.dumps({
         "names": {arch: list(m[2]) for arch, m in models.items()}, "opt": OPT,
         "train": TRAIN, "serve": SERVE, "ctx": CTX, "decode_steps": DECODE_STEPS,
-        "moe_arch": MOE_ARCH, "moe_capacity_factor": MOE_CF}))
+        "moe_arch": MOE_ARCH, "moe_capacity_factor": MOE_CF, "limit_s": LIMIT_S}))
 
     started = time.monotonic()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     ranks = subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_dist_blocks_worker.py"),
                               str(work)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    threads = torch.get_num_threads()
     try:
-        ref = {"moe_y": np.asarray(jax_moe_ffn(moe_p, moe_x, jcfg)[0]),
-               "moe_aux": {k: float(v) for k, v in jax_moe_ffn(moe_p, moe_x, jcfg)[1].items()}}
+        torch.set_num_threads(1)    # smoke-size ops; the ranks have the cores
+        ref = {}
+        for layout, groups in MOE_LAYOUTS.items():
+            y, aux = jax_moe_ffn(moe_p, moe_x, dataclasses.replace(jcfg, moe_groups=groups)
+                                 if groups else jcfg)
+            ref[f"moe/{layout}"] = (np.asarray(y), {k: float(v) for k, v in aux.items()})
         for arch in TRAIN:
             ref[arch] = _train_references(arch, *models[arch], batches[arch])
         for arch in SERVE:
             ref.setdefault(arch, {}).update(
                 _serve_references(*models[arch][:2], prompts[arch]))
+        torch.set_num_threads(threads)
         try:
             log, _ = ranks.communicate(timeout=max(1.0, LIMIT_S - (time.monotonic() - started)))
         except subprocess.TimeoutExpired:
@@ -132,6 +146,7 @@ def run(tmp_path_factory):
             log, _ = ranks.communicate()
             pytest.fail(f"the ranks did not finish within {LIMIT_S} s:\n{log[-4000:]}")
     finally:
+        torch.set_num_threads(threads)
         if ranks.poll() is None:
             os.killpg(ranks.pid, signal.SIGKILL)
     assert ranks.returncode == 0, log[-6000:]
@@ -211,11 +226,12 @@ def _close(got, want, rtol=0.0, atol_rel=1e-4, msg=""):
 # ------------------------------------------------------------------------ MoE
 
 
-@pytest.mark.parametrize("layout", ["ep", "expert_tp"])
+@pytest.mark.parametrize("layout", list(MOE_LAYOUTS))
 def test_sharded_moe_matches_reference(run, layout):
     got, ref, _ = run
-    _close(got[f"moe/{layout}/y"], ref["moe_y"], atol_rel=1e-5)
-    for k, want in ref["moe_aux"].items():
+    y, aux = ref[f"moe/{layout}"]
+    _close(got[f"moe/{layout}/y"], y, atol_rel=1e-5)
+    for k, want in aux.items():
         assert got[f"moe/{layout}/aux"][k] == pytest.approx(want, rel=1e-5), k
 
 

@@ -2,12 +2,15 @@
 ranks on the CPU, against the reference's single-device outputs.
 
 One spawned group of four ranks (``tests/torch_dist_mla_encdec_worker.py``,
-under a 120 s limit, its process group's timeout 60 s, meeting through a
+under a 450 s limit that is also its process group's timeout, meeting through a
 ``FileStore`` in a temporary directory) runs every case on a (2, 2)
 ``("data", "model")`` mesh in fp32; this process computes the references
 with JAX meanwhile and holds the ranks' results to them:
 
-- the train bundle on minicpm3-4b@smoke (MLA), seamless-m4t-large-v2@smoke
+- the train bundle on minicpm3-4b@smoke (MLA), the same with 3 heads
+  (which tp = 2 does not divide, so its attention is split over the keys
+  across 'model', as the reference splits its score tensors),
+  seamless-m4t-large-v2@smoke
   (an encoder over the frontend's frames, cross-attention in every
   decoder layer) and internvl2-26b@smoke (a decoder behind the frontend's
   tokens), two steps from the reference's parameters (remat "full") with
@@ -59,15 +62,24 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 MLA, SEAMLESS, INTERNVL = ("minicpm3-4b@smoke", "seamless-m4t-large-v2@smoke",
                            "internvl2-26b@smoke")
 UNEVEN = SEAMLESS + "/15-frames"
+#: MLA whose 3 heads tp = 2 does not divide: attention split over the keys
+KEY_SPLIT = MLA + "/3-heads"
 #: each case: its arch and the overrides of both packages' configs
 CASES = {MLA: (MLA, {}), SEAMLESS: (SEAMLESS, {}), INTERNVL: (INTERNVL, {}),
-         UNEVEN: (SEAMLESS, {"frontend_tokens": 15})}
-TRAIN = [MLA, SEAMLESS, INTERNVL]
-SERVE = [MLA, SEAMLESS, INTERNVL, UNEVEN]
+         UNEVEN: (SEAMLESS, {"frontend_tokens": 15}),
+         KEY_SPLIT: (MLA, {"n_heads": 3, "n_kv_heads": 3})}
+#: the parameters each case runs with: its arch's, or its own where its
+#: overrides change their shapes
+WEIGHTS = {c: c if c == KEY_SPLIT else arch for c, (arch, _) in CASES.items()}
+TRAIN = [MLA, KEY_SPLIT, SEAMLESS, INTERNVL]
+SERVE = [MLA, KEY_SPLIT, SEAMLESS, INTERNVL, UNEVEN]
 OPT = dict(peak_lr=1e-3, warmup_steps=1, total_steps=10)
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 32
 PROMPT_BATCH, PROMPT_LEN, DECODE_STEPS = 4, 12, 8
-LIMIT_S = 120
+#: The ranks' limit and their process groups' timeout: at least three times
+#: the fixture's wall under the suite's own load (``-n 6 --dist loadfile``,
+#: 100-128 s), so a slow run finishes and a hang still fails.
+LIMIT_S = 450
 
 
 def _np_tree(tree):
@@ -100,10 +112,10 @@ def run(tmp_path_factory):
     single-device references meanwhile."""
     work = tmp_path_factory.mktemp("mla_encdec_ranks")
     models = {}
-    for arch in sorted({a for a, _ in CASES.values()}):
-        jm = jax_build_model(jax_get_config(arch))
-        jparams = jm.init(jax.random.PRNGKey(0))
-        models[arch] = (jparams, model_params_from_numpy(_np_tree(jparams), get_config(arch)))
+    for key in sorted(set(WEIGHTS.values())):
+        jcfg, cfg = _configs(next(c for c, w in WEIGHTS.items() if w == key))
+        jparams = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+        models[key] = (jparams, model_params_from_numpy(_np_tree(jparams), cfg))
     rng = np.random.default_rng(32)
     inputs, batches, prompts = {}, {}, {}
     for case in TRAIN:
@@ -130,22 +142,26 @@ def run(tmp_path_factory):
                 for n, t in state.items()}, **inputs)
     (work / "meta.json").write_text(json.dumps({
         "names": {arch: list(m[1]) for arch, m in models.items()}, "opt": OPT,
-        "cases": CASES, "train": TRAIN, "serve": SERVE, "decode_steps": DECODE_STEPS,
+        "cases": CASES, "weights": WEIGHTS, "train": TRAIN, "serve": SERVE,
+        "decode_steps": DECODE_STEPS,
         "filled": {c: _filled(_configs(c)[1]) for c in SERVE},
-        "ctx": {c: _ctx(_configs(c)[1]) for c in SERVE}}))
+        "ctx": {c: _ctx(_configs(c)[1]) for c in SERVE}, "limit_s": LIMIT_S}))
 
     started = time.monotonic()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     ranks = subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_dist_mla_encdec_worker.py"),
                               str(work)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    threads = torch.get_num_threads()
     try:
+        torch.set_num_threads(1)    # smoke-size ops; the ranks have the cores
         ref = {}
         for case in TRAIN:
-            ref[case] = _train_references(case, *models[CASES[case][0]], batches[case])
+            ref[case] = _train_references(case, *models[WEIGHTS[case]], batches[case])
         for case in SERVE:
             ref.setdefault(case, {}).update(
-                _serve_references(case, models[CASES[case][0]][0], prompts[case]))
+                _serve_references(case, models[WEIGHTS[case]][0], prompts[case]))
+        torch.set_num_threads(threads)
         try:
             log, _ = ranks.communicate(timeout=max(1.0, LIMIT_S - (time.monotonic() - started)))
         except subprocess.TimeoutExpired:
@@ -153,6 +169,7 @@ def run(tmp_path_factory):
             log, _ = ranks.communicate()
             pytest.fail(f"the ranks did not finish within {LIMIT_S} s:\n{log[-4000:]}")
     finally:
+        torch.set_num_threads(threads)
         if ranks.poll() is None:
             os.killpg(ranks.pid, signal.SIGKILL)
     assert ranks.returncode == 0, log[-6000:]
@@ -274,7 +291,7 @@ def test_sharded_train_parameters(run, case, against):
         np.testing.assert_allclose(got[f"{case}/train_param/{name}"], w, rtol=0.0,
                                    atol=1e-4 * float(np.abs(w).max()) + 0.02 * lr_sum,
                                    err_msg=name)
-        moved = max(moved, float(np.abs(w - states[CASES[case][0]][name].numpy()).max()))
+        moved = max(moved, float(np.abs(w - states[WEIGHTS[case]][name].numpy()).max()))
     assert moved > 0.5 * lr_sum    # the steps moved the weights past the tolerance
 
 
@@ -343,6 +360,21 @@ def test_decode_writes_land_on_both_model_ranks(run, case):
             *cache.shape[:2], DECODE_STEPS, -1).max(axis=-1)
         assert (written > 0).all(), n
         assert not cache[:, :, filled + DECODE_STEPS:].any(), n
+
+
+@pytest.mark.parametrize("case", [MLA, KEY_SPLIT])
+def test_mla_attention_splits_the_keys_where_the_heads_do_not_divide(run, case):
+    """MLA's train and prefill steps split the attention over the keys
+    across 'model' (mesh dim 1) where tp = 2 does not divide the heads
+    (3), every layer and the remat's recompute; with 4 heads they keep the
+    head shard and split nothing."""
+    got, _, _ = run
+    split = case == KEY_SPLIT
+    layers = get_config(MLA).n_layers
+    assert got[f"{case}/prefill_key_shard_calls"] == ([[1]] * layers if split else [])
+    train = got[f"{case}/train_key_shard_calls"]
+    assert (len(train) >= 2 * TRAIN_STEPS * layers and set(map(tuple, train)) == {(1,)}
+            if split else train == [])
 
 
 # ------------------------------------------------------------ local placements

@@ -48,7 +48,10 @@ from repro_torch.kernels.ssm_scan.cost import ssm_scan_backward_cost, ssm_scan_c
 from repro_torch.launch.counting import StepCounter
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-LIMIT_S = 240
+#: The ranks' limit and their process groups' timeout: at least three times
+#: the fixture's wall under the suite's own load (``-n 6 --dist loadfile``,
+#: 43-121 s), so a slow run finishes and a hang still fails.
+LIMIT_S = 400
 BLOCK = 'import sys\nsys.modules["jax"] = None\nsys.modules["repro"] = None\n'
 NO_JAX = """
 loaded = [m for m, mod in sys.modules.items()
@@ -110,7 +113,7 @@ def test_dryrun_cell_on_debug_mesh():
 @pytest.fixture(scope="module")
 def gloo_and_dry(tmp_path_factory):
     work = tmp_path_factory.mktemp("dryrun_ranks")
-    (work / "meta.json").write_text(json.dumps({"cases": CASES}))
+    (work / "meta.json").write_text(json.dumps({"cases": CASES, "limit_s": LIMIT_S}))
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     started = time.monotonic()
     ranks = subprocess.Popen([sys.executable, str(ROOT / "tests" / "torch_dryrun_worker.py"),
@@ -240,12 +243,14 @@ def test_a_sharded_product_counts_its_local_shards_product(products, name):
 
 
 #: The cells that replicate nothing on a (4, 1) data-parallel mesh: each of
-#: four ranks runs a quarter of every op.  (MLA's decode is left out: there
-#: DTensor runs the one-token latent projections and norms on the whole
-#: batch on every rank, 1.23x a quarter at minicpm3@smoke; ROADMAP queue 3.)
+#: four ranks runs a quarter of every op.  MLA's decode gathers its
+#: FSDP-sharded down-projections, so each rank projects and norms its own
+#: batch rows (DTensor gathered the one-token rows instead: 1.234x a
+#: quarter at minicpm3@smoke before).
 SPLIT_CELLS = ("llama3-8b@smoke/train", "llama3-8b@smoke/prefill", "llama3-8b@smoke/decode",
                "olmoe-1b-7b@smoke/train", "jamba-1.5-large-398b@smoke/train",
-               "minicpm3-4b@smoke/train", "minicpm3-4b@smoke/prefill", "xlstm-1.3b@smoke/train")
+               "minicpm3-4b@smoke/train", "minicpm3-4b@smoke/prefill",
+               "minicpm3-4b@smoke/decode", "xlstm-1.3b@smoke/train")
 
 _SPLIT = """
     import json
@@ -320,6 +325,134 @@ def test_a_data_parallel_cell_counts_a_quarter_of_the_unsharded_step(split_cells
     got = split_cells[case]
     assert got["per_device"] > 0
     assert 4 * got["per_device"] == got["unsharded"]
+
+
+_KEY_SPLIT = """
+    import dataclasses, json
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.kernels import _cost
+    from repro_torch.launch.dryrun import count_step, fake_process_group
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import PlanConfig, make_rules
+    from repro_torch.models.common import tree_defs_map
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import decoder_defs
+
+
+    class Kernels:
+        # each hand-written kernel's FLOPs, as its wrapper reports them
+        def __init__(self):
+            self.flops = {{}}
+
+        def kernel(self, name, flops, nbytes):
+            self.flops[name] = self.flops.get(name, 0.0) + flops
+
+
+    cfg = dataclasses.replace(get_config("minicpm3-4b@smoke"), n_heads=6, n_kv_heads=6)
+    out = {{}}
+    for kind in ("prefill", "train"):
+        shape = ShapeConfig(kind, 32, 2, kind)
+        plan = PlanConfig(tp=4, dp=1)
+        with FakeTensorMode():
+            model = Model(cfg, tree_defs_map(
+                lambda pd: torch.empty(pd.shape, dtype=torch.float32), decoder_defs(cfg)))
+            kernels = Kernels()
+            with _cost.registered(kernels):
+                tokens = torch.zeros((2, 32), dtype=torch.long)
+                if kind == "train":
+                    model.remat = "full"
+                    model.trainable()
+                    model.loss_fn({{"tokens": tokens, "labels": tokens}})[0].backward()
+                else:
+                    model.forward_prefill(tokens)
+        with fake_process_group(4):
+            rank = count_step(cfg, shape, make_debug_mesh(1, 4, device_type="cpu"), plan,
+                              param_dtype=torch.float32)
+        rules = make_rules(cfg, shape, plan)
+        out[kind] = {{"unsharded": kernels.flops,
+                      "per_device": {{k: v["flops"] for k, v in rank["kernels"].items()}},
+                      "rules": [rules["act_heads"], rules["act_seq"]]}}
+    print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def key_split():
+    return _last_json(_python(_KEY_SPLIT.format()))
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+@pytest.mark.parametrize("kernel", ["flash_attention", "flash_attention_backward"])
+def test_mla_attention_split_over_the_keys_counts_a_quarter_a_rank(key_split, kind, kernel):
+    """MLA whose heads tp does not divide (minicpm3@smoke with 6 heads, tp
+    4 on a (1, 4) fake group, 32 tokens) splits its attention over the
+    keys, as the reference's score tensors split on the key axis: each
+    rank's flash kernels count exactly a quarter of the single-device
+    step's FLOPs (each rank's two key chunks, the first and the mirrored
+    last, see as many (query, key) pairs as any other's), where gathering
+    the heads gave every rank all of them."""
+    got = key_split[kind]
+    assert got["rules"] == [None, "model"]
+    if kind == "prefill" and kernel == "flash_attention_backward":
+        assert kernel not in got["per_device"] and kernel not in got["unsharded"]
+        return
+    assert got["per_device"][kernel] > 0
+    assert 4 * got["per_device"][kernel] == got["unsharded"][kernel]
+
+
+_MOE_GROUPS = """
+    import dataclasses, json
+    from types import SimpleNamespace
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.counting import StepCounter
+    from repro_torch.launch.dryrun import fake_process_group
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import PlanConfig, make_rules
+    from repro_torch.models.common import axis_rules
+    from repro_torch.models.moe import moe_ffn
+
+    cfg = dataclasses.replace(get_config("olmoe-1b-7b@smoke"), moe_groups={groups})
+    B, S, d = 8, 32, cfg.d_model
+    shapes = {{"router": (d, cfg.n_experts), "w1": (cfg.n_experts, d, cfg.expert_ff),
+               "w3": (cfg.n_experts, d, cfg.expert_ff), "w2": (cfg.n_experts, cfg.expert_ff, d)}}
+    with FakeTensorMode():
+        p = {{n: torch.empty(s) for n, s in shapes.items()}}
+        with FlopCounterMode(display=False) as fc:
+            moe_ffn(SimpleNamespace(**p), torch.empty(B, S, d), cfg, need_aux=False)
+    with fake_process_group(8):
+        mesh = make_debug_mesh(4, 1, multi_pod=True, device_type="cpu")
+        rules = make_rules(cfg, ShapeConfig("t", S, B, "prefill"),
+                           PlanConfig(multi_pod=True, tp=1, dp=4))
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            pd = {{n: distribute_tensor(t, mesh, [Replicate()] * 3, src_data_rank=None)
+                   for n, t in p.items()}}
+            x = distribute_tensor(torch.empty(B, S, d), mesh,
+                                  [Shard(0), Shard(0), Replicate()], src_data_rank=None)
+            with axis_rules(rules), StepCounter() as counter:
+                moe_ffn(SimpleNamespace(**pd), x, cfg, need_aux=False)
+    print(json.dumps({{"unsharded": fc.get_total_flops(), "per_device": counter.figures()["flops"],
+                       "act_batch": rules["act_batch"]}}))
+"""
+
+
+@pytest.mark.parametrize("groups", [4, 1])
+def test_moe_groups_split_unevenly_over_the_data_ranks(groups):
+    """olmoe@smoke's MoE layer on a (pod 2, data 4, model 1) fake group
+    with 4 dispatch groups, or 1, which the 8 data ranks do not divide:
+    the groups are split over 'pod' and 'data' unevenly (GSPMD's padding),
+    so rank 0 routes and runs one group and counts exactly one group's
+    share of the single-device layer's FLOPs (with 4 groups it ran its
+    pod's 2 when 'data' replicated them)."""
+    got = _last_json(_python(_MOE_GROUPS.format(groups=groups)))
+    assert got["act_batch"] == ["pod", "data"]
+    assert got["per_device"] > 0
+    assert groups * got["per_device"] == got["unsharded"]
 
 
 _LOOP = """

@@ -7,8 +7,8 @@ the whole tensors.
     python tests/torch_call_flash_worker.py <workdir>
 
 ``<workdir>/meta.json`` names the cases (mesh, heads, kv heads, window);
-the ranks meet through a ``FileStore`` in ``<workdir>``, the group with a
-60 s timeout, and rank 0 writes ``<workdir>/results.json``: per case the
+the ranks meet through a ``FileStore`` in ``<workdir>``, the group timing
+out after the test's limit (``meta["limit_s"]``), and rank 0 writes ``<workdir>/results.json``: per case the
 largest differences and the (q heads, kv heads) each rank's kernel call
 took.  Nothing here imports JAX or the reference package.
 """
@@ -72,9 +72,11 @@ def one_case(case: dict) -> dict:
 def run(rank: int, workdir: str) -> None:
     torch.set_num_threads(1)
     with open(os.path.join(workdir, "meta.json")) as f:
-        cases = json.load(f)["cases"]
+        meta = json.load(f)
+    cases = meta["cases"]
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
-                            world_size=WORLD, timeout=datetime.timedelta(seconds=60))
+                            world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=meta["limit_s"]))
     try:
         results = {name: one_case(case) for name, case in cases.items()}
         dist.barrier()

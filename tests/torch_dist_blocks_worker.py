@@ -6,7 +6,9 @@ inputs that the test wrote, and rank 0 writes what they gave.
 
 ``<workdir>/inputs.npz`` holds the inputs (``meta.json`` the shapes and
 settings); the ranks meet through a ``FileStore`` in ``<workdir>`` (no
-TCP port), each process group with a 60 s timeout, and rank 0 writes
+TCP port), each process group timing out after the test's limit on the
+ranks (``meta["limit_s"]``, so a rank that waits on a slow peer under load
+waits as long as the test does), and rank 0 writes
 ``<workdir>/results.npz`` and ``results.json``.  ``torch.multiprocessing.
 spawn`` ends every rank when one fails.  Nothing here imports JAX or the
 reference package: the test compares the results with them.
@@ -59,7 +61,9 @@ def _state(inp, meta, arch):
 
 def case_moe(inp, meta, out):
     """``moe_ffn`` alone on the (2, 2) mesh, x's batch over 'data', under EP
-    and under expert-TP (``ep=False``)."""
+    and under expert-TP (``ep=False``), and under EP with one dispatch
+    group, which the two 'data' ranks split unevenly (the first runs it,
+    the second none)."""
     from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
     from repro_torch.configs import ShapeConfig, get_config
@@ -73,7 +77,9 @@ def case_moe(inp, meta, out):
     B, S, _ = x.shape
     mesh = _mesh()
     defs = moe_defs(cfg, 1)
-    for label, ep in (("ep", None), ("expert_tp", False)):
+    one_group = dataclasses.replace(cfg, moe_groups=1)
+    for label, ep, cfg in (("ep", None, cfg), ("expert_tp", False, cfg),
+                           ("ep_one_group", None, one_group)):
         rules = make_rules(cfg, ShapeConfig("prefill", S, B, "prefill"), _plan(ep))
         p = {}
         for n, pd in defs.items():
@@ -180,10 +186,11 @@ CASES = (case_moe, case_train, case_serve)
 
 def run(rank: int, workdir: str) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
-                            world_size=WORLD, timeout=datetime.timedelta(seconds=60))
     with open(os.path.join(workdir, "meta.json")) as f:
         meta = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=meta["limit_s"]))
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
     out: dict = {}
     walls = {}

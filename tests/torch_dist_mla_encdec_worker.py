@@ -7,13 +7,16 @@ wrote, and rank 0 writes what they gave.
 
 ``<workdir>/inputs.npz`` holds the inputs (``meta.json`` the shapes and
 settings); the ranks meet through a ``FileStore`` in ``<workdir>`` (no
-TCP port), each process group with a 60 s timeout, and rank 0 writes
+TCP port), each process group timing out after the test's limit on the
+ranks (``meta["limit_s"]``, so a rank that waits on a slow peer under load
+waits as long as the test does), and rank 0 writes
 ``<workdir>/results.npz`` and ``results.json``.  ``torch.multiprocessing.
 spawn`` ends every rank when one fails.  Nothing here imports JAX or the
 reference package: the test compares the results with them.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import json
@@ -67,8 +70,30 @@ def _config(meta, name):
     return arch, dataclasses.replace(get_config(arch), **overrides)
 
 
-def _state(inp, meta, arch):
-    return {n: torch.from_numpy(inp[f"param/{arch}/{n}"]) for n in meta["names"][arch]}
+def _state(inp, meta, name):
+    """A case's parameters: its arch's, or its own where its overrides
+    change their shapes (``meta["weights"]``)."""
+    key = meta["weights"][name]
+    return {n: torch.from_numpy(inp[f"param/{key}/{n}"]) for n in meta["names"][key]}
+
+
+@contextlib.contextmanager
+def _key_shard_calls():
+    """The mesh dims of each call of MLA prefill's attention split over the
+    keys (``models.attention.key_shard_attention``) inside."""
+    from repro_torch.models import attention
+
+    real, calls = attention.key_shard_attention, []
+
+    def counted(q, k, v, dims, *args, **kwargs):
+        calls.append(list(dims))
+        return real(q, k, v, dims, *args, **kwargs)
+
+    attention.key_shard_attention = counted
+    try:
+        yield calls
+    finally:
+        attention.key_shard_attention = real
 
 
 def case_train(inp, meta, out):
@@ -85,17 +110,17 @@ def case_train(inp, meta, out):
     mesh = _mesh()
     opt_cfg = AdamWConfig(**meta["opt"])
     for name in meta["train"]:
-        arch, cfg = _config(meta, name)
+        _, cfg = _config(meta, name)
         B, S = inp["train_tokens/" + name].shape[1:]
         if cfg.frontend is not None and not cfg.is_encdec:
             S += cfg.frontend_tokens
         bundle = make_train_bundle(cfg, ShapeConfig("train", S, B, "train"), mesh, _plan(),
                                    opt_cfg, param_dtype=torch.float32, device_type="cpu")
-        params = bundle.place_params(_state(inp, meta, arch))
+        params = bundle.place_params(_state(inp, meta, name))
         opt = init_opt_state(opt_cfg, params)
         losses = []
         with first_step_grads(steps) as grads0, optimizer_steps_replayed(
-                steps, keep=dist.get_rank() == 0) as replayed:
+                steps, keep=dist.get_rank() == 0) as replayed, _key_shard_calls() as split:
             for step in range(inp["train_tokens/" + name].shape[0]):
                 batch = {"tokens": inp["train_tokens/" + name][step],
                          "labels": inp["train_labels/" + name][step]}
@@ -106,6 +131,7 @@ def case_train(inp, meta, out):
         for n, g in grads0.items():
             out[f"{name}/train_grad0/{n}"] = g.numpy()
         out[f"{name}/adamw_replay_err"] = replayed
+        out[f"{name}/train_key_shard_calls"] = split
         out[f"{name}/train_loss"] = np.asarray(losses)
         for n, p in params.items():
             out[f"{name}/train_param/{n}"] = _np(p)
@@ -122,11 +148,11 @@ def case_serve(inp, meta, out):
 
     mesh = _mesh()
     for name in meta["serve"]:
-        arch, cfg = _config(meta, name)
+        _, cfg = _config(meta, name)
         tokens = torch.from_numpy(inp["prompt/" + name])
         B = tokens.shape[0]
         filled, ctx = meta["filled"][name], meta["ctx"][name]
-        state = _state(inp, meta, arch)
+        state = _state(inp, meta, name)
         batch = {"tokens": tokens}
         if cfg.frontend is not None:
             batch["frontend"] = torch.from_numpy(inp["frontend/" + name])
@@ -134,7 +160,9 @@ def case_serve(inp, meta, out):
                                   _plan(), param_dtype=torch.float32, device_type="cpu")
         dec = make_decode_bundle(cfg, ShapeConfig("decode", ctx, B, "decode"), mesh, _plan(),
                                  param_dtype=torch.float32, device_type="cpu")
-        logits, caches = pre.step_fn(pre.place_params(state), batch)
+        with _key_shard_calls() as split:
+            logits, caches = pre.step_fn(pre.place_params(state), batch)
+        out[f"{name}/prefill_key_shard_calls"] = split
         out[f"{name}/prefill_logits"] = _np(logits)
         full = dec.model.cache_struct(B, ctx, dtype=torch.float32)
         full = {k: {n: torch.zeros(t.shape) for n, t in v.items()} for k, v in full.items()}
@@ -168,10 +196,11 @@ CASES = (case_train, case_serve)
 
 def run(rank: int, workdir: str) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
-                            world_size=WORLD, timeout=datetime.timedelta(seconds=60))
     with open(os.path.join(workdir, "meta.json")) as f:
         meta = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=meta["limit_s"]))
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
     out: dict = {}
     walls = {}

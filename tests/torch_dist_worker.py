@@ -6,7 +6,9 @@ test wrote, and rank 0 writes what they gave.
 
 ``<workdir>/inputs.npz`` holds the inputs (``meta.json`` the shapes and
 settings); the ranks meet through a ``FileStore`` in ``<workdir>`` (no
-TCP port), each process group with a 60 s timeout, and rank 0 writes
+TCP port), each process group timing out after the test's limit on the
+ranks (``meta["limit_s"]``, so a rank that waits on a slow peer under load
+waits as long as the test does), and rank 0 writes
 ``<workdir>/results.npz`` and ``results.json``.  ``torch.multiprocessing.
 spawn`` ends every rank when one fails.  Nothing here imports JAX or the
 reference package: the test compares the results with them.
@@ -246,10 +248,11 @@ CASES = (case_train, case_serve, case_seqsharded, case_compression, case_layout,
 
 def run(rank: int, workdir: str) -> None:
     torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
-                            world_size=WORLD, timeout=datetime.timedelta(seconds=60))
     with open(os.path.join(workdir, "meta.json")) as f:
         meta = json.load(f)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
+                            world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=meta["limit_s"]))
     inp = dict(np.load(os.path.join(workdir, "inputs.npz")))
     out: dict = {}
     walls = {}

@@ -8,7 +8,8 @@ destroyed, dry-runs the same cells on a fake group of four ranks
 
 ``<workdir>/meta.json`` names the cases (arch, step kind, batch, sequence
 length); the ranks meet through a ``FileStore`` in ``<workdir>`` (no TCP
-port), the group with a 60 s timeout, and rank 0 writes
+port), the group timing out after the test's limit (``meta["limit_s"]``),
+and rank 0 writes
 ``<workdir>/results.json``: per case each rank's counts and the dry run's.
 ``torch.multiprocessing.spawn`` ends every rank when one fails.  Nothing
 here imports JAX or the reference package.
@@ -78,9 +79,11 @@ def dry_counts(case) -> dict:
 def run(rank: int, workdir: str) -> None:
     torch.set_num_threads(1)
     with open(os.path.join(workdir, "meta.json")) as f:
-        cases = json.load(f)["cases"]
+        meta = json.load(f)
+    cases = meta["cases"]
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store", rank=rank,
-                            world_size=WORLD, timeout=datetime.timedelta(seconds=60))
+                            world_size=WORLD,
+                            timeout=datetime.timedelta(seconds=meta["limit_s"]))
     real, walls = {}, {}
     for name, case in cases.items():
         t0 = time.perf_counter()
