@@ -159,7 +159,9 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    largest host entry, the backward through both backward kernels; (b)
    trains xlstm-1.3b whole on the card for 6 steps (4 x 256 tokens a
    step) with finite losses and gradient norms and the norms' forward and
-   backward launches per step held to 49 and 48 each, then the same run
+   backward launches per step held to 49 and 48 each, printing the step
+   walls, the device busy time of the last step (under the profiler) and
+   the peak memory, then the same run
    checkpointed every 4 steps under ``build/``, crashed after step 5 and
    restarted under ``run_with_restarts``, its losses equal to the
    uninterrupted run's within rel 1e-5; (c) requires the card-training
@@ -212,7 +214,11 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    at 2 layers, the jamba pair, an xlstm-1.3b period, minicpm3-4b at 2
    layers (MLA), seamless-m4t-large-v2 at 8 + 8 layers (encoder-decoder,
    512 frames) and internvl2-26b at 2 layers (256 patch tokens before the
-   text), the frontend models with ``train.frontend_noise`` embeddings;
+   text), the frontend models with ``train.frontend_noise`` embeddings,
+   and for (i) the train bundle again with remat "full" (each decoder
+   block and encoder layer recomputed in the backward): losses and
+   first-step gradients bit for bit the remat "none" run's, both peaks
+   printed;
    it prints the step walls of both, the DTensor path's host overhead, the
    peaks and the launches.  One card shows the DTensor path and its
    kernels, not the collectives of several ranks; (b) also counts one
@@ -872,6 +878,17 @@ def time_empty_kernel(library) -> float:
     ms, eager_ms = time_both(empty_kernel, iters=200)
     log(f"  empty kernel device (graph): {ms:.5f} ms; eager with launch cost {eager_ms:.5f} ms")
     return ms
+
+
+def profiled_busy_ms(prof) -> float | None:
+    """The device's busy time over a profiler window: its own events
+    (kernels, copies, memsets), each counted once; None where the profiler
+    recorded none."""
+    from torch.autograd import DeviceType
+
+    spans = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) if spans else None
 
 
 def log_device_time(prof, wall_ms: float, header: str, top: int) -> None:
@@ -3668,6 +3685,8 @@ def phase_train(device, seed) -> dict:
     from repro_torch.launch.train import TrainConfig, train
     from repro_torch.runtime import FailurePlan, run_with_restarts
 
+    from torch.profiler import ProfilerActivity, profile
+
     full, _ = xlstm_configs()
     base = dict(arch=full.name, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, steps=TRAIN_STEPS,
                 ckpt_every=TRAIN_CKPT_EVERY, seed=seed, log_every=0)
@@ -3676,10 +3695,19 @@ def phase_train(device, seed) -> dict:
     zero_launches()
     t0 = time.perf_counter()
     steps = []
+    # the last step runs under the profiler (device events only), started
+    # when the step before it has returned and stopped when it has
+    prof = profile(activities=[ProfilerActivity.CUDA])
 
     def record(step, loss, metrics, dt):
         steps.append(dict(loss=loss, grad_norm=float(metrics["grad_norm"]),
                           lr=float(metrics["lr"]), ms=dt * 1e3))
+        if step == TRAIN_STEPS - 2:
+            torch.cuda.synchronize()
+            prof.__enter__()
+        elif step == TRAIN_STEPS - 1:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
 
     out = train(TrainConfig(**base), on_step=record, device=device)
     torch.cuda.synchronize()
@@ -3691,7 +3719,11 @@ def phase_train(device, seed) -> dict:
     losses = out["losses"]
     for i, st in enumerate(steps):
         log(f"  step {i}: loss {st['loss']:.6f}  grad_norm {st['grad_norm']:.6f}  "
-            f"lr {st['lr']:.3e}  {st['ms']:.1f} ms")
+            f"lr {st['lr']:.3e}  {st['ms']:.1f} ms" + ("  (profiled)" if i == TRAIN_STEPS - 1
+                                                      else ""))
+    busy_ms = profiled_busy_ms(prof)
+    log_device_time(prof, steps[-1]["ms"], f"profiler over step {TRAIN_STEPS - 1}", top=8)
+    del prof
     if len(losses) != TRAIN_STEPS or not all(
             math.isfinite(st["loss"]) and math.isfinite(st["grad_norm"]) for st in steps):
         raise AssertionError(f"losses or gradient norms not finite: {steps}")
@@ -3701,10 +3733,16 @@ def phase_train(device, seed) -> dict:
     if launches != want:
         raise AssertionError(f"training launches {launches}, expected {want}")
     step_ms = sorted(st["ms"] for st in steps)
+    unprofiled = [st["ms"] for st in steps[:-1]]
     log(f"  uninterrupted: {TRAIN_STEPS} steps in {wall:.1f} s (build included); step median "
-        f"{float(np.median(step_ms)):.1f} ms, min {step_ms[0]:.1f} ms; peak memory "
-        f"{peak / 2**30:.2f} GiB ({peak} bytes); launches {json.dumps(launches)} "
-        f"({n_rms} rmsnorm, {n_add} add_rmsnorm and as many backward launches each a step)")
+        f"{float(np.median(step_ms)):.1f} ms, min {step_ms[0]:.1f} ms (median of the "
+        f"{TRAIN_STEPS - 1} unprofiled {float(np.median(unprofiled)):.1f} ms); device busy "
+        f"over the profiled step "
+        + (f"{busy_ms:.1f} ms of {steps[-1]['ms']:.1f}" if busy_ms is not None
+           else "not measured")
+        + f"; peak memory {peak / 2**30:.2f} GiB ({peak} bytes); launches "
+        f"{json.dumps(launches)} ({n_rms} rmsnorm, {n_add} add_rmsnorm and as many backward "
+        "launches each a step)")
 
     cut = dict(base, n_layers=TRAIN_RESTART_LAYERS)
     gc.collect()
@@ -3750,7 +3788,9 @@ def phase_train(device, seed) -> dict:
         f"uninterrupted run's within rel {worst:.3e} ("
         + ("bit for bit" if bitwise else "not bit for bit") + ")")
     log(f"  loss curve: {[round(v, 6) for v in losses]}")
-    return dict(losses=losses, step_ms=float(np.median(step_ms)), peak_bytes=peak,
+    return dict(losses=losses, step_ms=float(np.median(step_ms)),
+                step_ms_unprofiled=float(np.median(unprofiled)),
+                profiled_step_ms=steps[-1]["ms"], device_busy_ms=busy_ms, peak_bytes=peak,
                 launches=launches, restart_rel=worst, bitwise=bitwise, wall_s=wall,
                 restart_wall_s=restart_wall)
 
@@ -4456,7 +4496,8 @@ def front_tokens(cfg) -> int:
     return cfg.frontend_tokens if cfg.frontend is not None and not cfg.is_encdec else 0
 
 
-def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> dict:
+def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False,
+                  remat_full=False) -> dict:
     """22 (b): stablelm-1.6b whole in fp32 (or ``cfg``), ``make_step`` for
     two steps of 21 (b)'s first two batches (:func:`sharded_batches`) and
     then the train bundle for the same two steps from the same seed-0
@@ -4470,7 +4511,11 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> 
     of the bundle (not timed as a step, the batch placed before it) under
     ``launch/counting.py``'s counter, for phase 23 (a): its counts, its
     wall and the memory it allocated above what was allocated before it,
-    in ``runs["bundle"]["counted"]``."""
+    in ``runs["bundle"]["counted"]``.  ``remat_full``: then the train
+    bundle once more with remat "full" (each decoder block and encoder
+    layer recomputed in the backward), whose losses and first-step
+    gradients must be bit for bit the remat "none" bundle's, in
+    ``runs["bundle_full"]`` with its peak."""
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch import steps as steps_module
@@ -4485,7 +4530,7 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> 
     opt_cfg = TrainConfig().opt
     batches, seq = sharded_batches(cfg, device, seed)
     runs = {}
-    for kind in ("make_step", "bundle"):
+    for kind in ("make_step", "bundle") + (("bundle_full",) if remat_full else ()):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -4498,7 +4543,8 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> 
             bundle = make_train_bundle(cfg, ShapeConfig("train", seq, TRAIN21_BATCH, "train"),
                                        mesh,
                                        PlanConfig(tp=1, dp=1), opt_cfg,
-                                       param_dtype=torch.float32, remat="none",
+                                       param_dtype=torch.float32,
+                                       remat="full" if kind == "bundle_full" else "none",
                                        device_type=device.type)
             params = bundle.place_params(dict(model.named_parameters()))
             del model
@@ -4524,6 +4570,16 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> 
         if kind == "make_step":
             run["params"] = {n: p.detach().to("cpu") for n, p in params.items()}
             run["grads0"] = grads0
+        elif kind == "bundle_full":
+            none_run = runs["bundle"]
+            run["losses_bitwise"] = losses == none_run["losses"]
+            run["grads0_bitwise"] = all(torch.equal(g, none_run["grads0"][n])
+                                        for n, g in grads0.items())
+            if not (run["losses_bitwise"] and run["grads0_bitwise"]):
+                raise AssertionError(
+                    f"{label}: remat 'full' losses {losses} vs 'none' {none_run['losses']}, "
+                    f"first-step gradients bit for bit: {run['grads0_bitwise']}")
+            del none_run["grads0"]
         else:
             ref_run = runs["make_step"]
             worst, worst_grad = 0.0, 0.0
@@ -4546,6 +4602,8 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> 
                 del want
             run["param_err"] = worst
             run["grad0_err"] = worst_grad
+            if remat_full:
+                run["grads0"] = grads0
             run["param_bitwise"] = worst == 0.0
             run["placements"] = sorted({str(tuple(p.placements)) for p in params.values()})
             if count:
@@ -4561,7 +4619,14 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False) -> 
                                  f"{ref['losses']}")
     want = training_launches(cfg, SHARDED_TRAIN_STEPS)
     for kind, run in runs.items():
-        if run["launches"] != want:
+        if kind == "bundle_full":
+            # the recompute launches the forward kernels again; the
+            # backward kernels launch as often as without it
+            more = {k: n - want[k] for k, n in run["launches"].items()}
+            if any(n < 0 or (n and k.endswith("_backward")) for k, n in more.items()):
+                raise AssertionError(f"{label}: {kind} launched {run['launches']}, expected "
+                                     f"{want} and forward recomputes")
+        elif run["launches"] != want:
             raise AssertionError(f"{label}: {kind} launched {run['launches']}, expected {want}")
         if run["peak_bytes"] > SHARDED_PEAK_LIMIT:
             raise AssertionError(f"{label}: {kind}'s peak {run['peak_bytes']} bytes passes "
@@ -4841,7 +4906,14 @@ def train_figures(runs) -> dict:
     DTensor host overhead (the bundle's step wall less make_step's), peaks
     and launches."""
     ref, got = runs["make_step"], runs["bundle"]
-    return {"losses_bundle": got["losses"], "losses_make_step": ref["losses"],
+    full = {}
+    if "bundle_full" in runs:
+        rf = runs["bundle_full"]
+        full = {"remat_full": {"losses_bitwise": rf["losses_bitwise"],
+                               "grads0_bitwise": rf["grads0_bitwise"],
+                               "step_ms": rf["step_ms"], "peak_bytes": rf["peak_bytes"],
+                               "launches": rf["launches"]}}
+    return {**full, "losses_bundle": got["losses"], "losses_make_step": ref["losses"],
             "losses_bitwise": got["losses_bitwise"],
             "param_max_rel_err": got["param_err"], "params_bitwise": got["param_bitwise"],
             "grad0_max_rel_err": got["grad0_err"], "grad_norms": got["grad_norms"],
@@ -4891,7 +4963,8 @@ def phase_sharded(device, seed, timings) -> dict:
                     f"make_step, {SHARDED_TRAIN_STEPS} steps of {TRAIN21_BATCH} x "
                     f"{TRAIN21_SEQ + front_tokens(cfg)}, then the prefill and decode bundles vs "
                     f"the unsharded forwards")
-                runs = sharded_train(device, seed, mesh, cfg, label)
+                runs = sharded_train(device, seed, mesh, cfg, label,
+                                     remat_full=label == "22 (i)")
                 fig = {"train": train_figures(runs),
                        "serve": sharded_serve(device, seed, mesh, cfg, label),
                        "wall_s": time.perf_counter() - t1}
@@ -4900,6 +4973,14 @@ def phase_sharded(device, seed, timings) -> dict:
                     f"{fig['train']['step_ms_make_step']} ms, param err "
                     f"{fig['train']['param_max_rel_err']:.3e}, serve err "
                     f"{fig['serve']['max_rel_err']}, {fig['wall_s']:.1f} s")
+                if "remat_full" in fig["train"]:
+                    rf = fig["train"]["remat_full"]
+                    log(f"  {label} remat 'full': losses and first-step gradients bit for bit "
+                        f"remat 'none''s; steps {rf['step_ms']} ms; peak "
+                        f"{rf['peak_bytes'] / 2**30:.2f} GiB ({rf['peak_bytes']} bytes) against "
+                        f"remat 'none''s {fig['train']['peak_bytes_bundle'] / 2**30:.2f} GiB "
+                        f"({fig['train']['peak_bytes_bundle']} bytes); launches "
+                        f"{json.dumps(rf['launches'])}")
                 timings["phase" + label.split()[0] + label[-2]] = fig["wall_s"]
         finally:
             dist.destroy_process_group()

@@ -194,6 +194,73 @@ def take_along_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
                      (rows, rows), rows)
 
 
+def vocab_split(logits: torch.Tensor) -> bool:
+    """Whether ``logits`` is a DTensor whose last (vocabulary) axis is split
+    over a mesh dim of more than one rank."""
+    if not isinstance(logits, DTensor):
+        return False
+    last, mesh = logits.ndim - 1, logits.device_mesh
+    return any(p == Shard(last) and mesh.size(i) > 1 for i, p in enumerate(logits.placements))
+
+
+def _all_reduce(t: torch.Tensor, op: str, groups: list) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    for group in groups:
+        t = funcol.all_reduce(t, op, group)
+        if isinstance(t, funcol.AsyncCollectiveTensor):
+            t = t.wait()
+    return t
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """logsumexp(x) - x[target] per row of a rank's vocabulary columns
+    ``x`` (rows, V/tp), its first column ``lo``: the row max, Σ exp(x -
+    max) and the gold logit (from the rank whose columns hold the target)
+    all-reduced over ``groups``, in fp32.  The backward is softmax(x -
+    logz) less the one-hot, on the local columns, with no collective."""
+
+    @staticmethod
+    def forward(ctx, x, targets, lo: int, groups: list):
+        width = x.shape[-1]
+        local = targets - lo
+        own = (local >= 0) & (local < width)
+        local = local.clamp(0, width - 1)
+        gold = torch.gather(x, -1, local[..., None])[..., 0].float()
+        gold = _all_reduce(torch.where(own, gold, torch.zeros_like(gold)), "sum", groups)
+        mx = _all_reduce(x.amax(-1).float(), "max", groups)
+        e = x.float() - mx[..., None]
+        logz = mx + torch.log(_all_reduce(e.exp_().sum(-1), "sum", groups))
+        ctx.save_for_backward(x, local, own, logz)
+        return logz - gold
+
+    @staticmethod
+    def backward(ctx, g):
+        x, local, own, logz = ctx.saved_tensors
+        p = (x.float() - logz[..., None]).exp_()
+        p.scatter_add_(-1, local[..., None], -own.to(p.dtype)[..., None])
+        return p.mul_(g[..., None]).to(x.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: DTensor, targets: torch.Tensor) -> DTensor:
+    """The cross-entropy logsumexp(logits) - logits[target] per row, fp32,
+    of ``logits`` (..., V) whose vocabulary axis is split over mesh dims
+    (:func:`vocab_split`): each rank reduces its own (rows, V/tp) columns
+    and all-reduces three row vectors over those dims, as Megatron's
+    vocab-parallel loss does, so no rank gathers the vocabulary.  Returns
+    the rows as ``targets`` lies (its batch shards kept, replicated over
+    the vocabulary's dims)."""
+    last, mesh = logits.ndim - 1, logits.device_mesh
+    dims = [i for i, p in enumerate(logits.placements) if p == Shard(last)]
+    idx, count = shard_index(mesh, dims)
+    lo = idx * -(-logits.shape[-1] // count)        # DTensor's (ceil) chunk size
+    groups = [mesh.get_group(i) for i in dims if mesh.size(i) > 1]
+    cols = [p if isinstance(p, Shard) else Replicate() for p in logits.placements]
+    rows = _row_placements(logits)
+    return on_shards(lambda xl, tl: _VocabParallelCE.apply(xl, tl, lo, groups),
+                     (logits, replicated_like(targets, logits)), (cols, rows), rows)
+
+
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose backward hands on a contiguous gradient: a
     DTensor's reshape is a view of its local shard, which a strided

@@ -34,6 +34,8 @@ from .common import (
     seq_whole,
     shard_act,
     take_along_last,
+    vocab_parallel_cross_entropy,
+    vocab_split,
 )
 from .frontends import apply_frontend_proj
 from .ssm import mamba_state_struct, mlstm_state_struct, slstm_state_struct
@@ -134,13 +136,14 @@ class Model(nn.Module):
             raise ValueError(f"{self.cfg.name}: frontend embeddings are "
                              f"{'required' if frontend is None else 'not taken'}")
 
-    def _encode(self, frontend: torch.Tensor | None):
+    def _encode(self, frontend: torch.Tensor | None, mode: str):
         """The encoder's output over the frontend's frames for an
-        encoder-decoder model, else None."""
+        encoder-decoder model, else None; a "train" encoder recomputes its
+        layers in the backward under ``remat="full"``."""
         if not self.cfg.is_encdec:
             return None
         enc_in = apply_frontend_proj(self.frontend_proj, frontend.to(self.embed.dtype))
-        return run_encoder_stack(self.encoder, enc_in, self.cfg)
+        return run_encoder_stack(self.encoder, enc_in, self.cfg, mode, self.remat)
 
     # -- forward passes ------------------------------------------------------
     def forward_train(self, tokens: torch.Tensor, frontend: torch.Tensor | None = None):
@@ -151,7 +154,7 @@ class Model(nn.Module):
         summed over the layers (empty without MoE)."""
         cfg = self.cfg
         self._check_frontend(frontend)
-        enc_out = self._encode(frontend)
+        enc_out = self._encode(frontend, "train")
         x, positions = self._assemble_inputs(tokens, frontend)
         aux: dict = {}
         x, delta, _ = run_decoder_stack(self.blocks, x, cfg, "train", positions=positions,
@@ -178,11 +181,15 @@ class Model(nn.Module):
         logits, aux = self.forward_train(batch["tokens"], batch.get("frontend"))
         if cfg.frontend is not None and not cfg.is_encdec:
             logits = logits[:, cfg.frontend_tokens:, :]
-        # a sharded step's vocab axis is gathered whole: the loss reads rows
-        logits = shard_act(logits[:, :-1, :], ("act_batch", None, None)).float()
-        targets = batch["labels"][:, 1:].long()
-        gold = take_along_last(logits, targets)
-        ce = (torch.logsumexp(logits, dim=-1) - gold).mean()
+        logits, targets = logits[:, :-1, :], batch["labels"][:, 1:].long()
+        if vocab_split(logits):
+            # each rank reduces its vocabulary shard, as the reference's plan
+            ce = vocab_parallel_cross_entropy(logits, targets).mean()
+        else:
+            # a plain tensor, or a vocab axis on one rank: the rows read whole
+            logits = shard_act(logits, ("act_batch", None, None)).float()
+            gold = take_along_last(logits, targets)
+            ce = (torch.logsumexp(logits, dim=-1) - gold).mean()
         loss = ce
         if "lb_loss" in aux:
             loss = loss + LB_LOSS_WEIGHT * aux["lb_loss"] + Z_LOSS_WEIGHT * aux["z_loss"]
@@ -208,7 +215,7 @@ class Model(nn.Module):
         as the reference's serving drops them."""
         cfg = self.cfg
         self._check_frontend(frontend)
-        enc_out = self._encode(frontend)
+        enc_out = self._encode(frontend, "prefill")
         x, positions = self._assemble_inputs(tokens, frontend)
         x, delta, caches = run_decoder_stack(self.blocks, x, cfg, "prefill",
                                              positions=positions, cross=self.cross,

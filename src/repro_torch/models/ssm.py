@@ -303,11 +303,11 @@ def _mlstm_cells(u, gi, gf, wq, wk, wv, C, n, chunk: int, decode: bool):
     Lc = min(chunk, S)
     if S % Lc != 0:
         Lc = S                     # one chunk, as the reference falls back
+    # each tensor split once: a chunk sliced out one at a time would take
+    # in the backward a zero-filled gradient of the whole sequence apiece
     hs = []
-    for c0 in range(0, S, Lc):
-        c = slice(c0, c0 + Lc)
-        h, C, n = _mlstm_chunk(q[:, :, c], k[:, :, c], v[:, :, c], logf[..., c], logi[..., c],
-                               C, n)
+    for qc, kc, vc, fc, ic in zip(*(t.split(Lc, dim=2) for t in (q, k, v, logf, logi))):
+        h, C, n = _mlstm_chunk(qc, kc, vc, fc, ic, C, n)
         hs.append(h)
     return torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, di), C, n
 
@@ -453,14 +453,16 @@ def _slstm_cells(wx: torch.Tensor, r_gates, b_gates, carry):
     """The recurrence token by token over wx (B, S, 4d) fp32 from
     ``carry`` (None: zeros, ``m`` at :data:`SLSTM_M0`).  Returns (h (B,
     S, d) fp32, the last carry)."""
-    B, S, d4 = wx.shape
+    B, _, d4 = wx.shape
     r_gates = r_gates.to(wx.dtype)     # bf16 weights: fp32 products, as jnp promotes them
     if carry is None:
         zero = torch.zeros((B, d4 // 4), dtype=torch.float32, device=wx.device)
         carry = (zero, zero, zero, torch.full_like(zero, SLSTM_M0))
     hs = []
-    for t in range(S):
-        carry = _slstm_step(r_gates, b_gates, carry, wx[:, t])
+    # one unbind: its backward stacks the tokens' gradients once, where
+    # ``wx[:, t]`` would zero-fill a (B, S, 4d) gradient for every token
+    for wx_t in wx.unbind(1):
+        carry = _slstm_step(r_gates, b_gates, carry, wx_t)
         hs.append(carry[0])
     return torch.stack(hs, dim=1), carry
 

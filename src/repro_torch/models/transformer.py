@@ -10,11 +10,11 @@ packages count and initialise the same tree.  The port holds one
 :class:`ParamModule` per period in an ``nn.ModuleList`` and runs the periods
 and the blocks within each in Python loops where the reference scans;
 training keeps every activation unless the stack runs with
-``remat="full"``, which recomputes each block in the backward
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``: memory,
-not numbers).  An encoder-decoder model adds the encoder (one
-module per layer) and, per decoder period, a cross-attention sub-block
-after the mixer, with its own norm.  A block's feed-forward is the MoE
+``remat="full"``, which recomputes each block, and each encoder layer,
+in the backward (``torch.utils.checkpoint``, the reference's
+``jax.checkpoint``: memory, not numbers).  An encoder-decoder model adds
+the encoder (one module per layer) and, per decoder period, a
+cross-attention sub-block after the mixer, with its own norm.  A block's feed-forward is the MoE
 layer where the reference puts one (``idx % moe_every == moe_every - 1``
 within the period), else the dense MLP.  mLSTM and sLSTM blocks have no
 feed-forward half: their output is the residual update.
@@ -319,24 +319,44 @@ def run_decoder_stack(blocks: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     return x, delta, out
 
 
-def run_encoder_stack(encoder: nn.Module, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _encoder_layer(bp: nn.Module, x: torch.Tensor, delta: torch.Tensor | None,
+                   positions: torch.Tensor, cfg: ModelConfig):
+    """One encoder layer: returns (x, delta), the stream before its MLP's
+    update and that update, which the next layer's first norm adds."""
+    B, T, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
+    h = seq_whole(h)
+    q = apply_rope((h @ bp.attn.wq).reshape(B, T, H, hd), positions, cfg.rope_theta)
+    k = apply_rope((h @ bp.attn.wk).reshape(B, T, KV, hd), positions, cfg.rope_theta)
+    v = (h @ bp.attn.wv).reshape(B, T, KV, hd)
+    y = attn.call_flash(flash_attention, q, k, v, causal=False, scale=1.0 / hd ** 0.5)
+    x, h = add_rms_norm(x, y.reshape(B, T, H * hd) @ bp.attn.wo, bp.norm2, cfg.norm_eps)
+    return x, swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
+
+
+def run_encoder_stack(encoder: nn.Module, x: torch.Tensor, cfg: ModelConfig,
+                      mode: str = "prefill", remat: str = "none") -> torch.Tensor:
     """The bidirectional encoder of an encoder-decoder model over ``x`` (B,
     T, d): per layer RoPE'd self-attention over all T frames (the flash
     kernel, non-causal) and a SwiGLU MLP, each after its norm, then the
     final norm.  ``encoder`` holds ``blocks`` (one module per layer:
     ``norm1``, ``attn``, ``norm2``, ``mlp``) and ``final_norm``.  As in the
-    decoder stack, each residual add is fused into the norm after it."""
+    decoder stack, each residual add is fused into the norm after it.
+
+    ``remat="full"`` recomputes each layer in the backward of a "train"
+    encoder (``torch.utils.checkpoint``, the step's axis rules carried into
+    the recompute), as the reference's ``jax.checkpoint`` does; "none"
+    keeps every activation, and serving ("prefill") never checkpoints."""
+    if remat not in ("none", "full"):
+        raise ValueError(f"remat must be 'none' or 'full', got {remat!r}")
     B, T, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     positions = replicated_like(torch.arange(T, device=x.device).expand(B, T), x)
     delta = None
     for bp in encoder.blocks:
-        x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
-        h = seq_whole(h)
-        q = apply_rope((h @ bp.attn.wq).reshape(B, T, H, hd), positions, cfg.rope_theta)
-        k = apply_rope((h @ bp.attn.wk).reshape(B, T, KV, hd), positions, cfg.rope_theta)
-        v = (h @ bp.attn.wv).reshape(B, T, KV, hd)
-        y = attn.call_flash(flash_attention, q, k, v, causal=False, scale=1.0 / hd ** 0.5)
-        x, h = add_rms_norm(x, y.reshape(B, T, H * hd) @ bp.attn.wo, bp.norm2, cfg.norm_eps)
-        delta = swiglu(h, bp.mlp.w1, bp.mlp.w3, bp.mlp.w2)
+        if remat == "full" and mode == "train":
+            x, delta = checkpoint(_with_rules(_encoder_layer, current_rules()), bp, x, delta,
+                                  positions, cfg, use_reentrant=False)
+        else:
+            x, delta = _encoder_layer(bp, x, delta, positions, cfg)
     return add_rms_norm(x, delta, encoder.final_norm, cfg.norm_eps)[1]

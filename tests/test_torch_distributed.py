@@ -2,7 +2,7 @@
 reference's single-device outputs and its own sharded decode.
 
 One spawned group of four ranks (``tests/torch_dist_worker.py``, under a
-300 s limit that is also its process group's timeout, meeting through a
+400 s limit that is also its process group's timeout, meeting through a
 ``FileStore`` in a temporary directory) runs every case; this process
 computes the references with JAX and holds the ranks' results to them:
 
@@ -25,7 +25,12 @@ computes the references with JAX and holds the ranks' results to them:
   reference's ``topk_compress``;
 - a tuple spec entry's layout on a (2, 2, 1) pod/data/model mesh equal to
   JAX's, and the scan and norm kernels on local shards equal to the whole
-  calls.
+  calls;
+- the vocabulary-parallel loss (the vocabulary over 'model' 2 on the (2, 2)
+  mesh and 4 on a (1, 4) mesh of the same ranks) on llama3-8b@smoke, with
+  its own and with a padded vocabulary, and seamless-m4t-large-v2@smoke:
+  the loss and every gradient against the same step with the vocabulary
+  gathered whole and against the reference's single-device ``loss_fn``.
 """
 import json
 import os
@@ -71,10 +76,26 @@ TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 2, 4, 32
 PROMPT_BATCH, DECODE_STEPS = 4, 8
 SQ_B, SQ_T, SQ_POS = 2, 64, 37
 TOPK_DENSITY = 0.1
+#: The vocabulary-parallel loss's cases: (arch, the vocabulary cut to, None
+#: the config's own).  llama3-8b@smoke's 256 tokens cut to 250 pad the
+#: table by 6 rows, which the head masks, on the last 'model' rank.
+VOCAB_CASES = {"llama3-8b": ("llama3-8b@smoke", None),
+               "llama3-8b/padded": ("llama3-8b@smoke", 250),
+               "seamless": ("seamless-m4t-large-v2@smoke", None)}
+#: (data, model) meshes of the four ranks: the vocabulary over 2 and 4 ranks
+VOCAB_MESHES = {"tp2": (2, 2), "tp4": (1, 4)}
+VOCAB_BATCH, VOCAB_SEQ = 4, 16
+VOCAB_LOSS_RTOL = 1e-6
+#: gradients' gates, of each leaf's largest entry: the split loss against
+#: the gathered one in the same sharded step (measured up to 4.7e-7), and
+#: against the reference's single device, which the gathered loss itself
+#: misses at 1e-6 (1.3e-6 to 2.2e-6: the sharded matmuls' fp32 rounding)
+VOCAB_GRAD_ATOL_REL = {"gathered": 1e-6, "reference": 1e-5}
 #: The ranks' limit and their process groups' timeout: at least three times
-#: the fixture's wall under the suite's own load (``-n 6 --dist loadfile``,
-#: 45-89 s), so a slow run finishes and a hang still fails.
-LIMIT_S = 300
+#: the fixture's wall under the suite's own load (``-n 6 --dist loadfile``:
+#: 45-89 s before the vocabulary-loss cases, 61 s alone with them), so a
+#: slow run finishes and a hang still fails.
+LIMIT_S = 400
 
 _SHARD_MAP_REFERENCE = """
 import json, sys
@@ -145,6 +166,8 @@ def run(tmp_path_factory):
     ranks, and computes the single-device references meanwhile."""
     work = tmp_path_factory.mktemp("ranks")
     models = {arch: _reference_model(arch) for arch in SERVE}
+    vocab_models = {arch: models.get(arch) or _reference_model(arch)
+                    for arch, _ in VOCAB_CASES.values()}
     cfg = get_config(ARCH)
     stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
                                           global_batch=TRAIN_BATCH))
@@ -163,16 +186,22 @@ def run(tmp_path_factory):
     sq["sq_x"] = (0.3 * rng.standard_normal((SQ_B, 1, cfg.d_model))).astype(np.float32)
     cmp = {"cmp_g": rng.standard_normal((4, 64, 32)).astype(np.float32),
            "cmp_h": rng.standard_normal((4, 100)).astype(np.float32)}
+    vocab_batches = {case: _vocab_batch(case, rng) for case in VOCAB_CASES}
     np.savez(work / "inputs.npz",
-             **{f"param/{arch}/{n}": t.numpy() for arch, (_, _, state) in models.items()
+             **{f"param/{arch}/{n}": t.numpy()
+                for arch, (_, _, state) in {**models, **vocab_models}.items()
                 for n, t in state.items()},
+             **{f"vocab/{case}/{k}": v for case, b in vocab_batches.items()
+                for k, v in b.items()},
              **{"prompt/" + arch: p for arch, p in prompts.items()},
              train_tokens=np.stack([b["tokens"] for b in batches]),
              train_labels=np.stack([b["labels"] for b in batches]), **sq, **cmp)
     (work / "meta.json").write_text(json.dumps({
-        "arch": ARCH, "names": {arch: list(m[2]) for arch, m in models.items()}, "opt": OPT,
-        "serve": SERVE, "decode_steps": DECODE_STEPS, "sq_pos": SQ_POS,
-        "topk_density": TOPK_DENSITY, "limit_s": LIMIT_S}))
+        "arch": ARCH, "names": {arch: list(m[2]) for arch, m in {**models, **vocab_models}.items()},
+        "opt": OPT, "serve": SERVE, "decode_steps": DECODE_STEPS, "sq_pos": SQ_POS,
+        "topk_density": TOPK_DENSITY, "limit_s": LIMIT_S, "vocab_cases": VOCAB_CASES,
+        "vocab_meshes": VOCAB_MESHES,
+        "vocab_batch_keys": {case: sorted(b) for case, b in vocab_batches.items()}}))
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                XLA_FLAGS="--xla_force_host_platform_device_count=4")
@@ -189,6 +218,9 @@ def run(tmp_path_factory):
         for arch, (jm, jparams, _) in models.items():
             ref[arch] = _serve_references(jm, jparams, prompts[arch], SERVE[arch])
         ref.update(_collective_references(jcfg, attn, sq, cmp))
+        for case, (arch, vocab) in VOCAB_CASES.items():
+            ref["vocab/" + case] = _loss_reference(vocab_models[arch][1], arch, vocab,
+                                                   vocab_batches[case])
         torch.set_num_threads(threads)
         _wait_ranks(ranks, started)
         out, err = shard_map_ref.communicate(timeout=LIMIT_S)
@@ -203,6 +235,35 @@ def run(tmp_path_factory):
     got = dict(np.load(work / "results.npz"))
     got.update(json.loads((work / "results.json").read_text()))
     return got, ref, models[ARCH][2]
+
+
+def _vocab_batch(case, rng) -> dict:
+    """A seeded batch of a vocabulary-loss case: tokens and labels under its
+    vocabulary, and an encoder-decoder model's frames."""
+    arch, vocab = VOCAB_CASES[case]
+    cfg = get_config(arch)
+    shape = (VOCAB_BATCH, VOCAB_SEQ)
+    out = {k: rng.integers(0, vocab or cfg.vocab, size=shape).astype(np.int32)
+           for k in ("tokens", "labels")}
+    if cfg.frontend is not None:
+        out["frontend"] = (0.02 * rng.standard_normal(
+            (VOCAB_BATCH, cfg.frontend_tokens, cfg.d_model))).astype(np.float32)
+    return out
+
+
+def _loss_reference(jparams, arch, vocab, batch) -> dict:
+    """The reference's single-device loss and gradients of ``batch``, the
+    gradients by the port's parameter names."""
+    import dataclasses
+
+    jcfg = jax_get_config(arch)
+    if vocab is not None:
+        jcfg = dataclasses.replace(jcfg, vocab=vocab)
+    jm = jax_build_model(jcfg)
+    (loss, _), grads = jax.jit(jax.value_and_grad(jm.loss_fn, has_aux=True))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    return {"loss": float(loss),
+            "grads": model_params_from_numpy(_np_tree(grads), get_config(arch))}
 
 
 def _train_references(jm, jparams, state, batches) -> dict:
@@ -388,6 +449,48 @@ def test_compressed_mean_tree(run):
     got, ref, _ = run
     np.testing.assert_allclose(got["tree_a"], ref["topk_mean"], rtol=1e-6, atol=1e-7)
     np.testing.assert_allclose(got["tree_c"], ref["tree_c"], rtol=1e-6, atol=1e-7)
+
+
+# ------------------------------------------------- vocabulary-parallel loss
+
+
+def _vocab_run(got, case, mesh, kind):
+    key = f"vocab/{case}/{mesh}/{kind}"
+    names = [k[len(key) + 6:] for k in got if k.startswith(key + "/grad/")]
+    return float(got[key + "/loss"]), {n: got[f"{key}/grad/{n}"] for n in names}
+
+
+@pytest.mark.parametrize("against", ["gathered", "reference"])
+@pytest.mark.parametrize("mesh", list(VOCAB_MESHES))
+@pytest.mark.parametrize("case", list(VOCAB_CASES))
+def test_vocab_parallel_loss_and_gradients(run, case, mesh, against):
+    """The train bundle's loss with the vocabulary split over 'model' (2 or
+    4 ranks; each rank reduces its own columns) and every parameter's
+    gradient against the same bundle's loss with the vocabulary gathered
+    whole, and against the reference's single-device ``loss_fn``: loss rel
+    1e-6, each gradient within 1e-6 (gathered) or 1e-5 (reference) of its
+    leaf's largest entry."""
+    got, ref, _ = run
+    loss, grads = _vocab_run(got, case, mesh, "split")
+    if against == "gathered":
+        want_loss, want = _vocab_run(got, case, mesh, "gathered")
+    else:
+        want_loss = ref["vocab/" + case]["loss"]
+        want = {n: g.numpy() for n, g in ref["vocab/" + case]["grads"].items()}
+    assert loss == pytest.approx(want_loss, rel=VOCAB_LOSS_RTOL)
+    assert sorted(grads) == sorted(want)
+    for name, w in want.items():
+        _close(grads[name], w, atol_rel=VOCAB_GRAD_ATOL_REL[against], msg=name)
+
+
+@pytest.mark.parametrize("mesh", list(VOCAB_MESHES))
+@pytest.mark.parametrize("case", list(VOCAB_CASES))
+def test_vocab_parallel_loss_runs_where_the_vocabulary_splits(run, case, mesh):
+    """One vocabulary-parallel cross-entropy a step where 'model' splits
+    the vocabulary, none on the gathered path."""
+    got, _, _ = run
+    assert int(got[f"vocab/{case}/{mesh}/split/calls"]) == 1
+    assert int(got[f"vocab/{case}/{mesh}/gathered/calls"]) == 0
 
 
 # ------------------------------------------------------------- layout, kernels

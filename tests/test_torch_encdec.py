@@ -15,7 +15,9 @@ flash op's plain version against the reference's einsum core, compounded
 over two encoder and two decoder layers and a few decode steps).  The flash
 op's plain version with keys of their own length is held to the
 reference's ``_gqa_core`` with an all-ones mask within 2e-5, as
-``test_torch_flash_attention.py`` holds the plain version."""
+``test_torch_flash_attention.py`` holds the plain version.  A train step
+under ``remat="full"``, the encoder's layers recomputed too, is bit for
+bit one under ``remat="none"``."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -315,3 +317,45 @@ def test_prompt_behind_frontend_tokens_must_fit_the_context():
     port.submit(Request(0, np.arange(4, 14, dtype=np.int32), 2))     # 8 + 10 > 16
     with pytest.raises(ValueError, match="frontend tokens"):
         port.drain()
+
+
+def test_encoder_remat_gives_the_train_step_bit_for_bit(monkeypatch):
+    """seamless@smoke's loss and every gradient with ``remat="full"`` are
+    bit for bit those of ``remat="none"``: the encoder's layers are
+    recomputed in the backward (each under ``torch.utils.checkpoint``, as
+    the reference's ``jax.checkpoint`` wraps them) beside the decoder's
+    periods, ``enc_layers`` + periods checkpoints a step, and a prefill
+    under ``remat="full"`` checkpoints nothing."""
+    from repro_torch.models import transformer
+
+    calls = [0]
+    real = transformer.checkpoint
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(transformer, "checkpoint", counted)
+    cfg = get_config(SEAMLESS)
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 16))) for k in
+             ("tokens", "labels")}
+    batch["frontend"] = torch.from_numpy(_frames(cfg, 2, seed=5))
+    runs = {}
+    for remat in ("none", "full"):
+        tm = build_model(cfg, device="cpu", seed=3).trainable()
+        tm.remat = remat
+        calls[0] = 0
+        loss, _ = tm.loss_fn(batch)
+        loss.backward()
+        runs[remat] = (loss.detach(), {n: p.grad for n, p in tm.named_parameters()}, calls[0])
+    assert runs["none"][2] == 0
+    assert runs["full"][2] == cfg.enc_layers + cfg.n_periods()
+    assert torch.equal(runs["full"][0], runs["none"][0])
+    assert any(float(g.abs().max()) > 0 for n, g in runs["none"][1].items()
+               if n.startswith("encoder."))
+    for name, g in runs["none"][1].items():
+        assert torch.equal(runs["full"][1][name], g), name
+    calls[0] = 0
+    tm.forward_prefill(batch["tokens"], batch["frontend"])
+    assert calls[0] == 0

@@ -11,7 +11,11 @@ as one chunk otherwise: S = 7 and 40 are one chunk, S = 16 one full
 chunk, S = 32 two, so the carried ``C`` and ``n`` cross a chunk boundary.
 Tolerance on outputs and states: rtol 1e-4, atol 1e-4·max|x| (float32
 rounding of other summation orders).  Weights and inputs are seeded
-numpy, the gate weights at the reference's init scale."""
+numpy, the gate weights at the reference's init scale.
+
+The recurrences' backward is held to copies of the forms that sliced
+each token (sLSTM) or chunk (mLSTM) out of the sequence: gradients bit for
+bit, and allocated bytes linear in S where those forms' grow as S²."""
 import dataclasses
 
 import jax
@@ -347,3 +351,118 @@ def test_servers_give_equal_greedy_tokens():
         jlayer = ref.caches[key]
         for name, t in layer.items():
             _close(t, jlayer[name], f"server cache {key} {name}")
+
+
+# ------------------------------------------ the recurrences' backward bytes
+
+
+def _slstm_cells_per_token(wx, r_gates, b_gates, carry):
+    """``ssm._slstm_cells`` as it read each token, ``wx[:, t]``: the form
+    whose backward zero-fills a gradient of the whole ``wx`` a token."""
+    B, S, d4 = wx.shape
+    r_gates = r_gates.to(wx.dtype)
+    if carry is None:
+        zero = torch.zeros((B, d4 // 4), dtype=torch.float32)
+        carry = (zero, zero, zero, torch.full_like(zero, ssm.SLSTM_M0))
+    hs = []
+    for t in range(S):
+        carry = ssm._slstm_step(r_gates, b_gates, carry, wx[:, t])
+        hs.append(carry[0])
+    return torch.stack(hs, dim=1), carry
+
+
+def _mlstm_cells_per_chunk(u, gi, gf, wq, wk, wv, C, n, chunk):
+    """``ssm._mlstm_cells``' prefill as it sliced each chunk out of q, k, v
+    and the gates: a zero-filled gradient of the whole sequence a chunk."""
+    B, S, di = u.shape
+    q, k, v, logi, logf = ssm._mlstm_heads(u, gi, gf, wq, wk, wv)
+    Lc = min(chunk, S)
+    if S % Lc != 0:
+        Lc = S
+    hs = []
+    for c0 in range(0, S, Lc):
+        c = slice(c0, c0 + Lc)
+        h, C, n = ssm._mlstm_chunk(q[:, :, c], k[:, :, c], v[:, :, c], logf[..., c],
+                                   logi[..., c], C, n)
+        hs.append(h)
+    return torch.cat(hs, dim=2).transpose(1, 2).reshape(B, S, di), C, n
+
+
+def _recurrence(kind, S, seed=0):
+    """(the tree's cells, the per-slice copy, their inputs) for ``kind`` at
+    xlstm-1.3b@smoke's widths over S tokens, batch 2, with a carried state."""
+    cfg = get_config(ARCH)
+    g = torch.Generator().manual_seed(seed)
+    H, d = cfg.n_heads, cfg.d_model
+    if kind == "slstm":
+        carry = (0.1 * torch.randn(2, d, generator=g), 0.1 * torch.randn(2, d, generator=g),
+                 torch.rand(2, d, generator=g) + 0.5, 0.1 * torch.randn(2, d, generator=g))
+        inputs = [torch.randn(2, S, 4 * d, generator=g),
+                  0.3 * torch.randn(H, d // H, 4 * d // H, generator=g),
+                  0.1 * torch.randn(4 * d, generator=g), *carry]
+        return (lambda wx, r, b, *c: ssm._slstm_cells(wx, r, b, c),
+                lambda wx, r, b, *c: _slstm_cells_per_token(wx, r, b, c), inputs)
+    di = ssm.mlstm_inner_dim(cfg)
+    dh, chunk = di // H, cfg.ssm.chunk
+    inputs = [torch.randn(2, S, di, generator=g), torch.randn(2, S, H, generator=g),
+              torch.randn(2, S, H, generator=g) + 2.0,
+              *(torch.randn(H, dh, dh, generator=g) / dh ** 0.5 for _ in range(3)),
+              0.1 * torch.randn(2, H, dh, dh, generator=g), 0.1 * torch.randn(2, H, dh, generator=g)]
+    return (lambda *a: ssm._mlstm_cells(*a, chunk, False),
+            lambda *a: _mlstm_cells_per_chunk(*a, chunk), inputs)
+
+
+def _backward(fn, inputs, seed=1):
+    """``fn``'s outputs and every input's gradient under a seeded weighting
+    of all its outputs, and the bytes the backward's ops allocated."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Allocated(TorchDispatchMode):
+        nbytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and all(r.alias_info is None for r in func._schema.returns):
+                self.nbytes += sum(t.untyped_storage().nbytes() for t in tree_leaves(out)
+                                   if isinstance(t, torch.Tensor))
+            return out
+
+    leaves = [t.clone().requires_grad_(True) for t in inputs]
+    outs = tree_leaves(fn(*leaves))
+    g = torch.Generator().manual_seed(seed)
+    loss = sum((o * torch.randn(o.shape, generator=g)).sum() for o in outs)
+    mode = Allocated()
+    with mode:
+        loss.backward()
+    return [o.detach() for o in outs], [t.grad for t in leaves], mode.nbytes
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_recurrences_give_the_per_slice_forms_gradients_bit_for_bit(kind):
+    """The sLSTM loop over ``wx.unbind(1)`` and the mLSTM chunks from one
+    ``split`` a tensor give the outputs, the last state and every input's
+    gradient of the forms that sliced each token or chunk out, bit for bit
+    (the slices' zero-filled gradients only added zeros), over three
+    mLSTM chunks and a carried state."""
+    cells, per_slice, inputs = _recurrence(kind, S=48)
+    got_out, got_grads, _ = _backward(cells, inputs)
+    want_out, want_grads, _ = _backward(per_slice, inputs)
+    for i, (a, b) in enumerate(zip(got_out + got_grads, want_out + want_grads)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("kind,S", [("mlstm", 64), ("slstm", 32)])
+def test_recurrences_backward_bytes_grow_linearly_in_the_tokens(kind, S):
+    """The backward's allocated bytes at 2S are at most 2.2 times those at
+    S (mLSTM from four chunks of 16 to eight); the per-slice forms' grow
+    faster (their zero-filled gradients as S²), past the same bound."""
+    ratios = {}
+    for form in ("tree", "per_slice"):
+        nbytes = []
+        for tokens in (S, 2 * S):
+            cells, per_slice, inputs = _recurrence(kind, tokens)
+            nbytes.append(_backward(cells if form == "tree" else per_slice, inputs)[2])
+        ratios[form] = nbytes[1] / nbytes[0]
+    assert ratios["tree"] <= 2.2, ratios
+    assert ratios["per_slice"] > 2.2, ratios

@@ -242,8 +242,94 @@ def case_local_kernels(inp, meta, out):
     out["local_kernel_err"] = errs
 
 
+def _vocab_case_config(case: str, meta):
+    """The config of a vocabulary-loss case: its arch, its vocabulary cut
+    where the case names one (a padded vocabulary)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    arch, vocab = meta["vocab_cases"][case]
+    cfg = get_config(arch)
+    return cfg if vocab is None else dataclasses.replace(cfg, vocab=vocab)
+
+
+def _loss_and_grads(bundle, params, batch, mesh):
+    """The train bundle's loss and every parameter's gradient, whole, for
+    ``batch`` placed as the step places it (no optimizer step)."""
+    from repro_torch.launch import sharding as shlib
+    from repro_torch.launch import steps
+    from repro_torch.models.common import axis_rules
+
+    bspecs = shlib.batch_specs(bundle.args[2], bundle.rules)
+    placed = steps._long({k: steps._place(torch.from_numpy(v), bspecs[k], mesh)
+                          for k, v in batch.items()})
+    for p in params.values():
+        p.grad = None
+
+    def run(m):
+        loss, _ = m.loss_fn(placed)
+        loss = _full(loss)
+        loss.backward()
+        return loss
+
+    with axis_rules(bundle.rules):
+        loss = steps._call(bundle.model, params, run)
+    return float(loss), {n: _np(p.grad) for n, p in params.items()}
+
+
+def case_vocab_loss(inp, meta, out):
+    """The train bundle's loss and gradients with the vocabulary split over
+    'model' (tp 2 on the (2, 2) mesh, tp 4 on a (1, 4) mesh of the same
+    ranks) through the vocabulary-parallel cross-entropy, and again with
+    the vocabulary gathered whole (the loss a one-rank 'model' dim runs);
+    the split loss's calls are counted."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.sharding import PlanConfig
+    from repro_torch.launch.steps import make_train_bundle
+    from repro_torch.models import common
+    from repro_torch.models import model as model_module
+
+    calls = [0]
+    split_ce = model_module.vocab_parallel_cross_entropy
+
+    def counted(*args):
+        calls[0] += 1
+        return split_ce(*args)
+
+    model_module.vocab_parallel_cross_entropy = counted
+    try:
+        for case, (arch, _) in meta["vocab_cases"].items():
+            cfg = _vocab_case_config(case, meta)
+            state = {n: torch.from_numpy(inp[f"param/{arch}/{n}"]) for n in meta["names"][arch]}
+            batch = {k: inp[f"vocab/{case}/{k}"] for k in meta["vocab_batch_keys"][case]}
+            B, S = batch["tokens"].shape
+            for mesh_name, (dp, tp) in meta["vocab_meshes"].items():
+                mesh = make_debug_mesh(dp, tp, device_type="cpu")
+                bundle = make_train_bundle(cfg, ShapeConfig("train", S, B, "train"), mesh,
+                                           PlanConfig(tp=tp, dp=dp), param_dtype=torch.float32,
+                                           device_type="cpu")
+                params = bundle.place_params(state)
+                for loss_kind in ("split", "gathered"):
+                    before = calls[0]
+                    if loss_kind == "gathered":
+                        model_module.vocab_split = lambda logits: False
+                    try:
+                        loss, grads = _loss_and_grads(bundle, params, batch, mesh)
+                    finally:
+                        model_module.vocab_split = common.vocab_split
+                    key = f"vocab/{case}/{mesh_name}/{loss_kind}"
+                    out[key + "/loss"] = np.asarray(loss)
+                    out[key + "/calls"] = calls[0] - before
+                    for n, g in grads.items():
+                        out[f"{key}/grad/{n}"] = g
+    finally:
+        model_module.vocab_parallel_cross_entropy = split_ce
+
+
 CASES = (case_train, case_serve, case_seqsharded, case_compression, case_layout,
-         case_local_kernels)
+         case_local_kernels, case_vocab_loss)
 
 
 def run(rank: int, workdir: str) -> None:

@@ -21,8 +21,9 @@ fake group of four ranks (``repro_torch.launch.dryrun.count_step``) equal
 to one more real step counted on every rank (``launch/counting.py``), in
 FLOPs and in collective bytes by kind; the sequence-sharded decode within
 1e-5 of the largest entry; the all-reduce within rel 1e-6.  Prints the
-step walls of both, each rank's peak memory, the first step's gradients'
-largest difference (reported), how many entries fall in each class with
+step walls of both, each rank's peak memory (the whole run, and one
+counted step's memory above its arguments beside the dry run's peak), the
+first step's gradients' largest difference (reported), how many entries fall in each class with
 the largest gap in each, and one JSON line.  The ranks meet through a ``FileStore`` in a temporary directory (no
 TCP port), each process group with a 60 s timeout;
 ``torch.multiprocessing.spawn`` ends every rank when one fails.
@@ -386,15 +387,25 @@ def count_real_step(bundle, params, opt, batch, device) -> dict:
     """One more step of the train bundle on this rank under
     ``launch/counting.py``'s counter (the batch placed before it, as a dry
     run places it): its FLOPs, bytes, collective bytes by kind and kernel
-    launches, for the dry run's gate."""
+    launches, for the dry run's gate; its counted peak and, on a card, the
+    memory it allocated above what was allocated before it (the dry run's
+    peak is the same quantity)."""
+    import torch
+
     from repro_torch.launch.counting import StepCounter
 
     sync(device)
+    if device.type == "cuda":
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
     with StepCounter() as counter:
         bundle.step_fn(params, opt, batch)
     sync(device)
     fig = counter.figures()
-    return {k: fig[k] for k in ("flops", "bytes", "collectives", "kernels")}
+    out = {k: fig[k] for k in ("flops", "bytes", "collectives", "kernels", "peak_bytes")}
+    if device.type == "cuda":
+        out["peak_above_args_bytes"] = torch.cuda.max_memory_allocated(device) - before
+    return out
 
 
 def dry_run(cfg, opt_cfg, batches, device) -> dict:
@@ -595,6 +606,15 @@ def check(args, cfg, ref, train, coll, serve, dry) -> None:
                                            "peak_bytes", "argument_bytes", "wall_s")}}
     if args.device == "cuda":
         fig["card"] = cs.card_line()
+    for r, rank_fig in enumerate(train["per_rank"]):
+        real = rank_fig["counted"]
+        above = real.get("peak_above_args_bytes")
+        print(f"rank {r}: max_memory_allocated {rank_fig['peak_bytes'] / 2**30:.3f} GiB over the "
+              f"run (parameters, optimizer state and two steps); the counted step's "
+              f"temporaries {real['peak_bytes'] / 2**30:.3f} GiB counted"
+              + (f", {above / 2**30:.3f} GiB allocated above its arguments" if above is not None
+                 else "")
+              + f"; the dry run's peak {dry['peak_bytes'] / 2**30:.3f} GiB", flush=True)
     failed = {}
     if any(abs(a - b) > LOSS_RTOL * abs(b) for a, b in zip(train["losses"], ref["losses"])):
         failed["losses"] = f"{train['losses']} vs make_step's {ref['losses']}"
