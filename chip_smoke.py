@@ -221,14 +221,17 @@ into ``build/kernels/``, with an empty kernel of its own beside them (one
    printed;
    it prints the step walls of both, the DTensor path's host overhead, the
    peaks and the launches.  One card shows the DTensor path and its
-   kernels, not the collectives of several ranks; (b) also counts one
-   more step (``launch/counting.py``) for phase 23;
+   kernels, not the collectives of several ranks; (b) and (f) also count
+   one more step (``launch/counting.py``) for phase 23;
 23. (run after 22, its NCCL group destroyed) dry-runs 22 (b)'s cell on a
    fake process group of one rank (``launch/dryrun.py``: fake CUDA
    tensors, the kernels' stand-ins, nothing launched) and holds its FLOPs
    to that counted step's (rel 1e-6), printing the dry run's peak beside
-   the card's, the roofline's terms beside the measured step and the LM
-   bridge's tokens/s beside the measured; then dry-runs llama3-8b x
+   the card step's, counted and by ``max_memory_allocated`` less the
+   memory before it, the roofline's terms beside the measured step and the
+   LM bridge's tokens/s beside the measured; dry-runs 22 (f)'s cell (the
+   jamba pair) the same way, its FLOPs reported beside the card's and its
+   three peaks printed; then dry-runs llama3-8b x
    decode_32k on the 16x16 production mesh of a fake group of 256 ranks,
    which must report ok;
 13. (run after 22) builds the LM bridge's workload model of each served
@@ -4607,7 +4610,8 @@ def sharded_train(device, seed, mesh, cfg=None, label="22 (b)", count=False,
             run["param_bitwise"] = worst == 0.0
             run["placements"] = sorted({str(tuple(p.placements)) for p in params.values()})
             if count:
-                run["counted"] = counted_step(step_fn, params, opt_state, batches[0], mesh)
+                run["counted"] = dict(counted_step(step_fn, params, opt_state, batches[0], mesh),
+                                      seq=seq)
         runs[kind] = run
         del params, opt_state, step_fn
         gc.collect()
@@ -4874,6 +4878,7 @@ SHARDED_OLMOE_LAYERS = 2             # 22 (e): olmoe-1b-7b cut to 2 of its 16 la
 SHARDED_MINICPM_LAYERS = 2           # 22 (h): minicpm3-4b cut to 2 of its 62 layers
 SHARDED_INTERNVL_LAYERS = 2          # 22 (j): internvl2-26b cut to 2 of its 48 layers
 SHARDED_SEAMLESS_LAYERS = 8          # 22 (i): seamless cut to 8 + 8 of its 24 + 24 layers
+PAIR_COUNTED = "22 (f)"              # its bundle counts one more step, for phase 23 (a)
 
 
 def sharded_blocks_configs():
@@ -4940,7 +4945,7 @@ def phase_sharded(device, seed, timings) -> dict:
     t0 = time.perf_counter()
     log("phase 22 (a): NCCL process group of one rank (FileStore), a (1, 1) "
         "('data', 'model') mesh")
-    blocks = {}
+    blocks, pair_counted = {}, None
     with tempfile.TemporaryDirectory() as tmp:
         mesh = nccl_world_of_one(tmp)
         try:
@@ -4964,7 +4969,9 @@ def phase_sharded(device, seed, timings) -> dict:
                     f"{TRAIN21_SEQ + front_tokens(cfg)}, then the prefill and decode bundles vs "
                     f"the unsharded forwards")
                 runs = sharded_train(device, seed, mesh, cfg, label,
-                                     remat_full=label == "22 (i)")
+                                     remat_full=label == "22 (i)", count=label == PAIR_COUNTED)
+                if label == PAIR_COUNTED:
+                    pair_counted = dict(runs["bundle"].pop("counted"), cfg=cfg)
                 fig = {"train": train_figures(runs),
                        "serve": sharded_serve(device, seed, mesh, cfg, label),
                        "wall_s": time.perf_counter() - t1}
@@ -4992,6 +4999,7 @@ def phase_sharded(device, seed, timings) -> dict:
     counted = train["bundle"]["counted"]
     log(json.dumps(fig))
     fig["counted_step"] = counted
+    fig["counted_pair"] = pair_counted
     timings["phase22"] = time.perf_counter() - t0
     return fig
 
@@ -5012,7 +5020,11 @@ def phase_dry_run(device, sharded, timings) -> dict:
     card: the dry run's peak against the card step's memory above its
     arguments, the roofline's compute term (BF16 peak and fp32's 67
     TFLOP/s) and memory term against the measured second step, and
-    ``LMWorkloadModel.from_roofline``'s tokens/s against the measured; (b)
+    ``LMWorkloadModel.from_roofline``'s tokens/s against the measured; and
+    the same for 22 (f)'s cell (the jamba pair), its FLOPs reported, not
+    held.  Each cell's peaks: the dry run's, the card step's counted by
+    the same counter, and ``max_memory_allocated`` over that step less the
+    memory allocated before it; (b)
     llama3-8b x decode_32k dry-run on the 16x16 production mesh of a fake
     group of 256 ranks, which must report ok."""
     import torch
@@ -5053,6 +5065,7 @@ def phase_dry_run(device, sharded, timings) -> dict:
         "bytes_dry": dry["bytes"], "bytes_card": card["bytes"],
         "collectives_dry": dry["collectives"], "collectives_card": card["collectives"],
         "peak_dry_bytes": dry["peak_bytes"], "peak_card_bytes": card["peak_above_args_bytes"],
+        "peak_counted_card_bytes": card["peak_bytes"],
         "argument_bytes_dry": dry["argument_bytes"],
         "step_s_measured": step_s, "counted_step_wall_s": card["wall_ms"] / 1e3,
         "t_compute_bf16_s": row.t_compute, "t_compute_fp32_s": dry["flops"] / FP32_FLOPS_PER_S,
@@ -5061,11 +5074,30 @@ def phase_dry_run(device, sharded, timings) -> dict:
         "tokens_per_s_bridge": predicted_tps, "tokens_per_s_measured": shape.tokens / step_s,
         "dry_run_wall_s": wall_a}
     log(f"  23 (a): FLOPs dry {dry['flops']:.6e} card {card['flops']:.6e} (rel {flops_err:.2e}); "
-        f"peak dry {dry['peak_bytes'] / 2**30:.3f} GiB card {card['peak_above_args_bytes'] / 2**30:.3f} "
-        f"GiB; step {step_s:.4f} s against compute {row.t_compute:.4f} s (BF16) / "
-        f"{fig_a['t_compute_fp32_s']:.4f} s (fp32), memory {row.t_memory:.4f} s; bridge "
+        f"{peaks_line(dry, card)}; step {step_s:.4f} s against compute {row.t_compute:.4f} s "
+        f"(BF16) / {fig_a['t_compute_fp32_s']:.4f} s (fp32), memory {row.t_memory:.4f} s; bridge "
         f"{predicted_tps:.1f} tok/s against {fig_a['tokens_per_s_measured']:.1f}; "
         f"{wall_a:.1f} s")
+    pair = sharded["counted_pair"]
+    pair_shape = ShapeConfig("train_4x256", pair["seq"], TRAIN21_BATCH, "train")
+    t1 = time.perf_counter()
+    log(f"phase 23 (a): {pair['cfg'].name} {pair_shape.global_batch} x {pair_shape.seq_len} train, "
+        f"(1, 1) mesh, dry-run against {PAIR_COUNTED}'s counted step on the card")
+    with fake_process_group(1):
+        mesh = make_debug_mesh(1, 1, device_type=device.type)
+        pair_dry = count_step(pair["cfg"], pair_shape, mesh, PlanConfig(tp=1, dp=1),
+                              opt_cfg=TrainConfig().opt, param_dtype=torch.float32,
+                              remat="none")
+    fig_a["pair"] = {
+        "arch": pair["cfg"].name, "flops_dry": pair_dry["flops"], "flops_card": pair["flops"],
+        "flops_rel_err": abs(pair_dry["flops"] - pair["flops"]) / pair["flops"],
+        "peak_dry_bytes": pair_dry["peak_bytes"], "peak_card_bytes": pair["peak_above_args_bytes"],
+        "peak_counted_card_bytes": pair["peak_bytes"],
+        "argument_bytes_dry": pair_dry["argument_bytes"],
+        "dry_run_wall_s": time.perf_counter() - t1}
+    log(f"  23 (a) {PAIR_COUNTED}'s cell: FLOPs dry {pair_dry['flops']:.6e} card "
+        f"{pair['flops']:.6e} (rel {fig_a['pair']['flops_rel_err']:.2e}, reported); "
+        f"{peaks_line(pair_dry, pair)}; {fig_a['pair']['dry_run_wall_s']:.1f} s")
     t1 = time.perf_counter()
     arch, shape_name = DRY_CELL
     log(f"phase 23 (b): {arch} x {shape_name} dry-run on the 16x16 mesh of a fake group of "
@@ -5083,6 +5115,15 @@ def phase_dry_run(device, sharded, timings) -> dict:
     log(json.dumps(fig))
     timings["phase23"] = fig["wall_s"]
     return fig
+
+
+def peaks_line(dry, card) -> str:
+    """A train cell's three peaks above its arguments, in GiB and bytes: the
+    dry run's, the card step's as the counter counts it, and
+    ``max_memory_allocated`` over that step less the memory before it."""
+    return "; ".join(f"{name} {b / 2**30:.3f} GiB ({b} bytes)" for name, b in (
+        ("peak dry", dry["peak_bytes"]), ("card counted", card["peak_bytes"]),
+        ("card max_memory_allocated less before", card["peak_above_args_bytes"])))
 
 
 BRIDGE_TARGETS = (1e4, 1e5, 1e6)     # tok/s, as examples/serve_lm.py asks

@@ -26,10 +26,28 @@ alike, entry for entry.
   step's temporaries above what lived before it, as
   ``torch.cuda.max_memory_allocated`` less the memory allocated before a
   step reads on the card (without the allocator's rounding).
+
+Left out of every figure: what DTensor makes to propagate shardings.  To
+learn an op's output layout it runs the op, or its decomposition, on
+stand-ins of the *global* shape: fake tensors on the step's device
+(``_propagate_tensor_meta_non_cached``), meta tensors once for each
+candidate placement (``propagate_strategy`` through
+``torch/distributed/tensor/_decompositions.py``), a one-rank fake mesh.  No
+rank holds them and the card's allocator never sees them, and a dry run
+on a fresh process meets more of them than one whose sharding cache is
+warm.  Counted, softplus's backward at jamba-398b's train_4k cell alone
+made 336 GiB of them.  The counter hides all of DTensor's propagation by
+name (:func:`_eager_dtensor`): ``propagate_op_sharding``, cached or not,
+and the tensor-meta probe, wherever it is called from.  That covers
+whatever path a torch version takes beneath those entry points; a guard
+on the meta device would cover only the decompositions (the probe's
+stand-ins are fake tensors on the step's device, the fake mesh's a CPU
+tensor).
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import sys
 import threading
 import weakref
@@ -69,15 +87,38 @@ _FILLS = ("zeros", "ones", "full", "zeros_like", "ones_like", "full_like", "new_
 _HIDDEN = [0]
 
 
+class _Hidden:
+    """``fn`` with every op it dispatches left out of the counts, as a
+    method of the class it is set on or as an attribute of an object
+    (whose other attributes, such as an LRU cache's ``cache_info``, it
+    passes through)."""
+
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __call__(self, *args, **kwargs):
+        _HIDDEN[0] += 1
+        try:
+            return self._fn(*args, **kwargs)
+        finally:
+            _HIDDEN[0] -= 1
+
+    def __get__(self, obj, owner=None):
+        return self if obj is None else functools.partial(self, obj)
+
+    def __getattr__(self, name):
+        return getattr(self._fn, name)
+
+
 @contextlib.contextmanager
 def _eager_dtensor():
     """DTensor as an eager step runs it, also on fake tensors.  Under a fake
     mode DTensor takes itself to be tracing (``_are_we_tracing``): it then
     skips its sharding caches and wraps collectives otherwise, so a dry run
     would dispatch other local ops than the real step; inside, that check
-    is False.  And the ops DTensor runs on stand-in tensors to learn an
-    output's shape (``_propagate_tensor_meta_non_cached``) are no part of
-    the step: inside, counters ignore them."""
+    is False.  And DTensor's sharding propagation (the cached and uncached
+    ``propagate_op_sharding`` and the tensor-meta probe) is no part of the
+    step: inside, counters ignore every op it dispatches."""
     from torch.distributed import _functional_collectives as fc
     from torch.distributed.tensor._sharding_prop import ShardingPropagator
 
@@ -85,22 +126,24 @@ def _eager_dtensor():
     patched = [m for m in list(sys.modules.values())
                if getattr(m, "__name__", "").startswith("torch.distributed")
                and getattr(m, "_are_we_tracing", None) is original]
-    meta = ShardingPropagator._propagate_tensor_meta_non_cached
-
-    def hidden_meta(self, op_schema):
-        _HIDDEN[0] += 1
-        try:
-            return meta(self, op_schema)
-        finally:
-            _HIDDEN[0] -= 1
+    # the propagator's cache holds the method it was built with, so the
+    # singleton's cached entry point is hidden where it lies: on the object
+    prop = DTensor._op_dispatcher.sharding_propagator
+    hidden = [(ShardingPropagator, "_propagate_tensor_meta_non_cached"),
+              (ShardingPropagator, "propagate_op_sharding_non_cached"),
+              (prop if "propagate_op_sharding" in vars(prop) else ShardingPropagator,
+               "propagate_op_sharding")]
+    kept = [(owner, name, vars(owner)[name]) for owner, name in hidden]
 
     for m in patched:
         m._are_we_tracing = lambda: False
-    ShardingPropagator._propagate_tensor_meta_non_cached = hidden_meta
+    for owner, name, fn in kept:
+        setattr(owner, name, _Hidden(fn))
     try:
         yield
     finally:
-        ShardingPropagator._propagate_tensor_meta_non_cached = meta
+        for owner, name, fn in kept:
+            setattr(owner, name, fn)
         for m in patched:
             m._are_we_tracing = original
 
@@ -193,7 +236,7 @@ class StepCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented         # DTensor runs first; its local ops come back here
         out = func(*args, **kwargs)
-        if _HIDDEN[0] or func.namespace == "prim":      # a shape probe; metadata
+        if _HIDDEN[0] or func.namespace == "prim":      # sharding propagation; metadata
             return out
         outs = _tensors(out)
         fresh = self._makes_storage(func)

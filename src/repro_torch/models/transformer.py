@@ -172,7 +172,14 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
     as in the reference), "train" (prefill without building caches: the
     returned state is None, and the MoE layer's aux values are summed into
     ``aux``) or "decode" (``positions`` is the shared int position;
-    ``state`` is the block's cache or state, updated in place)."""
+    ``state`` is the block's cache or state, updated in place).
+
+    Outside decode the update leaves the block laid out as the reference
+    lays out its stream after every block, ``("act_batch", "act_seq",
+    None)``: a partial sum over 'model' is reduce-scattered here, so the
+    next norm adds two sequence shards and, under remat, the next block's
+    checkpoint keeps ``x`` and ``delta`` at 1/tp of the sequence each (the
+    update whole and unreduced was the largest thing a train step kept)."""
     if mode not in ("prefill", "train", "decode"):
         raise ValueError(f"mode must be 'prefill', 'train' or 'decode', got {mode!r}")
     x, h = add_rms_norm(x, delta, bp.norm1, cfg.norm_eps)
@@ -202,7 +209,10 @@ def apply_block(bp: nn.Module, kind: str, x: torch.Tensor, delta: torch.Tensor |
         cp, kv = cross
         x, hc = add_rms_norm(x, y, cp.norm, cfg.norm_eps)
         y = attn.cross_attention(cp.attn, hc, kv, cfg, decode=mode == "decode")
-    return (*_ffn_half(bp, x, y, cfg, aux if mode == "train" else None), new_state)
+    x, delta = _ffn_half(bp, x, y, cfg, aux if mode == "train" else None)
+    if mode != "decode":
+        delta = shard_act(delta, ("act_batch", "act_seq", None))
+    return x, delta, new_state
 
 
 def _placed_like(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:

@@ -606,6 +606,7 @@ def check(args, cfg, ref, train, coll, serve, dry) -> None:
                                            "peak_bytes", "argument_bytes", "wall_s")}}
     if args.device == "cuda":
         fig["card"] = cs.card_line()
+        print(f"card (each of the {WORLD}): {fig['card']}", flush=True)
     for r, rank_fig in enumerate(train["per_rank"]):
         real = rank_fig["counted"]
         above = real.get("peak_above_args_bytes")
